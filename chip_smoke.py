@@ -6,16 +6,21 @@
 Phases, each fatal on failure:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
               fp32 comparisons.
-  2. build    every CUDA kernel of the serving path, from this checkout.
-  3. kernels  each kernel against its plain PyTorch twin at the path's shapes
-              and at edge cases, timed with CUDA events.
-  4. serve    CenterPoint-pillar at full width (flagship config, 256 x 512 BEV)
-              answers a few requests through eval_batches under bf16 autocast,
-              with seeded random weights; kernel launch counts are read from
-              this run only.
-  5. check    one request in fp32 with each kernel and with its plain twin,
-              its gt made from boxes the serving run kept: valid masks,
-              labels and recall counters equal, boxes and scores within 1e-4.
+  2. build    every CUDA kernel of the serving paths, from this checkout, one
+              nvcc per source, all at once.
+  3. kernels  each kernel against its plain PyTorch twin at the paths' shapes
+              and at edge cases, timed with CUDA events beside its bound and,
+              for the gather-GEMM, the library form (gather + one GEMM).
+  4. serve    CenterPoint-pillar (flagship config, 256 x 512 BEV), then voxel
+              CenterPoint (cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40
+              grid), each at full width answering 4 requests through
+              eval_batches under bf16 autocast with seeded random weights;
+              the kernel launch counts are set to 0 just before each path
+              and read just after it.
+  5. check    per path, one request in fp32 through the kernels and through
+              their plain twins, its gt made from boxes the serving run kept:
+              valid masks, labels and recall counters equal, boxes and scores
+              within 1e-4.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -30,9 +35,24 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 RECALL_THRESH = (0.3, 0.5, 0.7)
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
-KERNEL_TOL = 1e-3      # m², kernel vs plain overlap
+KERNEL_TOL = 1e-3      # m², overlap kernel vs plain
+GEMM_TOL = 1e-4        # gather-GEMM kernel vs plain in fp32
 PATH_TOL = 1e-4        # boxes and scores, kernel path vs plain path in fp32
+# the 21 sparse convs of one voxel eval step at B=4, max_voxels 60000:
+# (name, V, Q, K, Cin, Cout, launches per step)
+GEMM_PATH_SHAPES = [
+    ("conv_input", 60000, 60000, 27, 4, 16, 1),
+    ("res1", 60000, 60000, 27, 16, 16, 4),
+    ("down2", 60000, 30000, 27, 16, 32, 1),
+    ("res2", 30000, 30000, 27, 32, 32, 4),
+    ("down3", 30000, 15000, 27, 32, 64, 1),
+    ("res3", 15000, 15000, 27, 64, 64, 4),
+    ("down4", 15000, 7500, 27, 64, 128, 1),
+    ("res4", 7500, 7500, 27, 128, 128, 4),
+    ("conv_out", 7500, 7500, 3, 128, 128, 1),
+]
 
 
 def fail(msg):
@@ -135,6 +155,141 @@ def check_overlap_kernel(device):
     return per_shape, max_err
 
 
+def bf16_ulp(x):
+    """One bf16 ulp of |x| (8 significant bits), in fp32."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
+
+
+def gemm_costs(feats, valid, nbr, w):
+    """(operations, bytes, live taps) of one gather-GEMM on these inputs:
+    2·Cin·Cout per tap that reads a valid row; each input read once, the
+    output written once."""
+    import torch
+
+    b, v, cin = feats.shape
+    q, k, cout = nbr.shape[1], nbr.shape[2], w.shape[2]
+    idx = nbr.long().clamp(max=v - 1)
+    rows_ok = torch.gather(valid, 1, idx.view(b, -1)).view(b, q, k)
+    live = int(((nbr < v) & rows_ok).sum())
+    item = feats.element_size()
+    nbytes = (feats.numel() * item + valid.numel() + nbr.numel() * 4
+              + w.numel() * item + b * q * cout * item)
+    return 2 * cin * cout * live, nbytes, live
+
+
+def gemm_library(feats, valid, nbr, w):
+    """JAX's fused form as two PyTorch calls on a prebuilt padded table: one
+    index_select of B·Q·K rows, one matmul contracting K·Cin."""
+    import torch
+
+    b, v, cin = feats.shape
+    q, k = nbr.shape[1], nbr.shape[2]
+    table = torch.cat([torch.where(valid[..., None], feats, 0), feats.new_zeros(b, 1, cin)],
+                      dim=1).reshape(b * (v + 1), cin)
+    idx = (nbr.long() + torch.arange(b, device=nbr.device)[:, None, None] * (v + 1)).reshape(-1)
+    w2 = w.reshape(k * cin, -1)
+    return lambda: torch.matmul(table.index_select(0, idx).view(b * q, k * cin), w2)
+
+
+def time_gemm(entry, feats, valid, nbr, w, reps=25):
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    ops, nbytes, live = gemm_costs(feats, valid, nbr, w)
+    peak = BF16_PEAK if feats.dtype.itemsize == 2 else FP32_PEAK
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    library = gemm_library(feats, valid, nbr, w)
+    entry.update(
+        ms=time_ms(lambda: gk.gather_gemm(feats, valid, nbr, w), reps=reps),
+        plain_ms=time_ms(lambda: gk.gather_gemm_plain(feats, valid, nbr, w),
+                         reps=max(reps // 5, 3)),
+        library_ms=time_ms(library, reps=max(reps // 5, 3)),
+        bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        ops=ops, bytes=nbytes, live_taps=live,
+        mean_live_taps=live / max(1, nbr.shape[0] * nbr.shape[1]))
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
+def check_gather_gemm_kernel(device):
+    """Phase 3: the gather-GEMM kernel against its plain twin at the path's
+    nine shapes in bf16 (random tables: uniform in [0, V], about 20 % invalid
+    rows), in fp32 at two of them, and at edge cases. bf16 tolerance: one
+    bf16 ulp of the plain result plus the largest difference of two fp32
+    sums of K·Cin products taken in another order (2·K·Cin·2^-24 times the
+    sum of their magnitudes): both round such a sum once."""
+    import torch
+
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    gen = torch.Generator().manual_seed(1)
+
+    def case(v, q, k, cin, cout, dtype, b=4, sentinel_rows=False):
+        feats = torch.randn(b, v, cin, generator=gen)
+        valid = torch.rand(b, v, generator=gen) > 0.2
+        nbr = torch.randint(0, v + 1, (b, q, k), generator=gen, dtype=torch.int32)
+        if sentinel_rows:
+            nbr[:, ::5] = v
+        w = torch.randn(k, cin, cout, generator=gen) / math.sqrt(k * cin)
+        return tuple(t.to(device) for t in (feats.to(dtype), valid, nbr, w.to(dtype)))
+
+    def compare(name, args, timed):
+        feats, valid, nbr, w = args
+        k, cin = w.shape[0], w.shape[1]
+        got = gk.gather_gemm(*args)
+        torch.cuda.synchronize()
+        want = gk.gather_gemm_plain(*args)
+        err = (got.float() - want.float()).abs()
+        entry = {"case": name, "dtype": str(feats.dtype).replace("torch.", ""),
+                 "shape": [list(feats.shape), list(nbr.shape), list(w.shape)],
+                 "max_abs_err": err.max().item()}
+        if feats.dtype == torch.bfloat16:
+            mag = gk.gather_gemm_plain(feats.abs(), valid, nbr, w.abs()).float()
+            tol = bf16_ulp(want) + 2 * k * cin * 2.0 ** -24 * mag
+            entry["max_err_in_ulps"] = (err / bf16_ulp(want)).max().item()
+            entry["share_beyond_1ulp"] = (err > bf16_ulp(want)).float().mean().item()
+            ok = bool((err <= tol).all())
+        else:
+            ok = entry["max_abs_err"] <= GEMM_TOL
+        if not ok:
+            fail(f"gather-GEMM kernel vs plain on {name} {entry['dtype']}: {entry}")
+        if timed:
+            time_gemm(entry, *args)
+        log(f"[kernels] gather_gemm {name} {entry['dtype']} V,Q,K,Cin,Cout="
+            f"{feats.shape[1]},{nbr.shape[1]},{k},{cin},{w.shape[2]}: max |kernel - plain| "
+            f"{entry['max_abs_err']:.3g}"
+            + (f" ({entry['max_err_in_ulps']:.2f} ulp; {entry['share_beyond_1ulp']:.2e} of the "
+               "outputs beyond 1 ulp)" if "max_err_in_ulps" in entry else "")
+            + (f", kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.3f} ms, library "
+               f"{entry['library_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+               f"({entry['bound_by']}, {entry['share_of_bound']:.1%})" if timed else ""))
+        return entry, got
+
+    per_shape = []
+    for name, v, q, k, cin, cout, count in GEMM_PATH_SHAPES:
+        entry, _ = compare(name, case(v, q, k, cin, cout, torch.bfloat16), True)
+        entry["launches_per_step"] = count
+        per_shape.append(entry)
+    for name in ("res1", "res4"):
+        _, v, q, k, cin, cout, _ = next(s for s in GEMM_PATH_SHAPES if s[0] == name)
+        per_shape.append(compare(name, case(v, q, k, cin, cout, torch.float32), False)[0])
+    for dtype in (torch.float32, torch.bfloat16):
+        args = case(300, 333, 27, 4, 16, dtype, b=2, sentinel_rows=True)
+        entry, got = compare("edge_ragged_cin4_sentinel_rows", args, False)
+        if got[:, ::5].abs().max().item() != 0.0:
+            fail("gather-GEMM: queries that read only the sentinel are not zero")
+        per_shape.append(entry)
+        per_shape.append(compare("edge_k3", case(200, 77, 3, 128, 128, dtype, b=1), False)[0])
+        args = case(64, 70, 27, 8, 8, dtype, b=1)
+        args = (args[0], args[1], torch.full_like(args[2], 64), args[3])
+        entry, got = compare("edge_all_sentinel", args, False)
+        if got.abs().max().item() != 0.0:
+            fail("gather-GEMM: an all-sentinel table does not give zero")
+        per_shape.append(entry)
+    return per_shape
+
+
 def pillar_counts(batch, grid, max_pillars):
     """Distinct in-range pillars per sample, and how many the global cap of
     B * max_pillars keeps (batch-major order)."""
@@ -153,6 +308,208 @@ def pillar_counts(batch, grid, max_pillars):
     return distinct, kept
 
 
+def serve(name, model, batches, device):
+    """Phase 4 for one path: a warm-up request, then every kernel count set to
+    0, the requests served, the counts read."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    iou_kernel.launches = gather_gemm_kernel.launches = 0
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = {"iou_bev_overlap": iou_kernel.launches,
+                "gather_gemm": gather_gemm_kernel.launches}
+    log(f"[serve] {name}: per-batch ms: median {statistics.median(res.batch_seconds) * 1e3:.2f} "
+        f"(all: {', '.join(f'{s * 1e3:.2f}' for s in res.batch_seconds)})")
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if boxes.shape[:2] != (4, 498) or not torch.isfinite(boxes).all() \
+                or not torch.isfinite(scores).all():
+            fail(f"{name} batch {k}: boxes {tuple(boxes.shape)} not (4, 498, .) or not finite")
+        kept = scores[valid]
+        log(f"[serve] {name} batch {k}: valid boxes per sample {valid.sum(1).tolist()}, "
+            f"scores of valid boxes min {kept.min().item() if len(kept) else 0:.4f} "
+            f"median {kept.median().item() if len(kept) else 0:.4f}")
+    log(f"[serve] {name}: recall counters {json.dumps(res.metric)}")
+    log(f"[serve] {name}: kernel launches {json.dumps(launches)} "
+        f"({', '.join(f'{v / len(batches):g}' for v in launches.values())} per batch)")
+    if res.metric["gt_num"] != 16 * 4 * len(batches):
+        fail(f"{name}: gt_num {res.metric['gt_num']} != {16 * 4 * len(batches)}")
+    return res, launches
+
+
+def check_paths(name, model, cfg, batch, served, swaps, device):
+    """Phase 5 for one path: one request in fp32 through the kernels and
+    through their plain twins (`swaps`: (module, kernel name, plain name)),
+    its gt made from boxes the serving run kept, shifted along x by
+    0 .. 0.75 of their length so that the recall counters see IoUs on both
+    sides of every threshold (predict does not read the gt)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import nms as nms_mod
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    pred_boxes, _, _, pred_valid = served
+    gt = batch.gt_boxes.clone()
+    for i in range(gt.shape[0]):
+        kept = pred_boxes[i][pred_valid[i]]
+        for j in range(16):
+            gt[i, j, :7] = kept[(7 * j) % len(kept), :7]
+            gt[i, j, 0] += 0.05 * j * gt[i, j, 3]
+    check_batch = batch._replace(gt_boxes=gt)
+    step = make_eval_step(model, RECALL_THRESH, device=device)
+    nms_inputs = []
+    orig_iou_bev = nms_mod.pairwise_iou_bev
+
+    def recording_iou_bev(a, b):
+        nms_inputs.append(a)
+        return orig_iou_bev(a, b)
+
+    class plain_twins:
+        def __enter__(self):
+            self.saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
+            for mod, k, p in swaps:
+                setattr(mod, k, getattr(mod, p))
+
+        def __exit__(self, *exc):
+            for mod, k, fn in self.saved:
+                setattr(mod, k, fn)
+
+    nms_mod.pairwise_iou_bev = recording_iou_bev
+    try:
+        with_kernel = step(check_batch)
+    finally:
+        nms_mod.pairwise_iou_bev = orig_iou_bev
+    with plain_twins():
+        with_plain = step(check_batch)
+    (kb, ks, kl, kv, krec), (pb, ps, pl, pv, prec) = with_kernel, with_plain
+    # NMS decisions at the threshold that the two versions make differently
+    cand = nms_inputs[0]
+    iou_k = orig_iou_bev(cand, cand)
+    with plain_twins():
+        iou_p = orig_iou_bev(cand, cand)
+    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
+    flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
+    near = int(((iou_k - thresh).abs() < 1e-5).sum())
+    log(f"[check] {name} fp32 NMS IoU over {tuple(iou_k.shape)}: max |kernel - plain| "
+        f"{(iou_k - iou_p).abs().max().item():.3g}, decisions flipped at {thresh}: {flips}, "
+        f"pairs within 1e-5 of it: {near}")
+    if not torch.equal(kv, pv):
+        fail(f"{name} fp32 path: valid masks differ between kernel and plain "
+             f"({int((kv != pv).sum())} slots; NMS flips {flips})")
+    # Kept boxes are compared per sample as sets (box, score, label rows,
+    # matched one to one), as the CPU parity tests compare the port with
+    # JAX: two boxes whose scores differ by less than the kernels' rounding
+    # may come out of top-K in either order. Slot by slot is reported too.
+    slot_diff = ((kb - pb).abs().amax(-1) > PATH_TOL) | ((ks - ps).abs() > PATH_TOL) | (kl != pl)
+    slot_diff &= kv
+    match_err = 0.0
+    for i in range(kb.shape[0]):
+        rows_k = torch.cat([kb[i], ks[i, :, None], kl[i, :, None].float()], -1)[kv[i]]
+        rows_p = torch.cat([pb[i], ps[i, :, None], pl[i, :, None].float()], -1)[pv[i]]
+        dist = (rows_k[:, None, :] - rows_p[None, :, :]).abs().amax(-1)
+        match = dist.argmin(0)
+        if len(set(match.tolist())) != len(match):
+            fail(f"{name} fp32 path: the kept boxes of sample {i} do not match one to one")
+        match_err = max(match_err, dist[match, torch.arange(len(match))].max().item())
+    # for each slot that differs: its score's distance to the nearest other
+    # kept score of its sample (the smallest is 0, the slot itself)
+    gaps = [(ks[i][kv[i]] - ks[i, j]).abs().topk(2, largest=False).values[1].item()
+            for i, j in slot_diff.nonzero().tolist()]
+    log(f"[check] {name} fp32 slot by slot: {int(slot_diff.sum())} of {int(kv.sum())} kept "
+        f"slots differ (box, score or label)"
+        + (f"; the nearest other kept score within the same sample is "
+           f"{max(gaps):.3g} away at most for those slots" if gaps else ""))
+    if not match_err <= PATH_TOL:
+        fail(f"{name} fp32 path: kept boxes, scores and labels differ by {match_err} "
+             f"(tol {PATH_TOL}) when matched as sets")
+    box_err = (kb - pb).abs()[kv].max().item() if kv.any() else 0.0
+    score_err = (ks - ps).abs()[kv].max().item() if kv.any() else 0.0
+    krec = {k: int(v) for k, v in krec.items()}
+    if krec != {k: int(v) for k, v in prec.items()}:
+        fail(f"{name} fp32 path: recall counters differ {krec} vs {prec}")
+    if not krec[f"recall_rcnn_{RECALL_THRESH[0]}"] > 0:
+        fail(f"{name} fp32 path: no gt recalled although the gt are predicted boxes: {krec}")
+    log(f"[check] {name} fp32 whole path, kernels vs plain: valid masks equal "
+        f"({int(kv.sum())} boxes), kept boxes, scores and labels equal as sets within "
+        f"{match_err:.3g}; slot by slot max |box diff| {box_err:.3g}, max |score diff| "
+        f"{score_err:.3g}; recall {krec}")
+
+
+def voxel_stages(model, batch, device):
+    """Per stage of the voxel backbone on one request: active voxels, those
+    the cap dropped, and the mean non-sentinel taps per active voxel of the
+    table that makes the stage (down) and of its submanifold table (subm)."""
+    import torch
+
+    with torch.no_grad():
+        b = batch.to(device)
+        _, vox = model.vfe(b.points, b.points_valid)
+        levels = model.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique)
+    out = []
+    for i, (name, lv) in enumerate(zip(["input", "stride 2", "stride 4", "stride 8", "conv_out"],
+                                       levels)):
+        v = lv.coords.shape[1]
+        entry = {"stage": name, "grid": list(lv.grid), "cap": v,
+                 "active": lv.valid.sum(1).tolist(),
+                 "dropped": torch.clamp(lv.num_unique - v, min=0).tolist()}
+        for key, nbr, sentinel in (("down", lv.down_nbr, levels[i - 1].coords.shape[1]),
+                                   ("subm", lv.subm_nbr, v)):
+            if nbr is not None:
+                entry[f"{key}_mean_taps"] = (nbr < sentinel).sum(-1).float()[lv.valid].mean().item()
+        out.append(entry)
+        log(f"[serve] voxel stage {name} {tuple(lv.grid)} cap {v}: active {entry['active']}, "
+            f"dropped by the cap {entry['dropped']}, mean non-sentinel taps "
+            + ", ".join(f"{k[:4]} {entry[k]:.3f}" for k in ("down_mean_taps", "subm_mean_taps")
+                        if k in entry))
+    return out
+
+
+def time_served_gemms(model, batch, device):
+    """The gather-GEMM launches of one served bf16 request, recorded and
+    timed one by one (kernel, plain, library, bound on their own tables)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    calls = []
+    kernel_fn = gk.gather_gemm
+
+    def recording(*args):
+        calls.append(args)
+        return kernel_fn(*args)
+
+    gk.gather_gemm = recording
+    try:
+        make_eval_step(model, device=device, dtype=torch.bfloat16)(batch)
+    finally:
+        gk.gather_gemm = kernel_fn
+    torch.cuda.synchronize()
+    names = ["conv_input"] + [f"res1_{i}" for i in range(4)]
+    for s in (2, 3, 4):
+        names += [f"down{s}"] + [f"res{s}_{i}" for i in range(4)]
+    names.append("conv_out")
+    entries = []
+    for name, args in zip(names, calls):
+        e = time_gemm({"conv": name, "shape": [list(args[0].shape), list(args[2].shape),
+                                               list(args[3].shape)]}, *args, reps=10)
+        entries.append(e)
+    total = {k: sum(e[k] for e in entries) for k in ("ms", "plain_ms", "library_ms")}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for e in entries:
+        by[e["bound_by"]] += e["bound_ms"]
+    total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(calls))
+    log(f"[kernels] gather_gemm on one served request ({len(calls)} launches): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']}); "
+        "per conv: " + ", ".join(f"{e['conv']} {e['ms']:.3f}" for e in entries))
+    return total, entries
+
+
 def main():
     import torch
 
@@ -160,11 +517,12 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(REPO))
     try:
-        from dfu3d_tpu_torch.core.geometry import iou_kernel, nms as nms_mod
+        from dfu3d_tpu_torch import cuda_build
+        from dfu3d_tpu_torch.core.geometry import iou_kernel
+        from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
         from dfu3d_tpu_torch.data.batch import synthetic_batch
         from dfu3d_tpu_torch.flagship import flagship, seeded_weights_
-        from dfu3d_tpu_torch.train.eval_utils import eval_batches
-        from dfu3d_tpu_torch.train.train_state import make_eval_step
+        from dfu3d_tpu_torch.zoo import voxel_centerpoint
     except ImportError as e:
         fail(f"the dfu3d_tpu_torch package is not next to chip_smoke.py ({e})")
 
@@ -181,120 +539,95 @@ def main():
         "TF32 off for the fp32 comparisons")
     device = torch.device("cuda")
 
-    # 2. build
+    # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib = iou_kernel.build()
-    log(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s")
+    libs = cuda_build.build((iou_kernel.SOURCE, iou_kernel.NVCC_FLAGS),
+                            (gather_gemm_kernel.SOURCE, gather_gemm_kernel.NVCC_FLAGS))
+    log(f"[build] {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels vs plain
-    per_shape, max_err = check_overlap_kernel(device)
+    iou_shapes, iou_err = check_overlap_kernel(device)
+    gemm_shapes = check_gather_gemm_kernel(device)
 
-    # 4. serve at full width: a few requests of the benchmark workload
-    cfg, grid, model = flagship(device=device)
-    seeded_weights_(model, seed=0)
-    nx, ny, _ = grid.grid_size
+    # 4 and 5 for each path
     batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(4)]
-    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)  # warm-up
-    torch.cuda.synchronize()
-    iou_kernel.launches = 0
-    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
-    launches = iou_kernel.launches
+    cfg, grid, pillar = flagship(device=device)
+    seeded_weights_(pillar, seed=0)
+    nx, ny, _ = grid.grid_size
     log(f"[serve] CenterPoint-pillar {nx}x{ny} BEV, {len(batches)} batches of B=4, 60000 "
         f"points, 256 gt slots (16 valid), bf16 autocast")
-    log(f"[serve] per-batch ms: median {statistics.median(res.batch_seconds) * 1e3:.2f} "
-        f"(all: {', '.join(f'{s * 1e3:.2f}' for s in res.batch_seconds)})")
-    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
-        if boxes.shape != (4, 498, 7) or not torch.isfinite(boxes).all() \
-                or not torch.isfinite(scores).all():
-            fail(f"batch {k}: boxes {tuple(boxes.shape)} not (4, 498, 7) or not finite")
-        distinct, kept = pillar_counts(batches[k], grid, model.vfe.max_pillars)
-        log(f"[serve] batch {k}: valid boxes per sample {valid.sum(1).tolist()}, pillars "
-            f"per sample {distinct}, kept {kept}, dropped "
+    res, pillar_launches = serve("pillar", pillar, batches, device)
+    for k, batch in enumerate(batches):
+        distinct, kept = pillar_counts(batch, grid, pillar.vfe.max_pillars)
+        log(f"[serve] pillar batch {k}: pillars per sample {distinct}, kept {kept}, dropped "
             f"{[d - p for d, p in zip(distinct, kept)]}")
-    log(f"[serve] recall counters {json.dumps(res.metric)}")
-    log(f"[serve] overlap kernel launches: {launches} ({launches / len(batches):g} per batch)")
-    if launches <= 0:
-        fail("the serving run did not launch the overlap kernel")
-    if res.metric["gt_num"] != 16 * 4 * len(batches):
-        fail(f"gt_num {res.metric['gt_num']} != {16 * 4 * len(batches)}")
+    if pillar_launches["iou_bev_overlap"] <= 0:
+        fail("the pillar serving run did not launch the overlap kernel")
+    check_paths("pillar", pillar, cfg, batches[0], res.preds[0],
+                [(iou_kernel, "overlap_bev", "overlap_bev_plain")], device)
+    del pillar, res
 
-    # 5. whole path in fp32: kernel vs plain twin (a switch local to this script).
-    # The gt of the checked request are boxes the serving run kept, shifted
-    # along x by 0 .. 0.75 of their length, so that the recall counters see
-    # IoUs on both sides of every threshold (predict does not read the gt).
-    pred_boxes, _, _, pred_valid = res.preds[0]
-    gt = batches[0].gt_boxes.clone()
-    for i in range(gt.shape[0]):
-        kept = pred_boxes[i][pred_valid[i]]
-        for j in range(16):
-            gt[i, j, :7] = kept[(7 * j) % len(kept)]
-            gt[i, j, 0] += 0.05 * j * gt[i, j, 3]
-    check_batch = batches[0]._replace(gt_boxes=gt)
-    step = make_eval_step(model, RECALL_THRESH, device=device)
-    nms_inputs = []
-    orig_iou_bev = nms_mod.pairwise_iou_bev
+    vcfg, vgrid, voxel = voxel_centerpoint(device=device)
+    seeded_weights_(voxel, seed=0)
+    log(f"[serve] voxel CenterPoint {'x'.join(map(str, vgrid.grid_size))} grid, "
+        f"max_voxels {voxel.vfe.max_voxels}, {len(batches)} batches of B=4, 60000 points, "
+        f"bf16 autocast")
+    res, voxel_launches = serve("voxel", voxel, batches, device)
+    stages = voxel_stages(voxel, batches[0], device)
+    if voxel_launches["gather_gemm"] != 21 * len(batches):
+        fail(f"the voxel serving run launched the gather-GEMM kernel "
+             f"{voxel_launches['gather_gemm']} times, not 21 per batch")
+    if voxel_launches["iou_bev_overlap"] <= 0:
+        fail("the voxel serving run did not launch the overlap kernel")
+    served_total, served_gemms = time_served_gemms(voxel, batches[0], device)
+    check_paths("voxel", voxel, vcfg, batches[0], res.preds[0],
+                [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+                 (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")], device)
 
-    def recording_iou_bev(a, b):
-        nms_inputs.append(a)
-        return orig_iou_bev(a, b)
-
-    nms_mod.pairwise_iou_bev = recording_iou_bev
-    try:
-        with_kernel = step(check_batch)
-    finally:
-        nms_mod.pairwise_iou_bev = orig_iou_bev
-    kernel_fn = iou_kernel.overlap_bev
-    iou_kernel.overlap_bev = iou_kernel.overlap_bev_plain
-    try:
-        with_plain = step(check_batch)
-    finally:
-        iou_kernel.overlap_bev = kernel_fn
-    (kb, ks, kl, kv, krec), (pb, ps, pl, pv, prec) = with_kernel, with_plain
-    # NMS decisions at the 0.6 threshold that the two versions make differently
-    cand = nms_inputs[0]
-    iou_k = orig_iou_bev(cand, cand)
-    iou_kernel.overlap_bev = iou_kernel.overlap_bev_plain
-    try:
-        iou_p = orig_iou_bev(cand, cand)
-    finally:
-        iou_kernel.overlap_bev = kernel_fn
-    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
-    flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
-    near = int(((iou_k - thresh).abs() < 1e-5).sum())
-    iou_err = (iou_k - iou_p).abs().max().item()
-    log(f"[check] fp32 NMS IoU over {tuple(iou_k.shape)}: max |kernel - plain| {iou_err:.3g}, "
-        f"decisions flipped at {thresh}: {flips}, pairs within 1e-5 of it: {near}")
-    if not torch.equal(kv, pv) or not torch.equal(kl, pl):
-        fail(f"fp32 path: valid masks or labels differ between kernel and plain "
-             f"({int((kv != pv).sum())} slots; NMS flips {flips})")
-    box_err = (kb - pb).abs()[kv].max().item() if kv.any() else 0.0
-    score_err = (ks - ps).abs()[kv].max().item() if kv.any() else 0.0
-    if not (box_err <= PATH_TOL and score_err <= PATH_TOL):
-        fail(f"fp32 path: boxes differ by {box_err}, scores by {score_err} (tol {PATH_TOL})")
-    krec = {k: int(v) for k, v in krec.items()}
-    if krec != {k: int(v) for k, v in prec.items()}:
-        fail(f"fp32 path: recall counters differ {krec} vs {prec}")
-    if not krec[f"recall_rcnn_{RECALL_THRESH[0]}"] > 0:
-        fail(f"fp32 path: no gt recalled although the gt are predicted boxes: {krec}")
-    log(f"[check] fp32 whole path, kernel vs plain: valid {int(kv.sum())} boxes equal, labels "
-        f"equal, max |box diff| {box_err:.3g}, max |score diff| {score_err:.3g}, recall {krec}")
-
-    nms_entry = next(e for e in per_shape if e["case"] == "nms")
+    nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
+    gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
         "name": "iou_bev_overlap",
         "route": "cuda",
         "source": "dfu3d_tpu_torch/core/geometry/csrc/iou_bev.cu",
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"],
+        "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
+                             "voxel": voxel_launches["iou_bev_overlap"]},
+        "max_abs_err": iou_err,
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
         "bound_ms": nms_entry["bound_ms"],
         "bound_by": nms_entry["bound_by"],
         "library_ms": None,
-        "shapes": [e["shape"] for e in per_shape],
-        "per_shape": per_shape,
+        "shapes": [e["shape"] for e in iou_shapes],
+        "per_shape": iou_shapes,
+    }, {
+        "name": "gather_gemm",
+        "route": "cuda",
+        "source": "dfu3d_tpu_torch/core/voxel/csrc/gather_gemm.cu",
+        "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
+        "launches": voxel_launches["gather_gemm"],
+        "launches_by_path": {"voxel": voxel_launches["gather_gemm"]},
+        "max_abs_err": max(e["max_abs_err"] for e in gemm_shapes if e["dtype"] == "float32"),
+        "max_abs_err_bf16": max(e["max_abs_err"] for e in gemm_shapes if e["dtype"] == "bfloat16"),
+        "unit": "one served bf16 request: its 21 launches on their own tables, summed",
+        "ms": served_total["ms"],
+        "kernel_ms": served_total["ms"],
+        "plain_ms": served_total["plain_ms"],
+        "bound_ms": served_total["bound_ms"],
+        "bound_by": served_total["bound_by"],
+        "library_ms": served_total["library_ms"],
+        "library": "index_select of B*Q*K rows + one matmul contracting K*Cin (2 calls)",
+        "random_tables_step": {
+            k: sum(e[k] * e["launches_per_step"] for e in gemm_timed)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "shapes": [e["shape"] for e in gemm_shapes],
+        "per_shape": gemm_shapes,
+        "served_request": served_gemms,
+        "voxel_stages": stages,
     }]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of dfu3d_tpu for one NVIDIA H100.
 
-Slice 1 serves CenterPoint-pillar predictions and the in-graph recall
-counters (`train.eval_utils.eval_batches`). The rotated-BEV overlap under NMS
-and recall runs as a hand-written CUDA kernel for sm_90a
-(`core/geometry/csrc/iou_bev.cu`). Every entry point runs on the card unless
+It serves CenterPoint-pillar (`flagship`) and voxel CenterPoint (`zoo`)
+predictions and the in-graph recall counters (`train.eval_utils.eval_batches`).
+The two kernels of the JAX package are hand-written CUDA kernels for sm_90a:
+the rotated-BEV overlap under NMS and recall (`core/geometry/csrc/iou_bev.cu`)
+and the sparse gather-GEMM of every sparse conv
+(`core/voxel/csrc/gather_gemm.cu`). Every entry point runs on the card unless
 the caller passes ``device="cpu"``.
 """

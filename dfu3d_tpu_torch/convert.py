@@ -6,6 +6,8 @@ variable path maps to a state_dict key one to one and only the leaf is
 transformed:
 
     Dense kernel (in, out)          → weight (out, in)
+    sparse conv kernel (K, Cin, Cout) → kernel, as is (taps in kernel_offsets
+                                      order, x slowest, z fastest)
     Conv kernel HWIO (also grouped) → weight OIHW
     ConvTranspose kernel HWIO       → weight (in, out, kh, kw), flipped in
                                       both spatial dims (torch's transposed
@@ -46,9 +48,10 @@ def params_from_jax(variables, model=None):
                     arr = arr.T
                 elif mods[-1].startswith("ConvTranspose"):
                     arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-                else:
+                elif arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)
-                name = "weight"
+                if arr.ndim != 3:  # sparse conv kernels keep their name
+                    name = "weight"
             else:
                 name = _LEAF_NAMES[name]
             state[".".join([*mods, name])] = torch.from_numpy(arr.copy(order="C"))

@@ -9,23 +9,19 @@ whatever the data, plus 15 per surviving clipped edge (see the source).
 `overlap_bev` takes a CPU tensor to the plain PyTorch version and a CUDA
 tensor to the kernel; on the card it launches or raises, with no fallback.
 The library is built at first use with nvcc for sm_90a into
-dfu3d_tpu_torch/csrc_build/ and loaded with ctypes.
+dfu3d_tpu_torch/csrc_build/ and loaded with ctypes (`cuda_build`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from ... import cuda_build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "iou_bev.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "csrc_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("--fmad=false",)  # each operation rounds as in the plain twin
 OPS_PER_PAIR = 686         # fp32 operations per pair, data-independent part
 OPS_PER_LIVE_EDGE = 15     # added for each clipped edge that survives
 
@@ -116,44 +112,12 @@ def overlap_bev_plain(corners_a, corners_b, chunk_pairs: int = 1 << 20):
 # Build and bind.
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.exists():
-            return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source and these flags have not
-    been built yet; returns the library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libiou_bev_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
 def _kernel():
     global _fn
     if _fn is None:
-        fn = ctypes.CDLL(str(build())).dfu3d_overlap_bev
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = cuda_build.load(SOURCE, NVCC_FLAGS, "dfu3d_overlap_bev",
+                              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return _fn
 
 

@@ -1,0 +1,114 @@
+"""Sparse gather-GEMM: the CUDA kernel, its wrapper and its plain twin.
+
+    out[b, q] = Σ_k T_b[nbr[b, q, k]] @ W[k]
+
+T_b is feats[b] with the rows that `valid` masks set to zero, plus a zero
+row at the sentinel index V. Sums are fp32; the output keeps the dtype of
+feats (fp32 or bf16). Every sparse conv of the voxel backbone is one call.
+
+The kernel (csrc/gather_gemm.cu) replaces the TPU kernel
+dfu3d_tpu/core/voxel/pallas_sparse.py::_fused_kernel (`fused_gather_gemm`)
+and computes what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
+One block per (sample, 64 queries) stages the gathered rows and W[k] of each
+tap in shared memory and sums in fp32 registers; a tap that no row of the
+tile reads is skipped. What bounds it on the card depends on the widths: the
+int32 table's bytes at the first stage, the operations at Cin = Cout = 128
+(see the source).
+
+`gather_gemm` takes CPU tensors to the plain twin and CUDA tensors to the
+kernel; on the card it launches or raises, with no fallback. The library is
+built at first use with nvcc for sm_90a into dfu3d_tpu_torch/csrc_build/ and
+loaded with ctypes (`cuda_build`).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ... import cuda_build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_gemm.cu"
+NVCC_FLAGS = ()
+MAX_COUT = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches since the last reset; read by chip_smoke.py
+_fn = None
+
+
+def gather_gemm_plain(feats, valid, nbr, kernel):
+    """Loop form of dfu3d_tpu/models/sparse_backbone.py::_gather_gemm in
+    PyTorch: mask, pad a zero row, then per tap one row gather and one
+    matmul, summed in fp32; the result is cast to feats' dtype."""
+    b, v, cin = feats.shape
+    q, k = nbr.shape[1], nbr.shape[2]
+    table = torch.where(valid[..., None], feats, 0).float()
+    table = torch.cat([table, table.new_zeros(b, 1, cin)], dim=1).reshape(b * (v + 1), cin)
+    base = torch.arange(b, device=feats.device, dtype=torch.int64)[:, None] * (v + 1)
+    w = kernel.float()
+    out = None
+    for j in range(k):
+        rows = table.index_select(0, (nbr[:, :, j].long() + base).reshape(-1))
+        contrib = rows @ w[j]
+        out = contrib if out is None else out + contrib
+    return out.reshape(b, q, -1).to(feats.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        _fn = cuda_build.load(SOURCE, NVCC_FLAGS, "dfu3d_gather_gemm",
+                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return _fn
+
+
+def _check(feats, valid, nbr, kernel):
+    if feats.dim() != 3 or valid.shape != feats.shape[:2]:
+        raise ValueError(f"feats (B, V, Cin) and valid (B, V), got {tuple(feats.shape)} and "
+                         f"{tuple(valid.shape)}")
+    if nbr.dim() != 3 or nbr.shape[0] != feats.shape[0]:
+        raise ValueError(f"nbr must be (B, Q, K), got {tuple(nbr.shape)}")
+    if kernel.dim() != 3 or tuple(kernel.shape[:2]) != (nbr.shape[2], feats.shape[2]):
+        raise ValueError(f"kernel must be (K, Cin, Cout) = ({nbr.shape[2]}, {feats.shape[2]}, "
+                         f"Cout), got {tuple(kernel.shape)}")
+    if feats.dtype not in _DTYPES or kernel.dtype != feats.dtype:
+        raise TypeError(f"feats and kernel must both be float32 or bfloat16, got {feats.dtype} "
+                        f"and {kernel.dtype}")
+    if valid.dtype != torch.bool or nbr.dtype != torch.int32:
+        raise TypeError(f"valid must be bool and nbr int32, got {valid.dtype} and {nbr.dtype}")
+    devices = {t.device for t in (feats, valid, nbr, kernel)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+
+
+def gather_gemm(feats, valid, nbr, kernel):
+    """feats (B, V, Cin), valid (B, V) bool, nbr (B, Q, K) int32 in [0, V],
+    kernel (K, Cin, Cout) → (B, Q, Cout) in feats' dtype."""
+    global launches
+    _check(feats, valid, nbr, kernel)
+    dev = feats.device
+    if dev.type == "cpu":
+        return gather_gemm_plain(feats, valid, nbr, kernel)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_gemm runs on cpu or cuda, not {dev}")
+    for name, t in (("feats", feats), ("valid", valid), ("nbr", nbr), ("kernel", kernel)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, v, cin = feats.shape
+    q, k, cout = nbr.shape[1], nbr.shape[2], kernel.shape[2]
+    if cout > MAX_COUT:
+        raise ValueError(f"the gather-GEMM kernel takes Cout <= {MAX_COUT}, got {cout}")
+    out = torch.empty((b, q, cout), dtype=feats.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        rc = fn(feats.data_ptr(), valid.data_ptr(), nbr.data_ptr(), kernel.data_ptr(),
+                out.data_ptr(), b, v, q, k, cin, cout, _DTYPES[feats.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_gemm kernel launch failed with CUDA error {rc}")
+    launches += 1
+    return out

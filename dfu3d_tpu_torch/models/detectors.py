@@ -1,44 +1,68 @@
-"""CenterPoint-pillar assembly (port of dfu3d_tpu/models/detectors.py, the
-pillar branch): DynPillarVFE → BaseBEVBackbone → CenterHead → decode + NMS.
-Submodule names follow the flax module tree (vfe, backbone_2d, dense_head)."""
+"""CenterPoint assembly (port of dfu3d_tpu/models/detectors.py, the pillar
+and voxel branches):
+
+    pillar: DynPillarVFE → BaseBEVBackbone → CenterHead → decode + NMS
+    voxel:  MeanVFE → VoxelResBackBone8x → height_compression →
+            BaseBEVBackbone → CenterHead → decode + NMS
+
+Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
+dense_head)."""
 from __future__ import annotations
 
 from torch import nn
 
 from ..core.voxel import VoxelGrid
+from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
 from .backbone_2d import BaseBEVBackbone
 from .center_head import CenterHead
-from .vfe import DynPillarVFE
+from .sparse_backbone import VoxelResBackBone8x, height_compression
+from .vfe import DynPillarVFE, MeanVFE
 
 
 class CenterPoint(nn.Module):
-    """CenterPoint-pillar (tools/cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml)."""
+    """CenterPoint-pillar (tools/cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml)
+    or, with a BACKBONE_3D, voxel CenterPoint
+    (tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml)."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
-                 max_pillars: int = 32768):
+                 max_pillars: int = 32768, max_voxels: int = 60000):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
-        if cfg.get("BACKBONE_3D") and cfg.BACKBONE_3D.get("NAME"):
-            raise NotImplementedError(
-                f"BACKBONE_3D {cfg.BACKBONE_3D.NAME}: only the pillar branch is ported")
         vfe_cfg = cfg.VFE
-        if vfe_cfg.NAME not in ("DynPillarVFE", "DynamicPillarVFE"):
-            raise NotImplementedError(f"VFE {vfe_cfg.NAME} is not ported")
-        self.vfe = DynPillarVFE(
-            num_filters=tuple(vfe_cfg.NUM_FILTERS), grid=grid,
-            num_point_features=num_point_features,
-            use_norm=vfe_cfg.get("USE_NORM", True),
-            use_absolute_xyz=vfe_cfg.get("USE_ABSLOTE_XYZ", True),
-            with_distance=vfe_cfg.get("WITH_DISTANCE", False),
-            max_pillars=max_pillars,
-        )
+        # a null BACKBONE_3D NAME counts as absent, as in the JAX package
+        self.use_voxel_backbone = bool(cfg.get("BACKBONE_3D") and cfg.BACKBONE_3D.get("NAME"))
+        if self.use_voxel_backbone:
+            bb3d = cfg.BACKBONE_3D
+            if vfe_cfg.NAME != "MeanVFE":
+                raise NotImplementedError(f"VFE {vfe_cfg.NAME} with a 3D backbone is not ported")
+            if bb3d.NAME != "VoxelResBackBone8x":
+                raise NotImplementedError(f"BACKBONE_3D {bb3d.NAME} is not ported")
+            self.vfe = MeanVFE(grid, max_voxels)
+            self.backbone_3d = VoxelResBackBone8x(
+                SparseGrid(*grid.grid_size), voxel_cap=max_voxels,
+                in_channels=num_point_features,
+                channels=tuple(bb3d.get("CHANNELS", (16, 32, 64, 128))),
+                out_channels=bb3d.get("OUT_CHANNELS", 128))
+            bev_channels = self.backbone_3d.out_grid.nz * bb3d.get("OUT_CHANNELS", 128)
+        else:
+            if vfe_cfg.NAME not in ("DynPillarVFE", "DynamicPillarVFE"):
+                raise NotImplementedError(f"VFE {vfe_cfg.NAME} is not ported")
+            self.vfe = DynPillarVFE(
+                num_filters=tuple(vfe_cfg.NUM_FILTERS), grid=grid,
+                num_point_features=num_point_features,
+                use_norm=vfe_cfg.get("USE_NORM", True),
+                use_absolute_xyz=vfe_cfg.get("USE_ABSLOTE_XYZ", True),
+                with_distance=vfe_cfg.get("WITH_DISTANCE", False),
+                max_pillars=max_pillars,
+            )
+            bev_channels = vfe_cfg.NUM_FILTERS[-1]
         bb = cfg.BACKBONE_2D
         if bb.NAME != "BaseBEVBackbone":
             raise NotImplementedError(f"BACKBONE_2D {bb.NAME} is not ported")
         self.backbone_2d = BaseBEVBackbone(
-            in_channels=vfe_cfg.NUM_FILTERS[-1],
+            in_channels=bev_channels,
             layer_nums=tuple(bb.LAYER_NUMS), layer_strides=tuple(bb.LAYER_STRIDES),
             num_filters=tuple(bb.NUM_FILTERS), upsample_strides=tuple(bb.UPSAMPLE_STRIDES),
             num_upsample_filters=tuple(bb.NUM_UPSAMPLE_FILTERS),
@@ -61,7 +85,14 @@ class CenterPoint(nn.Module):
 
     def features(self, batch):
         """PointBatch → list over heads of {branch: (B, H, W, c)}."""
-        bev = self.vfe(batch.points, batch.points_valid)
+        if self.use_voxel_backbone:
+            feats, vox = self.vfe(batch.points, batch.points_valid)
+            levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique)
+            st = self.backbone_3d(feats, levels)
+            # summed in fp32, then in the dtype the sparse convs ran in
+            bev = height_compression(st).to(st.features.dtype)
+        else:
+            bev = self.vfe(batch.points, batch.points_valid)
         return self.dense_head(self.backbone_2d(bev))
 
     def predict(self, batch):
@@ -73,7 +104,7 @@ class CenterPoint(nn.Module):
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", **overrides):
     """Build a detector by MODEL.NAME on `device` (the card unless the caller
     asks for the CPU), in eval mode. `overrides` are constructor keywords
-    (num_point_features, max_pillars)."""
+    (num_point_features, max_pillars, max_voxels)."""
     if model_cfg.NAME != "CenterPoint":
         raise NotImplementedError(f"detector {model_cfg.NAME} is not ported yet")
     dev = resolve_device(device)

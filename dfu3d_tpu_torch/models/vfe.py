@@ -1,11 +1,12 @@
-"""Dynamic pillar VFE (port of dfu3d_tpu/models/vfe.py, eval forward).
+"""VFEs (eval forward): DynPillarVFE (port of dfu3d_tpu/models/vfe.py) and
+MeanVFE (the voxel branch of dfu3d_tpu/models/detectors.py:265-280).
 
-Points are sorted by their batch-offset BEV cell id; segment ids are the
-ranks of the distinct cells, so the pillar reductions land in a compact
-table, and only the final per-pillar feature is scattered into the dense
-(B, ny, nx, C) grid. The pillar cap is global over the batch: b·max_pillars
-slots in batch-major cell order, so on overflow the last samples lose their
-pillars, as in the JAX package (vfe.py:154-163).
+DynPillarVFE: points are sorted by their batch-offset BEV cell id; segment
+ids are the ranks of the distinct cells, so the pillar reductions land in a
+compact table, and only the final per-pillar feature is scattered into the
+dense (B, ny, nx, C) grid. The pillar cap is global over the batch:
+b·max_pillars slots in batch-major cell order, so on overflow the last
+samples lose their pillars, as in the JAX package (vfe.py:154-163).
 """
 from __future__ import annotations
 
@@ -15,7 +16,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.voxel import VoxelGrid, segment_broadcast, segment_max_fast, segment_sum_sorted
+from ..core.voxel import (
+    VoxelGrid,
+    dynamic_voxelize,
+    segment_broadcast,
+    segment_max_fast,
+    segment_sum_sorted,
+)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -156,3 +163,28 @@ class DynPillarVFE(nn.Module):
         dense = x_max.new_zeros((sentinel + 1, cout))
         dense[pillar_cell] = x_max
         return dense[:sentinel].reshape(b, ny, nx, cout)
+
+
+class MeanVFE(nn.Module):
+    """Dynamic voxelization plus the per-voxel mean of its points' channels
+    (B, N, C) → ((B, V, C) fp32 features, Voxelized). The points are summed
+    in voxel order as sorted segments, with no atomics, so a run on the card
+    repeats bit for bit."""
+
+    def __init__(self, grid: VoxelGrid, max_voxels: int):
+        super().__init__()
+        self.grid = grid
+        self.max_voxels = max_voxels
+
+    def forward(self, points, points_valid):
+        b, n, c = points.shape
+        v = self.max_voxels
+        vox = dynamic_voxelize(self.grid, points, points_valid, v)
+        base = torch.arange(b, device=points.device)[:, None] * v
+        ids = torch.where(vox.point_to_voxel < v, vox.point_to_voxel + base, b * v).reshape(-1)
+        order = torch.argsort(ids, stable=True)
+        live = points_valid.reshape(-1, 1).float()
+        values = torch.cat([points.reshape(b * n, c).float() * live, live], dim=-1)
+        sums = segment_sum_sorted(values[order], ids[order], b * v)
+        feats = sums[:, :c] / torch.clamp(sums[:, c:], min=1.0)
+        return feats.view(b, v, c), vox

@@ -1,15 +1,20 @@
 """Where the serving time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_serve [--batches 8] [--out FILE.json]
+    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel] [--batches 8]
+                                            [--out FILE.json]
 
-Runs the flagship CenterPoint-pillar eval step (`make_eval_step`) at full
-width: B=4, 60,000 uniform points in a 50 m extent, 256 gt slots, bf16
-autocast, weights from `seeded_weights_`. It reports, as one JSON object
-(printed, and written to --out):
+Runs an eval step (`make_eval_step`) at full width: the flagship
+CenterPoint-pillar (256 x 512 BEV) or voxel CenterPoint
+(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid). B=4, 60,000
+uniform points in a 50 m extent, 256 gt slots, bf16 autocast, weights from
+`seeded_weights_`. It reports, as one JSON object (printed, and written to
+--out):
 
 * step_ms: host clock per step, no instrumentation (median over batches);
 * phase_ms: the same step with a device sync at each phase boundary
-  (batch upload, VFE, 2D backbone, head convs, decode + NMS, recall);
+  (pillar: batch upload, VFE, 2D backbone, head convs, decode + NMS,
+  recall; voxel: batch upload, voxelize + MeanVFE, neighbour tables, sparse
+  convs, height compression, 2D backbone, head convs, decode + NMS, recall);
 * nms_scan: fixed-point iterations of the keep-scan per step and its time;
 * profile: torch.profiler over the batches, device time by kernel name and
   the device's busy share of the window.
@@ -32,6 +37,7 @@ from .core.geometry import nms as nms_mod
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .train.train_state import make_eval_step
+from .zoo import voxel_centerpoint
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -51,24 +57,32 @@ def _phase_times(model, step, batch):
         marks.append((name, time.perf_counter()))
 
     hooks = [model.vfe.register_forward_pre_hook(lambda m, a: mark("upload"))]
-    for name in ("vfe", "backbone_2d", "dense_head"):
-        hooks.append(getattr(model, name).register_forward_hook(
+    voxel = model.use_voxel_backbone
+    names = ((("vfe", "voxelize_vfe"), ("backbone_3d", "sparse_convs")) if voxel
+             else (("vfe", "vfe"),))
+    names += (("backbone_2d", "backbone_2d"), ("dense_head", "dense_head"))
+    for module, name in names:
+        hooks.append(getattr(model, module).register_forward_hook(
             lambda m, a, o, name=name: mark(name)))
-    head = model.dense_head
-    orig_post = head.generate_predicted_boxes
-
-    def post(*a, **k):
-        out = orig_post(*a, **k)
-        mark("decode_nms")
-        return out
-
-    head.generate_predicted_boxes = post
+    if voxel:
+        hooks.append(model.backbone_2d.register_forward_pre_hook(
+            lambda m, a: mark("height_compression")))
+    wrapped = [(model.dense_head, "generate_predicted_boxes", "decode_nms")]
+    if voxel:
+        wrapped.append((model.backbone_3d, "plan", "neighbour_tables"))
+    for obj, attr, name in wrapped:
+        def timed(*a, orig=getattr(obj, attr), name=name, **k):
+            out = orig(*a, **k)
+            mark(name)
+            return out
+        setattr(obj, attr, timed)
     try:
         mark("start")
         _run(step, batch)
         mark("recall")
     finally:
-        del head.generate_predicted_boxes
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)
         for h in hooks:
             h.remove()
     return {b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])}
@@ -107,6 +121,7 @@ def _profile(step, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("pillar", "voxel"), default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -115,7 +130,7 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    cfg, grid, model = flagship(device="cuda")
+    cfg, grid, model = (flagship if args.model == "pillar" else voxel_centerpoint)(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
     batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(args.batches)]
@@ -152,8 +167,9 @@ def main(argv=None):
 
     result = {
         "device": smi.stdout.strip(),
-        "workload": "flagship CenterPoint-pillar 256x512 BEV, B=4, 60000 points, "
-                    "256 gt slots, bf16 autocast, seeded random weights",
+        "workload": ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
+                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000")
+                    + ", B=4, 60000 points, 256 gt slots, bf16 autocast, seeded random weights",
         "batches": args.batches,
         "step_ms": {"median": statistics.median(step_ms), "all": step_ms},
         "phase_ms": phase_ms,
