@@ -10,13 +10,20 @@ Phases, each fatal on failure:
               nvcc per source, all at once.
   3. kernels  each kernel against its plain PyTorch twin at the paths' shapes
               and at edge cases, timed with CUDA events beside its bound and,
-              for the gather-GEMM, the library form (gather + one GEMM).
+              for the gather-GEMM, the library form (gather + one GEMM). The
+              gather-GEMM runs its tensor-core variant in bf16 (the nine
+              path shapes; one live tap per row, sentinel-only tiles, NaN
+              in masked rows) and its CUDA-core variant in fp32.
   4. serve    CenterPoint-pillar (flagship config, 256 x 512 BEV), then voxel
               CenterPoint (cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40
               grid), each at full width answering 4 requests through
               eval_batches under bf16 autocast with seeded random weights;
-              the kernel launch counts are set to 0 just before each path
-              and read just after it.
+              the kernel launch counts (the gather-GEMM's per variant too)
+              are set to 0 just before each path and read just after it:
+              the voxel path must run the tensor-core gather-GEMM 21 times
+              per batch. Then the 21 gather-GEMM calls of one served request
+              are each held against the plain twin on their own tables and
+              timed.
   5. check    per path, one request in fp32 through the kernels and through
               their plain twins, its gt made from boxes the serving run kept:
               valid masks, labels and recall counters equal, boxes and scores
@@ -40,6 +47,7 @@ HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 KERNEL_TOL = 1e-3      # m², overlap kernel vs plain
 GEMM_TOL = 1e-4        # gather-GEMM kernel vs plain in fp32
 PATH_TOL = 1e-4        # boxes and scores, kernel path vs plain path in fp32
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock ahead of each timed call
 # the 21 sparse convs of one voxel eval step at B=4, max_voxels 60000:
 # (name, V, Q, K, Cin, Cout, launches per step)
 GEMM_PATH_SHAPES = [
@@ -65,7 +73,11 @@ def log(msg):
 
 
 def time_ms(fn, reps=25, warmup=3):
-    """Median of `reps` CUDA-event timings of fn() after `warmup` calls."""
+    """Median of `reps` CUDA-event timings of fn()'s device work after
+    `warmup` calls. Each timing is enqueued behind a spin kernel
+    (torch.cuda._sleep, ~1 ms) so that the host has queued fn()'s launches
+    before the card reaches the start event: the host's own time per call
+    (Python, ctypes, launch) is not counted unless it exceeds the spin."""
     import torch
 
     for _ in range(warmup):
@@ -74,6 +86,7 @@ def time_ms(fn, reps=25, warmup=3):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -162,6 +175,39 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126))) - 7)
 
 
+def gemm_agreement(args, got, want):
+    """Kernel output against the plain twin's: fp32 within GEMM_TOL; bf16
+    within one bf16 ulp of the plain result plus the largest difference of
+    two fp32 sums of K·Cin products taken in another order (2·K·Cin·2^-24
+    times the sum of their magnitudes): both round such a sum once."""
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    feats, valid, nbr, w = args
+    k, cin = w.shape[0], w.shape[1]
+    err = (got.float() - want.float()).abs()
+    entry = {"max_abs_err": err.max().item() if err.numel() else 0.0}
+    if feats.dtype.itemsize == 2:
+        mag = gk.gather_gemm_plain(feats.abs(), valid, nbr, w.abs()).float()
+        ulp = bf16_ulp(want)
+        tol = ulp + 2 * k * cin * 2.0 ** -24 * mag
+        entry["max_err_in_ulps"] = (err / ulp).max().item() if err.numel() else 0.0
+        entry["share_beyond_1ulp"] = (err > ulp).float().mean().item() if err.numel() else 0.0
+        entry["ok"] = bool((err <= tol).all())
+    else:
+        entry["ok"] = entry["max_abs_err"] <= GEMM_TOL
+    return entry
+
+
+def launch_variant(fn):
+    """fn()'s result and the gather-GEMM variant it launched."""
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    before = dict(gk.launches_by_variant)
+    out = fn()
+    ran = [k for k, n in gk.launches_by_variant.items() if n != before[k]]
+    return out, ran[0] if len(ran) == 1 else ran
+
+
 def gemm_costs(feats, valid, nbr, w):
     """(operations, bytes, live taps) of one gather-GEMM on these inputs:
     2·Cin·Cout per tap that reads a valid row; each input read once, the
@@ -215,10 +261,8 @@ def time_gemm(entry, feats, valid, nbr, w, reps=25):
 def check_gather_gemm_kernel(device):
     """Phase 3: the gather-GEMM kernel against its plain twin at the path's
     nine shapes in bf16 (random tables: uniform in [0, V], about 20 % invalid
-    rows), in fp32 at two of them, and at edge cases. bf16 tolerance: one
-    bf16 ulp of the plain result plus the largest difference of two fp32
-    sums of K·Cin products taken in another order (2·K·Cin·2^-24 times the
-    sum of their magnitudes): both round such a sum once."""
+    rows; the tensor-core variant), in fp32 at two of them (the CUDA-core
+    variant), and at edge cases; tolerances in `gemm_agreement`."""
     import torch
 
     from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
@@ -234,30 +278,25 @@ def check_gather_gemm_kernel(device):
         w = torch.randn(k, cin, cout, generator=gen) / math.sqrt(k * cin)
         return tuple(t.to(device) for t in (feats.to(dtype), valid, nbr, w.to(dtype)))
 
-    def compare(name, args, timed):
+    def compare(name, args, timed, variant=None):
         feats, valid, nbr, w = args
-        k, cin = w.shape[0], w.shape[1]
-        got = gk.gather_gemm(*args)
+        k = w.shape[0]
+        got, ran = launch_variant(lambda: gk.gather_gemm(*args))
         torch.cuda.synchronize()
         want = gk.gather_gemm_plain(*args)
-        err = (got.float() - want.float()).abs()
         entry = {"case": name, "dtype": str(feats.dtype).replace("torch.", ""),
-                 "shape": [list(feats.shape), list(nbr.shape), list(w.shape)],
-                 "max_abs_err": err.max().item()}
-        if feats.dtype == torch.bfloat16:
-            mag = gk.gather_gemm_plain(feats.abs(), valid, nbr, w.abs()).float()
-            tol = bf16_ulp(want) + 2 * k * cin * 2.0 ** -24 * mag
-            entry["max_err_in_ulps"] = (err / bf16_ulp(want)).max().item()
-            entry["share_beyond_1ulp"] = (err > bf16_ulp(want)).float().mean().item()
-            ok = bool((err <= tol).all())
-        else:
-            ok = entry["max_abs_err"] <= GEMM_TOL
-        if not ok:
+                 "shape": [list(feats.shape), list(nbr.shape), list(w.shape)], "variant": ran,
+                 **gemm_agreement(args, got, want)}
+        if not entry.pop("ok"):
             fail(f"gather-GEMM kernel vs plain on {name} {entry['dtype']}: {entry}")
+        if variant and ran != variant:
+            fail(f"gather-GEMM on {name} {entry['dtype']} ran the {ran} variant, not {variant}")
+        if not torch.isfinite(got).all():
+            fail(f"gather-GEMM on {name} {entry['dtype']}: output not finite")
         if timed:
             time_gemm(entry, *args)
-        log(f"[kernels] gather_gemm {name} {entry['dtype']} V,Q,K,Cin,Cout="
-            f"{feats.shape[1]},{nbr.shape[1]},{k},{cin},{w.shape[2]}: max |kernel - plain| "
+        log(f"[kernels] gather_gemm {name} {entry['dtype']} ({ran}) V,Q,K,Cin,Cout="
+            f"{feats.shape[1]},{nbr.shape[1]},{k},{w.shape[1]},{w.shape[2]}: max |kernel - plain| "
             f"{entry['max_abs_err']:.3g}"
             + (f" ({entry['max_err_in_ulps']:.2f} ulp; {entry['share_beyond_1ulp']:.2e} of the "
                "outputs beyond 1 ulp)" if "max_err_in_ulps" in entry else "")
@@ -268,12 +307,13 @@ def check_gather_gemm_kernel(device):
 
     per_shape = []
     for name, v, q, k, cin, cout, count in GEMM_PATH_SHAPES:
-        entry, _ = compare(name, case(v, q, k, cin, cout, torch.bfloat16), True)
+        entry, _ = compare(name, case(v, q, k, cin, cout, torch.bfloat16), True, "tensor_core")
         entry["launches_per_step"] = count
         per_shape.append(entry)
     for name in ("res1", "res4"):
         _, v, q, k, cin, cout, _ = next(s for s in GEMM_PATH_SHAPES if s[0] == name)
-        per_shape.append(compare(name, case(v, q, k, cin, cout, torch.float32), False)[0])
+        per_shape.append(compare(name, case(v, q, k, cin, cout, torch.float32), False,
+                                 "cuda_core")[0])
     for dtype in (torch.float32, torch.bfloat16):
         args = case(300, 333, 27, 4, 16, dtype, b=2, sentinel_rows=True)
         entry, got = compare("edge_ragged_cin4_sentinel_rows", args, False)
@@ -287,6 +327,26 @@ def check_gather_gemm_kernel(device):
         if got.abs().max().item() != 0.0:
             fail("gather-GEMM: an all-sentinel table does not give zero")
         per_shape.append(entry)
+    # the served tables' traits, on the tensor-core variant at down3's widths
+    b, v, q, k = 2, 3000, 1500, 27
+    feats, valid, nbr, w = case(v, q, k, 32, 64, torch.bfloat16, b=b)
+    taps = torch.randint(0, k, (b, q, 1), generator=gen).to(device)
+    one_tap = torch.full_like(nbr, v).scatter_(
+        2, taps, torch.randint(0, v, (b, q, 1), generator=gen, dtype=torch.int32).to(device))
+    per_shape.append(compare("edge_one_live_tap_per_row",
+                             (feats, torch.ones_like(valid), one_tap, w), False, "tensor_core")[0])
+    tiles = nbr.clone()
+    tiles[:, 64:320] = v   # whole 64-row tiles 1-4 read only the sentinel
+    entry, got = compare("edge_sentinel_tiles", (feats, valid, tiles, w), False, "tensor_core")
+    if got[:, 64:320].abs().max().item() != 0.0:
+        fail("gather-GEMM: tiles that read only the sentinel are not zero")
+    per_shape.append(entry)
+    bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30], device=device)
+    garbage = feats.clone()
+    garbage[~valid] = bad[torch.arange(int((~valid).sum()), device=device) % 5][:, None].to(
+        feats.dtype)
+    per_shape.append(compare("edge_nan_in_masked_rows", (garbage, valid, nbr, w), False,
+                             "tensor_core")[0])
     return per_shape
 
 
@@ -320,9 +380,12 @@ def serve(name, model, batches, device):
     eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     iou_kernel.launches = gather_gemm_kernel.launches = 0
+    gather_gemm_kernel.launches_by_variant.update(tensor_core=0, cuda_core=0)
     res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
     launches = {"iou_bev_overlap": iou_kernel.launches,
-                "gather_gemm": gather_gemm_kernel.launches}
+                "gather_gemm": gather_gemm_kernel.launches,
+                **{f"gather_gemm_{k}": n
+                   for k, n in gather_gemm_kernel.launches_by_variant.items()}}
     log(f"[serve] {name}: per-batch ms: median {statistics.median(res.batch_seconds) * 1e3:.2f} "
         f"(all: {', '.join(f'{s * 1e3:.2f}' for s in res.batch_seconds)})")
     for k, (boxes, scores, labels, valid) in enumerate(res.preds):
@@ -469,8 +532,10 @@ def voxel_stages(model, batch, device):
 
 
 def time_served_gemms(model, batch, device):
-    """The gather-GEMM launches of one served bf16 request, recorded and
-    timed one by one (kernel, plain, library, bound on their own tables)."""
+    """The gather-GEMM launches of one served bf16 request, recorded, each
+    held against the plain twin on its own tables (`gemm_agreement`; fatal on
+    a miss or on another variant than the tensor-core one) and timed: kernel,
+    plain, library, bound."""
     import torch
 
     from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
@@ -495,18 +560,30 @@ def time_served_gemms(model, batch, device):
     names.append("conv_out")
     entries = []
     for name, args in zip(names, calls):
-        e = time_gemm({"conv": name, "shape": [list(args[0].shape), list(args[2].shape),
-                                               list(args[3].shape)]}, *args, reps=10)
-        entries.append(e)
+        got, ran = launch_variant(lambda: gk.gather_gemm(*args))
+        torch.cuda.synchronize()
+        e = {"conv": name, "shape": [list(args[0].shape), list(args[2].shape),
+                                     list(args[3].shape)], "variant": ran,
+             **gemm_agreement(args, got, gk.gather_gemm_plain(*args))}
+        if not e.pop("ok") or ran != "tensor_core":
+            fail(f"gather-GEMM on the served tables of {name}: {e}")
+        entries.append(time_gemm(e, *args, reps=10))
     total = {k: sum(e[k] for e in entries) for k in ("ms", "plain_ms", "library_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
     for e in entries:
         by[e["bound_by"]] += e["bound_ms"]
-    total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(calls))
-    log(f"[kernels] gather_gemm on one served request ({len(calls)} launches): kernel "
-        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
-        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']}); "
-        "per conv: " + ", ".join(f"{e['conv']} {e['ms']:.3f}" for e in entries))
+    total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(calls),
+                 max_err_in_ulps=max(e["max_err_in_ulps"] for e in entries))
+    log(f"[kernels] gather_gemm on one served request ({len(calls)} launches, all tensor-core, "
+        f"each within tolerance of the plain twin, worst {total['max_err_in_ulps']:.2f} ulp): "
+        f"kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({total['bound_by']}); per conv (kernel / library / bound): "
+        + ", ".join(f"{e['conv']} {e['ms']:.4f}/{e['library_ms']:.4f}/{e['bound_ms']:.4f}"
+                    for e in entries))
+    slower = [e["conv"] for e in entries if e["ms"] > e["library_ms"]]
+    if slower:
+        log(f"[kernels] gather_gemm slower than the library form on: {', '.join(slower)}")
     return total, entries
 
 
@@ -578,6 +655,9 @@ def main():
     if voxel_launches["gather_gemm"] != 21 * len(batches):
         fail(f"the voxel serving run launched the gather-GEMM kernel "
              f"{voxel_launches['gather_gemm']} times, not 21 per batch")
+    if voxel_launches["gather_gemm_tensor_core"] != 21 * len(batches):
+        fail(f"the bf16 voxel serving run launched the tensor-core gather-GEMM "
+             f"{voxel_launches['gather_gemm_tensor_core']} times, not 21 per batch")
     if voxel_launches["iou_bev_overlap"] <= 0:
         fail("the voxel serving run did not launch the overlap kernel")
     served_total, served_gemms = time_served_gemms(voxel, batches[0], device)
@@ -611,6 +691,11 @@ def main():
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": voxel_launches["gather_gemm"],
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"]},
+        "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
+                                for k in ("tensor_core", "cuda_core")},
+        "instruction_by_variant": {
+            "tensor_core": "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (bf16)",
+            "cuda_core": "fmaf (fp32)"},
         "max_abs_err": max(e["max_abs_err"] for e in gemm_shapes if e["dtype"] == "float32"),
         "max_abs_err_bf16": max(e["max_abs_err"] for e in gemm_shapes if e["dtype"] == "bfloat16"),
         "unit": "one served bf16 request: its 21 launches on their own tables, summed",

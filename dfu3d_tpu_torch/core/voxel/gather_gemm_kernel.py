@@ -1,4 +1,4 @@
-"""Sparse gather-GEMM: the CUDA kernel, its wrapper and its plain twin.
+"""Sparse gather-GEMM: the CUDA kernels, their wrapper and their plain twin.
 
     out[b, q] = Σ_k T_b[nbr[b, q, k]] @ W[k]
 
@@ -6,19 +6,31 @@ T_b is feats[b] with the rows that `valid` masks set to zero, plus a zero
 row at the sentinel index V. Sums are fp32; the output keeps the dtype of
 feats (fp32 or bf16). Every sparse conv of the voxel backbone is one call.
 
-The kernel (csrc/gather_gemm.cu) replaces the TPU kernel
+The kernels (csrc/gather_gemm.cu) replace the TPU kernel
 dfu3d_tpu/core/voxel/pallas_sparse.py::_fused_kernel (`fused_gather_gemm`)
-and computes what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
-One block per (sample, 64 queries) stages the gathered rows and W[k] of each
-tap in shared memory and sums in fp32 registers; a tap that no row of the
-tile reads is skipped. What bounds it on the card depends on the widths: the
-int32 table's bytes at the first stage, the operations at Cin = Cout = 128
-(see the source).
+and compute what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
+Two variants, chosen by dtype and widths (`variant`):
 
-`gather_gemm` takes CPU tensors to the plain twin and CUDA tensors to the
-kernel; on the card it launches or raises, with no fallback. The library is
-built at first use with nvcc for sm_90a into dfu3d_tpu_torch/csrc_build/ and
-loaded with ctypes (`cuda_build`).
+* ``tensor_core``, bf16 at Cin % 4 == 0, Cin <= 128, Cout in {16, 32, 64,
+  128}, K <= 32 (every conv of the served path): one block per (sample,
+  64 queries) builds the tile's live-tap list once, gathers the rows of
+  the live taps with cp.async into a ring of shared-memory stages (dead rows
+  zero-filled, never read) and runs mma.sync m16n8k16 bf16 products into
+  fp32 registers. feats must be aligned to the copy size (16 bytes, 8 when
+  Cin % 8 != 0) and the weight to 16 bytes; a misaligned view raises.
+* ``cuda_core``, fp32 and the other bf16 widths: the first design, fp32
+  products on the CUDA cores, one block per (sample, 64 queries), taps that
+  no row of the tile reads skipped. fp32 stays here because the tensor cores
+  would compute it in TF32.
+
+What bounds the work on the card depends on the widths: the int32 table's
+bytes at the sparse first stages, the operations at Cin = Cout = 128 (see the
+source).
+
+`gather_gemm` takes CPU tensors to the plain twin and CUDA tensors to a
+kernel; on the card it launches or raises, with no fallback from one variant
+to the other or to the twin. The library is built at first use with nvcc for
+sm_90a into dfu3d_tpu_torch/csrc_build/ and loaded with ctypes (`cuda_build`).
 """
 from __future__ import annotations
 
@@ -32,10 +44,13 @@ from ... import cuda_build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_gemm.cu"
 NVCC_FLAGS = ()
 MAX_COUT = 128
+TC_COUTS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last reset; read by chip_smoke.py
-_fn = None
+# kernel launches since the last reset, in all and per variant; read by chip_smoke.py
+launches = 0
+launches_by_variant = {"tensor_core": 0, "cuda_core": 0}
+_fns = {}
 
 
 def gather_gemm_plain(feats, valid, nbr, kernel):
@@ -56,12 +71,35 @@ def gather_gemm_plain(feats, valid, nbr, kernel):
     return out.reshape(b, q, -1).to(feats.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        _fn = cuda_build.load(SOURCE, NVCC_FLAGS, "dfu3d_gather_gemm",
-                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    return _fn
+def _kernel(kind):
+    if kind not in _fns:
+        # the CUDA-core kernel also takes the dtype
+        symbol, n_int = (("dfu3d_gather_gemm_tc", 6) if kind == "tensor_core"
+                         else ("dfu3d_gather_gemm", 7))
+        _fns[kind] = cuda_build.load(
+            SOURCE, NVCC_FLAGS, symbol,
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+    return _fns[kind]
+
+
+def variant(dtype, k, cin, cout):
+    """The kernel that takes these inputs on the card: "tensor_core" or
+    "cuda_core"."""
+    if (dtype == torch.bfloat16 and k <= 32 and 4 <= cin <= 128 and cin % 4 == 0
+            and cout in TC_COUTS):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def check_aligned(feats, kernel):
+    """The tensor-core kernel copies feats rows in 16-byte pieces (8 when
+    Cin % 8 != 0) and the weight in 16-byte pieces; raise on a view whose
+    data does not start at such a boundary (nothing is copied to fix it)."""
+    cin = feats.shape[-1]
+    for name, t, align in (("feats", feats, 16 if cin % 8 == 0 else 8), ("kernel", kernel, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start at a multiple of {align} bytes for the "
+                             f"tensor-core gather-GEMM, got address {t.data_ptr():#x}")
 
 
 def _check(feats, valid, nbr, kernel):
@@ -100,15 +138,22 @@ def gather_gemm(feats, valid, nbr, kernel):
     q, k, cout = nbr.shape[1], nbr.shape[2], kernel.shape[2]
     if cout > MAX_COUT:
         raise ValueError(f"the gather-GEMM kernel takes Cout <= {MAX_COUT}, got {cout}")
+    kind = variant(feats.dtype, k, cin, cout)
+    if kind == "tensor_core":
+        check_aligned(feats, kernel)
+        dtype_arg = ()
+    else:
+        dtype_arg = (_DTYPES[feats.dtype],)
     out = torch.empty((b, q, cout), dtype=feats.dtype, device=dev)
     if out.numel() == 0:
         return out
-    fn = _kernel()
+    fn = _kernel(kind)
     with torch.cuda.device(dev):
         rc = fn(feats.data_ptr(), valid.data_ptr(), nbr.data_ptr(), kernel.data_ptr(),
-                out.data_ptr(), b, v, q, k, cin, cout, _DTYPES[feats.dtype],
+                out.data_ptr(), b, v, q, k, cin, cout, *dtype_arg,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gather_gemm kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"gather_gemm {kind} kernel launch failed with CUDA error {rc}")
     launches += 1
+    launches_by_variant[kind] += 1
     return out

@@ -5,7 +5,8 @@ runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_port_kernels.py -m cuda -q --noconftest
 
-Without a card every test here skips.
+Without a card every test marked `cuda` skips; the gather-GEMM's variant
+choice and alignment check run on the CPU as well.
 """
 import numpy as np
 import pytest
@@ -97,7 +98,134 @@ def test_gather_gemm_matches_plain_on_card(cuda_device, dtype, b, v, q, k, cin, 
     if dtype == torch.float32:
         assert err.max().item() <= 1e-4
     else:
-        mag = gather_gemm_kernel.gather_gemm_plain(feats.abs(), valid, nbr, w.abs()).float()
-        tol = _bf16_ulp(want) + 2 * k * cin * 2.0 ** -24 * mag
-        assert bool((err <= tol).all()), f"max excess {(err - tol).max().item()}"
+        _assert_bf16_close(got, want, feats, valid, nbr, w)
     assert got[:, ::3].abs().max().item() == 0.0
+
+
+def _assert_bf16_close(got, want, feats, valid, nbr, w):
+    """Within one bf16 ulp of the plain result plus the largest difference of
+    two fp32 sums of K·Cin products in another order (2·K·Cin·2^-24 times
+    the sum of their magnitudes), as chip_smoke.py holds the kernel."""
+    k, cin = w.shape[0], w.shape[1]
+    err = (got.float() - want.float()).abs()
+    mag = gather_gemm_kernel.gather_gemm_plain(feats.abs(), valid, nbr, w.abs()).float()
+    tol = _bf16_ulp(want) + 2 * k * cin * 2.0 ** -24 * mag
+    assert bool((err <= tol).all()), f"max excess {(err - tol).max().item()}"
+
+
+def _launch_tc(feats, valid, nbr, w):
+    """One call that must run the tensor-core kernel."""
+    before = dict(gather_gemm_kernel.launches_by_variant)
+    got = gather_gemm_kernel.gather_gemm(feats, valid, nbr, w)
+    torch.cuda.synchronize()
+    after = gather_gemm_kernel.launches_by_variant
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    assert after["cuda_core"] == before["cuda_core"]
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,k", [
+    (4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27), (64, 64, 27),
+    (64, 128, 27), (128, 128, 27), (128, 128, 3),
+])
+def test_gather_gemm_tensor_core_widths(cuda_device, cin, cout, k):
+    """The bf16 tensor-core kernel at every (Cin, Cout, K) of the voxel path,
+    on a random table with ~20 % masked rows and a ragged Q (not a multiple
+    of the 64-row tile)."""
+    rng = np.random.default_rng(cin * 1000 + cout + k)
+    args = _gather_gemm_case(rng, 2, 700, 333, k, cin, cout, torch.bfloat16, cuda_device)
+    got = _launch_tc(*args)
+    assert got.shape == (2, 333, cout) and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, gather_gemm_kernel.gather_gemm_plain(*args), *args)
+
+
+def _sparse_case(rng, device, cin=32, cout=64, b=2, v=400, q=300, k=27):
+    feats, valid, nbr, w = _gather_gemm_case(rng, b, v, q, k, cin, cout, torch.bfloat16, device)
+    return feats, valid, torch.full_like(nbr, v), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_live_tap", "sentinel_tiles", "nan_masked_rows"])
+def test_gather_gemm_tensor_core_edges(cuda_device, case):
+    """The tensor-core kernel on the tables it serves: every row reads
+    exactly one live tap (a different one per row); whole 64-row tiles read
+    only the sentinel and come out zero; masked rows that hold
+    NaN, ±inf and ±1e30 contribute nothing and the output stays finite."""
+    rng = np.random.default_rng(7)
+    feats, valid, nbr, w = _sparse_case(rng, cuda_device)
+    b, v = valid.shape
+    q, k = nbr.shape[1], nbr.shape[2]
+    if case == "one_live_tap":
+        valid = torch.ones_like(valid)
+        taps = torch.from_numpy(rng.integers(0, k, (b, q))).to(cuda_device)
+        rows = torch.from_numpy(rng.integers(0, v, (b, q)).astype(np.int32)).to(cuda_device)
+        nbr.scatter_(2, taps[..., None], rows[..., None])
+        assert bool(((nbr < v).sum(-1) == 1).all())
+    elif case == "sentinel_tiles":
+        nbr = torch.from_numpy(rng.integers(0, v + 1, (b, q, k)).astype(np.int32)).to(cuda_device)
+        nbr[:, :128] = v   # tiles 0-1
+        nbr[1] = v         # all of sample 1
+    else:
+        nbr = torch.from_numpy(rng.integers(0, v + 1, (b, q, k)).astype(np.int32)).to(cuda_device)
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30],
+                           device=cuda_device)
+        fill = bad[torch.arange(int((~valid).sum()), device=cuda_device) % len(bad)]
+        feats = feats.clone()
+        feats[~valid] = fill[:, None].to(feats.dtype)
+    got = _launch_tc(feats, valid, nbr, w)
+    want = gather_gemm_kernel.gather_gemm_plain(feats, valid, nbr, w)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    _assert_bf16_close(got, want, feats, valid, nbr, w)
+    if case == "sentinel_tiles":
+        assert got[:, :128].abs().max().item() == 0.0
+        assert got[1].abs().max().item() == 0.0
+        assert got[0, 128:].abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+def test_gather_gemm_fp32_repeats_bit_for_bit(cuda_device):
+    """fp32 stays on the CUDA-core kernel: no atomics, so two calls give the
+    same bits."""
+    rng = np.random.default_rng(11)
+    args = _gather_gemm_case(rng, 2, 500, 333, 27, 128, 128, torch.float32, cuda_device)
+    before = dict(gather_gemm_kernel.launches_by_variant)
+    first = gather_gemm_kernel.gather_gemm(*args)
+    second = gather_gemm_kernel.gather_gemm(*args)
+    torch.cuda.synchronize()
+    assert gather_gemm_kernel.launches_by_variant["cuda_core"] == before["cuda_core"] + 2
+    assert gather_gemm_kernel.launches_by_variant["tensor_core"] == before["tensor_core"]
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,k,cin,cout,want", [
+    (torch.bfloat16, 27, 4, 16, "tensor_core"),
+    (torch.bfloat16, 27, 128, 128, "tensor_core"),
+    (torch.bfloat16, 3, 128, 128, "tensor_core"),
+    (torch.float32, 27, 64, 64, "cuda_core"),      # TF32 would change fp32 results
+    (torch.bfloat16, 27, 8, 8, "cuda_core"),       # Cout not in 16, 32, 64, 128
+    (torch.bfloat16, 27, 6, 16, "cuda_core"),      # Cin % 4 != 0
+    (torch.bfloat16, 33, 16, 16, "cuda_core"),     # more taps than a 32-bit mask holds
+])
+def test_gather_gemm_variant(dtype, k, cin, cout, want):
+    assert gather_gemm_kernel.variant(dtype, k, cin, cout) == want
+
+
+@pytest.mark.parametrize("cin,offset,ok", [(16, 8, True), (16, 1, False), (4, 4, True),
+                                           (4, 2, False)])
+def test_gather_gemm_alignment_check(cin, offset, ok):
+    """A feats view that starts off the tensor-core kernel's copy size (16
+    bytes; 8 at Cin = 4) raises instead of being copied; the offset is in
+    bf16 elements from a fresh allocation."""
+    flat = torch.zeros(offset + 2 * 10 * cin, dtype=torch.bfloat16)
+    feats = flat[offset:].view(2, 10, cin)
+    w = torch.zeros(27, cin, 16, dtype=torch.bfloat16)
+    assert w.data_ptr() % 16 == 0 and flat.data_ptr() % 16 == 0
+    if ok:
+        gather_gemm_kernel.check_aligned(feats, w)
+    else:
+        with pytest.raises(ValueError, match="feats must start"):
+            gather_gemm_kernel.check_aligned(feats, w)
+    w_off = torch.zeros(8 + w.numel(), dtype=w.dtype)[1:1 + w.numel()].view(w.shape)
+    with pytest.raises(ValueError, match="kernel must start"):
+        gather_gemm_kernel.check_aligned(flat[:2 * 10 * cin].view(2, 10, cin), w_off)

@@ -170,6 +170,31 @@ def test_gather_gemm_plain_matches_jax_and_pallas(b, v, q, k, cin, cout, tq, see
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("b,v,q,k,cin,cout,tq,seed", [
+    (2, 90, 70, 27, 16, 32, 32, 3),
+    (1, 50, 40, 3, 4, 16, 16, 4),
+])
+def test_gather_gemm_ignores_garbage_in_masked_rows(b, v, q, k, cin, cout, tq, seed):
+    """Rows that `valid` masks hold NaN, ±inf and ±1e30: they contribute
+    exactly nothing (never scaled by the mask, which would give NaN), so the
+    port, JAX's loop form and the Pallas kernel in interpret mode agree at
+    1e-5 and the output is finite. B2 on the card keeps this semantics."""
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((b, v, cin)).astype(np.float32)
+    valid = rng.random((b, v)) > 0.3
+    bad = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30], np.float32)
+    feats[~valid] = bad[np.arange(int((~valid).sum())) % len(bad)][:, None]
+    nbr = rng.integers(0, v + 1, (b, q, k)).astype(np.int32)
+    w = (rng.standard_normal((k, cin, cout)) * 0.1).astype(np.float32)
+    args = (jnp.asarray(feats), jnp.asarray(valid), jnp.asarray(nbr), jnp.asarray(w))
+    got = gather_gemm(*(torch.from_numpy(a) for a in (feats, valid, nbr, w))).numpy()
+    assert np.isfinite(got).all()
+    assert (nbr < v).any() and not valid.all()
+    np.testing.assert_allclose(got, np.asarray(jsb._gather_gemm(*args)), atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(fused_gather_gemm(*args, tq=tq, interpret=True)),
+                               atol=1e-5)
+
+
 def test_gather_gemm_all_sentinel_rows_are_zero():
     feats = torch.ones(1, 16, 8)
     nbr = torch.full((1, 16, 27), 16, dtype=torch.int32)
