@@ -11,9 +11,13 @@ Phases, each fatal on failure:
   3. kernels  each kernel against its plain PyTorch twin at the paths' shapes
               and at edge cases, timed with CUDA events beside its bound and,
               for the gather-GEMM, the library form (gather + one GEMM). The
-              gather-GEMM runs its tensor-core variant in bf16 (the nine
-              path shapes; one live tap per row, sentinel-only tiles, NaN
-              in masked rows) and its CUDA-core variant in fp32.
+              overlap kernel's culled pairs must be exactly 0 in both; its
+              bound counts the full arithmetic for overlapping pairs only,
+              the all-pairs bound (full arithmetic for every pair) stays
+              beside it. The gather-GEMM runs its tensor-core variant in
+              bf16 (the nine path shapes; one live tap per row,
+              sentinel-only tiles, NaN in masked rows) and its CUDA-core
+              variant in fp32.
   4. serve    CenterPoint-pillar (flagship config, 256 x 512 BEV), then voxel
               CenterPoint (cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40
               grid), each at full width answering 4 requests through
@@ -21,9 +25,9 @@ Phases, each fatal on failure:
               the kernel launch counts (the gather-GEMM's per variant too)
               are set to 0 just before each path and read just after it:
               the voxel path must run the tensor-core gather-GEMM 21 times
-              per batch. Then the 21 gather-GEMM calls of one served request
-              are each held against the plain twin on their own tables and
-              timed.
+              per batch. Then the 21 gather-GEMM calls and the overlap calls
+              (NMS, recall) of one served request per path are each held
+              against the plain twin on their own inputs and timed.
   5. check    per path, one request in fp32 through the kernels and through
               their plain twins, its gt made from boxes the serving run kept:
               valid masks, labels and recall counters equal, boxes and scores
@@ -107,12 +111,9 @@ def random_boxes(gen, g, n, x_range, y_range, device):
     return b.to(device)
 
 
-def check_overlap_kernel(device):
-    """Phase 3: the rotated-BEV overlap kernel against its plain twin."""
+def overlap_cases(device):
+    """Phase 3's overlap problems: name -> (boxes_a, boxes_b)."""
     import torch
-
-    from dfu3d_tpu_torch.core.geometry import boxes as gboxes
-    from dfu3d_tpu_torch.core.geometry import iou_kernel
 
     gen = torch.Generator().manual_seed(0)
     cases = {
@@ -128,44 +129,141 @@ def check_overlap_kernel(device):
     }
     same = random_boxes(gen, 1, 64, (55, 65), (-5, 5), device)
     cases["identical"] = (same, same)
+    return cases
+
+
+def corners(boxes):
+    from dfu3d_tpu_torch.core.geometry import boxes as gboxes
+
+    return gboxes.boxes_to_corners_bev(boxes).contiguous()
+
+
+def overlap_agreement(label, ca, cb, got):
+    """The kernel's output against the plain twin's: within KERNEL_TOL, and
+    exactly 0 (in both) wherever the cull predicate culls. Fatal on a miss.
+    Returns (entry, cull mask)."""
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+
+    want = iou_kernel.overlap_bev_plain(ca, cb)
+    culled = iou_kernel.overlap_bev_cull_plain(ca, cb)
+    err = (got - want).abs().max().item()
+    if not err <= KERNEL_TOL:
+        fail(f"overlap kernel vs plain on {label} {tuple(got.shape)}: max |diff| {err}")
+    if culled.any() and (got[culled].abs().max().item() != 0.0
+                         or want[culled].abs().max().item() != 0.0):
+        fail(f"overlap on {label}: a culled pair is not exactly 0 (kernel "
+             f"{got[culled].abs().max().item()}, plain {want[culled].abs().max().item()})")
+    return {"shape": list(got.shape), "max_abs_err": err}, culled
+
+
+def time_overlap(entry, ca, cb, got, culled, reps=25):
+    """Kernel and plain times beside the bound of what these inputs need:
+    the full arithmetic (OPS_PER_PAIR, and >= 3 surviving clipped edges of
+    OPS_PER_LIVE_EDGE) for each pair that overlaps, none for the others
+    (OPS_PER_PAIR_CULL), against the corners read once and the output
+    written once. The bound of the full arithmetic for every pair, as the
+    one-thread-per-pair kernel counted it, is kept beside it as
+    bound_all_pairs_ms."""
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+
+    pairs = got.numel()
+    overlapping = int((got > 0).sum())
+    live_ops = 3 * iou_kernel.OPS_PER_LIVE_EDGE * overlapping
+    ops = (iou_kernel.OPS_PER_PAIR * overlapping + live_ops
+           + iou_kernel.OPS_PER_PAIR_CULL * (pairs - overlapping))
+    ops_all = iou_kernel.OPS_PER_PAIR * pairs + live_ops
+    nbytes = 4 * (ca.numel() + cb.numel() + got.numel())
+    ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    entry.update(
+        ms=time_ms(lambda: iou_kernel.overlap_bev(ca, cb), reps=reps),
+        plain_ms=time_ms(lambda: iou_kernel.overlap_bev_plain(ca, cb), reps=max(reps // 5, 3)),
+        bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        ops=ops, bytes=nbytes, overlapping_pairs=overlapping,
+        survivor_share=1.0 - culled.float().mean().item(),
+        overlapping_share=overlapping / pairs,
+        ops_all_pairs=ops_all, bound_all_pairs_ms=max(ops_all / FP32_PEAK * 1e3, bytes_ms))
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
+def overlap_line(label, entry):
+    return (f"[kernels] overlap {label} {tuple(entry['shape'])}: max |kernel - plain| = "
+            f"{entry['max_abs_err']:.3g} m^2"
+            + (f", survivors {entry['survivor_share']:.4%}, overlapping "
+               f"{entry['overlapping_share']:.4%}, kernel {entry['ms']:.4f} ms, plain "
+               f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+               f"({entry['bound_by']}, {entry['share_of_bound']:.1%}; all pairs "
+               f"{entry['bound_all_pairs_ms']:.4f})" if "ms" in entry else ""))
+
+
+def check_overlap_kernel(device):
+    """Phase 3: the rotated-BEV overlap kernel against its plain twin."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
 
     per_shape, max_err = [], 0.0
-    for name, (a, b) in cases.items():
-        ca = gboxes.boxes_to_corners_bev(a).contiguous()
-        cb = gboxes.boxes_to_corners_bev(b).contiguous()
+    for name, (a, b) in overlap_cases(device).items():
+        ca, cb = corners(a), corners(b)
         got = iou_kernel.overlap_bev(ca, cb)
         torch.cuda.synchronize()
-        want = iou_kernel.overlap_bev_plain(ca, cb)
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        if not err <= KERNEL_TOL:
-            fail(f"overlap kernel vs plain on {name} {tuple(got.shape)}: max |diff| {err}")
+        entry, culled = overlap_agreement(name, ca, cb, got)
+        entry = {"case": name, **entry}
+        max_err = max(max_err, entry["max_abs_err"])
         if name == "identical":
             area = a[0, :, 3] * a[0, :, 4]
             rel = ((got[0].diagonal() - area).abs() / area).max().item()
             if not rel <= 1e-4:
                 fail(f"identical boxes: diagonal differs from dx*dy by {rel} (rel)")
-        entry = {"case": name, "shape": list(got.shape), "max_abs_err": err}
         if name in ("nms", "recall"):
-            g, n, m = got.shape
-            pairs = g * n * m
-            # data-independent operations per pair, plus >= 3 surviving
-            # clipped edges for every pair that overlaps (see iou_bev.cu)
-            ops = (iou_kernel.OPS_PER_PAIR * pairs
-                   + 3 * iou_kernel.OPS_PER_LIVE_EDGE * int((got > 0).sum()))
-            nbytes = 4 * (ca.numel() + cb.numel() + got.numel())
-            ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-            entry.update(
-                ms=time_ms(lambda: iou_kernel.overlap_bev(ca, cb)),
-                plain_ms=time_ms(lambda: iou_kernel.overlap_bev_plain(ca, cb)),
-                bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                ops=ops, bytes=nbytes, overlapping_pairs=int((got > 0).sum()))
+            time_overlap(entry, ca, cb, got, culled)
         per_shape.append(entry)
-        log(f"[kernels] overlap {name} {tuple(got.shape)}: max |kernel - plain| = {err:.3g} m^2"
-            + (f", kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.3f} ms, "
-               f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})" if "ms" in entry else ""))
+        log(overlap_line(name, entry))
     return per_shape, max_err
+
+
+def served_overlap_problems(model, batch, device):
+    """The two overlap calls of one served bf16 request, recorded in order:
+    [("nms", corners_a, corners_b), ("recall", ...)]."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    calls = []
+    kernel_fn = iou_kernel.overlap_bev
+
+    def recording(ca, cb):
+        calls.append((ca, cb))
+        return kernel_fn(ca, cb)
+
+    iou_kernel.overlap_bev = recording
+    try:
+        make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)(batch)
+    finally:
+        iou_kernel.overlap_bev = kernel_fn
+    torch.cuda.synchronize()
+    if len(calls) != 2:
+        fail(f"one served request made {len(calls)} overlap calls, not 2 (NMS, recall)")
+    return [(name, ca, cb) for name, (ca, cb) in zip(("nms", "recall"), calls)]
+
+
+def time_served_overlaps(path, model, batch, device):
+    """Each overlap call of one served request, held against the plain twin
+    (fatal on a miss) and timed beside its bound."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+
+    entries = []
+    for name, ca, cb in served_overlap_problems(model, batch, device):
+        got = iou_kernel.overlap_bev(ca, cb)
+        torch.cuda.synchronize()
+        entry, culled = overlap_agreement(f"served {path} {name}", ca, cb, got)
+        entry = {"path": path, "problem": name, **entry}
+        entries.append(time_overlap(entry, ca, cb, got, culled, reps=10))
+        log(overlap_line(f"served {path} {name}", entry))
+    return entries
 
 
 def bf16_ulp(x):
@@ -641,6 +739,7 @@ def main():
             f"{[d - p for d, p in zip(distinct, kept)]}")
     if pillar_launches["iou_bev_overlap"] <= 0:
         fail("the pillar serving run did not launch the overlap kernel")
+    served_iou = time_served_overlaps("pillar", pillar, batches[0], device)
     check_paths("pillar", pillar, cfg, batches[0], res.preds[0],
                 [(iou_kernel, "overlap_bev", "overlap_bev_plain")], device)
     del pillar, res
@@ -661,6 +760,7 @@ def main():
     if voxel_launches["iou_bev_overlap"] <= 0:
         fail("the voxel serving run did not launch the overlap kernel")
     served_total, served_gemms = time_served_gemms(voxel, batches[0], device)
+    served_iou += time_served_overlaps("voxel", voxel, batches[0], device)
     check_paths("voxel", voxel, vcfg, batches[0], res.preds[0],
                 [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
                  (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")], device)
@@ -682,8 +782,14 @@ def main():
         "bound_ms": nms_entry["bound_ms"],
         "bound_by": nms_entry["bound_by"],
         "library_ms": None,
+        "ops_all_pairs": nms_entry["ops_all_pairs"],
+        "bound_all_pairs_ms": nms_entry["bound_all_pairs_ms"],
+        "survivor_share": nms_entry["survivor_share"],
+        "overlapping_share": nms_entry["overlapping_share"],
+        "cull_margin_m": iou_kernel.CULL_MARGIN,
         "shapes": [e["shape"] for e in iou_shapes],
         "per_shape": iou_shapes,
+        "served": served_iou,
     }, {
         "name": "gather_gemm",
         "route": "cuda",

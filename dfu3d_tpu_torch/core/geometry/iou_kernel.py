@@ -3,8 +3,10 @@
 The kernel (csrc/iou_bev.cu) replaces the TPU kernel
 dfu3d_tpu/core/geometry/iou_pallas.py::_overlap_kernel and computes what
 dfu3d_tpu/core/geometry/iou.py::pairwise_overlap_bev computes, centring each
-pair on its own midpoint. It is fp32 ALU-bound: 686 operations per pair
-whatever the data, plus 15 per surviving clipped edge (see the source).
+pair on its own midpoint. It culls the pairs whose bounding boxes are more
+than CULL_MARGIN apart (they are exactly 0; `overlap_bev_cull_plain` is the
+predicate's plain twin) and runs the full clip, 686 operations plus 15 per
+surviving clipped edge, only for the others (see the source).
 
 `overlap_bev` takes a CPU tensor to the plain PyTorch version and a CUDA
 tensor to the kernel; on the card it launches or raises, with no fallback.
@@ -22,8 +24,13 @@ from ... import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "iou_bev.cu"
 NVCC_FLAGS = ("--fmad=false",)  # each operation rounds as in the plain twin
-OPS_PER_PAIR = 686         # fp32 operations per pair, data-independent part
+OPS_PER_PAIR = 686         # fp32 operations of one pair's full clip, data-independent part
 OPS_PER_LIVE_EDGE = 15     # added for each clipped edge that survives
+OPS_PER_PAIR_CULL = 0      # a culled pair: 4 compares, and compares are not counted
+CULL_MARGIN = 1e-2         # m; bounding boxes farther apart than this are culled
+COORD_LIMIT = 1024.0       # m; a box with a corner beyond this is never culled
+MIN_EDGE2 = 1e-4           # m²; a box with a shorter edge is never culled (unless a point)
+POINT, QUAD = 1, 2         # box kinds of the cull; 0 is never culled
 
 _EPS = 1e-9
 _TOL = 1e-6
@@ -108,6 +115,47 @@ def overlap_bev_plain(corners_a, corners_b, chunk_pairs: int = 1 << 20):
     return out
 
 
+def _box_kind(corners):
+    """(..., 4, 2) → (...,) kind, as the kernel's box_kind: POINT (four equal
+    finite corners), QUAD (finite, within COORD_LIMIT, convex and
+    counter-clockwise, every edge ≥ 1 cm, every corner between 30° and
+    150°) or 0. Same fp32 operations as the kernel."""
+    x, y = corners[..., 0], corners[..., 1]
+    in_range = ((x.abs() <= COORD_LIMIT) & (y.abs() <= COORD_LIMIT)).all(dim=-1)
+    point = ((x == x[..., :1]) & (y == y[..., :1])).all(dim=-1)
+    ex = torch.roll(x, -1, dims=-1) - x
+    ey = torch.roll(y, -1, dims=-1) - y
+    len2 = ex * ex + ey * ey
+    ex1, ey1, len2_1 = (torch.roll(t, -1, dims=-1) for t in (ex, ey, len2))
+    cross = ex * ey1 - ey * ex1
+    quad = ((len2 >= MIN_EDGE2) & (cross > 0.0) & (4.0 * cross * cross >= len2 * len2_1)).all(dim=-1)
+    kind = torch.where(point, POINT, torch.where(quad, QUAD, 0))
+    return torch.where(in_range, kind, 0)
+
+
+def _bounds(corners, kind, margin):
+    """AABB (lo_x, hi_x, lo_y, hi_y) widened by `margin`, NaN where kind is 0."""
+    x, y = corners[..., 0], corners[..., 1]
+    nan = torch.tensor(float("nan"), dtype=corners.dtype, device=corners.device)
+    return tuple(torch.where(kind > 0, v, nan) for v in (
+        x.amin(dim=-1) - margin, x.amax(dim=-1) + margin,
+        y.amin(dim=-1) - margin, y.amax(dim=-1) + margin))
+
+
+def overlap_bev_cull_plain(corners_a, corners_b, margin: float = CULL_MARGIN):
+    """(G, N, 4, 2) × (G, M, 4, 2) → (G, N, M) bool: the pairs the kernel
+    culls and sets to exactly 0. A pair is culled when A's bounding box,
+    widened by `margin`, and B's are apart in x or y, and A is a point or
+    both boxes are quads (`_box_kind`); a box of kind 0 gets NaN bounds, so
+    a pair with a non-finite corner is never culled. Used by the tests and
+    chip_smoke.py; the wrapper never calls it."""
+    kind_a, kind_b = _box_kind(corners_a), _box_kind(corners_b)
+    alx, ahx, aly, ahy = (v[..., :, None] for v in _bounds(corners_a, kind_a, margin))
+    blx, bhx, bly, bhy = (v[..., None, :] for v in _bounds(corners_b, kind_b, 0.0))
+    apart = (ahx < blx) | (bhx < alx) | (ahy < bly) | (bhy < aly)
+    return apart & ((kind_a == POINT)[..., :, None] | (kind_b == QUAD)[..., None, :])
+
+
 # ---------------------------------------------------------------------------
 # Build and bind.
 # ---------------------------------------------------------------------------
@@ -149,6 +197,10 @@ def overlap_bev(corners_a, corners_b):
     out = torch.empty((g, n, m), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    for name, t in (("corners_a", corners_a), ("corners_b", corners_b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
+                             "reads a box as two 16-byte loads)")
     fn = _kernel()
     with torch.cuda.device(dev):
         rc = fn(corners_a.data_ptr(), corners_b.data_ptr(), out.data_ptr(), g, n, m,

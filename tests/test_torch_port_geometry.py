@@ -12,6 +12,7 @@ from dfu3d_tpu.core.geometry import iou as jiou
 from dfu3d_tpu.core.geometry import nms as jnms
 from dfu3d_tpu.core.geometry.iou_pallas import pairwise_overlap_bev_pallas
 from dfu3d_tpu_torch.core.geometry import boxes, iou, iou_kernel, nms
+from test_torch_port_kernels import near_miss_boxes
 
 
 def _rand_boxes(rng, n, spread=3.0, far=0.0):
@@ -113,6 +114,104 @@ class TestOverlap:
         np.testing.assert_allclose(
             iou.pairwise_iou_bev(_t(a5), _t(a5)).numpy(),
             np.asarray(jiou.pairwise_iou_bev(jnp.asarray(a5), jnp.asarray(a5))), atol=1e-5)
+
+
+def _cull_case(rng, case):
+    """(a, b) (N, 7) / (M, 7) fp32 numpy boxes for the cull tests."""
+    if case in ("random_0m", "random_60m"):
+        far = 60.0 if case == "random_60m" else 0.0
+        return _rand_boxes(rng, 150, spread=20.0, far=far), _rand_boxes(rng, 70, spread=20.0, far=far)
+    if case in ("near_miss_0m", "near_miss_60m"):
+        return near_miss_boxes(rng, 100, far=60.0 if case == "near_miss_60m" else 0.0)
+    if case == "thin_shallow":  # 20 m x 0.1 m at headings within 0.05 rad of 0
+        return near_miss_boxes(rng, 100, footprint=(20.0, 0.1), heading=0.05)
+    # zero_size: the gt padding's all-zero rows and zero-size boxes elsewhere
+    a, b = _rand_boxes(rng, 80, spread=20.0), _rand_boxes(rng, 60, spread=20.0)
+    a[::4] = 0.0
+    b[::3] = 0.0
+    a[1::4, 3:5] = 0.0
+    b[1::3, 3:5] = 0.0
+    return a, b
+
+
+def _overlaps_and_cull(a, b):
+    """(culled, plain, JAX) as (N, M) numpy arrays."""
+    ca, cb = boxes.boxes_to_corners_bev(_t(a))[None], boxes.boxes_to_corners_bev(_t(b))[None]
+    culled = iou_kernel.overlap_bev_cull_plain(ca, cb)[0].numpy()
+    plain = iou_kernel.overlap_bev_plain(ca, cb)[0].numpy()
+    ref = np.asarray(jiou.pairwise_overlap_bev(jnp.asarray(a), jnp.asarray(b)))
+    return culled, plain, ref
+
+
+class TestCull:
+    """The kernel's cull predicate (plain twin `overlap_bev_cull_plain`): a
+    culled pair must be exactly 0 in the plain twin and in JAX's
+    pairwise_overlap_bev, and no pair that overlaps may be culled."""
+
+    @pytest.mark.parametrize("case", ["random_0m", "random_60m", "near_miss_0m",
+                                      "near_miss_60m", "thin_shallow", "zero_size"])
+    def test_culled_pairs_are_exactly_zero(self, rng, case):
+        a, b = _cull_case(rng, case)
+        culled, plain, ref = _overlaps_and_cull(a, b)
+        assert culled.any() and not culled.all()
+        assert (plain[culled] == 0).all() and (ref[culled] == 0).all()
+        assert not culled[(plain > 0) | (ref > 0)].any()
+        if case.startswith("near_miss") or case == "thin_shallow":
+            # pair (i, i) is apart by 1.001 margins and culled, (i, n + i) by 0.999 and kept
+            n = len(a)
+            assert culled[np.arange(n), np.arange(n)].all()
+            assert not culled[np.arange(n), n + np.arange(n)].any()
+        if case == "zero_size":
+            # against a zero-size B every edge of A lies "inside" (all its
+            # half-planes are the tolerance): overlap(A, B) is A's area at
+            # any distance, in JAX as in the twin, so such pairs stay
+            point_b = (b[:, 3] == 0) & (b[:, 4] == 0)
+            quad_a = (a[:, 3] > 0) & (a[:, 4] > 0)
+            np.testing.assert_allclose(ref[np.ix_(quad_a, point_b)],
+                                       np.broadcast_to((a[quad_a, 3] * a[quad_a, 4])[:, None],
+                                                       (quad_a.sum(), point_b.sum())),
+                                       rtol=1e-4)
+            assert not culled[np.ix_(quad_a, point_b)].any()
+            point_a = (a[:, 3] == 0) & (a[:, 4] == 0)
+            assert culled[point_a].any()
+
+    def test_non_finite_corner_is_never_culled(self, rng):
+        a, b = _rand_boxes(rng, 40, spread=20.0), _rand_boxes(rng, 30, spread=20.0)
+        ca, cb = boxes.boxes_to_corners_bev(_t(a))[None], boxes.boxes_to_corners_bev(_t(b))[None]
+        ca[0, 0, 1, 0] = float("nan")
+        ca[0, 1, 2, 1] = float("inf")
+        cb[0, 2, 0, 0] = -float("inf")
+        cb[0, 3] = float("nan")
+        culled = iou_kernel.overlap_bev_cull_plain(ca, cb)[0]
+        assert not culled[:2].any() and not culled[:, 2:4].any()
+        assert culled[2:, 4:].any()
+
+    @pytest.mark.parametrize("kind", ["bow_tie", "clockwise", "sliver", "beyond_limit"])
+    def test_malformed_box_is_never_culled(self, rng, kind):
+        """Boxes whose half-planes need not bound them (corner order crossed
+        or reversed, an edge under 1 cm) or whose side distances carry more
+        fp32 error than the margin allows (beyond COORD_LIMIT) have kind 0."""
+        a, b = _rand_boxes(rng, 40, spread=20.0), _rand_boxes(rng, 30, spread=20.0)
+        if kind == "sliver":
+            a[::2, 4] = 0.005
+            b[::2, 4] = 0.005
+        if kind == "beyond_limit":
+            a[::2, 0] += 2000.0
+            b[::2, 0] += 2000.0
+        ca, cb = boxes.boxes_to_corners_bev(_t(a))[None], boxes.boxes_to_corners_bev(_t(b))[None]
+        if kind == "bow_tie":
+            ca[0, ::2] = ca[0, ::2][:, [0, 2, 1, 3]]
+            cb[0, ::2] = cb[0, ::2][:, [0, 2, 1, 3]]
+        if kind == "clockwise":
+            ca[0, ::2] = ca[0, ::2].flip(1)
+            cb[0, ::2] = cb[0, ::2].flip(1)
+        assert (iou_kernel._box_kind(ca)[0, ::2] == 0).all()
+        assert (iou_kernel._box_kind(ca)[0, 1::2] == iou_kernel.QUAD).all()
+        culled = iou_kernel.overlap_bev_cull_plain(ca, cb)[0]
+        assert not culled[::2].any() and not culled[:, ::2].any()
+        assert culled[1::2, 1::2].any()
+        plain = iou_kernel.overlap_bev_plain(ca, cb)[0]
+        assert (plain[culled] == 0).all()
 
 
 class TestNMS:

@@ -6,7 +6,8 @@ runs where only PyTorch is installed:
     python -m pytest tests/test_torch_port_kernels.py -m cuda -q --noconftest
 
 Without a card every test marked `cuda` skips; the gather-GEMM's variant
-choice and alignment check run on the CPU as well.
+choice and alignment check run on the CPU as well. `near_miss_boxes` is
+shared with tests/test_torch_port_geometry.py.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,45 @@ def _rand_boxes(rng, g, n, far=0.0):
     b[..., 3:6] = rng.uniform(0.5, 4.0, (g, n, 3))
     b[..., 6] = rng.uniform(-np.pi, np.pi, (g, n))
     return torch.from_numpy(b)
+
+
+def near_miss_boxes(rng, n, scales=(1 + 1e-3, 1 - 1e-3), far=0.0, footprint=None,
+                    heading=np.pi):
+    """(a, b) fp32 numpy boxes, a (n, 7) and b (len(scales) * n, 7): the
+    pair (a[i], b[k * n + i]) has BEV bounding boxes apart by
+    scales[k] * CULL_MARGIN along x or y (at random, on a random side) and
+    overlap along the other axis. Footprints are uniform in
+    [0.5, 4] m or the fixed (dx, dy) `footprint`; headings uniform in
+    ±`heading`."""
+    def rand(centre, count):
+        b = np.zeros((count, 7), np.float32)
+        b[:, 0:2] = centre
+        b[:, 3:5] = rng.uniform(0.5, 4.0, (count, 2)) if footprint is None else footprint
+        b[:, 5] = 1.5
+        b[:, 6] = rng.uniform(-heading, heading, count)
+        return b
+
+    def aabb(b):
+        c = boxes.boxes_to_corners_bev(torch.from_numpy(b)).numpy()
+        return c.min(axis=1), c.max(axis=1)  # (count, 2) each
+
+    a = rand(rng.uniform(-3, 3, (n, 2)) + np.float32([far, 0.0]), n)
+    a_lo, a_hi = aabb(a)
+    rows = np.arange(n)
+    out = []
+    for scale in scales:
+        b = rand(0.0, n)
+        b_lo, b_hi = aabb(b)  # relative to b's centre
+        axis = rng.choice([0, 1], n)
+        side = rng.choice([-1.0, 1.0], n)
+        gap = np.float32(scale * iou_kernel.CULL_MARGIN)
+        b[rows, axis] = np.where(side > 0, a_hi[rows, axis] + gap - b_lo[rows, axis],
+                                 a_lo[rows, axis] - gap - b_hi[rows, axis])
+        # along the other axis the two bounding boxes overlap
+        ext = np.minimum(a_hi - a_lo, b_hi - b_lo)[rows, 1 - axis]
+        b[rows, 1 - axis] = a[rows, 1 - axis] + 0.5 * ext * rng.uniform(-1, 1, n)
+        out.append(b)
+    return a, np.concatenate(out)
 
 
 @pytest.fixture
@@ -54,6 +94,76 @@ def test_kernel_matches_plain_on_card(cuda_device, far):
     same = iou_kernel.overlap_bev(ca, ca)
     area = (a[..., 3] * a[..., 4]).to(cuda_device)
     torch.testing.assert_close(same.diagonal(dim1=1, dim2=2), area, rtol=1e-4, atol=0)
+
+
+def _overlap_case(rng, case):
+    """(boxes_a, boxes_b) as (G, N, 7) / (G, M, 7) fp32 tensors."""
+    if case == "all_disjoint":   # A left of x = -10, B right of x = +10
+        a, b = _rand_boxes(rng, 2, 150), _rand_boxes(rng, 2, 70)
+        a[..., 0] -= 30.0
+        b[..., 0] += 30.0
+    elif case == "none_culled":  # centres within 0.1 m: every pair overlaps
+        a, b = _rand_boxes(rng, 2, 100), _rand_boxes(rng, 2, 70)
+        for t in (a, b):
+            t[..., 0:2] *= 0.1 / 3.0
+    elif case == "near_miss":    # pair (i, i) apart by 1.001 margins, (i, 64 + i) by 0.999
+        a, b = near_miss_boxes(rng, 64)
+        a, b = torch.from_numpy(a)[None], torch.from_numpy(b)[None]
+    elif case == "nms_m500":     # the NMS problem's density, a is b
+        a = _rand_boxes(rng, 2, 500)
+        a[..., 0:2] *= 20.0 / 3.0
+        b = a
+    else:                        # "ragged_m70_g3": M % 4 != 0, three problems, at 60 m
+        a, b = _rand_boxes(rng, 3, 150, far=60.0), _rand_boxes(rng, 3, 70, far=60.0)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_disjoint", "none_culled", "near_miss", "nms_m500",
+                                  "ragged_m70_g3"])
+def test_overlap_kernel_cull_cases(cuda_device, case):
+    """The culling kernel against its plain twin (1e-3 m²) where the cull
+    takes every pair, none, the near misses around the margin, and at the
+    stores' two alignments (M = 500: 16-byte rows; M = 70: scalar stores).
+    Culled pairs are exactly 0 in both, one launch per call, and a repeat
+    gives the same bits."""
+    rng = np.random.default_rng(3)
+    a, b = _overlap_case(rng, case)
+    ca = boxes.boxes_to_corners_bev(a.to(cuda_device)).contiguous()
+    cb = boxes.boxes_to_corners_bev(b.to(cuda_device)).contiguous()
+    before = iou_kernel.launches
+    got = iou_kernel.overlap_bev(ca, cb)
+    again = iou_kernel.overlap_bev(ca, cb)
+    torch.cuda.synchronize()
+    assert iou_kernel.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = iou_kernel.overlap_bev_plain(ca, cb)
+    culled = iou_kernel.overlap_bev_cull_plain(ca, cb)
+    assert (got - want).abs().max().item() <= 1e-3
+    assert bool((got[culled] == 0).all()) and bool((want[culled] == 0).all())
+    if case == "all_disjoint":
+        assert bool(culled.all()) and bool((got == 0).all())
+    elif case == "none_culled":
+        assert not bool(culled.any()) and bool((want > 0).all())
+    elif case == "near_miss":
+        n = got.shape[1]
+        idx = torch.arange(n, device=cuda_device)
+        assert bool(culled[0, idx, idx].all()) and not bool(culled[0, idx, n + idx].any())
+    else:
+        assert 0 < culled.float().mean().item() < 1
+
+
+@pytest.mark.cuda
+def test_overlap_kernel_rejects_misaligned_corners(cuda_device):
+    """The kernel reads a box as two 16-byte loads: a view that starts 4
+    bytes into its storage raises instead of launching."""
+    flat = torch.zeros(1 + 5 * 8, device=cuda_device)
+    ca = flat[1:].view(1, 5, 4, 2)
+    cb = torch.zeros((1, 5, 4, 2), device=cuda_device)
+    before = iou_kernel.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        iou_kernel.overlap_bev(ca, cb)
+    assert iou_kernel.launches == before
 
 
 def _gather_gemm_case(rng, b, v, q, k, cin, cout, dtype, device, sentinel_only=False):
