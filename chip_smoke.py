@@ -32,6 +32,25 @@ Phases, each fatal on failure:
               their plain twins, its gt made from boxes the serving run kept:
               valid masks, labels and recall counters equal, boxes and scores
               within 1e-4.
+  6. train    per model (pillar, then voxel with 10-column gt for its vel
+              branch), at full width with seeded weights, 5 steps through
+              trainer.train_model (B=4, 60,000 points, 256 gt slots, bf16
+              autocast, the config's adam_onecycle over 1000 steps), which
+              saves a checkpoint into a temporary directory; the checkpoint
+              is reloaded into a fresh model and optimizer and must equal
+              them. Per step the loss, grad_norm, host-clock ms and the
+              gather-GEMM launches per variant; fatal on a non-finite loss or
+              gradient, a parameter or BN buffer left unchanged, or a voxel
+              step that does not launch the tensor-core gather-GEMM exactly
+              41 times (21 forward, 20 dX). Each of one voxel step's 20 dX
+              launches is held against the plain twin on its own inputs and
+              timed (kernel, plain, library, bound). Then one fp32 step per
+              model through the kernels and through their plain twins from
+              the same weights: loss within 1e-5 relative; with the forward
+              through the kernels in both (ReLU kinks), every gradient leaf
+              within 1e-4 of its largest entry or, where fp32 rounding alone
+              moves it more, within 4x what reversing the plain twin's tap
+              order moves it.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -40,6 +59,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +72,11 @@ KERNEL_TOL = 1e-3      # m², overlap kernel vs plain
 GEMM_TOL = 1e-4        # gather-GEMM kernel vs plain in fp32
 PATH_TOL = 1e-4        # boxes and scores, kernel path vs plain path in fp32
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock ahead of each timed call
+TRAIN_STEPS = 5           # train steps per model in phase 6
+TRAIN_TOTAL_STEPS = 1000  # the one-cycle schedule's length, as bench.py's train leg
+TRAIN_LOSS_TOL = 1e-5     # relative, fp32 train step through kernels vs plain twins
+TRAIN_GRAD_TOL = 1e-4     # of each gradient leaf's largest |entry|
+VOXEL_TRAIN_B2 = 41       # tensor-core gather-GEMM launches per voxel train step
 # the 21 sparse convs of one voxel eval step at B=4, max_voxels 60000:
 # (name, V, Q, K, Cin, Cout, launches per step)
 GEMM_PATH_SHAPES = [
@@ -471,19 +496,13 @@ def serve(name, model, batches, device):
     0, the requests served, the counts read."""
     import torch
 
-    from dfu3d_tpu_torch.core.geometry import iou_kernel
-    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
     from dfu3d_tpu_torch.train.eval_utils import eval_batches
 
     eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    iou_kernel.launches = gather_gemm_kernel.launches = 0
-    gather_gemm_kernel.launches_by_variant.update(tensor_core=0, cuda_core=0)
+    reset_launches()
     res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
-    launches = {"iou_bev_overlap": iou_kernel.launches,
-                "gather_gemm": gather_gemm_kernel.launches,
-                **{f"gather_gemm_{k}": n
-                   for k, n in gather_gemm_kernel.launches_by_variant.items()}}
+    launches = read_launches()
     log(f"[serve] {name}: per-batch ms: median {statistics.median(res.batch_seconds) * 1e3:.2f} "
         f"(all: {', '.join(f'{s * 1e3:.2f}' for s in res.batch_seconds)})")
     for k, (boxes, scores, labels, valid) in enumerate(res.preds):
@@ -629,15 +648,11 @@ def voxel_stages(model, batch, device):
     return out
 
 
-def time_served_gemms(model, batch, device):
-    """The gather-GEMM launches of one served bf16 request, recorded, each
-    held against the plain twin on its own tables (`gemm_agreement`; fatal on
-    a miss or on another variant than the tensor-core one) and timed: kernel,
-    plain, library, bound."""
+def record_gemm_calls(fn):
+    """fn()'s gather-GEMM calls, in order: [(feats, valid, nbr, kernel)]."""
     import torch
 
     from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
-    from dfu3d_tpu_torch.train.train_state import make_eval_step
 
     calls = []
     kernel_fn = gk.gather_gemm
@@ -648,41 +663,267 @@ def time_served_gemms(model, batch, device):
 
     gk.gather_gemm = recording
     try:
-        make_eval_step(model, device=device, dtype=torch.bfloat16)(batch)
+        fn()
     finally:
         gk.gather_gemm = kernel_fn
     torch.cuda.synchronize()
-    names = ["conv_input"] + [f"res1_{i}" for i in range(4)]
-    for s in (2, 3, 4):
-        names += [f"down{s}"] + [f"res{s}_{i}" for i in range(4)]
-    names.append("conv_out")
+    return calls
+
+
+GEMM_CONVS = (["conv_input"] + [f"res1_{i}" for i in range(4)]
+              + [n for s in (2, 3, 4) for n in [f"down{s}"] + [f"res{s}_{i}" for i in range(4)]]
+              + ["conv_out"])   # the 21 sparse convs in forward order
+
+
+def hold_gemm_calls(label, named_calls):
+    """Each recorded gather-GEMM call (name, args) launched again, held
+    against the plain twin on its own inputs (`gemm_agreement`; fatal on a
+    miss or on another variant than the tensor-core one) and timed: kernel,
+    plain, library, bound. Returns (totals, entries)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
     entries = []
-    for name, args in zip(names, calls):
+    for name, args in named_calls:
         got, ran = launch_variant(lambda: gk.gather_gemm(*args))
         torch.cuda.synchronize()
         e = {"conv": name, "shape": [list(args[0].shape), list(args[2].shape),
                                      list(args[3].shape)], "variant": ran,
              **gemm_agreement(args, got, gk.gather_gemm_plain(*args))}
         if not e.pop("ok") or ran != "tensor_core":
-            fail(f"gather-GEMM on the served tables of {name}: {e}")
+            fail(f"gather-GEMM {label}, {name}: {e}")
         entries.append(time_gemm(e, *args, reps=10))
     total = {k: sum(e[k] for e in entries) for k in ("ms", "plain_ms", "library_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
     for e in entries:
         by[e["bound_by"]] += e["bound_ms"]
-    total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(calls),
+    total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(entries),
                  max_err_in_ulps=max(e["max_err_in_ulps"] for e in entries))
-    log(f"[kernels] gather_gemm on one served request ({len(calls)} launches, all tensor-core, "
-        f"each within tolerance of the plain twin, worst {total['max_err_in_ulps']:.2f} ulp): "
-        f"kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
-        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
-        f"({total['bound_by']}); per conv (kernel / library / bound): "
+    log(f"[kernels] gather_gemm {label} ({len(entries)} launches, all tensor-core, each within "
+        f"tolerance of the plain twin, worst {total['max_err_in_ulps']:.2f} ulp): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']}); "
+        "per conv (kernel / library / bound): "
         + ", ".join(f"{e['conv']} {e['ms']:.4f}/{e['library_ms']:.4f}/{e['bound_ms']:.4f}"
                     for e in entries))
     slower = [e["conv"] for e in entries if e["ms"] > e["library_ms"]]
     if slower:
         log(f"[kernels] gather_gemm slower than the library form on: {', '.join(slower)}")
     return total, entries
+
+
+def time_served_gemms(model, batch, device):
+    """The 21 gather-GEMM launches of one served bf16 request, each held
+    against the plain twin and timed (`hold_gemm_calls`)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    calls = record_gemm_calls(
+        lambda: make_eval_step(model, device=device, dtype=torch.bfloat16)(batch))
+    return hold_gemm_calls("on one served request", zip(GEMM_CONVS, calls))
+
+
+def reset_launches():
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+
+    iou_kernel.launches = gather_gemm_kernel.launches = 0
+    gather_gemm_kernel.launches_by_variant.update(tensor_core=0, cuda_core=0)
+
+
+def read_launches():
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+
+    return {"iou_bev_overlap": iou_kernel.launches, "gather_gemm": gather_gemm_kernel.launches,
+            **{f"gather_gemm_{k}": n for k, n in gather_gemm_kernel.launches_by_variant.items()}}
+
+
+def train(name, build, velocity, device):
+    """Phase 6 for one model: 5 bf16 steps through train_model with every
+    kernel count set to 0 just before and read just after, the checkpoint
+    round trip, and the checks on each step. Returns (model, launches,
+    steps, batches)."""
+    import torch
+
+    from dfu3d_tpu_torch.data.batch import synthetic_batch
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.train import checkpoint
+    from dfu3d_tpu_torch.train.train_state import create_train_state
+    from dfu3d_tpu_torch.train.trainer import train_model
+
+    cfg, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    state = create_train_state(model, cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
+    batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s, velocity=velocity)
+               for s in range(TRAIN_STEPS)]
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    steps, last = [], {}
+
+    def on_step(it, metrics):
+        vals = {k: float(metrics[k]) for k in ("loss", "grad_norm")}   # waits for the card
+        now = time.perf_counter()
+        launched = read_launches()
+        step = {"it": it, **vals, "host_ms": (now - last["t"]) * 1e3,
+                **{k: launched[k] - last["launches"][k] for k in launched}}
+        last.update(t=now, launches=launched)
+        steps.append(step)
+        log(f"[train] {name} step {it}: loss {vals['loss']:.4f}, grad_norm "
+            f"{vals['grad_norm']:.4f}, {step['host_ms']:.2f} ms host clock, gather-GEMM "
+            f"{step['gather_gemm_tensor_core']} tensor-core / {step['gather_gemm_cuda_core']} "
+            "CUDA-core launches")
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"{name} train step {it}: loss or gradient not finite {vals}")
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        torch.cuda.synchronize()
+        reset_launches()
+        last.update(t=time.perf_counter(), launches=read_launches())
+        train_model(state, batches, epochs=1, ckpt_dir=ckpt_dir, device=device,
+                    dtype=torch.bfloat16, on_step=on_step)
+        launches = read_launches()
+        _, _, fresh_model = build(device=device, train=True)
+        fresh = create_train_state(fresh_model, cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
+        loaded, epoch = checkpoint.load_latest(ckpt_dir, fresh)
+    if loaded is None or epoch != 1 or fresh.step != TRAIN_STEPS:
+        fail(f"{name}: the checkpoint did not reload (epoch {epoch}, step {fresh.step})")
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, fresh_model.state_dict()[k]):
+            fail(f"{name}: reloaded model differs from the trained one at {k}")
+    want, got = state.optimizer.opt.state_dict(), fresh.optimizer.opt.state_dict()
+    if want["param_groups"] != got["param_groups"] or any(
+            not torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(got["state"][i][k]).cpu())
+            for i, st in want["state"].items() for k, v in st.items()):
+        fail(f"{name}: reloaded optimizer state differs from the trained one")
+    unchanged = [k for k, v in model.state_dict().items() if torch.equal(v, before[k])]
+    if unchanged:
+        fail(f"{name}: {len(unchanged)} parameters or BN buffers unchanged by training, "
+             f"e.g. {unchanged[:5]}")
+    if not all(torch.isfinite(v).all() for v in model.state_dict().values()):
+        fail(f"{name}: a parameter or buffer is not finite after training")
+    ms = [s["host_ms"] for s in steps]
+    median = statistics.median(ms)
+    log(f"[train] {name}: {len(steps)} steps, median {median:.2f} ms host clock "
+        f"({4 / (median / 1e3):.2f} samples/s; without the first step "
+        f"{statistics.median(ms[1:]):.2f} ms); checkpoint reloaded equal "
+        f"(model {len(before)} tensors, optimizer step {fresh.step}); every parameter and "
+        f"BN buffer changed; kernel launches {json.dumps(launches)}")
+    return model, launches, steps, batches
+
+
+def time_train_dx(model, batch, device):
+    """The 20 dX launches of one bf16 voxel train step (forward and backward,
+    no update), each held against the plain twin on its own inputs and timed
+    (`hold_gemm_calls`)."""
+    import torch
+
+    def step():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss, _ = model(batch.to(device))
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+
+    calls = record_gemm_calls(step)
+    if len(calls) != VOXEL_TRAIN_B2:
+        fail(f"one voxel train step made {len(calls)} gather-GEMM calls, not {VOXEL_TRAIN_B2}")
+    fwd, dx = calls[:len(GEMM_CONVS)], calls[len(GEMM_CONVS):]
+    # the backward runs the convs in reverse; conv_input's input needs no dX
+    for name, f, args in zip(GEMM_CONVS[::-1], fwd[::-1], dx):
+        k, cin, cout = f[3].shape
+        if tuple(args[3].shape) != (k, cout, cin) or args[0].shape != (f[0].shape[0],
+                                                                       f[2].shape[1], cout):
+            fail(f"dX launch for {name}: shapes {[tuple(a.shape) for a in args]} do not mirror "
+                 f"its forward's {[tuple(a.shape) for a in f]}")
+    return hold_gemm_calls("dX of one voxel train step", zip(GEMM_CONVS[::-1], dx))
+
+
+def gather_gemm_plain_reversed(feats, valid, nbr, kernel):
+    """The plain twin summing the taps in reverse order: the same function
+    with another fp32 rounding (the yardstick of check_train_paths)."""
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    return gk.gather_gemm_plain(feats, valid, nbr.flip(-1).contiguous(),
+                                kernel.flip(0).contiguous())
+
+
+def check_train_paths(name, model, batch, swaps, device):
+    """One fp32 train step (loss and gradients, no update) through the kernels
+    against the same step through their plain twins (`swaps`: (module,
+    kernel, plain)) from the same weights. The loss of the step all through
+    the twins must be within TRAIN_LOSS_TOL relative. The gradients are
+    compared with the forward through the kernels in both runs and only the
+    backward's launches (B2's dX) swapped: at full width some of the step's
+    millions of ReLU inputs lie within fp32 rounding of 0, and a forward
+    rounded otherwise takes a few of them on the other side of the kink,
+    which moves every upstream gradient by up to ~1e-3 of its largest entry
+    (tests/test_torch_port_train_slice.py documents the effect). Each leaf
+    must be within TRAIN_GRAD_TOL of its largest entry or, where fp32
+    rounding alone moves it more, within 4x the difference between the
+    plain backward and the plain backward with the taps summed in reverse
+    order (the same function rounded otherwise)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
+
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = batch.to(device)
+
+    def step(forward=(), backward=None):
+        replace = list(forward) + ([(gk, "gather_gemm", backward)] if backward else [])
+        saved = [(mod, k, getattr(mod, k)) for mod, k, _ in replace]
+        try:
+            for mod, k, fn in forward:
+                setattr(mod, k, fn)
+            model.load_state_dict(weights)
+            model.train()
+            model.zero_grad(set_to_none=True)
+            loss, _ = model(batch)
+            if backward:
+                gk.gather_gemm = backward
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            for mod, k, fn in saved:
+                setattr(mod, k, fn)
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    k_loss, k_grads = step()
+    p_loss, _ = step(forward=[(mod, k, getattr(mod, p)) for mod, k, p in swaps])
+    _, p_grads = step(backward=gk.gather_gemm_plain)
+    _, r_grads = step(backward=gather_gemm_plain_reversed)
+    model.load_state_dict(weights)
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    leaves = []
+    for key, pg in p_grads.items():
+        scale = pg.abs().max().item()
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "bias" and f"{module}.weight" in p_grads:
+            # a conv bias in front of a BN: its gradient is 0 up to rounding
+            scale = max(scale, p_grads[f"{module}.weight"].abs().max().item())
+        if not torch.isfinite(k_grads[key]).all() or not scale > 0:
+            fail(f"{name} fp32 train step: gradient {key} not finite or all zero")
+        err = (k_grads[key] - pg).abs().max().item() / scale
+        spread = (r_grads[key] - pg).abs().max().item() / scale
+        leaves.append((err / max(TRAIN_GRAD_TOL, 4 * spread), key, err, spread))
+    leaves.sort(reverse=True)
+    within = sum(err <= TRAIN_GRAD_TOL for _, _, err, _ in leaves)
+    log(f"[check] {name} fp32 train step: loss through the kernels {k_loss:.6f}, through the "
+        f"plain twins {p_loss:.6f} ({rel:.2e} relative); gradients with the dX launches "
+        f"through the kernel vs the plain twin: {within} of {len(leaves)} leaves within "
+        f"{TRAIN_GRAD_TOL:g} of their largest entry; worst leaves (kernel - plain, plain - "
+        "plain reversed, of the leaf's largest entry): "
+        + ", ".join(f"{key} {err:.2e} / {spread:.2e}" for _, key, err, spread in leaves[:5]))
+    if not rel <= TRAIN_LOSS_TOL or leaves[0][0] > 1.0:
+        fail(f"{name} fp32 train step: kernels vs plain twins differ (loss {rel:.3g} relative, "
+             f"gradient {leaves[0][1]} {leaves[0][2]:.3g} of its largest entry where the "
+             f"plain path's own rounding moves it {leaves[0][3]:.3g})")
+    return {"loss_rel_err": rel, "leaves_within_tol": within, "leaves": len(leaves),
+            "worst": [{"leaf": key, "kernel_vs_plain": err, "plain_vs_reversed": spread}
+                      for _, key, err, spread in leaves[:5]]}
 
 
 def main():
@@ -764,6 +1005,29 @@ def main():
     check_paths("voxel", voxel, vcfg, batches[0], res.preds[0],
                 [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
                  (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")], device)
+    del voxel, res
+
+    # 6. train
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    model, pillar_train, pillar_steps, train_batches = train("pillar", flagship, False, device)
+    train_checks = {"pillar": check_train_paths("pillar", model, train_batches[0], swaps,
+                                                device)}
+    del model
+    model, voxel_train, voxel_steps, train_batches = train("voxel", voxel_centerpoint, True,
+                                                           device)
+    bad = [s for s in voxel_steps if s["gather_gemm_tensor_core"] != VOXEL_TRAIN_B2
+           or s["gather_gemm_cuda_core"] != 0]
+    if bad or voxel_train["gather_gemm"] != VOXEL_TRAIN_B2 * TRAIN_STEPS:
+        fail(f"a voxel train step did not launch the tensor-core gather-GEMM exactly "
+             f"{VOXEL_TRAIN_B2} times: {bad or voxel_train}")
+    if pillar_train["gather_gemm"] or pillar_train["iou_bev_overlap"] or \
+            voxel_train["iou_bev_overlap"]:
+        fail(f"a train path launched a kernel that is not on it: pillar {pillar_train}, "
+             f"voxel {voxel_train}")
+    dx_total, dx_entries = time_train_dx(model, train_batches[0], device)
+    train_checks["voxel"] = check_train_paths("voxel", model, train_batches[0], swaps, device)
+    del model
 
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
@@ -774,7 +1038,9 @@ def main():
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
         "launches": pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"],
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
-                             "voxel": voxel_launches["iou_bev_overlap"]},
+                             "voxel": voxel_launches["iou_bev_overlap"],
+                             "pillar_train": pillar_train["iou_bev_overlap"],
+                             "voxel_train": voxel_train["iou_bev_overlap"]},
         "max_abs_err": iou_err,
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
@@ -795,10 +1061,14 @@ def main():
         "route": "cuda",
         "source": "dfu3d_tpu_torch/core/voxel/csrc/gather_gemm.cu",
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
-        "launches": voxel_launches["gather_gemm"],
-        "launches_by_path": {"voxel": voxel_launches["gather_gemm"]},
+        "launches": voxel_launches["gather_gemm"] + voxel_train["gather_gemm"],
+        "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
+                             "voxel_train": voxel_train["gather_gemm"],
+                             "pillar_train": pillar_train["gather_gemm"]},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
+                                + voxel_train[f"gather_gemm_{k}"]
                                 for k in ("tensor_core", "cuda_core")},
+        "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
             "tensor_core": "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (bf16)",
             "cuda_core": "fmaf (fp32)"},
@@ -819,7 +1089,12 @@ def main():
         "per_shape": gemm_shapes,
         "served_request": served_gemms,
         "voxel_stages": stages,
+        "train_dx": {"unit": "one bf16 voxel train step: its 20 dX launches on their own "
+                             "inputs, summed", **dx_total, "per_conv": dx_entries},
     }]
+    log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
+                              "voxel": {"steps": voxel_steps, "launches": voxel_train},
+                              "fp32_kernels_vs_plain": train_checks}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

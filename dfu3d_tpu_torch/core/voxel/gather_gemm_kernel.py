@@ -53,22 +53,34 @@ launches_by_variant = {"tensor_core": 0, "cuda_core": 0}
 _fns = {}
 
 
+def padded_table(feats, valid):
+    """T in fp32, flat: feats (B, V, C) with the rows `valid` masks set to 0
+    and one zero row appended per sample → (B·(V + 1), C); with
+    `table_rows`, table index V (the sentinel) reads that zero row."""
+    b, v, cin = feats.shape
+    table = torch.where(valid[..., None], feats, 0).float()
+    return torch.cat([table, table.new_zeros(b, 1, cin)], dim=1).reshape(b * (v + 1), cin)
+
+
+def table_rows(nbr, v):
+    """Per tap j, the flat rows of `padded_table` that nbr[:, :, j] reads:
+    (K, B·Q) int64."""
+    base = torch.arange(nbr.shape[0], device=nbr.device, dtype=torch.int64)[:, None, None] * (v + 1)
+    return (nbr.long() + base).permute(2, 0, 1).reshape(nbr.shape[2], -1)
+
+
 def gather_gemm_plain(feats, valid, nbr, kernel):
     """Loop form of dfu3d_tpu/models/sparse_backbone.py::_gather_gemm in
     PyTorch: mask, pad a zero row, then per tap one row gather and one
     matmul, summed in fp32; the result is cast to feats' dtype."""
-    b, v, cin = feats.shape
-    q, k = nbr.shape[1], nbr.shape[2]
-    table = torch.where(valid[..., None], feats, 0).float()
-    table = torch.cat([table, table.new_zeros(b, 1, cin)], dim=1).reshape(b * (v + 1), cin)
-    base = torch.arange(b, device=feats.device, dtype=torch.int64)[:, None] * (v + 1)
+    b, v, _ = feats.shape
+    table = padded_table(feats, valid)
     w = kernel.float()
     out = None
-    for j in range(k):
-        rows = table.index_select(0, (nbr[:, :, j].long() + base).reshape(-1))
-        contrib = rows @ w[j]
+    for j, rows in enumerate(table_rows(nbr, v)):
+        contrib = table.index_select(0, rows) @ w[j]
         out = contrib if out is None else out + contrib
-    return out.reshape(b, q, -1).to(feats.dtype)
+    return out.reshape(b, nbr.shape[1], -1).to(feats.dtype)
 
 
 def _kernel(kind):

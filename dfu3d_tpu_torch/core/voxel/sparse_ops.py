@@ -2,8 +2,8 @@
 
 Port of dfu3d_tpu/core/voxel/sparse_ops.py (`SparseGrid`, `linearize`,
 `column_major_index`, `kernel_offsets`, `build_lookup`, `find_neighbors`,
-`downsample_coords`), batched over a leading B. Active voxels live in
-fixed-capacity buffers, coords (B, V, 3) + valid (B, V). A neighbour table
+`transpose_down_neighbors`, `downsample_coords`), batched over a leading B.
+Active voxels live in fixed-capacity buffers, coords (B, V, 3) + valid (B, V). A neighbour table
 (B, Q, K) int32 holds, for each query and kernel tap, the slot of the voxel
 at query + offset in its own sample, or the sentinel V.
 
@@ -82,24 +82,52 @@ def build_lookup(grid: SparseGrid, coords, valid):
     return keys[order], order
 
 
-def find_neighbors(grid: SparseGrid, query_coords, query_valid, sorted_keys, order, offsets):
-    """For each query (B, Q, 3) and each offset (K, 3), the slot of the voxel
-    at query + offset in the searched set of `build_lookup`, else V:
-    (B, Q, K) int32."""
-    b, q = query_coords.shape[:2]
+def _search(grid: SparseGrid, cells, ok, sorted_keys, order):
+    """Slots of cells (B, P, K, 3) int64 where `ok`, in the searched set of
+    `build_lookup`; absent, not ok or outside the grid → V. (B, P, K) int32."""
+    b = cells.shape[0]
     v = order.numel() // b
-    dev = query_coords.device
-    off = torch.as_tensor(np.asarray(offsets), dtype=torch.int64, device=dev)
-    c = query_coords.long()[:, :, None, :] + off                   # (B, Q, K, 3)
-    ok = query_valid[:, :, None] & _in_grid(grid, c)
-    qlin = torch.where(ok, (c[..., 2] * grid.ny + c[..., 1]) * grid.nx + c[..., 0],
+    ok = ok & _in_grid(grid, cells)
+    qlin = torch.where(ok, (cells[..., 2] * grid.ny + cells[..., 1]) * grid.nx + cells[..., 0],
                        grid.num_cells)
-    base = torch.arange(b, device=dev, dtype=torch.int64)[:, None, None]
+    base = torch.arange(b, device=cells.device, dtype=torch.int64)[:, None, None]
     qkey = qlin + base * (grid.num_cells + 1)
     pos = torch.clamp(torch.searchsorted(sorted_keys, qkey.reshape(-1)), max=b * v - 1)
     pos = pos.view(qkey.shape)
     found = (sorted_keys[pos] == qkey) & (qlin < grid.num_cells)
     return torch.where(found, order[pos] - base * v, v).to(torch.int32)
+
+
+def _offsets(offsets, device):
+    return torch.as_tensor(np.asarray(offsets), dtype=torch.int64, device=device)
+
+
+def find_neighbors(grid: SparseGrid, query_coords, query_valid, sorted_keys, order, offsets):
+    """For each query (B, Q, 3) and each offset (K, 3), the slot of the voxel
+    at query + offset in the searched set of `build_lookup`, else V:
+    (B, Q, K) int32."""
+    c = query_coords.long()[:, :, None, :] + _offsets(offsets, query_coords.device)
+    return _search(grid, c, query_valid[:, :, None], sorted_keys, order)
+
+
+def transpose_down_neighbors(down_grid: SparseGrid, in_coords, in_valid, out_sorted_keys,
+                             out_order, offsets, z_only: bool = False):
+    """Transpose table of a stride-2 sparse conv (dfu3d_tpu
+    sparse_ops.transpose_down_neighbors): tnbr[b, p, k] is the output slot q
+    whose tap k reads input p, i.e. center(q) + offsets[k] == in_coords[p],
+    with center(q) = 2 · out_coord (or (x, y, 2 · z) when z_only); sentinel
+    Q where the implied centre has odd parity, lies outside the grid or is
+    not an active output. The output set is searched through its
+    `build_lookup` (out_sorted_keys, out_order). (B, V, K) int32."""
+    t = in_coords.long()[:, :, None, :] - _offsets(offsets, in_coords.device)  # implied centres
+    if z_only:
+        parity_ok = t[..., 2] % 2 == 0
+        cells = torch.stack([t[..., 0], t[..., 1], torch.div(t[..., 2], 2, rounding_mode="floor")],
+                            dim=-1)
+    else:
+        parity_ok = (t % 2 == 0).all(dim=-1)
+        cells = torch.div(t, 2, rounding_mode="floor")
+    return _search(down_grid, cells, in_valid[:, :, None] & parity_ok, out_sorted_keys, out_order)
 
 
 def downsample_coords(down_grid: SparseGrid, coords, valid, out_cap: int, z_only: bool = False):

@@ -1,5 +1,6 @@
-"""Voxel grid, segment reductions (forward) and dynamic voxelization, the
-scatter substrate of the VFEs. Port of dfu3d_tpu/core/voxel/voxelize.py.
+"""Voxel grid, segment reductions (two with the JAX package's custom
+backwards) and dynamic voxelization, the scatter substrate of the VFEs.
+Port of dfu3d_tpu/core/voxel/voxelize.py.
 
 Segment ids outside [0, num_segments) are dropped, as `jax.ops.segment_*`
 drops them: every reduction writes into num_segments + 1 rows and the last
@@ -82,16 +83,62 @@ def segment_max(values, segment_ids, num_segments: int, empty_value: float = 0.0
     return torch.where(torch.isfinite(out), out, empty_value)
 
 
+class _SegmentMaxFast(torch.autograd.Function):
+    """The JAX custom VJP of segment_max_fast (voxelize.py:129-162): a
+    gather-only backward, dx[i] = (x[i] == y[seg[i]]) · dy[seg[i]], so every
+    tied winner gets the full gradient (scatter_reduce's own backward would
+    split it among them) and out-of-range ids get 0."""
+
+    @staticmethod
+    def forward(ctx, values, segment_ids, num_segments):
+        out = segment_max(values, segment_ids, num_segments, 0.0)
+        ctx.save_for_backward(values, segment_ids, out)
+        ctx.num_segments = num_segments
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        values, segment_ids, out = ctx.saved_tensors
+        n = ctx.num_segments
+        safe = torch.clamp(segment_ids, 0, n - 1)
+        in_range = ((segment_ids >= 0) & (segment_ids < n))[:, None]
+        winners = (values == out.index_select(0, safe)) & in_range
+        dx = torch.where(winners, g.index_select(0, safe), 0).to(values.dtype)
+        return dx, None, None
+
+
+class _SegmentBroadcast(torch.autograd.Function):
+    """Row gather with the JAX custom VJP (voxelize.py:165-189): the backward
+    is a segment sum over the same ids, out-of-range ids dropped; in order
+    over sorted segments (`segment_sum_sorted`, no atomics) when the ids are
+    ascending with the sentinel last."""
+
+    @staticmethod
+    def forward(ctx, table, segment_ids, num_segments, indices_are_sorted):
+        ctx.save_for_backward(segment_ids)
+        ctx.num_segments = num_segments
+        ctx.indices_are_sorted = indices_are_sorted
+        return table.index_select(0, torch.clamp(segment_ids, max=num_segments - 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        reduce = segment_sum_sorted if ctx.indices_are_sorted else segment_sum
+        return reduce(g, segment_ids, ctx.num_segments), None, None, None
+
+
 def segment_max_fast(values, segment_ids, num_segments: int):
-    """segment_max with empty segments → 0 (forward of the JAX custom-VJP op;
-    its gather-only backward comes with the training slice)."""
-    return segment_max(values, segment_ids, num_segments, 0.0)
+    """segment_max with empty segments → 0 and a gather-only backward in
+    which every tied winner gets the full gradient (the JAX package's
+    documented choice)."""
+    return _SegmentMaxFast.apply(values, segment_ids, num_segments)
 
 
-def segment_broadcast(table, segment_ids, num_segments: int):
+def segment_broadcast(table, segment_ids, num_segments: int, indices_are_sorted: bool = False):
     """Row gather table[seg[i]]; out-of-range ids read row num_segments - 1
-    (callers mask those rows)."""
-    return table.index_select(0, torch.clamp(segment_ids, max=num_segments - 1))
+    (callers mask those rows) and get no gradient. The backward is a segment
+    sum; pass indices_are_sorted when the ids ascend with the sentinel last."""
+    return _SegmentBroadcast.apply(table, segment_ids, num_segments, indices_are_sorted)
 
 
 # ---------------------------------------------------------------------------

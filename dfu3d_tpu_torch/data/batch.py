@@ -11,7 +11,7 @@ import torch
 class PointBatch(NamedTuple):
     points: torch.Tensor        # (B, N_max, C) fp32
     points_valid: torch.Tensor  # (B, N_max) bool
-    gt_boxes: torch.Tensor      # (B, M_max, 7 + 1) fp32; 1-based class id last
+    gt_boxes: torch.Tensor      # (B, M_max, 7 [+ 2 velocity] + 1) fp32; 1-based class id last
     gt_valid: torch.Tensor      # (B, M_max) bool
 
     def to(self, device) -> "PointBatch":
@@ -23,10 +23,13 @@ class PointBatch(NamedTuple):
                      for a in (points, points_valid, gt_boxes, gt_valid)))
 
 
-def synthetic_batch(b: int, n: int, m: int, extent: float, seed: int = 0) -> PointBatch:
+def synthetic_batch(b: int, n: int, m: int, extent: float, seed: int = 0,
+                    velocity: bool = False) -> PointBatch:
     """Uniform points and random gt boxes; the same numpy draws as
     `__graft_entry__._synthetic_batch` (which always uses seed 0). The first
-    16 gt slots of each sample are valid."""
+    16 gt slots of each sample are valid. With `velocity` the boxes have 10
+    columns, (vx, vy) in [-5, 5] m/s before the class id, drawn after every
+    other draw so that the 8-column batch of the same seed is unchanged."""
     rng = np.random.RandomState(seed)
     pts = np.zeros((b, n, 4), np.float32)
     pts[..., 0] = rng.uniform(0, extent, (b, n))
@@ -42,4 +45,7 @@ def synthetic_batch(b: int, n: int, m: int, extent: float, seed: int = 0) -> Poi
     gt[..., 7] = rng.randint(1, 11, (b, m))
     gt_valid = np.zeros((b, m), bool)
     gt_valid[:, :16] = True
+    if velocity:
+        gt = np.concatenate([gt[..., :7], rng.uniform(-5, 5, (b, m, 2)).astype(np.float32),
+                             gt[..., 7:]], axis=-1)
     return PointBatch.from_numpy(pts, np.ones((b, n), bool), gt, gt_valid)

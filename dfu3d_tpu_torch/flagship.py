@@ -23,13 +23,14 @@ GAINS = {"vfe.pfn_0.Dense_0.weight": 1 / math.sqrt(170.0),
          "backbone_3d.conv_input.SubMConv3d_0.kernel": 4.0}
 
 
-def flagship(tiny: bool = False, device="cuda"):
-    """Returns (cfg, grid, model); the model's weights are PyTorch's defaults."""
+def flagship(tiny: bool = False, device="cuda", train: bool = False):
+    """Returns (cfg, grid, model), in train mode with `train`; the model's
+    weights are PyTorch's defaults."""
     cfg = cfg_from_yaml_file(FLAGSHIP_CFG, CfgDict())
     if tiny:
         cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(TINY_RANGE)
     grid = VoxelGrid.create(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, VOXEL_SIZE)
-    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device)
+    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device, train=train)
     return cfg, grid, model
 
 

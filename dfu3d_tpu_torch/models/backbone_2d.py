@@ -14,22 +14,44 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 with running statistics; fp32 math, the
-    result cast back to the input's dtype (flax BatchNorm(dtype=float32)
-    followed by the module's compute-dtype cast)."""
+    """BatchNorm over dim 1 (flax BatchNorm(dtype=float32) followed by the
+    module's compute-dtype cast): fp32 math, the result cast back to the
+    input's dtype. Eval uses the running statistics. Training uses the batch
+    statistics of flax: mean and the biased variance E[x²] - mean², clamped
+    at 0, and updates the running statistics as running · keep + batch ·
+    (1 - keep) (flax `momentum` = keep; torch's momentum would be 1 - keep)."""
 
-    def __init__(self, num_features: int, eps: float):
+    def __init__(self, num_features: int, eps: float, keep: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.keep = keep
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, training=False, eps=self.eps)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                             self.bias, training=False, eps=self.eps)
+            return y.to(x.dtype)
+        xf = x.float()
+        dims = [d for d in range(xf.dim()) if d != 1]
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        update_running_stats_(self, mean, var)
+        shape = (1, -1) + (1,) * (xf.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+@torch.no_grad()
+def update_running_stats_(bn, mean, var):
+    """running = keep · running + (1 - keep) · batch, for a module with
+    `keep`, `running_mean` and `running_var`."""
+    bn.running_mean.copy_(bn.keep * bn.running_mean + (1 - bn.keep) * mean)
+    bn.running_var.copy_(bn.keep * bn.running_var + (1 - bn.keep) * var)
 
 
 class ConvBNReLU(nn.Module):

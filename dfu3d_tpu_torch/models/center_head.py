@@ -1,22 +1,47 @@
-"""CenterHead forward and post-processing (port of dfu3d_tpu/models/center_head.py).
+"""CenterHead forward, target assignment, loss and post-processing (port of
+dfu3d_tpu/models/center_head.py).
 
 All (head, branch) towers share one depth and one mid width on the flagship,
 so they run as the JAX package runs them (FusedSeparateHeads): one dense conv
 to G·Cmid channels, one BN, then one grouped out conv whose branch outputs are
-padded to the widest branch. Target assignment and the losses come with the
-training slice.
+padded to the widest branch. Targets are the JAX package's vectorised
+gaussian splat: per class one outer product over (B, M, H, W) and a max over
+the M boxes.
 """
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.geometry.nms import nms_bev, top_k
+from . import losses
 from .backbone_2d import BatchNorm
+
+
+def gaussian_radius(height, width, min_overlap: float = 0.1):
+    """CenterNet gaussian radius (centernet_utils.gaussian_radius)."""
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 + torch.sqrt(torch.clamp(b1 ** 2 - 4 * c1, min=0.0))) / 2
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    r2 = (b2 + torch.sqrt(torch.clamp(b2 ** 2 - 4 * 4.0 * c2, min=0.0))) / 2
+    a3 = 4.0 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    r3 = (b3 + torch.sqrt(torch.clamp(b3 ** 2 - 4 * a3 * c3, min=0.0))) / 2
+    return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+class HeadTargets(NamedTuple):
+    heatmap: torch.Tensor       # (B, H, W, C_head)
+    target_boxes: torch.Tensor  # (B, M, 8 | 10)
+    inds: torch.Tensor          # (B, M) int64 cell index y · W + x
+    mask: torch.Tensor          # (B, M) bool
 
 
 class FusedSeparateHeads(nn.Module):
@@ -40,7 +65,7 @@ class FusedSeparateHeads(nn.Module):
         for t in range(num_conv - 1):
             self.add_module(f"conv{t}", nn.Conv2d(cin, g * cm, 3, padding=1, bias=use_bias,
                                                   groups=1 if t == 0 else g))
-            self.add_module(f"bn{t}", BatchNorm(g * cm, eps=1e-5))
+            self.add_module(f"bn{t}", BatchNorm(g * cm, eps=1e-5, keep=0.9))
             cin = g * cm
         self.out = nn.Conv2d(cin, g * self.out_max, 3, padding=1, bias=True,
                              groups=1 if num_conv == 1 else g)
@@ -70,21 +95,34 @@ class CenterHead(nn.Module):
                  class_names_each_head: Sequence[Sequence[str]], shared_conv_channel: int,
                  num_hm_conv: int, head_dict: Dict[str, Dict[str, int]],
                  point_cloud_range: Sequence[float], voxel_size: Sequence[float],
-                 feature_map_stride: int, use_bias_before_norm: bool = True):
+                 feature_map_stride: int, use_bias_before_norm: bool = True,
+                 head_order: Optional[Sequence[str]] = None, gaussian_overlap: float = 0.1,
+                 min_radius: int = 2):
         super().__init__()
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.feature_map_stride = float(feature_map_stride)
         self.num_heads = len(class_names_each_head)
+        self.num_classes = len(class_names)
+        self.head_order = tuple(head_order) if head_order is not None else tuple(head_dict)
+        self.gaussian_overlap = float(gaussian_overlap)
+        self.min_radius = int(min_radius)
         # per head: 1-based global class id of each local class
         self.class_id_mapping_each_head = tuple(
             tuple(list(class_names).index(n) + 1 for n in names)
             for names in class_names_each_head)
+        # per 1-based global class id: its head and its local id there
+        head_of = [0] * (self.num_classes + 1)
+        local_of = [0] * (self.num_classes + 1)
+        for h, ids in enumerate(self.class_id_mapping_each_head):
+            for j, gid in enumerate(ids):
+                head_of[gid], local_of[gid] = h, j
+        self._head_of, self._local_of = tuple(head_of), tuple(local_of)
 
         self.shared_conv = nn.ModuleDict({
             "layers_0": nn.Conv2d(in_channels, shared_conv_channel, 3, padding=1,
                                   bias=use_bias_before_norm)})
-        self.shared_bn = BatchNorm(shared_conv_channel, eps=1e-5)
+        self.shared_bn = BatchNorm(shared_conv_channel, eps=1e-5, keep=0.9)
         convs = {num_hm_conv} | {v["num_conv"] for v in head_dict.values()}
         if len(convs) != 1:
             raise NotImplementedError(
@@ -103,6 +141,95 @@ class CenterHead(nn.Module):
         x = spatial_features_2d.permute(0, 3, 1, 2)
         x = F.relu(self.shared_bn(self.shared_conv["layers_0"](x)))
         return self.fused_heads(x)
+
+    # ------------------------------------------------------------------
+    # Targets and loss (train)
+    # ------------------------------------------------------------------
+
+    def assign_targets(self, gt_boxes, gt_valid, feature_map_size):
+        """gt_boxes (B, M, 8 | 10) lidar boxes [+ (vx, vy)] + 1-based class
+        id, gt_valid (B, M) → a HeadTargets per head at the (H, W) map."""
+        H, W = feature_map_size
+        dev = gt_boxes.device
+        pcr, vs, stride = self.point_cloud_range, self.voxel_size, self.feature_map_stride
+        gt_boxes = gt_boxes.float()
+
+        cls_id = torch.clamp(gt_boxes[..., -1].to(torch.int64), 0, self.num_classes)
+        head_of = torch.tensor(self._head_of, device=dev)[cls_id]
+        local_of = torch.tensor(self._local_of, device=dev)[cls_id]
+
+        coord_x = torch.clamp((gt_boxes[..., 0] - pcr[0]) / vs[0] / stride, 0.0, W - 0.5)
+        coord_y = torch.clamp((gt_boxes[..., 1] - pcr[1]) / vs[1] / stride, 0.0, H - 0.5)
+        cx_int = coord_x.to(torch.int64)
+        cy_int = coord_y.to(torch.int64)
+        dx = gt_boxes[..., 3] / vs[0] / stride
+        dy = gt_boxes[..., 4] / vs[1] / stride
+        radius = torch.clamp(gaussian_radius(dx, dy, self.gaussian_overlap).to(torch.int64),
+                             min=self.min_radius)
+        live = gt_valid & (dx > 0) & (dy > 0) & (cls_id > 0)
+
+        # a gaussian around each box's integer centre (reference
+        # draw_gaussian_to_heatmap: sigma = (2r + 1) / 6, window clipped at r)
+        off_y = torch.arange(H, device=dev)[None, None, :] - cy_int[..., None]   # (B, M, H)
+        off_x = torch.arange(W, device=dev)[None, None, :] - cx_int[..., None]   # (B, M, W)
+        sigma = (2.0 * radius.float() + 1.0) / 6.0
+        inv_2s2 = (1.0 / (2.0 * sigma * sigma))[..., None]
+        g_y = torch.exp(-(off_y.float() ** 2) * inv_2s2)
+        g_x = torch.exp(-(off_x.float() ** 2) * inv_2s2)
+        g_y = torch.where((off_y.abs() <= radius[..., None]) & live[..., None], g_y, 0.0)
+        g_x = torch.where(off_x.abs() <= radius[..., None], g_x, 0.0)
+
+        target_boxes = torch.stack([
+            coord_x - cx_int.float(), coord_y - cy_int.float(), gt_boxes[..., 2],
+            torch.log(torch.clamp(gt_boxes[..., 3], min=1e-6)),
+            torch.log(torch.clamp(gt_boxes[..., 4], min=1e-6)),
+            torch.log(torch.clamp(gt_boxes[..., 5], min=1e-6)),
+            torch.cos(gt_boxes[..., 6]), torch.sin(gt_boxes[..., 6])], dim=-1)
+        if gt_boxes.shape[-1] > 8:
+            # velocity-width gt: raw (vx, vy) targets of the 'vel' branch
+            target_boxes = torch.cat([target_boxes, gt_boxes[..., 7:-1]], dim=-1)
+        inds = cy_int * W + cx_int
+
+        results = []
+        for h, ids in enumerate(self.class_id_mapping_each_head):
+            in_head = live & (head_of == h)
+            maps = []
+            for c in range(len(ids)):
+                gy = torch.where((in_head & (local_of == c))[..., None], g_y, 0.0)
+                # outer product per box, then the max over boxes: (B, H, W)
+                maps.append((gy[..., :, None] * g_x[..., None, :]).amax(dim=1))
+            results.append(HeadTargets(
+                heatmap=torch.stack(maps, dim=-1),
+                target_boxes=torch.where(in_head[..., None], target_boxes, 0.0),
+                inds=torch.where(in_head, inds, 0),
+                mask=in_head))
+        return results
+
+    def get_loss(self, pred_dicts, target_list, loss_weights):
+        """Sum over heads of the focal heat-map loss and the code-weighted L1
+        (reference get_loss). Returns (loss, {hm_loss_head_i, loc_loss_head_i,
+        rpn_loss})."""
+        total = 0.0
+        tb = {}
+        code_weights = torch.tensor(loss_weights["code_weights"], dtype=torch.float32,
+                                    device=pred_dicts[0]["hm"].device)
+        for idx, (pred, tgt) in enumerate(zip(pred_dicts, target_list)):
+            hm = losses.sigmoid_clamped(pred["hm"])
+            hm_loss = losses.focal_loss_centernet(hm, tgt.heatmap) * loss_weights["cls_weight"]
+            reg_maps = torch.cat([pred[name] for name in self.head_order], dim=-1)
+            bsz, H, W, D = reg_maps.shape
+            if tgt.target_boxes.shape[-1] != D:
+                raise ValueError(
+                    f"reg target width {tgt.target_boxes.shape[-1]} != predicted {D}: a 'vel' "
+                    "head needs velocity-width (10-column) gt boxes")
+            reg_loss = losses.reg_loss_centernet(reg_maps.reshape(bsz, H * W, D),
+                                                 tgt.target_boxes, tgt.inds, tgt.mask)
+            loc_loss = (reg_loss * code_weights[:D]).sum() * loss_weights["loc_weight"]
+            total = total + hm_loss + loc_loss
+            tb[f"hm_loss_head_{idx}"] = hm_loss
+            tb[f"loc_loss_head_{idx}"] = loc_loss
+        tb["rpn_loss"] = total
+        return total, tb
 
     # ------------------------------------------------------------------
     # Decode (eval): fixed-size masked outputs

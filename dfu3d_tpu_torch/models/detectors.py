@@ -1,10 +1,11 @@
 """CenterPoint assembly (port of dfu3d_tpu/models/detectors.py, the pillar
 and voxel branches):
 
-    pillar: DynPillarVFE → BaseBEVBackbone → CenterHead → decode + NMS
+    pillar: DynPillarVFE → BaseBEVBackbone → CenterHead
     voxel:  MeanVFE → VoxelResBackBone8x → height_compression →
-            BaseBEVBackbone → CenterHead → decode + NMS
+            BaseBEVBackbone → CenterHead
 
+then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -81,13 +82,18 @@ class CenterPoint(nn.Module):
             voxel_size=grid.voxel_size,
             feature_map_stride=dh.TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE,
             use_bias_before_norm=dh.get("USE_BIAS_BEFORE_NORM", False),
+            head_order=tuple(dh.SEPARATE_HEAD_CFG.HEAD_ORDER),
+            gaussian_overlap=dh.TARGET_ASSIGNER_CONFIG.GAUSSIAN_OVERLAP,
+            min_radius=dh.TARGET_ASSIGNER_CONFIG.MIN_RADIUS,
         )
 
     def features(self, batch):
         """PointBatch → list over heads of {branch: (B, H, W, c)}."""
         if self.use_voxel_backbone:
             feats, vox = self.vfe(batch.points, batch.points_valid)
-            levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique)
+            # the strided convs' transpose tables serve the backward only
+            levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique,
+                                           transpose=self.training)
             st = self.backbone_3d(feats, levels)
             # summed in fp32, then in the dtype the sparse convs ran in
             bev = height_compression(st).to(st.features.dtype)
@@ -95,17 +101,32 @@ class CenterPoint(nn.Module):
             bev = self.vfe(batch.points, batch.points_valid)
         return self.dense_head(self.backbone_2d(bev))
 
+    def forward(self, batch):
+        """Train: (loss, {hm_loss_head_i, loc_loss_head_i, rpn_loss}); BN
+        layers use batch statistics and update their running ones when the
+        module is in train mode."""
+        return self.get_loss(batch, self.features(batch))
+
+    def get_loss(self, batch, pred_dicts):
+        """Targets at the head's map size, then the head's loss."""
+        h, w = pred_dicts[0]["hm"].shape[1:3]
+        targets = self.dense_head.assign_targets(batch.gt_boxes, batch.gt_valid, (h, w))
+        return self.dense_head.get_loss(pred_dicts, targets,
+                                        self.model_cfg.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS)
+
     def predict(self, batch):
         """Eval: decoded, NMS'd boxes. Returns (boxes, scores, labels, valid)."""
         return self.dense_head.generate_predicted_boxes(
             self.features(batch), self.model_cfg.DENSE_HEAD.POST_PROCESSING)
 
 
-def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", **overrides):
+def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
+                  **overrides):
     """Build a detector by MODEL.NAME on `device` (the card unless the caller
-    asks for the CPU), in eval mode. `overrides` are constructor keywords
-    (num_point_features, max_pillars, max_voxels)."""
+    asks for the CPU), in eval mode, or in train mode with `train`.
+    `overrides` are constructor keywords (num_point_features, max_pillars,
+    max_voxels)."""
     if model_cfg.NAME != "CenterPoint":
         raise NotImplementedError(f"detector {model_cfg.NAME} is not ported yet")
     dev = resolve_device(device)
-    return CenterPoint(model_cfg, class_names, grid, **overrides).to(dev).eval()
+    return CenterPoint(model_cfg, class_names, grid, **overrides).to(dev).train(train)

@@ -1,5 +1,5 @@
-"""VFEs (eval forward): DynPillarVFE (port of dfu3d_tpu/models/vfe.py) and
-MeanVFE (the voxel branch of dfu3d_tpu/models/detectors.py:265-280).
+"""VFEs: DynPillarVFE (port of dfu3d_tpu/models/vfe.py) and MeanVFE (the
+voxel branch of dfu3d_tpu/models/detectors.py:265-280, no parameters).
 
 DynPillarVFE: points are sorted by their batch-offset BEV cell id; segment
 ids are the ranks of the distinct cells, so the pillar reductions land in a
@@ -23,23 +23,41 @@ from ..core.voxel import (
     segment_max_fast,
     segment_sum_sorted,
 )
+from .backbone_2d import update_running_stats_
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over a flat point axis; eval uses the running statistics.
-    The math is fp32 and the result is cast back to the input's dtype."""
+    """BatchNorm over every axis but the last, counting only the rows that
+    `mask` (x.shape[:-1]) marks. The math is fp32 and the result is cast back
+    to the input's dtype. Eval uses the running statistics; training uses the
+    JAX package's one-pass batch statistics (mean and E[x²] - mean², clamped
+    at 0) and moves the running ones with keep 0.99."""
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    def __init__(self, num_features: int, eps: float = 1e-3, keep: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.keep = keep
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def batch_stats(self, x, mask):
+        m = mask.float()[..., None]
+        dims = tuple(range(x.dim() - 1))
+        count = torch.clamp(m.sum(), min=1.0)
+        xm = x.float() * m
+        mean = xm.sum(dims) / count
+        var = torch.clamp((xm * x.float()).sum(dims) / count - mean * mean, min=0.0)
+        return mean, var
+
     def forward(self, x, mask):
-        # the mask only enters the batch statistics of training
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            mean, var = self.batch_stats(x, mask)
+            update_running_stats_(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -65,7 +83,8 @@ class PFNLayer(nn.Module):
         x_max = segment_max_fast(x, seg_ids, num_segments)
         if self.last_layer:
             return x, x_max
-        gathered = segment_broadcast(x_max, seg_ids, num_segments)
+        # the segment ids are sorted (the sentinel last)
+        gathered = segment_broadcast(x_max, seg_ids, num_segments, True)
         gathered = torch.where(point_mask[:, None], gathered, 0.0)
         return torch.cat([x, gathered], dim=-1), None
 

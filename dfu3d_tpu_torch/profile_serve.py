@@ -88,35 +88,47 @@ def _phase_times(model, step, batch):
     return {b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])}
 
 
-def _profile(step, batches):
+def device_profile(run, steps: int):
+    """torch.profiler over run(), which runs `steps` steps and waits for
+    their results: (the profile, {wall and device-busy ms per step, the idle
+    share of the window, device time by kernel name}). Ranges
+    (record_function) also appear on the device's timeline; only kernels
+    and copies count as busy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            _run(step, batch)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = defaultdict(lambda: [0.0, 0])
     busy_us = 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             us = evt.time_range.elapsed_us()
             busy_us += us
             by_name[evt.name][0] += us
             by_name[evt.name][1] += 1
     if busy_us == 0:
-        return {"device_time": "not measured (the profiler saw no device events)"}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
-    n = len(batches)
-    return {
-        "wall_ms_per_step": wall_us / n / 1e3,
-        "device_busy_ms_per_step": busy_us / n / 1e3,
+        return prof, {"device_time": "not measured (the profiler saw no device events)"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    return prof, {
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1 - busy_us / wall_us,
-        "top_kernels": [{"name": k[:120], "ms_per_step": v[0] / n / 1e3,
-                         "calls_per_step": v[1] / n} for k, v in top],
+        "top_kernels": [{"name": k[:120], "ms_per_step": v[0] / steps / 1e3,
+                         "calls_per_step": v[1] / steps} for k, v in top],
     }
+
+
+def _profile(step, batches):
+    def run():
+        for batch in batches:
+            _run(step, batch)
+
+    return device_profile(run, len(batches))[1]
 
 
 def main(argv=None):

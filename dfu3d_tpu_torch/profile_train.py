@@ -1,0 +1,216 @@
+"""Where the training time goes, on the card.
+
+    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel] [--steps 8]
+                                            [--out FILE.json]
+
+Runs train steps (`make_train_step`) at full width: the flagship
+CenterPoint-pillar (256 x 512 BEV) or voxel CenterPoint
+(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid, 10-column gt for its
+vel branch). B=4, 60,000 uniform points in a 50 m extent, 256 gt slots (16
+valid), bf16 autocast, weights from `seeded_weights_`, the config's
+adam_onecycle over 1000 steps. It reports, as one JSON object (printed, and
+written to --out):
+
+* step_ms: host clock per step, no instrumentation (median over steps), and
+  samples_per_s = 4 / step_ms;
+* phase_ms: the same step with a device sync at each phase boundary:
+  upload; the features, split into the VFE (voxelize + MeanVFE on the voxel
+  path), the neighbour and transpose tables (voxel only) and the backbones
+  and head convs; targets + loss; backward; clip + optimizer;
+* profile: torch.profiler over the steps: the device's busy ms per step, its
+  idle share of the profiled window and of step_ms (the profiler stretches
+  its window), device time by kernel name, and the sparse
+  convs' split: B2's forward and dX launches (told apart by their order in
+  each step: the forward's come first) and the dW gathers and matmuls (a
+  profiler range around `sparse_backbone.weight_grad`).
+
+Needs a CUDA device; numbers are tagged with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from .core.voxel import gather_gemm_kernel
+from .data.batch import synthetic_batch
+from .flagship import flagship, seeded_weights_
+from .models import sparse_backbone
+from .profile_serve import device_profile
+from .train.train_state import create_train_state, make_train_step
+from .zoo import voxel_centerpoint
+
+TOTAL_STEPS = 1000
+B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
+DW_RANGE = "sparse_conv_dW"
+
+
+def _phase_times(model, optimizer, step, batch):
+    """One step with a sync and a host timestamp at each phase boundary."""
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    hooks = [model.vfe.register_forward_pre_hook(lambda m, a: mark("upload")),
+             model.vfe.register_forward_hook(lambda m, a, o: mark("vfe")),
+             model.dense_head.register_forward_hook(lambda m, a, o: mark("backbones_head"))]
+    get_loss, opt_step = model.get_loss, optimizer.step
+    voxel = model.use_voxel_backbone
+    if voxel:
+        plan = model.backbone_3d.plan
+
+        def timed_plan(*a, **k):
+            out = plan(*a, **k)
+            mark("neighbour_tables")
+            return out
+
+        model.backbone_3d.plan = timed_plan
+
+    def timed_loss(*a, **k):
+        out = get_loss(*a, **k)
+        mark("targets_loss")
+        return out
+
+    def timed_step():
+        mark("backward")
+        out = opt_step()
+        mark("clip_optimizer")
+        return out
+
+    model.get_loss, optimizer.step = timed_loss, timed_step
+    try:
+        mark("start")
+        float(step(batch)["loss"])
+    finally:
+        del model.get_loss, optimizer.step
+        if voxel:
+            del model.backbone_3d.plan
+        for h in hooks:
+            h.remove()
+    return {b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])}
+
+
+def _profile(step, batches, b2_forward_per_step):
+    """`device_profile` of the steps, plus the sparse convs' split: B2's
+    forward and dX launches and the dW range."""
+    from torch.profiler import record_function
+
+    weight_grad = sparse_backbone.weight_grad
+
+    def ranged(*a, **k):
+        with record_function(DW_RANGE):
+            return weight_grad(*a, **k)
+
+    def run():
+        for batch in batches:
+            float(step(batch)["loss"])
+
+    sparse_backbone.weight_grad = ranged
+    try:
+        prof, out = device_profile(run, len(batches))
+    finally:
+        sparse_backbone.weight_grad = weight_grad
+    b2 = sorted((evt.time_range.start, evt.time_range.elapsed_us()) for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in evt.name for k in B2_KERNELS))
+    n = len(batches)
+    if b2 and "device_busy_ms_per_step" in out:
+        per_step = len(b2) // n
+        fwd = [us for i, (_, us) in enumerate(b2) if i % per_step < b2_forward_per_step]
+        dx = [us for i, (_, us) in enumerate(b2) if i % per_step >= b2_forward_per_step]
+        # the kernels the host-side ranges launched (the range's own span on
+        # the device's timeline, idle gaps included, does not count)
+        dw_us = sum(evt.device_time_total for evt in prof.events()
+                    if evt.name == DW_RANGE and evt.device_type == torch.autograd.DeviceType.CPU)
+        out["sparse_convs"] = {
+            "b2_launches_per_step": per_step,
+            "b2_forward": {"launches_per_step": len(fwd) / n, "ms_per_step": sum(fwd) / n / 1e3},
+            "b2_dx": {"launches_per_step": len(dx) / n, "ms_per_step": sum(dx) / n / 1e3},
+            "dw_gather_matmul_ms_per_step": (dw_us / n / 1e3 if dw_us else
+                                             "not measured (no device time under the range)"),
+        }
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("pillar", "voxel"), default="pillar")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA device")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    voxel = args.model == "voxel"
+    cfg, _, model = (voxel_centerpoint if voxel else flagship)(device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+    batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s, velocity=voxel)
+               for s in range(args.steps)]
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        float(step(batch)["loss"])
+    torch.cuda.synchronize()
+
+    step_ms = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        float(step(batch)["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    phases = [_phase_times(model, state.optimizer, step, b) for b in batches]
+    phase_ms = {k: statistics.median(p[k] for p in phases) for k in phases[0]}
+
+    # B2 launches of the forward of one step (read where the loss starts)
+    gather_gemm_kernel.launches = 0
+    counted = {}
+    get_loss = model.get_loss
+
+    def counting_loss(*a, **k):
+        counted.setdefault("forward", gather_gemm_kernel.launches)
+        return get_loss(*a, **k)
+
+    model.get_loss = counting_loss
+    try:
+        float(step(batches[0])["loss"])
+    finally:
+        del model.get_loss
+    forward = counted["forward"]
+    median = statistics.median(step_ms)
+    result = {
+        "device": smi.stdout.strip(),
+        "workload": ("flagship CenterPoint-pillar 256x512 BEV" if not voxel else
+                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000, 10-column gt")
+                    + ", B=4, 60000 points, 256 gt slots (16 valid), bf16 autocast, seeded "
+                      "random weights, adam_onecycle over 1000 steps",
+        "steps": args.steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": 4 / (median / 1e3),
+        "phase_ms": phase_ms,
+        "b2_launches_per_step": {"forward": forward,
+                                 "dx": gather_gemm_kernel.launches - forward},
+        "profile": _profile(step, batches, forward),
+    }
+    busy = result["profile"].get("device_busy_ms_per_step")
+    if busy is not None:
+        # the profiler's own cost stretches its window; against the step
+        # time taken without it the card idles for this share
+        result["profile"]["device_idle_share_of_step_ms"] = 1 - busy / median
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text)
+
+
+if __name__ == "__main__":
+    main()

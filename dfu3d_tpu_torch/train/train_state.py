@@ -1,23 +1,79 @@
-"""Eval step (port of dfu3d_tpu/train/train_state.py make_eval_step): predict,
-then the reference's recall counters (detector3d_template
-generate_recall_record) over the fixed-size padded outputs. The train step
-comes with the training slice."""
+"""Train and eval steps (port of dfu3d_tpu/train/train_state.py).
+
+The train step is the JAX package's `make_train_step`: forward and loss
+under bf16 autocast (its compute dtype on the chip), the backward, the
+global-norm clip and the optimizer update; BN layers update their running
+statistics in the forward. bf16 needs no loss scaling, so there is no
+GradScaler. The eval step predicts, then counts the reference's recall
+(detector3d_template generate_recall_record) over the fixed-size padded
+outputs.
+"""
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 
 import torch
+from torch import nn
 
 from ..core.geometry import pairwise_iou3d
 from ..device import resolve_device
+from .optimization import Optimizer, build_optimizer
+
+
+@dataclass
+class TrainState:
+    """The model and its optimizer; `step` is the number of updates made."""
+
+    model: nn.Module
+    optimizer: Optimizer
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+
+def create_train_state(model, optim_cfg, total_steps: int) -> TrainState:
+    """The model with the optimizer OPTIMIZATION (`optim_cfg`) names, its
+    schedule spread over `total_steps`."""
+    return TrainState(model, build_optimizer(model.parameters(), optim_cfg, total_steps))
+
+
+def _autocast(dev, dtype):
+    return (torch.autocast(dev.type, dtype=dtype) if dtype != torch.float32
+            else contextlib.nullcontext())
+
+
+def make_train_step(model, optimizer: Optimizer, device="cuda", dtype=torch.bfloat16):
+    """Returns train_step(batch) → metrics: {"loss", "hm_loss_head_i",
+    "loc_loss_head_i", "rpn_loss", "grad_norm"}, 0-dim tensors on the device
+    (reading one syncs the host). The batch is moved to `device`, where the
+    model must live; the model is put in train mode. With `dtype`
+    torch.float32 nothing runs under autocast."""
+    dev = resolve_device(device)
+
+    def train_step(batch):
+        if not model.training:   # a walk over every submodule: ~1 ms of host time
+            model.train()
+        batch = batch.to(dev)
+        optimizer.zero_grad()
+        with _autocast(dev, dtype):
+            loss, tb = model(batch)
+        loss.backward()
+        grad_norm = optimizer.step()
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()},
+                "grad_norm": grad_norm}
+
+    return train_step
 
 
 def make_eval_step(model, recall_thresh=None, device="cuda", dtype=torch.float32):
     """Returns eval_step(batch) → (boxes, scores, labels, valid[, recall]).
 
-    The batch is moved to `device`, where the model must live. With `dtype`
-    torch.bfloat16 the network runs under bf16 autocast (the JAX package's
-    compute dtype on the chip); decode, NMS and recall stay fp32. With
+    The batch is moved to `device`, where the model must live; the model is
+    put in eval mode. With `dtype` torch.bfloat16 the network runs under bf16
+    autocast (the JAX package's compute dtype on the chip); decode, NMS and
+    recall stay fp32. With
     `recall_thresh` (a tuple of IoU thresholds) the step also returns
     {"gt_num", "recall_rcnn_{t}"} as 0-dim int64 tensors on the device.
     """
@@ -25,10 +81,10 @@ def make_eval_step(model, recall_thresh=None, device="cuda", dtype=torch.float32
 
     @torch.no_grad()
     def eval_step(batch):
+        if model.training:
+            model.eval()
         batch = batch.to(dev)
-        autocast = (torch.autocast(dev.type, dtype=dtype) if dtype != torch.float32
-                    else contextlib.nullcontext())
-        with autocast:
+        with _autocast(dev, dtype):
             out = model.predict(batch)
         if recall_thresh is None:
             return out

@@ -3,9 +3,9 @@
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
 (MeanVFE, VoxelResBackBone8x, 0.1 × 0.1 × 0.2 m voxels), built as the JAX
-package's tools/test.py builds it: the grid from POINT_CLOUD_RANGE and the
-last transform_points_to_voxels VOXEL_SIZE, the voxel cap from
-MAX_NUMBER_OF_VOXELS['test'].
+package's tools/test.py and tools/train.py build it: the grid from
+POINT_CLOUD_RANGE and the last transform_points_to_voxels VOXEL_SIZE, the
+voxel cap from MAX_NUMBER_OF_VOXELS['test'] (['train'] for training).
 """
 from __future__ import annotations
 
@@ -21,9 +21,10 @@ VOXEL_CFG = (Path(__file__).resolve().parents[1]
 VOXEL_TINY_RANGE = [-6.4, -6.4, -5.0, 6.4, 6.4, 3.0]
 
 
-def voxel_centerpoint(tiny: bool = False, device="cuda"):
-    """Returns (cfg, grid, model) at full widths; `tiny` shrinks only the
-    point-cloud range. The model's weights are PyTorch's defaults."""
+def voxel_centerpoint(tiny: bool = False, device="cuda", train: bool = False):
+    """Returns (cfg, grid, model) at full widths, in train mode with `train`;
+    `tiny` shrinks only the point-cloud range. The model's weights are
+    PyTorch's defaults."""
     cfg = cfg_from_yaml_file(VOXEL_CFG, CfgDict())
     if tiny:
         cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(VOXEL_TINY_RANGE)
@@ -31,7 +32,8 @@ def voxel_centerpoint(tiny: bool = False, device="cuda"):
                  if p.NAME.startswith("transform_points_to_voxels")][-1]
     grid = VoxelGrid.create(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, voxel_cfg.VOXEL_SIZE)
     max_voxels = voxel_cfg.MAX_NUMBER_OF_VOXELS
-    max_voxels = int(max_voxels["test"] if isinstance(max_voxels, dict) else max_voxels)
-    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device,
-                          max_voxels=max_voxels)
+    if isinstance(max_voxels, dict):
+        max_voxels = max_voxels["train" if train else "test"]
+    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device, train=train,
+                          max_voxels=int(max_voxels))
     return cfg, grid, model

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from dfu3d_tpu_torch.core.geometry import boxes, iou_kernel
-from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel, sparse_ops
+from dfu3d_tpu_torch.models import sparse_backbone
 
 
 def _rand_boxes(rng, g, n, far=0.0):
@@ -339,3 +340,114 @@ def test_gather_gemm_alignment_check(cin, offset, ok):
     w_off = torch.zeros(8 + w.numel(), dtype=w.dtype)[1:1 + w.numel()].view(w.shape)
     with pytest.raises(ValueError, match="kernel must start"):
         gather_gemm_kernel.check_aligned(flat[:2 * 10 * cin].view(2, 10, cin), w_off)
+
+
+# ---------------------------------------------------------------------------
+# The sparse convs' backward: dX is a B2 launch
+# ---------------------------------------------------------------------------
+
+# dX launches of one voxel train step at B=4, max_voxels 60000:
+# (conv, V' table rows, Q' queries, K, Cin' = the conv's Cout, Cout' = its Cin)
+DX_SHAPES = [
+    ("res1", 60000, 60000, 27, 16, 16),
+    ("down2", 30000, 60000, 27, 32, 16),
+    ("res2", 30000, 30000, 27, 32, 32),
+    ("down3", 15000, 30000, 27, 64, 32),
+    ("res3", 15000, 15000, 27, 64, 64),
+    ("down4", 7500, 15000, 27, 128, 64),
+    ("res4", 7500, 7500, 27, 128, 128),
+    ("conv_out", 7500, 7500, 3, 128, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,v,q,k,cin,cout", DX_SHAPES, ids=[s[0] for s in DX_SHAPES])
+def test_gather_gemm_dx_shapes_on_card(cuda_device, name, v, q, k, cin, cout):
+    """B2 at each dX shape of the voxel train step, bf16: the tensor-core
+    variant, within the bf16 tolerance of the plain twin; queries whose table
+    row holds only the sentinel (inputs no output reads) come out zero."""
+    rng = np.random.default_rng(v + cin)
+    args = _gather_gemm_case(rng, 4, v, q, k, cin, cout, torch.bfloat16, cuda_device,
+                             sentinel_only=True)
+    got = _launch_tc(*args)
+    _assert_bf16_close(got, gather_gemm_kernel.gather_gemm_plain(*args), *args)
+    assert got[:, ::3].abs().max().item() == 0.0
+
+
+def _sparse_set(device, b=2, n=3000, grid=sparse_ops.SparseGrid(40, 40, 12), seed=0):
+    """A random coordinate set (B, n) with about 8 % invalid slots, its
+    submanifold table and a strided conv's output set and tables."""
+    gen = torch.Generator().manual_seed(seed)
+    lin = torch.stack([torch.randperm(grid.num_cells, generator=gen)[:n] for _ in range(b)])
+    coords = torch.stack([lin % grid.nx, lin // grid.nx % grid.ny, lin // (grid.nx * grid.ny)],
+                         -1).to(torch.int32)
+    valid = torch.rand(b, n, generator=gen) > 0.08
+    coords, valid = coords.to(device), valid.to(device)
+    lookup = sparse_ops.build_lookup(grid, coords, valid)
+    subm = sparse_ops.find_neighbors(grid, coords, valid, *lookup,
+                                     sparse_ops.kernel_offsets(3, 3, 3))
+    return grid, coords, valid, lookup, subm
+
+
+def _conv_grads(case, feats, valid, tables, w, out_valid, cot):
+    """(out, dX, dW) of one conv Function."""
+    feats = feats.clone().requires_grad_()
+    w = w.clone().requires_grad_()
+    if case == "subm":
+        out = sparse_backbone.subm_gather_gemm(feats, valid, tables[0], w)
+    else:
+        out = sparse_backbone.down_gather_gemm(feats, valid, tables[0], tables[1], w, out_valid)
+    out = torch.where(out_valid[..., None], out, 0)
+    (out.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), feats.grad, w.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["subm", "strided", "z_only", "no_active_output"])
+def test_sparse_conv_functions_match_plain_on_card(cuda_device, monkeypatch, dtype, case):
+    """Each autograd Function (forward B2, dX B2 over the reversed or the
+    transpose table, dW gather + matmul) through the kernels against the
+    same Function through the plain twin, on real tables: fp32 within 1e-5
+    of each result's largest entry, bf16 within 2^-7 of it (one bf16 ulp at
+    that magnitude: both sum in fp32 and round once; dW is the same code on
+    the same inputs in both). dX launches exactly once per call; with no
+    active output (every output slot invalid) all three are zero."""
+    grid, coords, valid, lookup, subm = _sparse_set(cuda_device)
+    b, v = valid.shape
+    cin, cout = 16, 32
+    gen = torch.Generator().manual_seed(3)
+    if case == "subm":
+        tables, out_valid, k = (subm,), valid, 27
+    else:
+        z_only = case == "z_only"
+        conv = sparse_backbone.SparseConv3dDown(cin, cout, 1500, z_only=z_only)
+        level = conv.plan(grid, coords, valid, lookup)
+        out_valid = level.valid
+        if case == "no_active_output":
+            out_valid = torch.zeros_like(out_valid)
+            level = level._replace(valid=out_valid)
+        out_lookup = sparse_ops.build_lookup(level.grid, level.coords, out_valid)
+        tnbr = conv.transpose_table(coords, valid, level, out_lookup)
+        tables, k = (level.down_nbr, tnbr), level.down_nbr.shape[2]
+    q = out_valid.shape[1]
+    feats = torch.randn(b, v, cin, generator=gen).to(cuda_device, dtype)
+    w = (torch.randn(k, cin, cout, generator=gen) / np.sqrt(k * cin)).to(cuda_device, dtype)
+    cot = torch.randn(b, q, cout, generator=gen).to(cuda_device)
+    before = gather_gemm_kernel.launches
+    got = _conv_grads(case, feats, valid, tables, w, out_valid, cot)
+    assert gather_gemm_kernel.launches == before + 2   # forward and dX
+    monkeypatch.setattr(gather_gemm_kernel, "gather_gemm", gather_gemm_kernel.gather_gemm_plain)
+    want = _conv_grads(case, feats, valid, tables, w, out_valid, cot)
+    for g, wt, name in zip(got, want, ("out", "dX", "dW")):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        if case == "no_active_output":
+            assert g.abs().max().item() == 0.0 and wt.abs().max().item() == 0.0, name
+            continue
+        err = (g.float() - wt.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * wt.abs().max().item(), name
+        else:
+            assert err.max().item() <= 2.0 ** -7 * wt.float().abs().max().item(), name
+    assert bool((got[1][~valid] == 0).all())

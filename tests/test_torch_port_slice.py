@@ -22,7 +22,9 @@ from dfu3d_tpu_torch.data.batch import synthetic_batch
 from dfu3d_tpu_torch.flagship import FLAGSHIP_CFG, flagship
 from dfu3d_tpu_torch.models import build_network
 from dfu3d_tpu_torch.train.eval_utils import eval_batches
-from dfu3d_tpu_torch.train.train_state import make_eval_step
+from dfu3d_tpu_torch.train.train_state import TrainState as PortTrainState
+from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+from dfu3d_tpu_torch.train.trainer import train_model
 from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
 
 from test_torch_port_models import numpy_variables
@@ -108,6 +110,11 @@ def test_synthetic_batch_and_config_match_jax_side():
     want = graft._synthetic_batch(2, 100, 8, 12.0)
     for got, w in zip(synthetic_batch(2, 100, 8, 12.0, seed=0), want):
         np.testing.assert_array_equal(got.numpy(), w)
+    # the velocity columns come after every other draw: the rest is unchanged
+    wide = synthetic_batch(2, 100, 8, 12.0, seed=0, velocity=True)
+    assert wide.gt_boxes.shape == (2, 8, 10)
+    np.testing.assert_array_equal(wide.gt_boxes[..., [*range(7), 9]].numpy(), want[2])
+    assert wide.gt_boxes[..., 7:9].abs().max() <= 5 and wide.gt_boxes[..., 7:9].std() > 1
     assert cfg_from_yaml_file(FLAGSHIP_CFG, CfgDict()) == j_cfg_from_yaml_file(
         FLAGSHIP_CFG, JCfgDict())
 
@@ -123,12 +130,24 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
         make_eval_step(None, THRESH)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eval_batches(None, [], THRESH)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_model(PortTrainState(None, None), [], 1, "unused")
 
 
 def test_port_imports_nothing_of_jax():
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|dfu3d_tpu)(\.|\s|$)", re.M)
+    """No module of the port (the train slice's too) and not chip_smoke.py
+    imports JAX, flax, optax, the JAX package, or tqdm and tensorboard, which
+    the card's machine lacks."""
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(jax|flax|optax|dfu3d_tpu|tqdm|tensorboard|torch\.utils\.tensorboard)"
+        r"(\.|\s|$)", re.M)
     sources = sorted((REPO / "dfu3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(sources) > 10
+    names = {p.relative_to(REPO).as_posix() for p in sources}
+    assert {"dfu3d_tpu_torch/models/losses.py", "dfu3d_tpu_torch/train/optimization.py",
+            "dfu3d_tpu_torch/train/checkpoint.py", "dfu3d_tpu_torch/train/trainer.py",
+            "dfu3d_tpu_torch/profile_train.py"} <= names
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"
