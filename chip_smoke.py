@@ -51,8 +51,23 @@ Phases, each fatal on failure:
               within 1e-4 of its largest entry or, where fp32 rounding alone
               moves it more, within 4x what reversing the plain twin's tap
               order moves it.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+  7. cli      the flagship from disk through the port's CLIs, in a temporary
+              working directory: a synthetic KITTI root (16 train + 8 val
+              frames of 40,000-60,000 points in the camera frustum, 20-40
+              boxes of the ten classes) laid out for the flagship YAML,
+              tools.create_infos, the AP round trip (val gt fed back as
+              predictions: Car 3D and BEV easy R40 above 85), the loader's
+              frames/s with the config's augmentations at 4 threads beside
+              what phase 6's pillar step consumes, tools.train (1 epoch,
+              bf16, full width; fatal on a non-finite loss, no checkpoint or
+              any kernel launch), tools.test (fatal unless one KITTI txt per
+              val frame, every class's 3D moderate R40 in AP_DICT and 2
+              overlap launches per eval batch), then the fp32 eval epoch
+              through the kernels and through their plain twins: recall
+              counters equal, kept boxes within 1e-4 as sets, APs equal. The
+              native KITTI matcher is built with g++ in phase 2.
+The lines before the last are {"cli": {...}} and {"kernels": [...]}; the last
+line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -77,6 +92,14 @@ TRAIN_TOTAL_STEPS = 1000  # the one-cycle schedule's length, as bench.py's train
 TRAIN_LOSS_TOL = 1e-5     # relative, fp32 train step through kernels vs plain twins
 TRAIN_GRAD_TOL = 1e-4     # of each gradient leaf's largest |entry|
 VOXEL_TRAIN_B2 = 41       # tensor-core gather-GEMM launches per voxel train step
+CLI_CFG = "cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml"  # from phase 7's work dir
+CLI_TRAIN_FRAMES, CLI_VAL_FRAMES = 16, 8
+LOADER_WORKERS = 4
+AP_ROUND_TRIP_MIN = 85.0  # Car 3D and BEV easy R40, gt fed back as predictions
+# phase 7's fp32 eval epoch through the kernels vs their plain twins: the
+# network's outputs repeat bit for bit and B1 enters only NMS's keep
+# decisions and the recall counts, so equal kept sets give equal APs
+EVAL_AP_TOL = 0.0
 # the 21 sparse convs of one voxel eval step at B=4, max_voxels 60000:
 # (name, V, Q, K, Cin, Cout, launches per step)
 GEMM_PATH_SHAPES = [
@@ -521,6 +544,23 @@ def serve(name, model, batches, device):
     return res, launches
 
 
+class plain_twins:
+    """Within the block each (module, kernel name, plain name) of `swaps`
+    calls the plain twin in place of the kernel."""
+
+    def __init__(self, swaps):
+        self.swaps = swaps
+
+    def __enter__(self):
+        self.saved = [(mod, k, getattr(mod, k)) for mod, k, _ in self.swaps]
+        for mod, k, p in self.swaps:
+            setattr(mod, k, getattr(mod, p))
+
+    def __exit__(self, *exc):
+        for mod, k, fn in self.saved:
+            setattr(mod, k, fn)
+
+
 def check_paths(name, model, cfg, batch, served, swaps, device):
     """Phase 5 for one path: one request in fp32 through the kernels and
     through their plain twins (`swaps`: (module, kernel name, plain name)),
@@ -548,28 +588,18 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
         nms_inputs.append(a)
         return orig_iou_bev(a, b)
 
-    class plain_twins:
-        def __enter__(self):
-            self.saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
-            for mod, k, p in swaps:
-                setattr(mod, k, getattr(mod, p))
-
-        def __exit__(self, *exc):
-            for mod, k, fn in self.saved:
-                setattr(mod, k, fn)
-
     nms_mod.pairwise_iou_bev = recording_iou_bev
     try:
         with_kernel = step(check_batch)
     finally:
         nms_mod.pairwise_iou_bev = orig_iou_bev
-    with plain_twins():
+    with plain_twins(swaps):
         with_plain = step(check_batch)
     (kb, ks, kl, kv, krec), (pb, ps, pl, pv, prec) = with_kernel, with_plain
     # NMS decisions at the threshold that the two versions make differently
     cand = nms_inputs[0]
     iou_k = orig_iou_bev(cand, cand)
-    with plain_twins():
+    with plain_twins(swaps):
         iou_p = orig_iou_bev(cand, cand)
     thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
     flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
@@ -926,6 +956,256 @@ def check_train_paths(name, model, batch, swaps, device):
                       for _, key, err, spread in leaves[:5]]}
 
 
+def synthetic_kitti_root(base, class_names):
+    """Phase 7's data: CLI_TRAIN_FRAMES + CLI_VAL_FRAMES frames of 40,000-60,000
+    points in the camera frustum and 20-40 boxes of the flagship's ten
+    classes (kitti_synthetic), laid out as the flagship's dataset config
+    expects with DATA_PATH = base/train_28130: the frames in DATA_PATH, the
+    val infos in base/val_6019/ (INFO_PATH.test is ../val_6019/...). Infos
+    and gt database come from tools.create_infos and are renamed to the
+    config's file names. Returns (DATA_PATH, seconds to write the frames,
+    seconds of create_infos)."""
+    from dfu3d_tpu_torch.data import kitti_synthetic
+    from dfu3d_tpu_torch.tools import create_infos
+
+    root = base / "train_28130"
+    t0 = time.perf_counter()
+    kitti_synthetic.write_root(root, CLI_TRAIN_FRAMES, CLI_VAL_FRAMES, class_names, seed=0)
+    t1 = time.perf_counter()
+    out = create_infos.main(["--cfg_file", CLI_CFG, "--data_path", str(root)])
+    t2 = time.perf_counter()
+    infos = dict(zip(("train", "val"), out["infos"]))
+    (base / "val_6019").mkdir()
+    infos["train"].rename(root / "nuscenes2kitti_infos_train_28130_initial_pseudo_box.pkl")
+    infos["val"].rename(base / "val_6019" / "nuscenes2kitti_infos_val_6019.pkl")
+    out["dbinfos"].rename(root / "nuscenes2kitti_dbinfos_train_28130.pkl")
+    return root, t1 - t0, t2 - t1
+
+
+def flagship_on(root):
+    from dfu3d_tpu_torch.tools.common import load_config
+
+    class Args:
+        cfg_file, set_cfgs = CLI_CFG, ["DATA_CONFIG.DATA_PATH", str(root)]
+
+    return load_config(Args)
+
+
+def ap_round_trip(cfg):
+    """The val gt fed back as predictions (scores uniform in [0.5, 1]) through
+    the prediction writer and the KITTI AP; Car 3D and BEV easy R40 must
+    exceed AP_ROUND_TRIP_MIN."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.data.dataset import BatchMeta
+    from dfu3d_tpu_torch.data.kitti_dataset import KittiDataset
+
+    ds = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False)
+    rng = np.random.RandomState(0)
+    ids = [info["point_cloud"]["lidar_idx"] for info in ds.kitti_infos]
+    preds = [{"pred_boxes": info["annos"]["gt_boxes_lidar"],
+              "pred_scores": rng.uniform(0.5, 1.0, len(info["annos"]["name"])),
+              "pred_labels": np.array([cfg.CLASS_NAMES.index(n) + 1
+                                       for n in info["annos"]["name"]])}
+             for info in ds.kitti_infos]
+    meta = BatchMeta(ids, [ds.get_calib(i) for i in ids],
+                     [info["image"]["image_shape"] for info in ds.kitti_infos])
+    t0 = time.perf_counter()
+    _, ap = ds.evaluation(ds.generate_prediction_dicts(meta, preds, cfg.CLASS_NAMES),
+                          cfg.CLASS_NAMES)
+    seconds = time.perf_counter() - t0
+    keys = ("Car_3d/easy_R40", "Car_bev/easy_R40", "Car_3d/moderate_R40")
+    got = {k: float(ap[k]) for k in keys}
+    log(f"[cli] AP round trip (val gt as predictions, {len(ids)} frames, "
+        f"{sum(len(p['pred_labels']) for p in preds)} boxes): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in got.items()) + f"; {seconds:.2f} s")
+    if not (got["Car_3d/easy_R40"] > AP_ROUND_TRIP_MIN and got["Car_bev/easy_R40"] > AP_ROUND_TRIP_MIN):
+        fail(f"AP round trip: {got} not above {AP_ROUND_TRIP_MIN}")
+    return {**got, "seconds": seconds}
+
+
+def loader_rate(cfg, workers):
+    """Frames/s of KittiDataset.__getitem__ + collate with the flagship's
+    augmentations (gt sampling and four world augmentations) over the train
+    split, through the loader with `workers` threads (two epochs, B=4), and
+    one thread's ms per frame."""
+    from dfu3d_tpu_torch.data.loader import build_dataloader
+
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=4,
+                                       workers=workers, training=True)
+    t0 = time.perf_counter()
+    for i in range(len(dataset)):
+        dataset[i]
+    one_thread_ms = (time.perf_counter() - t0) / len(dataset) * 1e3
+    frames, points = 0, []
+    t0 = time.perf_counter()
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        for batch, _ in loader:
+            frames += batch.points.shape[0]
+            points += batch.points_valid.sum(1).tolist()
+    seconds = time.perf_counter() - t0
+    return {"workers": workers, "frames": frames, "seconds": seconds,
+            "frames_per_s": frames / seconds, "one_thread_ms_per_frame": one_thread_ms,
+            "points_per_frame": [min(points), max(points)]}
+
+
+def eval_kernels_vs_plain(cfg, ckpt, swaps, device):
+    """The eval epoch in fp32 on the trained weights, once through the
+    kernels and once through their plain twins (one loader thread and
+    np.random seeded before each, so that both see the same points in the
+    same order): recall counters equal, each frame's kept boxes, scores and
+    classes equal as sets within PATH_TOL, and every AP within EVAL_AP_TOL."""
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.data.loader import build_dataloader
+    from dfu3d_tpu_torch.train.checkpoint import load_checkpoint
+    from dfu3d_tpu_torch.train.eval_utils import eval_one_epoch
+    from dfu3d_tpu_torch.tools.common import build_model
+
+    model = build_model(cfg, "test", device)
+    model.load_state_dict(load_checkpoint(ckpt)[0]["model_state"])
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=4,
+                                       workers=1, training=False)
+    runs = []
+    for twins in (False, True):
+        np.random.seed(0)
+        with plain_twins(swaps if twins else []):
+            runs.append(eval_one_epoch(model, dataset, loader, cfg, device=device,
+                                       dtype=torch.float32))
+    (_, k_res, k_annos), (_, p_res, p_annos) = runs
+    counters = [k for k in k_res if k == "gt_num" or k.startswith("recall_rcnn_")]
+    if any(k_res[k] != p_res[k] for k in counters):
+        fail(f"eval epoch fp32: recall counters differ, kernels "
+             f"{ {k: k_res[k] for k in counters} } vs plain { {k: p_res[k] for k in counters} }")
+    match_err, exact, kept = 0.0, True, 0
+    for k, p in zip(k_annos, p_annos):
+        rows_k = np.concatenate([k["boxes_lidar"], k["score"][:, None]], 1)
+        rows_p = np.concatenate([p["boxes_lidar"], p["score"][:, None]], 1)
+        if k["frame_id"] != p["frame_id"] or len(rows_k) != len(rows_p):
+            fail(f"eval epoch fp32: frame {k['frame_id']} keeps {len(rows_k)} boxes through "
+                 f"the kernels, {len(rows_p)} through the plain twins")
+        kept += len(rows_k)
+        if not len(rows_k):
+            continue
+        dist = np.abs(rows_k[:, None] - rows_p[None]).max(-1)
+        match = dist.argmin(0)
+        if len(set(match.tolist())) != len(match) or (k["name"][match] != p["name"]).any():
+            fail(f"eval epoch fp32: frame {k['frame_id']}'s kept boxes do not match one to one")
+        match_err = max(match_err, float(dist[match, np.arange(len(match))].max()))
+        exact &= bool(np.array_equal(rows_k, rows_p))
+    if not match_err <= PATH_TOL:
+        fail(f"eval epoch fp32: kept boxes and scores differ by {match_err} (tol {PATH_TOL})")
+    ap_keys = [key for key in k_res if "_R40" in key]
+    ap_err = max(abs(float(k_res[key]) - float(p_res[key])) for key in ap_keys)
+    log(f"[cli] eval epoch fp32, kernels vs plain twins: recall counters equal "
+        f"{ {k: k_res[k] for k in counters} }; {kept} kept boxes equal as sets within "
+        f"{match_err:.3g} (bit for bit: {exact}); {len(ap_keys)} APs within {ap_err:.3g}")
+    if not ap_err <= EVAL_AP_TOL:
+        fail(f"eval epoch fp32: an AP differs by {ap_err} between kernels and plain twins "
+             f"(tol {EVAL_AP_TOL})")
+    return {"recall_counters": {k: k_res[k] for k in counters}, "kept_boxes": kept,
+            "max_box_score_diff": match_err, "bit_for_bit": exact, "max_ap_diff": ap_err}
+
+
+def cli(device, pillar_step_ms):
+    """Phase 7: the flagship trained and evaluated from disk through the
+    port's CLIs, on a synthetic KITTI root in a temporary working directory
+    (its cfgs/ links to tools/cfgs/, so the flagship's YAML runs unedited
+    with only DATA_CONFIG.DATA_PATH set). Returns (the summary, launches in
+    training, launches in evaluation)."""
+    import os
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            cfg = flagship_on(work / "train_28130")
+            root, write_s, infos_s = synthetic_kitti_root(work, cfg.CLASS_NAMES)
+            log(f"[cli] synthetic root: {CLI_TRAIN_FRAMES} train + {CLI_VAL_FRAMES} val frames "
+                f"written in {write_s:.2f} s; tools.create_infos {infos_s:.2f} s")
+            round_trip = ap_round_trip(cfg)
+            rate = loader_rate(cfg, LOADER_WORKERS)
+            needed = 4 / (pillar_step_ms / 1e3)
+            log(f"[cli] loader, flagship augmentations, {rate['workers']} threads: "
+                f"{rate['frames_per_s']:.2f} frames/s ({rate['frames']} frames in "
+                f"{rate['seconds']:.2f} s, {rate['points_per_frame']} points per frame); one "
+                f"thread {rate['one_thread_ms_per_frame']:.1f} ms per frame; the phase-6 pillar "
+                f"train step ({pillar_step_ms:.2f} ms, B=4) consumes {needed:.1f} frames/s")
+
+            common = ["--cfg_file", CLI_CFG, "--workers", str(LOADER_WORKERS), "--extra_tag",
+                      "chip_smoke"]
+            data_path = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+            reset_launches()
+            t0 = time.perf_counter()
+            trained = train_cli.main([*common, "--epochs", "1", "--fix_random_seed", *data_path])
+            train_s = time.perf_counter() - t0
+            train_launches = read_launches()
+            (epoch,) = trained["epochs"]
+            ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+            log(f"[cli] tools.train: {epoch['steps']} steps, losses "
+                f"{[round(v, 4) for v in epoch['losses']]}, data_time {epoch['data_time']:.3f} s, "
+                f"batch_time {epoch['batch_time']:.3f} s "
+                f"({epoch['batch_time'] / max(epoch['steps'], 1) * 1e3:.1f} ms per step host "
+                f"clock), {train_s:.2f} s in all; kernel launches {json.dumps(train_launches)}")
+            if not epoch["steps"] or not all(math.isfinite(v) for v in epoch["losses"]):
+                fail(f"tools.train: a loss is not finite or no step ran: {epoch}")
+            if not ckpt.exists():
+                fail(f"tools.train wrote no {ckpt}")
+            if train_launches["iou_bev_overlap"] or train_launches["gather_gemm"]:
+                fail(f"tools.train launched a kernel that is not on the train path: "
+                     f"{train_launches}")
+
+            reset_launches()
+            t0 = time.perf_counter()
+            ((_, result_dir, res),) = test_cli.main([*common, "--ckpt", str(ckpt),
+                                                     "--save_to_file", *data_path])
+            test_s = time.perf_counter() - t0
+            eval_launches = read_launches()
+            txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+            log_file = next((trained["output_dir"] / "eval").glob("log_eval_*.txt"))
+            ap_dict = json.loads(log_file.read_text().split("AP_DICT ", 1)[1].splitlines()[0])
+            split = {k: res[k] for k in res if k.startswith("time/")}
+            log(f"[cli] tools.test: {res['num_frames']} frames in {res['eval_batches']} batches, "
+                f"{res['sec_per_example']:.4f} s/frame, split (s) {json.dumps(split)}, "
+                f"recall {json.dumps({k: res[k] for k in res if k.startswith('recall/')})}, "
+                f"{txts} KITTI txts, {test_s:.2f} s in all; kernel launches "
+                f"{json.dumps(eval_launches)}")
+            missing = [c for c in cfg.CLASS_NAMES if f"{c}_3d/moderate_R40" not in ap_dict]
+            if txts != CLI_VAL_FRAMES or missing:
+                fail(f"tools.test: {txts} txts for {CLI_VAL_FRAMES} val frames; AP_DICT lacks "
+                     f"{missing}")
+            if eval_launches["iou_bev_overlap"] != 2 * res["eval_batches"] or \
+                    eval_launches["gather_gemm"]:
+                fail(f"tools.test: kernel launches {eval_launches}, not 2 overlap launches per "
+                     f"eval batch ({res['eval_batches']}) and no gather-GEMM")
+            versus = eval_kernels_vs_plain(cfg, ckpt, [(iou_kernel, "overlap_bev",
+                                                        "overlap_bev_plain")], device)
+        finally:
+            os.chdir(cwd)
+    summary = {"frames": {"train": CLI_TRAIN_FRAMES, "val": CLI_VAL_FRAMES},
+               "write_s": write_s, "create_infos_s": infos_s, "ap_round_trip": round_trip,
+               "loader": {**rate, "pillar_step_ms": pillar_step_ms,
+                          "frames_per_s_a_step_consumes": needed},
+               "train": {**epoch, "ms_per_step": epoch["batch_time"] / epoch["steps"] * 1e3,
+                         "seconds": train_s, "launches": train_launches},
+               "eval": {"sec_per_example": res["sec_per_example"], "split_s": split,
+                        "eval_batches": res["eval_batches"], "num_frames": res["num_frames"],
+                        "recall": {k: res[k] for k in res if k.startswith("recall")},
+                        "gt_num": res["gt_num"], "txts": txts, "seconds": test_s,
+                        "launches": eval_launches,
+                        "ap_3d_moderate_R40": {c: ap_dict[f"{c}_3d/moderate_R40"]
+                                               for c in cfg.CLASS_NAMES}},
+               "fp32_kernels_vs_plain": versus}
+    return summary, train_launches, eval_launches
+
+
 def main():
     import torch
 
@@ -937,6 +1217,7 @@ def main():
         from dfu3d_tpu_torch.core.geometry import iou_kernel
         from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
         from dfu3d_tpu_torch.data.batch import synthetic_batch
+        from dfu3d_tpu_torch.eval import native
         from dfu3d_tpu_torch.flagship import flagship, seeded_weights_
         from dfu3d_tpu_torch.zoo import voxel_centerpoint
     except ImportError as e:
@@ -960,6 +1241,10 @@ def main():
     libs = cuda_build.build((iou_kernel.SOURCE, iou_kernel.NVCC_FLAGS),
                             (gather_gemm_kernel.SOURCE, gather_gemm_kernel.NVCC_FLAGS))
     log(f"[build] {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native.get_lib()
+    log(f"[build] the native KITTI matcher {native.library_path().relative_to(REPO)} (g++) in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels vs plain
@@ -1029,6 +1314,10 @@ def main():
     train_checks["voxel"] = check_train_paths("voxel", model, train_batches[0], swaps, device)
     del model
 
+    # 7. the flagship from disk through the CLIs
+    pillar_step_ms = statistics.median(s["host_ms"] for s in pillar_steps)
+    cli_summary, cli_train, cli_eval = cli(device, pillar_step_ms)
+
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
@@ -1036,11 +1325,14 @@ def main():
         "route": "cuda",
         "source": "dfu3d_tpu_torch/core/geometry/csrc/iou_bev.cu",
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
-        "launches": pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"],
+        "launches": (pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"]
+                     + cli_eval["iou_bev_overlap"]),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
-                             "voxel_train": voxel_train["iou_bev_overlap"]},
+                             "voxel_train": voxel_train["iou_bev_overlap"],
+                             "cli_train": cli_train["iou_bev_overlap"],
+                             "cli_eval": cli_eval["iou_bev_overlap"]},
         "max_abs_err": iou_err,
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
@@ -1064,7 +1356,9 @@ def main():
         "launches": voxel_launches["gather_gemm"] + voxel_train["gather_gemm"],
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
-                             "pillar_train": pillar_train["gather_gemm"]},
+                             "pillar_train": pillar_train["gather_gemm"],
+                             "cli_train": cli_train["gather_gemm"],
+                             "cli_eval": cli_eval["gather_gemm"]},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 for k in ("tensor_core", "cuda_core")},
@@ -1095,6 +1389,7 @@ def main():
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
                               "fp32_kernels_vs_plain": train_checks}}))
+    log(json.dumps({"cli": cli_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

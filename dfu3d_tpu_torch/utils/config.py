@@ -1,11 +1,14 @@
-"""Config system: YAML tree with `_BASE_CONFIG_` inheritance.
+"""Config system: YAML tree with `_BASE_CONFIG_` inheritance and typed
+dotted overrides.
 
-Own copy of dfu3d_tpu/utils/config.py (`CfgDict`, `cfg_from_yaml_file`): the
-same attribute-style dict and the same recursive base merge, with base paths
-resolved relative to the including file, then its parents, then the CWD.
+Own copy of dfu3d_tpu/utils/config.py (`CfgDict`, `cfg_from_yaml_file`,
+`cfg_from_list`, `log_config_to_file`): the same attribute-style dict and the
+same recursive base merge, with base paths resolved relative to the including
+file, then its parents, then the CWD.
 """
 from __future__ import annotations
 
+from ast import literal_eval
 from pathlib import Path
 
 import yaml
@@ -89,3 +92,49 @@ def cfg_from_yaml_file(cfg_file, config):
     cfg_file = Path(cfg_file)
     merge_new_config(config=config, new_config=_load_yaml(cfg_file), cfg_path=cfg_file)
     return config
+
+
+def cfg_from_list(cfg_list, config):
+    """Typed dotted overrides, e.g. ``--set MODEL.DENSE_HEAD.NMS_THRESH 0.7``:
+    a value is parsed as a Python literal (else kept as a string) and must
+    have the type of the value it replaces; a dict takes ``k1:v1,k2:v2`` and
+    a list ``a,b,c``, each element cast to the type it replaces."""
+    if len(cfg_list) % 2:
+        raise ValueError(f"override list must be KEY VALUE pairs: {cfg_list}")
+    for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = k.split(".")
+        d = config
+        for subkey in key_list[:-1]:
+            if subkey not in d:
+                raise KeyError(f"NotFoundKey: {subkey}")
+            d = d[subkey]
+        subkey = key_list[-1]
+        if subkey not in d:
+            raise KeyError(f"NotFoundKey: {subkey}")
+        try:
+            value = literal_eval(v)
+        except (ValueError, SyntaxError, TypeError):
+            value = v
+
+        if type(value) != type(d[subkey]) and isinstance(d[subkey], dict):
+            for src in value.split(","):
+                cur_key, cur_val = src.split(":")
+                d[subkey][cur_key] = type(d[subkey][cur_key])(cur_val)
+        elif type(value) != type(d[subkey]) and isinstance(d[subkey], list):
+            elem_type = type(d[subkey][0]) if d[subkey] else str
+            d[subkey] = [elem_type(x) for x in value.split(",")]
+        elif type(value) != type(d[subkey]):
+            raise TypeError(f"{k}: type {type(value)} does not match original type "
+                            f"{type(d[subkey])}")
+        else:
+            d[subkey] = value
+    return config
+
+
+def log_config_to_file(cfg_, pre="cfg", logger=None):
+    for key, val in cfg_.items():
+        if isinstance(val, dict):
+            logger.info("----------- %s -----------" % key)
+            log_config_to_file(val, pre=f"{pre}.{key}", logger=logger)
+            continue
+        logger.info("%s.%s: %s" % (pre, key, val))

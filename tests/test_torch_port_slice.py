@@ -138,16 +138,27 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
 
 def test_port_imports_nothing_of_jax():
     """No module of the port (the train slice's too) and not chip_smoke.py
-    imports JAX, flax, optax, the JAX package, or tqdm and tensorboard, which
-    the card's machine lacks."""
+    imports JAX, flax, optax, the JAX package, or tqdm, tensorboard and PIL,
+    which the card's machine lacks."""
     pattern = re.compile(
-        r"^\s*(from|import)\s+(jax|flax|optax|dfu3d_tpu|tqdm|tensorboard|torch\.utils\.tensorboard)"
+        r"^\s*(from|import)\s+(jax|flax|optax|dfu3d_tpu|tqdm|tensorboard|torch\.utils\.tensorboard"
+        r"|PIL)"
         r"(\.|\s|$)", re.M)
     sources = sorted((REPO / "dfu3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"dfu3d_tpu_torch/models/losses.py", "dfu3d_tpu_torch/train/optimization.py",
             "dfu3d_tpu_torch/train/checkpoint.py", "dfu3d_tpu_torch/train/trainer.py",
-            "dfu3d_tpu_torch/profile_train.py"} <= names
+            "dfu3d_tpu_torch/profile_train.py", "dfu3d_tpu_torch/utils/common.py",
+            "dfu3d_tpu_torch/core/geometry/calibration.py", "dfu3d_tpu_torch/data/np_geometry.py",
+            "dfu3d_tpu_torch/data/kitti_io.py", "dfu3d_tpu_torch/data/point_feature_encoder.py",
+            "dfu3d_tpu_torch/data/augmentor_utils.py", "dfu3d_tpu_torch/data/data_augmentor.py",
+            "dfu3d_tpu_torch/data/database_sampler.py", "dfu3d_tpu_torch/data/processor.py",
+            "dfu3d_tpu_torch/data/dataset.py", "dfu3d_tpu_torch/data/kitti_dataset.py",
+            "dfu3d_tpu_torch/data/loader.py", "dfu3d_tpu_torch/data/kitti_synthetic.py",
+            "dfu3d_tpu_torch/eval/kitti_eval.py", "dfu3d_tpu_torch/eval/native.py",
+            "dfu3d_tpu_torch/train/eval_utils.py", "dfu3d_tpu_torch/tools/common.py",
+            "dfu3d_tpu_torch/tools/create_infos.py", "dfu3d_tpu_torch/tools/train.py",
+            "dfu3d_tpu_torch/tools/test.py"} <= names
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"
