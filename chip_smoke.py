@@ -7,7 +7,8 @@ Phases, each fatal on failure:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
               fp32 comparisons.
   2. build    every CUDA kernel of the serving paths, from this checkout, one
-              nvcc per source, all at once.
+              nvcc per source, all at once; the host libraries (the KITTI
+              matcher, the PNG unfilter) with g++.
   3. kernels  each kernel against its plain PyTorch twin at the paths' shapes
               and at edge cases, timed with CUDA events beside its bound and,
               for the gather-GEMM, the library form (gather + one GEMM). The
@@ -66,8 +67,28 @@ Phases, each fatal on failure:
               through the kernels and through their plain twins: recall
               counters equal, kept boxes within 1e-4 as sets, APs equal. The
               native KITTI matcher is built with g++ in phase 2.
-The lines before the last are {"cli": {...}} and {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+  8. pseudo   pipeline 2 from raw frames, in a temporary directory: a
+              synthetic root of 8 make_scene frames (352 x 1216 image, ~35,000
+              LiDAR points, 8 Cars, seem/ and depth/ artifacts);
+              tools.complete_depth with enet_ref (bf16, seeded weights) into a
+              separate directory, so that the factory keeps the scenes' exact
+              depth; tools.generate_pseudo_boxes on the card (factory
+              defaults): one label txt and one velodyne_depth npy per frame,
+              and no B1 or B2 launch; tools.create_infos --label_dir
+              label_train --suffix _initial_pseudo_box, whose box count per
+              frame must equal the factory's; the BEV recovery of the scenes'
+              gt Cars (IoU >= 0.5) at or above PSEUDO_RECALL_MIN; 2 frames
+              through the factory on the card and on this machine's CPU with
+              the same RANSAC triples (names and counts equal, boxes within
+              PSEUDO_BOX_TOL as sets, fused clouds equal; the frame
+              program's radius tests stage by stage from the same inputs,
+              every differing entry within 1e-5 m of its radius, the bf16
+              adjacency exact; differing boxes pass only where such an entry
+              explains them); one enet_ref depth map in strict fp32 on the
+              card and on the CPU within DEPTH_TOL, and the card's TF32
+              reading beside it.
+The lines before the last are {"cli": {...}}, {"pseudo": {...}} and
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -96,6 +117,18 @@ CLI_CFG = "cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml"  # from phase 7's 
 CLI_TRAIN_FRAMES, CLI_VAL_FRAMES = 16, 8
 LOADER_WORKERS = 4
 AP_ROUND_TRIP_MIN = 85.0  # Car 3D and BEV easy R40, gt fed back as predictions
+PSEUDO_FRAMES = 8         # make_scene seeds 0-7
+# gt Cars recovered at BEV IoU >= 0.5 over the 8 frames; the JAX factory
+# recovers 42 of 64 (0.6562) on the CPU; the floor leaves 3 gt of room for the
+# card's own RANSAC draws
+# (JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_port_pseudo_cli.py)
+PSEUDO_RECALL_MIN = 0.6
+PSEUDO_BOX_TOL = 1e-3     # m and rad, the factory on the card vs on the CPU
+PSEUDO_STRADDLE = 1e-5    # m, a pair this close to a radius may flip a test
+# of the map's largest |depth|, strict fp32 on the card vs the CPU: between
+# the fp32 reading (2.58e-6) and what the card's TF32 convolutions read
+# (8.87e-4), both on an H100 80GB HBM3 at 700 W, so a TF32 run fails
+DEPTH_TOL = 5e-5
 # phase 7's fp32 eval epoch through the kernels vs their plain twins: the
 # network's outputs repeat bit for bit and B1 enters only NMS's keep
 # decisions and the recall counts, so equal kept sets give equal APs
@@ -1206,6 +1239,250 @@ def cli(device, pillar_step_ms):
     return summary, train_launches, eval_launches
 
 
+def pair_straddle(a, pts, valid, r):
+    """For each point a_i (F, 3) against its candidates pts (F, M, 3) where
+    valid (F, M): the smallest | |a_i - pts_ij| - r_i | over j, in float64."""
+    import numpy as np
+
+    d = np.sqrt(((a[:, None].astype(np.float64) - pts.astype(np.float64)) ** 2).sum(-1))
+    return np.where(valid, np.abs(d - np.asarray(r, np.float64)[:, None]), np.inf).min(-1)
+
+
+def frame_program_flips(packed, ball_gate_c, device):
+    """The frame program's radius tests on the card and on the CPU from the
+    same inputs, the CPU's masks feeding the next test on both: the LiDAR and
+    pseudo radius-outlier masks, the ball gate, and the BEV reach of the
+    compacted points. Each entry that differs gets the distance from its
+    test's radius of the pairs that decide it (the smallest over them).
+    Also whether the card's bf16 adjacency equals the fp32 product of its
+    own reach, which is exact for 0/1 operands. Returns (flips, exact):
+    flips maps each test to the straddles (m) of its differing entries."""
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.pseudo import ops
+
+    cpu = torch.device("cpu")
+
+    def on(dev, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    lid, lid_v, pse, pse_v = packed.lidar, packed.lidar_valid, packed.pseudo, packed.pseudo_valid
+    masks = {dev: {} for dev in (device, cpu)}
+    for dev in (device, cpu):
+        for name, pts, valid in (("lidar_radius", lid, lid_v), ("pseudo_radius", pse, pse_v)):
+            masks[dev][name] = ops.radius_outlier_mask(on(dev, pts), on(dev, valid),
+                                                       on(dev, packed.radii)).cpu().numpy()
+    ref = masks[cpu]
+    for dev in (device, cpu):
+        masks[dev]["ball_gate"] = ops.ball_gate_mask(
+            on(dev, pse), on(dev, ref["pseudo_radius"]), on(dev, lid), on(dev, ref["lidar_radius"]),
+            ball_gate_c).cpu().numpy()
+    # frame_program's compaction: kept points first, in order
+    keep = np.concatenate([ref["lidar_radius"], ref["ball_gate"]], 1)
+    order = np.argsort(~keep, axis=1, kind="stable")[:, :lid.shape[1]]
+    pts_c = np.take_along_axis(np.concatenate([lid, pse], 1), order[..., None], 1)
+    keep_c = np.take_along_axis(keep, order, 1)
+    for dev in (device, cpu):
+        masks[dev]["reach"] = ops.reach(on(dev, pts_c), on(dev, keep_c)).cpu().numpy()
+    reach_card = on(device, masks[device]["reach"]).float()
+    exact = torch.equal(ops.adjacency(on(device, pts_c), on(device, keep_c)),
+                        (reach_card @ reach_card.transpose(-1, -2)) > 0)
+
+    flips = {}
+    for name, pts, valid, rad in (("lidar_radius", lid, lid_v, packed.radii),
+                                  ("pseudo_radius", pse, pse_v, packed.radii),
+                                  ("ball_gate", pse, ref["lidar_radius"], None)):
+        k, i = np.nonzero(masks[device][name] != ref[name])
+        others = lid if name == "ball_gate" else pts
+        r = np.full(len(k), ball_gate_c) if rad is None else rad[k]
+        flips[name] = pair_straddle(pts[k, i], others[k], valid[k], r).tolist()
+    k, i, j = np.nonzero(masks[device]["reach"] != ref["reach"])
+    p = pts_c.astype(np.float64)
+    r = 3.0 + 0.001 * np.linalg.norm(p[k, i], axis=-1)     # ops.reach's r0 + rd·‖p_i‖
+    flips["reach"] = np.abs(np.linalg.norm(p[k, i, :2] - p[k, j, :2], axis=-1) - r).tolist()
+    return flips, exact
+
+
+def factory_cuda_vs_cpu(root, ids, device):
+    """The same frames through the factory on the card and on the CPU with
+    the same RANSAC triples: names and box counts equal, boxes within
+    PSEUDO_BOX_TOL matched one to one, fused clouds equal. The frame
+    program's radius tests and adjacency are also held stage by stage
+    (frame_program_flips): every differing mask or reach entry must lie
+    within PSEUDO_STRADDLE of its radius, and the bf16 adjacency must be
+    exact. Differing boxes pass only where the above-plane masks agree and
+    such an entry, printed, explains them."""
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.pseudo import factory as pf
+    from dfu3d_tpu_torch.pseudo import ops
+    from dfu3d_tpu_torch.tools.generate_pseudo_boxes import fov_only
+
+    out = []
+    for idx in ids:
+        frame = fov_only(pf.load_frame_inputs(root, idx))
+        valid = torch.zeros(pf.LIDAR_CAP, dtype=torch.bool)
+        valid[:min(len(frame.lidar), pf.LIDAR_CAP)] = True
+        triples = ops.sample_ground_triples(valid, pf.RANSAC_ITERS,
+                                            torch.Generator().manual_seed(int(idx)))
+        card, cpu = pf.PseudoBoxFactory(device=device), pf.PseudoBoxFactory(device="cpu")
+        got = card.process_frame(frame, triples=triples)
+        t0 = time.perf_counter()
+        want = cpu.process_frame(frame, triples=triples)
+        cpu_s = time.perf_counter() - t0
+        same = sorted(got.names) == sorted(want.names) and len(got.names) == len(want.names)
+        err = 0.0
+        if same and len(got.names):
+            dist = np.abs(got.boxes_lidar[:, None] - want.boxes_lidar[None]).max(-1)
+            match = dist.argmin(0)
+            same = (len(set(match.tolist())) == len(match)
+                    and [got.names[i] for i in match] == want.names)
+            err = float(dist[match, np.arange(len(match))].max())
+        _, above = card.plane_and_above(frame.lidar, triples)
+        above_flips = int((above != cpu.plane_and_above(frame.lidar, triples)[1]).sum())
+        pseudo, pix = card.densify(frame)
+        packed = card.pack_instances(frame, frame.lidar[above], pseudo, pix)
+        flips, adjacency_exact = frame_program_flips(packed, card.ball_gate_c, device)
+        straddles = [s for v in flips.values() for s in v]
+        entry = {"frame": idx, "boxes": len(got.names), "max_box_diff": err, "cpu_s": cpu_s,
+                 "fused_equal": bool(np.array_equal(got.fused_points, want.fused_points)),
+                 "above_flips": above_flips, "flips": {k: len(v) for k, v in flips.items()},
+                 "max_straddle_m": max(straddles, default=None),
+                 "adjacency_exact": adjacency_exact,
+                 "sweeps": [card.last_stats["sweeps"], cpu.last_stats["sweeps"]]}
+        log(f"[pseudo] frame {idx} on the card and on the CPU ({cpu_s:.2f} s): {entry['boxes']} "
+            f"boxes, names equal {same}, max box diff {err:.3g}, fused clouds equal "
+            f"{entry['fused_equal']}; above-plane flips {above_flips}, radius-test flips "
+            f"{entry['flips']} (largest straddle {entry['max_straddle_m']} m), bf16 adjacency "
+            f"exact {adjacency_exact}; label sweeps {entry['sweeps']}")
+        if not (entry["fused_equal"] and adjacency_exact
+                and all(s <= PSEUDO_STRADDLE for s in straddles)):
+            fail(f"pseudo factory on the card vs the CPU, frame {idx}: {entry}")
+        if not (same and err <= PSEUDO_BOX_TOL) and not (above_flips == 0 and straddles):
+            fail(f"pseudo factory on the card vs the CPU, frame {idx}: the boxes differ and no "
+                 f"radius-test flip explains it: {entry}")
+        out.append(entry)
+    return out
+
+
+def depth_cuda_vs_cpu(root, idx, device):
+    """One enet_ref depth map (seeded weights, 352 x 1216) in fp32 on the card
+    and on the CPU: max |diff| within DEPTH_TOL of the map's largest |depth|."""
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry.calibration import Calibration
+    from dfu3d_tpu_torch.data import kitti_io
+    from dfu3d_tpu_torch.pseudo.synthetic import IMG_H, IMG_W
+    from dfu3d_tpu_torch.tools.complete_depth import DepthCompleter, build_depth_model
+
+    torch.manual_seed(0)
+    card = build_depth_model("enet_ref", device)
+    cpu = build_depth_model("enet_ref", "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    calib = Calibration(root / "calib" / f"{idx}.txt")
+    lidar = kitti_io.read_velodyne_bin(root / "velodyne" / f"{idx}.bin")
+    image = kitti_io.read_png(root / "image_2" / f"{idx}.png")
+    got = DepthCompleter(card, "enet_ref", IMG_H, IMG_W, device, torch.float32)(image, lidar, calib)
+    tf32 = DepthCompleter(card, "enet_ref", IMG_H, IMG_W, device, torch.float32,
+                          tf32=True)(image, lidar, calib)
+    t0 = time.perf_counter()
+    want = DepthCompleter(cpu, "enet_ref", IMG_H, IMG_W, torch.device("cpu"),
+                          torch.float32)(image, lidar, calib)
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    tf32_err = float(np.abs(tf32 - want).max())
+    log(f"[pseudo] enet_ref fp32 {IMG_H}x{IMG_W}, card vs CPU ({cpu_s:.2f} s): max |diff| "
+        f"{err:.3g} m of max |depth| {scale:.3g} m ({err / max(scale, 1e-30):.3g}; tol "
+        f"{DEPTH_TOL}); the card's TF32 convolutions would read {tf32_err:.3g} m "
+        f"({tf32_err / max(scale, 1e-30):.3g})")
+    if not (scale > 0 and np.isfinite(got).all() and err <= DEPTH_TOL * scale):
+        fail(f"enet_ref fp32 on the card vs the CPU: max |diff| {err} of {scale}")
+    return {"hw": [IMG_H, IMG_W], "max_abs_diff": err, "max_abs_depth": scale,
+            "rel": err / scale, "tol": DEPTH_TOL, "tf32_rel": tf32_err / scale, "cpu_s": cpu_s}
+
+
+def pseudo(device):
+    """Phase 8: pipeline 2 from raw frames to the detector's infos. Every kernel
+    count is set to 0 just before complete_depth and read just after
+    generate_pseudo_boxes. Returns (the summary, launches)."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.pseudo import synthetic
+    from dfu3d_tpu_torch.tools import complete_depth, create_infos, generate_pseudo_boxes
+
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        root = work / "pseudo_root"
+        t0 = time.perf_counter()
+        ids, _ = synthetic.make_dataset(root, n_train=PSEUDO_FRAMES, n_val=0)
+        write_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        depth = complete_depth.main(["--detpath", str(root), "--model", "enet_ref",
+                                     "--out_dir", str(work / "depth_enet_ref"), "--seed", "0"])
+        depth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen = generate_pseudo_boxes.main(["--detpath", str(root), "--seed", "0"])
+        gen_s = time.perf_counter() - t0
+        launches = read_launches()
+        maps = [np.load(p) for p in depth["written"]]
+        if len(maps) != PSEUDO_FRAMES or not all(
+                m.shape == (352, 1216) and np.isfinite(m).all() and (m != 0).any() for m in maps):
+            fail(f"tools.complete_depth wrote {len(maps)} maps, not {PSEUDO_FRAMES} finite "
+                 "(352, 1216) maps")
+        labels = sorted(p.stem for p in (root / "label_train").glob("*.txt"))
+        clouds = sorted(p.stem for p in (root / "velodyne_depth").glob("*.npy"))
+        if labels != ids or clouds != ids or gen["frames"] != ids:
+            fail(f"tools.generate_pseudo_boxes wrote labels {labels} and clouds {clouds} for "
+                 f"frames {ids}")
+        if any(launches.values()):
+            fail(f"the pseudo path launched a kernel that is not on it: {launches}")
+        log(f"[pseudo] {PSEUDO_FRAMES} frames written in {write_s:.2f} s; tools.complete_depth "
+            f"enet_ref bf16: {depth_s:.2f} s ({PSEUDO_FRAMES / depth_s:.2f} frames/s with the "
+            f"model's set-up); tools.generate_pseudo_boxes: {gen_s:.2f} s "
+            f"({gen['frames_per_s']:.2f} frames/s), boxes per frame {gen['boxes']}")
+
+        t0 = time.perf_counter()
+        out = create_infos.main(["--cfg_file", str(REPO / "tools" / CLI_CFG), "--data_path",
+                                 str(root), "--label_dir", "label_train", "--suffix",
+                                 "_initial_pseudo_box", "--splits", "train"])
+        infos_s = time.perf_counter() - t0
+        infos = np.load(out["infos"][0], allow_pickle=True)
+        counts = {info["point_cloud"]["lidar_idx"]: len(info["annos"]["name"]) for info in infos}
+        if counts != gen["boxes"]:
+            fail(f"create_infos counts {counts} boxes, the factory wrote {gen['boxes']}")
+        recalled = total = 0
+        for info in infos:
+            annos = info["annos"]
+            cars = annos["gt_boxes_lidar"][annos["name"] == "Car"]
+            _, gt, _ = synthetic.make_scene(seed=int(info["point_cloud"]["lidar_idx"]))
+            rec = synthetic.bev_recovery(cars, gt)
+            recalled += rec["recalled"]
+            total += rec["gt"]
+        recall = recalled / total
+        log(f"[pseudo] tools.create_infos ({infos_s:.2f} s): box counts equal the factory's; "
+            f"gt Cars recovered at BEV IoU >= 0.5: {recalled} of {total} = {recall:.4f} "
+            f"(floor {PSEUDO_RECALL_MIN})")
+        if not recall >= PSEUDO_RECALL_MIN:
+            fail(f"pseudo-box recovery {recall:.4f} below {PSEUDO_RECALL_MIN}")
+        card_vs_cpu = factory_cuda_vs_cpu(root, ids[:2], device)
+        depth_check = depth_cuda_vs_cpu(root, ids[0], device)
+    summary = {"frames": PSEUDO_FRAMES, "write_s": write_s,
+               "complete_depth": {"model": "enet_ref", "dtype": "bfloat16", "seconds": depth_s,
+                                  "frames_per_s": PSEUDO_FRAMES / depth_s},
+               "generate_pseudo_boxes": {"seconds": gen_s, "frames_per_s": gen["frames_per_s"],
+                                         "boxes": gen["boxes"]},
+               "create_infos_s": infos_s, "launches": launches,
+               "recovery": {"recalled": recalled, "gt": total, "recall": recall,
+                            "floor": PSEUDO_RECALL_MIN},
+               "factory_card_vs_cpu": card_vs_cpu, "depth_card_vs_cpu": depth_check}
+    return summary, launches
+
+
 def main():
     import torch
 
@@ -1217,6 +1494,7 @@ def main():
         from dfu3d_tpu_torch.core.geometry import iou_kernel
         from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
         from dfu3d_tpu_torch.data.batch import synthetic_batch
+        from dfu3d_tpu_torch.data import kitti_io
         from dfu3d_tpu_torch.eval import native
         from dfu3d_tpu_torch.flagship import flagship, seeded_weights_
         from dfu3d_tpu_torch.zoo import voxel_centerpoint
@@ -1246,6 +1524,9 @@ def main():
     native.get_lib()
     log(f"[build] the native KITTI matcher {native.library_path().relative_to(REPO)} (g++) in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    kitti_io.png_unfilter_lib()
+    log(f"[build] the native PNG unfilter (g++) in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels vs plain
     iou_shapes, iou_err = check_overlap_kernel(device)
@@ -1318,6 +1599,9 @@ def main():
     pillar_step_ms = statistics.median(s["host_ms"] for s in pillar_steps)
     cli_summary, cli_train, cli_eval = cli(device, pillar_step_ms)
 
+    # 8. pipeline 2: depth completion and the pseudo-box factory through their CLIs
+    pseudo_summary, pseudo_launches = pseudo(device)
+
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
@@ -1332,7 +1616,8 @@ def main():
                              "pillar_train": pillar_train["iou_bev_overlap"],
                              "voxel_train": voxel_train["iou_bev_overlap"],
                              "cli_train": cli_train["iou_bev_overlap"],
-                             "cli_eval": cli_eval["iou_bev_overlap"]},
+                             "cli_eval": cli_eval["iou_bev_overlap"],
+                             "pseudo": pseudo_launches["iou_bev_overlap"]},
         "max_abs_err": iou_err,
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
@@ -1358,7 +1643,8 @@ def main():
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
                              "cli_train": cli_train["gather_gemm"],
-                             "cli_eval": cli_eval["gather_gemm"]},
+                             "cli_eval": cli_eval["gather_gemm"],
+                             "pseudo": pseudo_launches["gather_gemm"]},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 for k in ("tensor_core", "cuda_core")},
@@ -1390,6 +1676,7 @@ def main():
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
                               "fp32_kernels_vs_plain": train_checks}}))
     log(json.dumps({"cli": cli_summary}, default=str))
+    log(json.dumps({"pseudo": pseudo_summary}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -1,17 +1,23 @@
-"""KITTI-format file IO: label txt parser/writer, velodyne bins, image shapes.
+"""KITTI-format file IO: label txt parser/writer, velodyne bins, PNG images.
 
 Own copy of dfu3d_tpu/data/kitti_io.py. Format parity with the reference
 (pcdet/utils/object3d_kitti.py and kitti_dataset.py:339-419's prediction
 writer): these files are the interchange contract with the reference
-ecosystem (pseudo-labels, predictions, gt). Image shapes come from the PNG
-header, so reading them needs no imaging library.
+ecosystem (pseudo-labels, predictions, gt). PNGs are read with zlib and
+numpy, so no imaging library is needed: image shapes come from the header,
+pixels from `read_png`, whose row unfilter is native C++
+(data/csrc/png_unfilter.cpp, built with g++ at first use) with a numpy twin.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
+
+from .. import gxx_build
 
 
 def cls_type_to_id(cls_type: str, classes=("Car", "Pedestrian", "Cyclist", "Van")) -> int:
@@ -127,3 +133,106 @@ def write_kitti_label_file(path, annos_dict):
             )
         )
     path.write_text("\n".join(lines) + ("\n" if lines else ""))
+
+
+# --- PNG pixels -------------------------------------------------------------
+
+PNG_UNFILTER_SOURCE = Path(__file__).resolve().parent / "csrc" / "png_unfilter.cpp"
+PNG_BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc_build"
+# 8-bit colour types read_png takes: gray, RGB, RGBA -> bytes per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+_U8 = ctypes.POINTER(ctypes.c_uint8)
+_PNG_SIGNATURES = {
+    "png_unfilter": (ctypes.c_int64, [_U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _U8]),
+}
+
+
+def png_unfilter_lib():
+    """The native unfilter, built if needed and loaded once per process; raises
+    if it cannot be built or loaded."""
+    return gxx_build.load(PNG_UNFILTER_SOURCE, PNG_BUILD_DIR, "libpng_unfilter",
+                          "the native PNG unfilter", _PNG_SIGNATURES)
+
+
+def _unfilter_native(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    out = np.empty(height * row_bytes, np.uint8)
+    bad = png_unfilter_lib().png_unfilter(raw.ctypes.data_as(_U8), height, row_bytes, bpp,
+                                          out.ctypes.data_as(_U8))
+    if bad >= 0:
+        raise ValueError(f"PNG row {bad} has filter type {raw[bad * (row_bytes + 1)]}, not 0-4")
+    return out.reshape(height, row_bytes)
+
+
+def _unfilter_plain(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """The numpy twin of the native unfilter (PNG specification section 9):
+    None, Sub and Up are vectorised along the row; Average and Paeth read the
+    reconstructed byte to the left, so they loop over the row's pixels."""
+    rows = raw.reshape(height, row_bytes + 1)
+    out = np.zeros((height, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.int32)
+    for r in range(height):
+        kind, src = rows[r, 0], rows[r, 1:].astype(np.int32)
+        if kind == 0:
+            cur = src
+        elif kind == 1:
+            cur = np.cumsum(src.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:
+            cur = (src + prev) & 0xFF
+        elif kind in (3, 4):
+            cur = np.zeros(row_bytes, np.int32)
+            left = np.zeros(bpp, np.int32)
+            up_left = np.zeros(bpp, np.int32)
+            for i in range(0, row_bytes, bpp):
+                up = prev[i:i + bpp]
+                if kind == 3:
+                    pred = (left + up) >> 1
+                else:
+                    p = left + up - up_left
+                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+                    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+                left = (src[i:i + bpp] + pred) & 0xFF
+                cur[i:i + bpp] = left
+                up_left = up
+        else:
+            raise ValueError(f"PNG row {r} has filter type {kind}, not 0-4")
+        out[r] = cur
+        prev = cur.astype(np.int32)
+    return out
+
+
+def read_png(path, use_native: bool = True) -> np.ndarray:
+    """(H, W, 3) uint8 of an 8-bit, non-interlaced gray, RGB or RGBA PNG, as
+    PIL's `Image.open(path).convert("RGB")` gives it: gray is repeated over
+    the three channels, alpha is dropped. Any other PNG raises. The rows are
+    unfiltered natively; `use_native=False` takes the numpy twin."""
+    data = Path(path).read_bytes()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path} is not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path} has no IHDR chunk")
+    width, height, depth, colour, compression, filtering, interlace = header
+    if depth != 8 or colour not in _PNG_CHANNELS or compression or filtering or interlace:
+        raise ValueError(f"{path}: only 8-bit non-interlaced gray, RGB or RGBA PNGs are read "
+                         f"(bit depth {depth}, colour type {colour}, interlace {interlace})")
+    bpp = _PNG_CHANNELS[colour]
+    row_bytes = width * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != height * (row_bytes + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, expected "
+                         f"{height * (row_bytes + 1)}")
+    unfilter = _unfilter_native if use_native else _unfilter_plain
+    pixels = unfilter(raw, height, row_bytes, bpp).reshape(height, width, bpp)
+    if bpp == 1:
+        return np.repeat(pixels, 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])

@@ -40,18 +40,33 @@ CLASS_DIMS = {
 }
 
 
-def write_png_gray(path, width: int, height: int):
-    """A blank 8-bit grayscale PNG: signature, IHDR, one zlib IDAT of rows
-    of filter byte 0 and zeros, IEND."""
+def write_png(path, image):
+    """An 8-bit PNG of a (H, W) gray or (H, W, 3) RGB uint8 array: signature,
+    IHDR, one zlib IDAT of rows of filter byte 0 and the pixels, IEND."""
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, 0, 0, 0, 0)
-    raw = bytes(height * (width + 1))
-    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
-           + chunk(b"IEND", b""))
+    image = np.ascontiguousarray(image, np.uint8)
+    height, width = image.shape[:2]
+    colour = 2 if image.ndim == 3 else 0
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
+    rows = np.concatenate([np.zeros((height, 1), np.uint8), image.reshape(height, -1)], axis=1)
+    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+           + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
     Path(path).write_bytes(png)
+
+
+def write_png_gray(path, width: int, height: int):
+    """A blank 8-bit grayscale PNG."""
+    write_png(path, np.zeros((height, width), np.uint8))
+
+
+def write_png_rgb(path, image):
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array."""
+    if image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"write_png_rgb takes (H, W, 3), not {image.shape}")
+    write_png(path, image)
 
 
 def _in_image(calib, pts):

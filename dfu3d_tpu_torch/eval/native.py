@@ -9,64 +9,37 @@ Python matcher in kitti_eval.py is its plain twin, chosen only by
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
+from .. import gxx_build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "kitti_match.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc_build"
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-_lib = None
-_lock = threading.Lock()
+_DP = ctypes.POINTER(ctypes.c_double)
+_IP = ctypes.POINTER(ctypes.c_int64)
+_SIGNATURES = {
+    "collect_thresholds": (ctypes.c_int, [
+        _DP, _IP, _DP, _IP, _DP, _IP, _IP, _IP, _DP, _IP,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, _DP,
+    ]),
+    "fused_statistics": (None, [
+        _DP, _IP, _DP, _IP, _DP, _IP, _IP, _IP, _DP, _IP,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        _DP, ctypes.c_int, ctypes.c_int, _DP,
+    ]),
+}
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libkitti_match_{digest[:16]}.so"
-
-
-def _build(lib: Path):
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"cannot build the native KITTI matcher: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name} ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    return gxx_build.library_path(SOURCE, BUILD_DIR, "libkitti_match")
 
 
 def get_lib():
     """The native matcher, built if needed and loaded once per process."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib_path = library_path()
-            if not lib_path.exists():
-                _build(lib_path)
-            lib = ctypes.CDLL(str(lib_path))
-            dp = ctypes.POINTER(ctypes.c_double)
-            ip = ctypes.POINTER(ctypes.c_int64)
-            lib.collect_thresholds.restype = ctypes.c_int
-            lib.collect_thresholds.argtypes = [
-                dp, ip, dp, ip, dp, ip, ip, ip, dp, ip,
-                ctypes.c_int, ctypes.c_int, ctypes.c_double, dp,
-            ]
-            lib.fused_statistics.restype = None
-            lib.fused_statistics.argtypes = [
-                dp, ip, dp, ip, dp, ip, ip, ip, dp, ip,
-                ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                dp, ctypes.c_int, ctypes.c_int, dp,
-            ]
-            _lib = lib
-        return _lib
+    return gxx_build.load(SOURCE, BUILD_DIR, "libkitti_match", "the native KITTI matcher",
+                          _SIGNATURES)
 
 
 def _dp(a):

@@ -115,7 +115,6 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
     broken.write_text("this is not C++\n")
     monkeypatch.setattr(native, "SOURCE", broken)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.get_lib()
     gt_annos, dt_annos = random_frames(0, n_frames=2)
