@@ -87,8 +87,29 @@ Phases, each fatal on failure:
               explains them); one enet_ref depth map in strict fp32 on the
               card and on the CPU within DEPTH_TOL, and the card's TF32
               reading beside it.
-The lines before the last are {"cli": {...}}, {"pseudo": {...}} and
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+  9. evolve   pipelines 1 and 4, in a temporary working directory:
+              tools.nuscenes2kitti on 4 raw-table frames (host only; each car
+              read back through the calibration within 5 cm); tools.evolve
+              --rounds 1 --epochs 2 on the flagship config over phase 7's
+              layout (--score_thresh 0: a model trained 8 steps from scratch
+              scores nothing above 0.1), fatal unless the predict pass launches
+              B1 twice per eval batch and B2 never, label_refine0 is the newest
+              epoch's predictions byte for byte and the rebuilt infos count its
+              boxes; tools.e2e_synthetic, pillar, Car,Pedestrian,Cyclist, one
+              refine round (synthetic data, pseudo boxes, infos, train, eval,
+              then predict, filter, rebuild, retrain, eval), fatal if a class
+              is missing from an AP_DICT or the round keeps no box, B1 twice per
+              eval batch; one round's predict pass in fp32 through B1 and
+              through its plain twin from the same checkpoint, the refined
+              label sets equal; tools.e2e_synthetic --model voxel
+              --evolve_rounds 0 --epochs 1 (VoxelBackBone8x), fatal unless
+              every bf16 train step launches the tensor-core B2 exactly 23
+              times (12 forward, 11 dX); each of one served request's 12 B2
+              calls and one train step's 11 dX calls held against the plain
+              twin and timed (kernel, plain, library, bound).
+The lines before the last are {"cli": {...}}, {"pseudo": {...}},
+{"evolve": {...}} and {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}.
 """
 import json
 import math
@@ -133,6 +154,15 @@ DEPTH_TOL = 5e-5
 # network's outputs repeat bit for bit and B1 enters only NMS's keep
 # decisions and the recall counts, so equal kept sets give equal APs
 EVAL_AP_TOL = 0.0
+NUSC_FRAMES = 4           # phase 9's raw-table nuScenes frames
+NUSC_TOL = 0.05           # m, a car read back through the calibration (labels print 2 decimals)
+EVOLVE_EPOCHS = 2         # tools.evolve: two checkpoints, so that the newest is a choice
+E2E_FRAMES = (32, 8)      # e2e_synthetic pillar: train, val frames
+E2E_EPOCHS, E2E_BATCH = 20, 2   # 320 steps: the round keeps boxes at 0.5
+VOXEL_E2E_FRAMES, VOXEL_E2E_BATCH = (8, 4), 4
+VOXEL8X_TRAIN_B2 = 23     # tensor-core gather-GEMM launches per VoxelBackBone8x train step
+VOXEL8X_CONVS = ["conv_input", "conv1", "down2", "conv2a", "conv2b", "down3", "conv3a",
+                 "conv3b", "down4", "conv4a", "conv4b", "conv_out"]   # forward order
 # the 21 sparse convs of one voxel eval step at B=4, max_voxels 60000:
 # (name, V, Q, K, Cin, Cout, launches per step)
 GEMM_PATH_SHAPES = [
@@ -1483,6 +1513,385 @@ def pseudo(device):
     return summary, launches
 
 
+def nuscenes_tree(root, frames):
+    """A raw-table nuScenes tree (the JSON tables, LIDAR_TOP clouds; no camera
+    images) of `frames` key frames chained by `next`: the ego drives along +x
+    (identity rotation, 2 m per frame), LIDAR_TOP sits at the ego origin turned
+    -90 deg about z (x right, y forward), CAM_FRONT 1.5 m up looking along +x,
+    and frame k has one car 10 + k m ahead and 0.5 k m to the left of the ego,
+    with a cluster of 100 points on it. Returns the car's KITTI-lidar centre
+    per frame (x forward, y left: the ego frame)."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.data.nuscenes_tables import Quaternion
+
+    tdir = root / "v1.0-mini"
+    tdir.mkdir(parents=True)
+    (root / "samples" / "LIDAR_TOP").mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    lid_rot = Quaternion(axis=(0, 0, 1), angle=-np.pi / 2)
+    cam_rot = Quaternion(matrix=np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], dtype=float))
+    tables = {
+        "sensor": [{"token": "sen_lid", "channel": "LIDAR_TOP", "modality": "lidar"},
+                   {"token": "sen_cam", "channel": "CAM_FRONT", "modality": "camera"}],
+        "calibrated_sensor": [
+            {"token": "cs_lid", "sensor_token": "sen_lid", "translation": [0, 0, 0],
+             "rotation": lid_rot.q.tolist(), "camera_intrinsic": []},
+            {"token": "cs_cam", "sensor_token": "sen_cam", "translation": [0, 0, 1.5],
+             "rotation": cam_rot.q.tolist(),
+             "camera_intrinsic": [[1266.0, 0, 800.0], [0, 1266.0, 450.0], [0, 0, 1]]}],
+        "log": [{"token": "log0", "logfile": "log0"}],
+        "scene": [{"token": "scene0", "log_token": "log0", "name": "scene-0001"}],
+        "category": [{"token": "cat_car", "name": "vehicle.car"}],
+        "ego_pose": [], "sample": [], "sample_data": [], "sample_annotation": []}
+    want = []
+    for k in range(frames):
+        ego_x = 2.0 * k
+        car = np.array([10.0 + k, 0.5 * k, 1.0])
+        want.append(car)
+        # the cluster in the nuScenes LIDAR frame (x right, y forward)
+        pts = rng.uniform(-0.5, 0.5, (100, 3)) + [-car[1], car[0], car[2]]
+        np.concatenate([pts, rng.uniform(0, 1, (100, 1)), np.zeros((100, 1))],
+                       1).astype(np.float32).tofile(root / "samples" / "LIDAR_TOP" / f"lid{k}.bin")
+        last = k == frames - 1
+        tables["ego_pose"].append({"token": f"pose{k}", "translation": [ego_x, 0, 0],
+                                   "rotation": [1, 0, 0, 0]})
+        tables["sample"].append({"token": f"samp{k}", "scene_token": "scene0",
+                                 "timestamp": 500000 * k})
+        tables["sample_data"] += [
+            {"token": f"sd_lid{k}", "sample_token": f"samp{k}", "is_key_frame": True,
+             "calibrated_sensor_token": "cs_lid", "ego_pose_token": f"pose{k}",
+             "filename": f"samples/LIDAR_TOP/lid{k}.bin",
+             "next": "" if last else f"sd_lid{k + 1}"},
+            {"token": f"sd_cam{k}", "sample_token": f"samp{k}", "is_key_frame": True,
+             "calibrated_sensor_token": "cs_cam", "ego_pose_token": f"pose{k}",
+             "filename": f"samples/CAM_FRONT/cam{k}.jpg", "next": ""}]
+        tables["sample_annotation"].append({
+            "token": f"ann{k}", "sample_token": f"samp{k}", "category_token": "cat_car",
+            "translation": [ego_x + car[0], car[1], car[2]], "size": [1.8, 4.0, 1.6],
+            "rotation": [1, 0, 0, 0]})
+    for name, rows in tables.items():
+        (tdir / f"{name}.json").write_text(json.dumps(rows))
+    return want
+
+
+def nuscenes_to_kitti(work):
+    """Pipeline 1 on the host: tools.nuscenes2kitti on NUSC_FRAMES raw-table
+    frames; each frame's car read back through the port's calibration and
+    label reader must sit at its KITTI-lidar centre within NUSC_TOL."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.core.geometry.calibration import Calibration
+    from dfu3d_tpu_torch.data import kitti_io
+    from dfu3d_tpu_torch.tools import nuscenes2kitti
+
+    want = nuscenes_tree(work / "nuscenes", NUSC_FRAMES)
+    t0 = time.perf_counter()
+    out = nuscenes2kitti.main(["--dataroot", str(work / "nuscenes"), "--nusc_kitti_dir",
+                               str(work / "nusc_kitti"), "--split", "all", "--image_count",
+                               str(NUSC_FRAMES), "--nusc_version", "v1.0-mini"])
+    seconds = time.perf_counter() - t0
+    err = cloud_err = 0.0
+    for k, car in enumerate(want):
+        calib = Calibration(out / "calib" / f"{k:06d}.txt")
+        objs = kitti_io.get_objects_from_label(out / "label_2" / f"{k:06d}.txt")
+        if len(objs) != 1 or objs[0].cls_type != "Car":
+            fail(f"nuscenes2kitti frame {k}: labels {[o.cls_type for o in objs]}, not one Car")
+        loc = calib.rect_to_lidar(objs[0].loc[None])[0]
+        loc[2] += objs[0].h / 2
+        err = max(err, float(np.abs(loc - car).max()))
+        pts = np.fromfile(out / "velodyne" / f"{k:06d}.bin", np.float32).reshape(-1, 4)
+        cloud_err = max(cloud_err, float(np.abs(pts[:, :3].mean(0) - car).max()))
+    poses = len(list((out / "pose").glob("*.txt")))
+    log(f"[evolve] tools.nuscenes2kitti: {NUSC_FRAMES} frames in {seconds:.3f} s, {poses} ego-pose "
+        f"pairs; each car read back through the calibration within {err:.4f} m (tol {NUSC_TOL}), "
+        f"its point cluster's mean in the KITTI-lidar cloud within {cloud_err:.3f} m")
+    if not (err <= NUSC_TOL and cloud_err <= 0.2) or poses != NUSC_FRAMES - 1:
+        fail(f"nuscenes2kitti: a car off by {err} m, a cloud by {cloud_err} m, or {poses} pose "
+             "files")
+    return {"frames": NUSC_FRAMES, "seconds": seconds, "max_err_m": err,
+            "cloud_err_m": cloud_err, "pose_files": poses}
+
+
+def evolve_flagship(work, device):
+    """tools.evolve --rounds 1 on the flagship config from disk over phase 7's
+    layout. Kernel counts are set to 0 just before and read just after: the
+    pillar train launches neither kernel, the predict pass (every epoch's
+    checkpoint, --eval_all) B1 twice per eval batch. label_refine0 must be
+    the newest epoch's predictions byte for byte, and the rebuilt infos must
+    count each frame's labels. --score_thresh 0: a model trained EVOLVE_EPOCHS
+    short epochs from scratch scores nothing above the config's 0.1, and the
+    phase checks the round's plumbing at the size of the detector's output,
+    not the model."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.tools import evolve
+
+    cfg = flagship_on(work / "train_28130")
+    root, _, _ = synthetic_kitti_root(work, cfg.CLASS_NAMES)
+    reset_launches()
+    t0 = time.perf_counter()
+    (rec,) = evolve.main(["--cfg_file", CLI_CFG, "--rounds", "1", "--epochs", str(EVOLVE_EPOCHS),
+                          "--score_thresh", "0.0", "--device", device.type, "--set",
+                          "DATA_CONFIG.DATA_PATH", str(root)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    epochs = [e for e, _, _ in rec["predictions"]]
+    batches = sum(res["eval_batches"] for _, _, res in rec["predictions"])
+    newest = rec["prediction_dir"]
+    if epochs != list(range(1, EVOLVE_EPOCHS + 1)) or newest.parts[-4] != f"epoch_{EVOLVE_EPOCHS}":
+        fail(f"tools.evolve predicted epochs {epochs} and took {newest}")
+    if launches["iou_bev_overlap"] != 2 * batches or launches["gather_gemm"]:
+        fail(f"tools.evolve: kernel launches {launches}, not 2 overlap launches per eval batch "
+             f"({batches}) and no gather-GEMM")
+    labels = sorted(rec["label_dir"].glob("*.txt"))
+    if [p.name for p in labels] != sorted(p.name for p in newest.glob("*.txt")) or any(
+            p.read_bytes() != (newest / p.name).read_bytes() for p in labels):
+        fail(f"{rec['label_dir']} is not a copy of the newest epoch's predictions {newest}")
+    infos = np.load(rec["next_info"], allow_pickle=True)
+    counts = {i["point_cloud"]["lidar_idx"]: len(i["annos"]["name"]) for i in infos}
+    lines = {p.stem: len(p.read_text().splitlines()) for p in labels}
+    if counts != lines or not sum(lines.values()):
+        fail(f"the rebuilt infos count {counts} boxes where label_refine0 holds {lines}")
+    log(f"[evolve] tools.evolve --rounds 1 --epochs {EVOLVE_EPOCHS} (flagship, {CLI_TRAIN_FRAMES} "
+        f"frames): {seconds:.2f} s ({json.dumps({k: round(v, 3) for k, v in rec['seconds'].items()})}); "
+        f"predict pass over epochs {epochs}: {batches} eval batches, kernel launches "
+        f"{json.dumps(launches)}; label_refine0 = epoch {EVOLVE_EPOCHS}'s predictions, "
+        f"{sum(lines.values())} boxes, the rebuilt infos count the same per frame")
+    return {"seconds": seconds, "split_s": rec["seconds"], "epochs_predicted": epochs,
+            "eval_batches": batches, "launches": launches, "boxes": sum(lines.values()),
+            "train_steps": sum(e["steps"] for e in rec["train"]["epochs"])}
+
+
+def e2e_pillar(work, device):
+    """tools.e2e_synthetic, 3 classes, pillar, one refine round; fatal when a
+    class is missing from an AP_DICT or the round keeps no box (the script
+    raises). Kernel counts are set to 0 just before and read just after: B1
+    twice per eval batch over the initial eval, the predict pass and the
+    round's eval; no B2. Returns (summary, launches)."""
+    from dfu3d_tpu_torch.tools import e2e_synthetic
+
+    classes = ["Car", "Pedestrian", "Cyclist"]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = e2e_synthetic.main(["--workdir", str(work / "e2e_pillar"), "--device", device.type,
+                              "--classes", ",".join(classes), "--evolve_rounds", "1",
+                              "--n_train", str(E2E_FRAMES[0]), "--n_val", str(E2E_FRAMES[1]),
+                              "--epochs", str(E2E_EPOCHS), "--batch_size", str(E2E_BATCH)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    (rnd,) = out["rounds"]
+    for name, ap in (("initial", out["eval"]), ("refine0", rnd["eval"])):
+        missing = [c for c in classes if f"{c}_3d/moderate_R40" not in ap]
+        if missing:
+            fail(f"e2e_synthetic {name}: AP_DICT lacks {missing}")
+    batches = (out["eval"]["eval_batches"] + rnd["predict"]["eval_batches"]
+               + rnd["eval"]["eval_batches"])
+    if launches["iou_bev_overlap"] != 2 * batches or launches["gather_gemm"]:
+        fail(f"e2e_synthetic pillar: kernel launches {launches}, not 2 overlap launches per "
+             f"eval batch ({batches}) and no gather-GEMM")
+    steps = [sum(e["steps"] for e in t["epochs"]) for t in (out["train"], rnd["train"])]
+    log(f"[evolve] e2e_synthetic pillar {','.join(classes)}, {E2E_FRAMES[0]} + {E2E_FRAMES[1]} "
+        f"frames, {E2E_EPOCHS} epochs of {steps[0]} steps in all, one refine round: "
+        f"{seconds:.2f} s; FACTORY_QUALITY {json.dumps(out['factory_quality'])}; AP history "
+        f"{out['ap_history']}; the round kept {rnd['kept']}/{rnd['total']} boxes >= "
+        f"{rnd['thresh']:.3f}; split (s) initial {json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}, "
+        f"round {json.dumps({k: round(v, 3) for k, v in rnd['seconds'].items()})}; kernel "
+        f"launches {json.dumps(launches)}")
+    summary = {"classes": classes, "frames": list(E2E_FRAMES), "epochs": E2E_EPOCHS,
+               "batch_size": E2E_BATCH, "train_steps": steps, "seconds": seconds,
+               "factory_quality": out["factory_quality"], "ap_history": out["ap_history"],
+               "per_class_history": rnd["per_class_history"],
+               "round": {k: rnd[k] for k in ("kept", "total", "thresh", "predicted_epoch")},
+               "split_s": {"initial": out["seconds"], "refine0": rnd["seconds"]},
+               "eval_batches": batches, "launches": launches}
+    return summary, launches
+
+
+def predict_kernel_vs_plain(work, device):
+    """One refine round's predict pass in fp32 from the pillar run's initial
+    checkpoint, through B1 and through its plain twin (one loader thread),
+    each filtered as the round filters: the kept label sets must be equal
+    (names equal, numbers within PATH_TOL as sets)."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.tools import e2e_synthetic, test as test_cli
+
+    workdir = work / "e2e_pillar"
+    rel_cfg = next((workdir / "cfgs" / "synthetic").glob("*.yaml")).relative_to(workdir)
+    ckpt = e2e_synthetic.newest_checkpoint(
+        workdir / "output" / "synthetic" / rel_cfg.stem / "default" / "ckpt")
+    frames = (workdir / "data" / "ImageSets" / "train.txt").read_text().split()
+    kept = {}
+    for twins in (False, True):
+        tag = "plain" if twins else "kernel"
+        np.random.seed(0)
+        with e2e_synthetic.working_dir(workdir), plain_twins(
+                [(iou_kernel, "overlap_bev", "overlap_bev_plain")] if twins else []):
+            ((_, result_dir, _),) = test_cli.main([
+                "--cfg_file", str(rel_cfg), "--ckpt", str(ckpt), "--save_to_file", "--eval_tag",
+                f"fp32_{tag}", "--workers", "1", "--device", device.type, "--dtype", "float32",
+                "--set", "DATA_CONFIG.DATA_SPLIT.test", "train",
+                "DATA_CONFIG.INFO_PATH.test", "['kitti_infos_train.pkl']"])
+        label_dir = workdir / f"label_fp32_{tag}"
+        stats = e2e_synthetic.filter_round(workdir / result_dir / "final_result" / "data",
+                                           frames, label_dir, 0.5, f"fp32 {tag}")
+        kept[tag] = (label_dir, stats)
+    err, exact = 0.0, True
+    for f in frames:
+        rows = []
+        for tag in ("kernel", "plain"):
+            lines = [line.split() for line in (kept[tag][0] / f"{f}.txt").read_text().splitlines()
+                     if line]
+            rows.append(([r[0] for r in lines],
+                         np.array([[float(x) for x in r[1:]] for r in lines]).reshape(-1, 15)))
+        (kn, kv), (pn, pv) = rows
+        if len(kn) != len(pn):
+            fail(f"fp32 predict pass, frame {f}: {len(kn)} kept boxes through B1, {len(pn)} "
+                 "through the plain twin")
+        if not len(kn):
+            continue
+        dist = np.abs(kv[:, None] - pv[None]).max(-1)
+        match = dist.argmin(0)
+        if len(set(match.tolist())) != len(match) or [kn[i] for i in match] != pn:
+            fail(f"fp32 predict pass, frame {f}: the kept boxes do not match one to one")
+        err = max(err, float(dist[match, np.arange(len(match))].max()))
+        exact &= bool(np.array_equal(kv, pv)) and kn == pn
+    if not err <= PATH_TOL:
+        fail(f"fp32 predict pass: kept boxes differ by {err} between B1 and its plain twin")
+    stats = {tag: kept[tag][1] for tag in kept}
+    log(f"[evolve] one round's predict pass in fp32 from {ckpt.name}: refined labels through B1 "
+        f"and through its plain twin equal ({stats['kernel']['kept']} kept of "
+        f"{stats['kernel']['total']} at {stats['kernel']['thresh']:.3f}; numbers within "
+        f"{err:.3g}, line for line: {exact})")
+    return {"kept": stats, "max_diff": err, "line_for_line": exact}
+
+
+def e2e_voxel(work, device):
+    """tools.e2e_synthetic --model voxel --evolve_rounds 0 --epochs 1: fatal
+    unless every bf16 train step launches the tensor-core B2 VOXEL8X_TRAIN_B2
+    times (12 forward, 11 dX) and no CUDA-core variant; the eval launches B2 12
+    times per batch. Then each of one served request's 12 B2 calls and one
+    train step's 11 dX calls is held against the plain twin and timed.
+    Returns (summary, launches, served totals and entries, dX totals and
+    entries)."""
+    import torch
+
+    from dfu3d_tpu_torch.data.loader import build_dataloader
+    from dfu3d_tpu_torch.tools import e2e_synthetic
+    from dfu3d_tpu_torch.tools import train as train_cli
+    from dfu3d_tpu_torch.tools.common import build_model
+    from dfu3d_tpu_torch.train.checkpoint import load_model_state
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    steps, last = [], {}
+    train_model = train_cli.train_model
+
+    def counted(*args, **kw):
+        def on_step(it, metrics):
+            float(metrics["loss"])          # waits for the card
+            launched = read_launches()
+            steps.append({k: launched[k] - last[k] for k in launched})
+            last.update(launched)
+        last.update(read_launches())
+        return train_model(*args, **kw, on_step=on_step)
+
+    reset_launches()
+    train_cli.train_model = counted
+    t0 = time.perf_counter()
+    try:
+        out = e2e_synthetic.main([
+            "--workdir", str(work / "e2e_voxel"), "--device", device.type, "--model", "voxel",
+            "--evolve_rounds", "0", "--epochs", "1", "--n_train", str(VOXEL_E2E_FRAMES[0]),
+            "--n_val", str(VOXEL_E2E_FRAMES[1]), "--batch_size", str(VOXEL_E2E_BATCH)])
+    finally:
+        train_cli.train_model = train_model
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    bad = [s for s in steps if s["gather_gemm_tensor_core"] != VOXEL8X_TRAIN_B2
+           or s["gather_gemm_cuda_core"]]
+    if not steps or bad:
+        fail(f"e2e_synthetic voxel: a train step did not launch the tensor-core gather-GEMM "
+             f"exactly {VOXEL8X_TRAIN_B2} times: {bad or 'no step ran'}")
+    eval_batches = out["eval"]["eval_batches"]
+    if launches["gather_gemm_tensor_core"] != VOXEL8X_TRAIN_B2 * len(steps) + 12 * eval_batches \
+            or launches["gather_gemm_cuda_core"] or \
+            launches["iou_bev_overlap"] != 2 * eval_batches:
+        fail(f"e2e_synthetic voxel: kernel launches {launches} for {len(steps)} train steps and "
+             f"{eval_batches} eval batches")
+    log(f"[evolve] e2e_synthetic voxel (VoxelBackBone8x), {VOXEL_E2E_FRAMES[0]} + "
+        f"{VOXEL_E2E_FRAMES[1]} frames, 1 epoch: {seconds:.2f} s; {len(steps)} train steps, each "
+        f"{VOXEL8X_TRAIN_B2} tensor-core gather-GEMM launches (12 forward, 11 dX); eval "
+        f"{eval_batches} batches; kernel launches {json.dumps(launches)}; AP "
+        f"{out['ap_history']}")
+
+    # the new B2 shapes: one served request and one train step's dX
+    workdir = work / "e2e_voxel"
+    cfg_file = next((workdir / "cfgs" / "synthetic").glob("*.yaml"))
+    cfg = cfg_from_yaml_file(cfg_file, CfgDict())
+    ckpt = e2e_synthetic.newest_checkpoint(
+        workdir / "output" / "synthetic" / cfg_file.stem / "default" / "ckpt")
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=VOXEL_E2E_BATCH,
+                                 workers=1, training=True)
+    batch = next(iter(loader))[0].to(device)
+    model = build_model(cfg, "test", device)
+    load_model_state(ckpt, model)
+    calls = record_gemm_calls(
+        lambda: make_eval_step(model, device=device, dtype=torch.bfloat16)(batch))
+    if len(calls) != len(VOXEL8X_CONVS):
+        fail(f"one VoxelBackBone8x eval step made {len(calls)} gather-GEMM calls, not 12")
+    served = hold_gemm_calls("VoxelBackBone8x, one served request", zip(VOXEL8X_CONVS, calls))
+    model = build_model(cfg, "train", device, train=True)
+    load_model_state(ckpt, model)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss, _ = model(batch)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+
+    calls = record_gemm_calls(step)
+    if len(calls) != VOXEL8X_TRAIN_B2:
+        fail(f"one VoxelBackBone8x train step made {len(calls)} gather-GEMM calls, not "
+             f"{VOXEL8X_TRAIN_B2}")
+    dx = hold_gemm_calls("dX of one VoxelBackBone8x train step",
+                         zip(VOXEL8X_CONVS[::-1], calls[len(VOXEL8X_CONVS):]))
+    summary = {"frames": list(VOXEL_E2E_FRAMES), "batch_size": VOXEL_E2E_BATCH,
+               "seconds": seconds, "train_steps": steps, "eval_batches": eval_batches,
+               "launches": launches, "ap_history": out["ap_history"],
+               "split_s": out["seconds"]}
+    return summary, launches, served, dx
+
+
+def evolve_phase(device):
+    """Phase 9: pipelines 1 and 4 in a temporary working directory whose cfgs/
+    links to tools/cfgs/."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            nusc = nuscenes_to_kitti(work)
+            flagship_round = evolve_flagship(work, device)
+            pillar, pillar_launches = e2e_pillar(work, device)
+            versus = predict_kernel_vs_plain(work, device)
+            voxel, voxel_launches, served, dx = e2e_voxel(work, device)
+        finally:
+            os.chdir(cwd)
+    summary = {"nuscenes2kitti": nusc, "evolve_flagship": flagship_round,
+               "e2e_pillar": pillar, "predict_fp32_kernel_vs_plain": versus,
+               "e2e_voxel": voxel}
+    launches = {"evolve_predict": flagship_round["launches"], "e2e_pillar": pillar_launches,
+                "e2e_voxel": voxel_launches}
+    return summary, launches, served, dx
+
+
 def main():
     import torch
 
@@ -1602,6 +2011,10 @@ def main():
     # 8. pipeline 2: depth completion and the pseudo-box factory through their CLIs
     pseudo_summary, pseudo_launches = pseudo(device)
 
+    # 9. pipelines 1 and 4: nuScenes -> KITTI, self-evolution, the synthetic run
+    evolve_summary, evolve_launches, v8_served, v8_dx = evolve_phase(device)
+    ev_iou = sum(v["iou_bev_overlap"] for v in evolve_launches.values())
+
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
@@ -1610,14 +2023,15 @@ def main():
         "source": "dfu3d_tpu_torch/core/geometry/csrc/iou_bev.cu",
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
         "launches": (pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"]
-                     + cli_eval["iou_bev_overlap"]),
+                     + cli_eval["iou_bev_overlap"] + ev_iou),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
                              "voxel_train": voxel_train["iou_bev_overlap"],
                              "cli_train": cli_train["iou_bev_overlap"],
                              "cli_eval": cli_eval["iou_bev_overlap"],
-                             "pseudo": pseudo_launches["iou_bev_overlap"]},
+                             "pseudo": pseudo_launches["iou_bev_overlap"],
+                             **{k: v["iou_bev_overlap"] for k, v in evolve_launches.items()}},
         "max_abs_err": iou_err,
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
@@ -1638,15 +2052,18 @@ def main():
         "route": "cuda",
         "source": "dfu3d_tpu_torch/core/voxel/csrc/gather_gemm.cu",
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
-        "launches": voxel_launches["gather_gemm"] + voxel_train["gather_gemm"],
+        "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
+                     + sum(v["gather_gemm"] for v in evolve_launches.values())),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
                              "cli_train": cli_train["gather_gemm"],
                              "cli_eval": cli_eval["gather_gemm"],
-                             "pseudo": pseudo_launches["gather_gemm"]},
+                             "pseudo": pseudo_launches["gather_gemm"],
+                             **{k: v["gather_gemm"] for k, v in evolve_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
+                                + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -1671,12 +2088,21 @@ def main():
         "voxel_stages": stages,
         "train_dx": {"unit": "one bf16 voxel train step: its 20 dX launches on their own "
                              "inputs, summed", **dx_total, "per_conv": dx_entries},
+        "voxel8x": {
+            "model": "e2e_synthetic --model voxel (MeanVFE + VoxelBackBone8x), bf16",
+            "train_launches_per_step": {"forward": 12, "dx": VOXEL8X_TRAIN_B2 - 12},
+            "shapes": [e["shape"] for e in v8_served[1] + v8_dx[1]],
+            "served_request": {"unit": "one served bf16 request: its 12 launches, summed",
+                               **v8_served[0], "per_conv": v8_served[1]},
+            "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
+                         **v8_dx[0], "per_conv": v8_dx[1]}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
                               "fp32_kernels_vs_plain": train_checks}}))
     log(json.dumps({"cli": cli_summary}, default=str))
     log(json.dumps({"pseudo": pseudo_summary}))
+    log(json.dumps({"evolve": evolve_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

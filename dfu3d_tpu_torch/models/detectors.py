@@ -2,8 +2,8 @@
 and voxel branches):
 
     pillar: DynPillarVFE → BaseBEVBackbone → CenterHead
-    voxel:  MeanVFE → VoxelResBackBone8x → height_compression →
-            BaseBEVBackbone → CenterHead
+    voxel:  MeanVFE → VoxelResBackBone8x or VoxelBackBone8x →
+            height_compression → BaseBEVBackbone → CenterHead
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
@@ -17,8 +17,31 @@ from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
 from .backbone_2d import BaseBEVBackbone
 from .center_head import CenterHead
-from .sparse_backbone import VoxelResBackBone8x, height_compression
+from .sparse_backbone import VoxelBackBone8x, VoxelResBackBone8x, height_compression
 from .vfe import DynPillarVFE, MeanVFE
+
+
+DEFAULT_CHANNELS = {"VoxelResBackBone8x": (16, 32, 64, 128),
+                    "VoxelBackBone8x": (16, 16, 32, 64, 64)}
+
+
+def backbone_8x(bb3d_cfg):
+    """The sparse backbone class of BACKBONE_3D. VoxelBackBone8x has two
+    formulations in the JAX package (column_sparse.select_backbone8x): the
+    gather form, its default and the one ported, and the column form, a kept
+    negative result that is not; FORMULATION is read from the config only."""
+    name = bb3d_cfg.NAME
+    if name == "VoxelResBackBone8x":
+        return VoxelResBackBone8x
+    if name != "VoxelBackBone8x":
+        raise NotImplementedError(f"BACKBONE_3D {name} is not ported")
+    form = bb3d_cfg.get("FORMULATION") or "gather"
+    if form == "column":
+        raise NotImplementedError("BACKBONE_3D.FORMULATION column (ColumnVoxelBackBone8x) "
+                                  "is not ported; the gather formulation is")
+    if form != "gather":
+        raise ValueError(f"FORMULATION must be 'column' or 'gather', got {form!r}")
+    return VoxelBackBone8x
 
 
 class CenterPoint(nn.Module):
@@ -38,14 +61,13 @@ class CenterPoint(nn.Module):
             bb3d = cfg.BACKBONE_3D
             if vfe_cfg.NAME != "MeanVFE":
                 raise NotImplementedError(f"VFE {vfe_cfg.NAME} with a 3D backbone is not ported")
-            if bb3d.NAME != "VoxelResBackBone8x":
-                raise NotImplementedError(f"BACKBONE_3D {bb3d.NAME} is not ported")
             self.vfe = MeanVFE(grid, max_voxels)
-            self.backbone_3d = VoxelResBackBone8x(
+            self.backbone_3d = backbone_8x(bb3d)(
                 SparseGrid(*grid.grid_size), voxel_cap=max_voxels,
                 in_channels=num_point_features,
-                channels=tuple(bb3d.get("CHANNELS", (16, 32, 64, 128))),
+                channels=tuple(bb3d.get("CHANNELS", DEFAULT_CHANNELS[bb3d.NAME])),
                 out_channels=bb3d.get("OUT_CHANNELS", 128))
+            # the BEV width height_compression gives, whatever MAP_TO_BEV says
             bev_channels = self.backbone_3d.out_grid.nz * bb3d.get("OUT_CHANNELS", 128)
         else:
             if vfe_cfg.NAME not in ("DynPillarVFE", "DynamicPillarVFE"):

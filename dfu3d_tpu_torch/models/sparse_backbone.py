@@ -1,11 +1,11 @@
-"""Sparse 3D backbone: VoxelResBackBone8x and height_compression (port of
-dfu3d_tpu/models/sparse_backbone.py:58-93, :244-328, :446-473, :530-685,
-:749-765, :890-972).
+"""Sparse 3D backbones: VoxelResBackBone8x, VoxelBackBone8x and
+height_compression (port of dfu3d_tpu/models/sparse_backbone.py:58-93,
+:244-328, :446-473, :530-765, :890-972).
 
 Every sparse conv is one call of the gather-GEMM kernel B2
 (`core/voxel/gather_gemm_kernel.gather_gemm`) over an element neighbour table
 (B, Q, K). The coordinate sets and tables depend on the voxel coordinates
-only, so `VoxelResBackBone8x.plan` builds them all first, one sort per
+only, so `plan` builds them all first, one sort per
 coordinate set, shared by every conv that reads that set (the spconv
 indice_key reuse of JAX's `stage_tables`); `forward` then runs the convs.
 
@@ -30,6 +30,7 @@ does not reach a ctypes kernel.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -146,6 +147,16 @@ def _compute_dtype(x):
     return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
 
 
+def init_kernel(k: int, in_channels: int, out_channels: int):
+    """A (K, Cin, Cout) sparse conv kernel drawn as the JAX package draws it
+    (flax variance_scaling(1, "fan_in", "truncated_normal"): fan-in K · Cin,
+    normal truncated at two standard deviations and rescaled to unit
+    variance), from torch's global generator."""
+    std = math.sqrt(1.0 / (k * in_channels)) / 0.87962566103423978
+    return nn.init.trunc_normal_(torch.empty(k, in_channels, out_channels), 0.0, std,
+                                 -2 * std, 2 * std)
+
+
 class SubMConv3d(nn.Module):
     """Submanifold sparse conv: output set == input set."""
 
@@ -153,7 +164,7 @@ class SubMConv3d(nn.Module):
                  kernel_size: Tuple[int, int, int] = (3, 3, 3)):
         super().__init__()
         k = kernel_size[0] * kernel_size[1] * kernel_size[2]
-        self.kernel = nn.Parameter(torch.zeros(k, in_channels, out_channels))
+        self.kernel = nn.Parameter(init_kernel(k, in_channels, out_channels))
 
     def forward(self, st: SparseTensor, nbr) -> SparseTensor:
         dtype = _compute_dtype(st.features)
@@ -174,7 +185,7 @@ class SparseConv3dDown(nn.Module):
         self.z_only = z_only
         self.kernel_size = (1, 1, kernel_size[2]) if z_only else tuple(kernel_size)
         k = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
-        self.kernel = nn.Parameter(torch.zeros(k, in_channels, out_channels))
+        self.kernel = nn.Parameter(init_kernel(k, in_channels, out_channels))
 
     def plan(self, grid: SparseGrid, coords, valid, lookup) -> Level:
         """Output set and table of this conv; `lookup` is `build_lookup` of
@@ -239,29 +250,17 @@ class SparseResBlock(nn.Module):
         return st._replace(features=torch.where(st.valid[..., None], x, 0))
 
 
-class VoxelResBackBone8x(nn.Module):
-    """Channels 16 → 32 → 64 → 128 at strides 1/2/4/8, two residual blocks
-    per stage, strided convs between, then the z-compressing conv_out
-    (reference spconv_backbone.VoxelResBackBone8x). Stage caps are
-    voxel_cap / 2, / 4, / 8 (at least 16), conv_out's / 8."""
+class _Backbone8x(nn.Module):
+    """What both 8x voxel backbones share: an input grid, the stage caps
+    voxel_cap / 2, / 4, / 8 (at least 16), the strided convs down2, down3,
+    down4 and the z-compressing conv_out, and `plan`, which builds every
+    stage's coordinate set and tables once."""
 
-    def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
-                 channels: Sequence[int] = (16, 32, 64, 128), out_channels: int = 128):
+    def __init__(self, grid: SparseGrid, voxel_cap: int):
         super().__init__()
         self.grid = grid
         self.voxel_cap = voxel_cap
-        ch = tuple(channels)
-        caps = [max(voxel_cap // d, 16) for d in (2, 4, 8)]
-        self.conv_input = SparseConvBlock(in_channels, ch[0])
-        self.res1a = SparseResBlock(ch[0])
-        self.res1b = SparseResBlock(ch[0])
-        for i in range(1, 4):
-            self.add_module(f"down{i + 1}", SparseConv3dDown(ch[i - 1], ch[i], caps[i - 1]))
-            self.add_module(f"down{i + 1}_bn", SparseBatchNorm(ch[i]))
-            self.add_module(f"res{i + 1}a", SparseResBlock(ch[i]))
-            self.add_module(f"res{i + 1}b", SparseResBlock(ch[i]))
-        self.conv_out = SparseConv3dDown(ch[3], out_channels, caps[2], z_only=True)
-        self.conv_out_bn = SparseBatchNorm(out_channels)
+        self.caps = [max(voxel_cap // d, 16) for d in (2, 4, 8)]
 
     @property
     def out_grid(self) -> SparseGrid:
@@ -290,6 +289,34 @@ class VoxelResBackBone8x(nn.Module):
             grid, coords, valid, lookup = nxt.grid, nxt.coords, nxt.valid, out_lookup
         return tuple(levels)
 
+    def down_bn_relu(self, name: str, st: SparseTensor, level: Level) -> SparseTensor:
+        """The strided conv `name`, its BN and a ReLU, re-masked."""
+        st = getattr(self, name)(st, level)
+        x = F.relu(getattr(self, f"{name}_bn")(st.features, st.valid))
+        return st._replace(features=torch.where(st.valid[..., None], x, 0))
+
+
+class VoxelResBackBone8x(_Backbone8x):
+    """Channels 16 → 32 → 64 → 128 at strides 1/2/4/8, two residual blocks
+    per stage, strided convs between, then the z-compressing conv_out
+    (reference spconv_backbone.VoxelResBackBone8x). Stage caps are
+    voxel_cap / 2, / 4, / 8 (at least 16), conv_out's / 8."""
+
+    def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
+                 channels: Sequence[int] = (16, 32, 64, 128), out_channels: int = 128):
+        super().__init__(grid, voxel_cap)
+        ch = tuple(channels)
+        self.conv_input = SparseConvBlock(in_channels, ch[0])
+        self.res1a = SparseResBlock(ch[0])
+        self.res1b = SparseResBlock(ch[0])
+        for i in range(1, 4):
+            self.add_module(f"down{i + 1}", SparseConv3dDown(ch[i - 1], ch[i], self.caps[i - 1]))
+            self.add_module(f"down{i + 1}_bn", SparseBatchNorm(ch[i]))
+            self.add_module(f"res{i + 1}a", SparseResBlock(ch[i]))
+            self.add_module(f"res{i + 1}b", SparseResBlock(ch[i]))
+        self.conv_out = SparseConv3dDown(ch[3], out_channels, self.caps[2], z_only=True)
+        self.conv_out_bn = SparseBatchNorm(out_channels)
+
     def forward(self, features, levels) -> SparseTensor:
         lv = levels[0]
         st = SparseTensor(features, lv.coords, lv.valid, lv.grid)
@@ -297,13 +324,44 @@ class VoxelResBackBone8x(nn.Module):
         st = self.res1b(self.res1a(st, lv.subm_nbr), lv.subm_nbr)
         for i in range(1, 5):
             name = f"down{i + 1}" if i < 4 else "conv_out"
-            st = getattr(self, name)(st, levels[i])
-            x = F.relu(getattr(self, f"{name}_bn")(st.features, st.valid))
-            st = st._replace(features=torch.where(st.valid[..., None], x, 0))
+            st = self.down_bn_relu(name, st, levels[i])
             if i < 4:
                 nbr = levels[i].subm_nbr
                 st = getattr(self, f"res{i + 1}b")(getattr(self, f"res{i + 1}a")(st, nbr), nbr)
         return st
+
+
+class VoxelBackBone8x(_Backbone8x):
+    """Channels 16 → 16 → 32 → 64 → 64 at strides 1/1/2/4/8: two submanifold
+    blocks per stride (conv_input and conv1 at stride 1; conv{s}a, conv{s}b
+    after each strided conv), then the z-compressing conv_out to 128 (port of
+    dfu3d_tpu/models/sparse_backbone.py VoxelBackBone8x, the reference's
+    spconv_backbone.VoxelBackBone8x). 12 sparse convs; stage caps as
+    VoxelResBackBone8x's."""
+
+    def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
+                 channels: Sequence[int] = (16, 16, 32, 64, 64), out_channels: int = 128):
+        super().__init__(grid, voxel_cap)
+        ch = tuple(channels)
+        self.conv_input = SparseConvBlock(in_channels, ch[0])
+        self.conv1 = SparseConvBlock(ch[0], ch[1])
+        for s in range(2, 5):
+            self.add_module(f"down{s}", SparseConv3dDown(ch[s - 1], ch[s], self.caps[s - 2]))
+            self.add_module(f"down{s}_bn", SparseBatchNorm(ch[s]))
+            self.add_module(f"conv{s}a", SparseConvBlock(ch[s], ch[s]))
+            self.add_module(f"conv{s}b", SparseConvBlock(ch[s], ch[s]))
+        self.conv_out = SparseConv3dDown(ch[4], out_channels, self.caps[2], z_only=True)
+        self.conv_out_bn = SparseBatchNorm(out_channels)
+
+    def forward(self, features, levels) -> SparseTensor:
+        lv = levels[0]
+        st = SparseTensor(features, lv.coords, lv.valid, lv.grid)
+        st = self.conv1(self.conv_input(st, lv.subm_nbr), lv.subm_nbr)
+        for s in range(2, 5):
+            st = self.down_bn_relu(f"down{s}", st, levels[s - 1])
+            nbr = levels[s - 1].subm_nbr
+            st = getattr(self, f"conv{s}b")(getattr(self, f"conv{s}a")(st, nbr), nbr)
+        return self.down_bn_relu("conv_out", st, levels[4])
 
 
 def height_compression(st: SparseTensor):

@@ -1,9 +1,10 @@
-"""What the train and test CLIs share: the config from --cfg_file and --set,
-the output directory, the device and dtype, and the model built from the
-config."""
+"""What the CLIs share: the config from --cfg_file and --set, the output
+directory, the device and dtype, the model built from the config, and the
+newest epoch's evaluation directory."""
 from __future__ import annotations
 
 import argparse
+import re
 from pathlib import Path
 
 import torch
@@ -56,3 +57,13 @@ def build_model(cfg, mode: str, device, train: bool = False):
         overrides["max_voxels"] = int(mv[mode] if hasattr(mv, "get") else mv)
     return build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device, train=train,
                          **overrides)
+
+
+def newest_epoch_dir(eval_dir: Path, rel: str) -> Path:
+    """eval_dir/epoch_<N>/<rel> of the highest epoch number N (by number:
+    epoch_12 is newer than epoch_9)."""
+    found = [(int(m.group(1)), p / rel) for p in Path(eval_dir).glob("epoch_*")
+             if (m := re.fullmatch(r"epoch_(-?\d+)", p.name)) and (p / rel).is_dir()]
+    if not found:
+        raise FileNotFoundError(f"no epoch_*/{rel} under {eval_dir}")
+    return max(found)[1]

@@ -9,6 +9,8 @@ Results go to output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/eval/ under the
 working directory: epoch_<N>/<split>[/<eval_tag>]/, with one KITTI txt per
 frame in final_result/data/ under --save_to_file; --eval_all records each
 evaluated epoch in eval_list_<split>.txt and skips those already there.
+--ckpt also takes a reference (OpenPCDet / DFU3D) checkpoint of the flagship,
+evaluated as epoch 0.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from pathlib import Path
 
 from ..data.loader import build_dataloader
 from ..device import resolve_device
-from ..train.checkpoint import list_checkpoints, load_checkpoint
+from ..train.checkpoint import list_checkpoints, load_model_state
 from ..train.eval_utils import eval_one_epoch
 from ..utils.common import close_logger, create_logger
 from .common import DTYPES, add_common_args, build_model, load_config, output_dir
@@ -63,8 +65,7 @@ def main(argv=None):
         model = build_model(cfg, "test", device)
 
         def evaluate(path, *tag):
-            payload, epoch = load_checkpoint(path)
-            model.load_state_dict(payload["model_state"])
+            epoch, _ = load_model_state(path, model, logger)
             result_dir = eval_output_dir / f"epoch_{epoch}" / split / Path(*tag)
             result_dir.mkdir(parents=True, exist_ok=True)
             logger.info(f"*************** evaluating epoch {epoch} ({path}) ***************")

@@ -8,7 +8,10 @@ reference's tools/train.py:21-65 flag surface).
 
 Output goes to output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/ under the working
 directory: the log, and ckpt/ with the per-epoch checkpoints; a run resumes
-from the newest checkpoint there unless --ckpt names one.
+from the newest checkpoint there unless --ckpt names one. --ckpt and
+--pretrained_model also take a reference (OpenPCDet / DFU3D) checkpoint of
+the flagship: its weights are overlaid onto the model and training starts at
+epoch 0 with a fresh optimizer.
 --num_epochs_to_eval > 0 evaluates the trained model on the test split
 afterwards. Scalars go to the log (no TensorBoard).
 """
@@ -19,7 +22,7 @@ import datetime
 
 from ..data.loader import build_dataloader
 from ..device import resolve_device
-from ..train.checkpoint import load_checkpoint, load_latest
+from ..train.checkpoint import load_checkpoint, load_latest, load_model_state
 from ..train.eval_utils import eval_one_epoch
 from ..train.train_state import create_train_state
 from ..train.trainer import train_model
@@ -33,7 +36,8 @@ def parse_config(argv=None):
     add_common_args(parser)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--pretrained_model", type=str, default=None,
-                        help="a checkpoint whose model_state initialises the model")
+                        help="a checkpoint (the port's or a reference one) whose model "
+                             "weights initialise the model")
     parser.add_argument("--fix_random_seed", action="store_true")
     parser.add_argument("--ckpt_save_interval", type=int, default=1)
     parser.add_argument("--max_ckpt_save_num", type=int, default=30)
@@ -72,14 +76,13 @@ def main(argv=None):
             total_epochs=epochs)
         model = build_model(cfg, "train", device, train=True)
         if args.pretrained_model is not None:
-            payload, _ = load_checkpoint(args.pretrained_model)
-            model.load_state_dict(payload["model_state"])
+            load_model_state(args.pretrained_model, model, logger)
             logger.info(f"initialised from {args.pretrained_model}")
         state = create_train_state(model, cfg.OPTIMIZATION, len(train_loader) * epochs)
 
         start_epoch = 0
         if args.ckpt is not None:
-            state, start_epoch = load_checkpoint(args.ckpt, state)
+            state, start_epoch = load_checkpoint(args.ckpt, state, logger)
             logger.info(f"resumed from {args.ckpt} (epoch {start_epoch})")
         else:
             restored, epoch = load_latest(ckpt_dir, state)

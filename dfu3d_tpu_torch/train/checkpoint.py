@@ -7,7 +7,9 @@ checkpoint that loads, skipping corrupt ones.
 The format is the reference's: `torch.save` of {'model_state',
 'optimizer_state', 'epoch', 'it', 'version'}, tensors on the CPU. A file is
 written beside its final name and renamed into place, so a save cut short
-leaves no partial checkpoint under that name.
+leaves no partial checkpoint under that name. A reference checkpoint (the
+same format, keyed by the reference's module paths) loads through the
+flagship's key mapping (train/torch_convert.py).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import re
 from pathlib import Path
 
 import torch
+
+from .torch_convert import is_reference_state, load_reference_state
 
 _CKPT_RE = re.compile(r"^checkpoint_epoch_(\d+)\.pth$")
 VERSION = f"dfu3d_tpu_torch+torch{torch.__version__}"
@@ -62,16 +66,49 @@ def save_checkpoint(ckpt_dir, state, epoch: int, max_ckpt_save_num: int = 30,
     return path
 
 
-def load_checkpoint(path, state=None):
+def _read(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _load_model(payload, model, logger):
+    """Load a read checkpoint's model weights into `model`: (epoch, the
+    reference overlay's report or None)."""
+    model_state = payload.get("model_state", payload)
+    if is_reference_state(model_state):
+        return 0, load_reference_state(model, model_state, logger)
+    model.load_state_dict(model_state)
+    return int(payload["epoch"]), None
+
+
+def load_checkpoint(path, state=None, logger=None):
     """Load one checkpoint. With `state` (a TrainState), its model and
     optimizer are loaded in place and (state, epoch) is returned; without,
-    (the saved dict, epoch)."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    (the saved dict, epoch).
+
+    A reference (OpenPCDet / DFU3D) checkpoint, told apart by its
+    model_state keys (train.torch_convert.is_reference_state), is overlaid
+    onto the model only, through the flagship's key mapping, and its report
+    logged to `logger`: its optimizer state is ignored and the epoch is 0,
+    as in the JAX package (dfu3d_tpu/train/checkpoint.py:74-90). It needs
+    `state`, and raises when no key converts."""
+    payload = _read(path)
     if state is None:
+        if is_reference_state(payload.get("model_state", payload)):
+            raise ValueError(f"{path} is a reference checkpoint: it loads onto a model "
+                             "(load_checkpoint(path, state) or load_model_state)")
         return payload, int(payload["epoch"])
-    state.model.load_state_dict(payload["model_state"])
-    state.optimizer.load_state_dict(payload["optimizer_state"])
-    return state, int(payload["epoch"])
+    epoch, report = _load_model(payload, state.model, logger)
+    if report is None:
+        state.optimizer.load_state_dict(payload["optimizer_state"])
+    return state, epoch
+
+
+def load_model_state(path, model, logger=None):
+    """The model weights of a checkpoint, the port's own or a reference one
+    (its report logged to `logger`), loaded into `model` in place. Returns
+    (epoch, the reference overlay's report or None); a reference
+    checkpoint's epoch is 0."""
+    return _load_model(_read(path), model, logger)
 
 
 def load_latest(ckpt_dir, state=None):

@@ -1,0 +1,195 @@
+"""Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship (own copy
+of the JAX package's train/torch_convert.py: `centerpoint_pillar_mapping`
+and `apply_mapping`'s partial overlay, :50-146, :300-375, :959-1029).
+
+A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
+'epoch', 'it', 'version'} whose model_state keys are the reference's module
+paths (vfe.pfn_layers.0.linear.weight, backbone_2d.blocks.0.1.weight,
+dense_head.heads_list.3.hm.1.weight, ...). The mapping here reads those keys
+into the port's state_dict names, so every transform is reference → port:
+
+    PFN Linear          identity: both (out, in)
+    Conv2d              identity: both OIHW
+    ConvTranspose2d     identity: both (in, out, kh, kw); the JAX package
+                        flips it into flax's HWIO and params_from_jax flips
+                        it back
+    BatchNorm           identity: weight, bias, running_mean, running_var
+    fused head conv0 /  the per-tower tensors concatenated on the output
+    bn0                 channels, in branch order (center, center_z, dim,
+                        rot, hm) per head
+    fused head out      each tower's OIHW weight (and bias) zero-padded on O
+                        to the widest branch, then concatenated: the port's
+                        grouped out conv
+
+The overlay is partial, as the reference's load_params_from_file is
+(strict=False): keys of the mapping that the model lacks are skipped (the
+mapping lists a deblock's Conv2d and ConvTranspose2d alternatives), keys the checkpoint lacks are reported as missing and the
+model keeps its values there, and the model's keys outside the mapping are
+reported as unmatched and kept. A shape mismatch raises. The mapping is the
+flagship's only (CenterPoint-pillar, centerpoint_nuscenes2kitti.yaml), as the
+JAX package's convert_state_dict default is.
+"""
+from __future__ import annotations
+
+import logging
+import re
+from typing import Callable, Dict, Tuple
+
+import torch
+
+__all__ = ["is_reference_state", "centerpoint_pillar_mapping", "apply_mapping",
+           "load_reference_state"]
+
+# reference module paths that no port state_dict key contains
+_REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list)\.\d")
+
+Mapping = Dict[str, Tuple[object, Callable]]
+
+
+def is_reference_state(model_state) -> bool:
+    """Whether a model_state is keyed by the reference's module paths (a
+    reference checkpoint) rather than by the port's (its own checkpoints);
+    both are .pth files, so the keys tell them apart."""
+    return any(_REFERENCE_KEY.search(k) for k in model_state)
+
+
+def t_identity(w):
+    return w
+
+
+def t_cat(ws):
+    return torch.cat(list(ws), dim=0)
+
+
+def _t_fused_out(out_chs, out_max):
+    def f(ws):
+        return torch.cat([torch.cat([w, w.new_zeros((out_max - oc,) + tuple(w.shape[1:]))])
+                          for w, oc in zip(ws, out_chs)])
+    return f
+
+
+def _bn(m, ours, ref):
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        m[f"{ours}.{leaf}"] = (f"{ref}.{leaf}", t_identity)
+
+
+def _conv(m, ours, ref, bias=False):
+    m[f"{ours}.weight"] = (f"{ref}.weight", t_identity)
+    if bias:
+        m[f"{ours}.bias"] = (f"{ref}.bias", t_identity)
+
+
+# the flagship's widths (centerpoint_nuscenes2kitti.yaml)
+LAYER_NUMS = (3, 5, 5)
+NUM_PFN = 2
+HM_COUNTS = (1, 2, 2, 1, 2, 2)
+BRANCHES = (("center", 2), ("center_z", 1), ("dim", 3), ("rot", 2))
+
+
+def centerpoint_pillar_mapping() -> Mapping:
+    """Port state_dict key → (reference key, or a tuple of them, transform)
+    for the flagship CenterPoint-pillar (DynamicPillarVFE + BaseBEVBackbone +
+    CenterHead), in the JAX package's entry order."""
+    m: Mapping = {}
+    # PFNLayerV2 stack (dynamic_pillar_vfe.py:14-46): Linear (+ BN) per layer
+    for i in range(NUM_PFN):
+        m[f"vfe.pfn_{i}.Dense_0.weight"] = (f"vfe.pfn_layers.{i}.linear.weight", t_identity)
+        _bn(m, f"vfe.pfn_{i}.MaskedBatchNorm_0", f"vfe.pfn_layers.{i}.norm")
+
+    # BaseBEVBackbone: reference blocks.{i} = [ZeroPad, Conv(stride), BN,
+    # ReLU, (Conv, BN, ReLU) × LAYER_NUMS[i]]; deblocks.{i} = [ConvT|Conv,
+    # BN, ReLU] (base_bev_backbone.py:26-79)
+    for i, n in enumerate(LAYER_NUMS):
+        _conv(m, f"backbone_2d.block{i}_down.Conv_0", f"backbone_2d.blocks.{i}.1")
+        _bn(m, f"backbone_2d.block{i}_down.BatchNorm_0", f"backbone_2d.blocks.{i}.2")
+        for j in range(n):
+            _conv(m, f"backbone_2d.block{i}_conv{j}.Conv_0", f"backbone_2d.blocks.{i}.{4 + 3 * j}")
+            _bn(m, f"backbone_2d.block{i}_conv{j}.BatchNorm_0",
+                f"backbone_2d.blocks.{i}.{5 + 3 * j}")
+        # deblock: ConvTranspose for upsample stride ≥ 1, Conv for < 1
+        m[f"backbone_2d.deblock{i}.ConvTranspose_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        m[f"backbone_2d.deblock{i}.Conv_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        _bn(m, f"backbone_2d.deblock{i}.BatchNorm_0", f"backbone_2d.deblocks.{i}.1")
+
+    _conv(m, "dense_head.shared_conv.layers_0", "dense_head.shared_conv.0", bias=True)
+    _bn(m, "dense_head.shared_bn", "dense_head.shared_conv.1")
+    # the JAX package also maps its per-tower SeparateHead fallback; the
+    # port has the fused layout only (center_head.FusedSeparateHeads)
+    # fused layout (models/center_head.FusedSeparateHeads): the towers'
+    # tensors concatenate along output channels in branch-spec order, out
+    # convs padded to the widest branch
+    specs = []
+    for h, hm in enumerate(HM_COUNTS):
+        for name, oc in BRANCHES + (("hm", hm),):
+            specs.append((f"dense_head.heads_list.{h}.{name}", oc))
+    out_chs = [oc for _, oc in specs]
+    out_max = max(out_chs)
+    fh = "dense_head.fused_heads"
+    for ours, leaf in (("conv0.weight", "0.0.weight"), ("conv0.bias", "0.0.bias"),
+                       ("bn0.weight", "0.1.weight"), ("bn0.bias", "0.1.bias"),
+                       ("bn0.running_mean", "0.1.running_mean"),
+                       ("bn0.running_var", "0.1.running_var")):
+        m[f"{fh}.{ours}"] = (tuple(f"{p}.{leaf}" for p, _ in specs), t_cat)
+    m[f"{fh}.out.weight"] = (tuple(f"{p}.1.weight" for p, _ in specs),
+                             _t_fused_out(out_chs, out_max))
+    m[f"{fh}.out.bias"] = (tuple(f"{p}.1.bias" for p, _ in specs),
+                           _t_fused_out(out_chs, out_max))
+    return m
+
+
+def apply_mapping(own: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
+                  mapping: Mapping):
+    """Overlay reference tensors onto a port state_dict. Returns (new
+    state_dict, report) where the report lists "converted" and
+    "missing_in_torch" reference keys (a multi-source entry is reported by
+    its first key) and "unmatched_ours", the port keys outside the mapping;
+    those and the keys whose source is missing keep their values."""
+    new = dict(own)
+    converted, missing = [], []
+    for ours, (ref_key, transform) in mapping.items():
+        if ours not in own:
+            continue  # the mapping covers alternatives (deblock Conv vs ConvT)
+        if isinstance(ref_key, tuple):
+            absent = [r for r in ref_key if r not in state]
+            if absent:
+                missing.extend(absent)
+                continue
+            w = transform([state[r] for r in ref_key])
+            ref_key = ref_key[0]
+        elif ref_key not in state:
+            missing.append(ref_key)
+            continue
+        else:
+            w = transform(state[ref_key])
+        tgt = own[ours]
+        if tuple(w.shape) != tuple(tgt.shape):
+            raise ValueError(f"shape mismatch for {ours} <- {ref_key}: "
+                             f"{tuple(w.shape)} vs {tuple(tgt.shape)}")
+        new[ours] = w.to(dtype=tgt.dtype, device=tgt.device)
+        converted.append(ref_key)
+    report = {"converted": converted, "missing_in_torch": missing,
+              "unmatched_ours": [k for k in own if k not in mapping]}
+    return new, report
+
+
+def load_reference_state(model, state, logger=None) -> dict:
+    """Overlay a reference model_state (key → tensor) onto the flagship
+    `model` in place. Raises when no key converts: the checkpoint is for
+    another model. Logs the report's counts to `logger` (default: this
+    module's), as a warning when the overlay is partial, and returns it."""
+    new, report = apply_mapping(model.state_dict(), state, centerpoint_pillar_mapping())
+    if not report["converted"]:
+        raise ValueError("no key of the reference checkpoint converts onto this model "
+                         f"({len(state)} keys, {len(report['missing_in_torch'])} missing); "
+                         "is it a checkpoint of another model?")
+    model.load_state_dict(new)
+    partial = report["missing_in_torch"] or report["unmatched_ours"]
+    (logger or logging.getLogger(__name__)).log(
+        logging.WARNING if partial else logging.INFO,
+        f"reference checkpoint: {len(report['converted'])} keys converted, "
+        f"{len(report['missing_in_torch'])} missing and "
+        f"{len(report['unmatched_ours'])} of the model's unmatched "
+        "(those keep their values)")
+    return report

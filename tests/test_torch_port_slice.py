@@ -139,7 +139,8 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
 def test_port_imports_nothing_of_jax():
     """No module of the port (the train slice's too) and not chip_smoke.py
     imports JAX, flax, optax, the JAX package, or tqdm, tensorboard and PIL,
-    which the card's machine lacks."""
+    which the card's machine lacks; the one exception is nuscenes2kitti's
+    JPEG -> PNG step, which imports PIL where it runs and raises without it."""
     pattern = re.compile(
         r"^\s*(from|import)\s+(jax|flax|optax|dfu3d_tpu|tqdm|tensorboard|torch\.utils\.tensorboard"
         r"|PIL)"
@@ -158,7 +159,16 @@ def test_port_imports_nothing_of_jax():
             "dfu3d_tpu_torch/eval/kitti_eval.py", "dfu3d_tpu_torch/eval/native.py",
             "dfu3d_tpu_torch/train/eval_utils.py", "dfu3d_tpu_torch/tools/common.py",
             "dfu3d_tpu_torch/tools/create_infos.py", "dfu3d_tpu_torch/tools/train.py",
-            "dfu3d_tpu_torch/tools/test.py"} <= names
+            "dfu3d_tpu_torch/tools/test.py", "dfu3d_tpu_torch/tools/evolve.py",
+            "dfu3d_tpu_torch/tools/e2e_synthetic.py", "dfu3d_tpu_torch/tools/nuscenes2kitti.py",
+            "dfu3d_tpu_torch/data/nuscenes_tables.py",
+            "dfu3d_tpu_torch/train/torch_convert.py"} <= names
     for path in sources:
-        hits = pattern.findall(path.read_text())
+        text = path.read_text()
+        if path.name == "nuscenes2kitti.py":
+            # its JPEG -> PNG step imports PIL inside the one function that
+            # needs it, which runs only when a source image exists
+            assert "\nfrom PIL" not in text and "\nimport PIL" not in text
+            text = text.replace("        from PIL import Image\n", "", 1)
+        hits = pattern.findall(text)
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"
