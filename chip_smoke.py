@@ -107,9 +107,27 @@ Phases, each fatal on failure:
               times (12 forward, 11 dX); each of one served request's 12 B2
               calls and one train step's 11 dX calls held against the plain
               twin and timed (kernel, plain, library, bound).
+ 10. pointrcnn PointRCNN on DFU3D's second detector config
+              (pointrcnn_nuscenes2kitti: PointNet2MSG 4096/1024/256/64, the
+              point head, proposal NMS 4096 -> 128 at 0.8, the RoI head) at
+              full width with seeded weights, in a temporary working
+              directory: phase 7's synthetic root again, its 16 train frames
+              read through KittiDataset in test mode (sample_points to
+              16,384); 4 requests of B=4 through eval_batches (bf16), fatal
+              unless B1 launches exactly 3 times per batch (proposal NMS
+              over (4, 4096, 4096), final NMS, recall) and B2 never; where a
+              request's time goes (profile_serve's spans: FPS, ball query,
+              MLPs per level, B1 and the keep-scan per NMS) with the FPS
+              share, keep-scan iterations, device busy and idle; each of one
+              request's 3 B1 calls held against the plain twin and timed
+              beside its bound; one request in fp32 through B1 and through its
+              plain twin (valid masks equal, kept boxes within PATH_TOL);
+              tools.test with the config on the val split from a checkpoint of
+              the seeded weights: an AP_DICT with the 8 classes, B1 3 times
+              per eval batch.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
-{"evolve": {...}} and {"kernels": [...]}; the last line is {"ok": true,
-"device": {...}}.
+{"evolve": {...}}, {"pointrcnn": {...}} and {"kernels": [...]}; the last line
+is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -333,9 +351,10 @@ def check_overlap_kernel(device):
     return per_shape, max_err
 
 
-def served_overlap_problems(model, batch, device):
-    """The two overlap calls of one served bf16 request, recorded in order:
-    [("nms", corners_a, corners_b), ("recall", ...)]."""
+def served_overlap_problems(model, batch, device, names=("nms", "recall")):
+    """The overlap calls of one served bf16 request, recorded in order and
+    named by `names`: [("nms", corners_a, corners_b), ("recall", ...)] for
+    CenterPoint; PointRCNN makes three (proposal NMS, final NMS, recall)."""
     import torch
 
     from dfu3d_tpu_torch.core.geometry import iou_kernel
@@ -354,20 +373,23 @@ def served_overlap_problems(model, batch, device):
     finally:
         iou_kernel.overlap_bev = kernel_fn
     torch.cuda.synchronize()
-    if len(calls) != 2:
-        fail(f"one served request made {len(calls)} overlap calls, not 2 (NMS, recall)")
-    return [(name, ca, cb) for name, (ca, cb) in zip(("nms", "recall"), calls)]
+    if len(calls) != len(names):
+        fail(f"one served request made {len(calls)} overlap calls, not {len(names)} "
+             f"({', '.join(names)})")
+    return [(name, ca, cb) for name, (ca, cb) in zip(names, calls)]
 
 
-def time_served_overlaps(path, model, batch, device):
+def time_served_overlaps(path, model, batch, device, names=("nms", "recall")):
     """Each overlap call of one served request, held against the plain twin
-    (fatal on a miss) and timed beside its bound."""
+    (fatal on a miss) and timed beside its bound. The plain twin computes a
+    large problem in blocks of about 2^20 pairs (rows of A against all of
+    B), so (4, 4096, 4096) fits."""
     import torch
 
     from dfu3d_tpu_torch.core.geometry import iou_kernel
 
     entries = []
-    for name, ca, cb in served_overlap_problems(model, batch, device):
+    for name, ca, cb in served_overlap_problems(model, batch, device, names):
         got = iou_kernel.overlap_bev(ca, cb)
         torch.cuda.synchronize()
         entry, culled = overlap_agreement(f"served {path} {name}", ca, cb, got)
@@ -625,8 +647,9 @@ class plain_twins:
 
 
 def check_paths(name, model, cfg, batch, served, swaps, device):
-    """Phase 5 for one path: one request in fp32 through the kernels and
-    through their plain twins (`swaps`: (module, kernel name, plain name)),
+    """Phase 5 for one path (and phase 10's fp32 request): one request in
+    fp32 through the kernels and through their plain twins (`swaps`:
+    (module, kernel name, plain name)),
     its gt made from boxes the serving run kept, shifted along x by
     0 .. 0.75 of their length so that the recall counters see IoUs on both
     sides of every threshold (predict does not read the gt)."""
@@ -664,7 +687,8 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
     iou_k = orig_iou_bev(cand, cand)
     with plain_twins(swaps):
         iou_p = orig_iou_bev(cand, cand)
-    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
+    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH
+                   if "DENSE_HEAD" in cfg.MODEL else cfg.MODEL.ROI_HEAD.NMS_THRESH)
     flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
     near = int(((iou_k - thresh).abs() < 1e-5).sum())
     log(f"[check] {name} fp32 NMS IoU over {tuple(iou_k.shape)}: max |kernel - plain| "
@@ -710,6 +734,9 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
         f"({int(kv.sum())} boxes), kept boxes, scores and labels equal as sets within "
         f"{match_err:.3g}; slot by slot max |box diff| {box_err:.3g}, max |score diff| "
         f"{score_err:.3g}; recall {krec}")
+    return {"kept_boxes": int(kv.sum()), "max_set_diff": match_err, "max_box_diff": box_err,
+            "max_score_diff": score_err, "nms_decisions_flipped": flips,
+            "nms_pairs_within_1e-5": near, "recall": krec}
 
 
 def voxel_stages(model, batch, device):
@@ -1892,6 +1919,179 @@ def evolve_phase(device):
     return summary, launches, served, dx
 
 
+POINTRCNN_CLI_CFG = "cfgs/kitti_models/pointrcnn_nuscenes2kitti.yaml"  # from phase 10's work dir
+POINTRCNN_REQUESTS = 4
+POINTRCNN_B1_PER_BATCH = 3   # proposal NMS, final NMS, recall
+POINTRCNN_OVERLAPS = ("proposal_nms", "final_nms", "recall")
+
+
+def pointrcnn_serve(model, batches, device):
+    """Phase 10's serving run: a warm-up request, every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts read. Fatal unless
+    B1 launched POINTRCNN_B1_PER_BATCH times per batch and B2 never, or on a
+    non-finite or misshapen output."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    ms = [v * 1e3 for v in res.batch_seconds]
+    log(f"[pointrcnn] {len(batches)} requests of B=4: ms per request median "
+        f"{statistics.median(ms):.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); kernel "
+        f"launches {json.dumps(launches)}; recall counters {json.dumps(res.metric)}")
+    if launches["iou_bev_overlap"] != POINTRCNN_B1_PER_BATCH * len(batches) or \
+            launches["gather_gemm"]:
+        fail(f"the PointRCNN serving run launched {launches}, not B1 "
+             f"{POINTRCNN_B1_PER_BATCH} times per batch and B2 never")
+    kept = []
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if boxes.shape[:2] != (4, 128) or not torch.isfinite(boxes).all() \
+                or not torch.isfinite(scores).all():
+            fail(f"PointRCNN batch {k}: boxes {tuple(boxes.shape)} not (4, 128, 7) or not "
+                 f"finite")
+        if valid.any() and (labels[valid].min() < 1 or labels[valid].max() > 8):
+            fail(f"PointRCNN batch {k}: labels outside 1..8")
+        kept.append(valid.sum(1).tolist())
+    log(f"[pointrcnn] kept boxes per frame {kept}")
+    return res, launches, ms, kept
+
+
+def pointrcnn_profile(model, batches, device):
+    """Where one request's time goes (profile_serve.pointrcnn_profile over
+    the requests: the spans' medians, the FPS share, the keep-scan's
+    iterations per NMS call) and the card's busy and idle share over the
+    first request (torch.profiler; its trace holds ~50,000 launches a
+    request, and reading it back costs more host time than the request)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    out = profile_serve.pointrcnn_profile(model, step, batches)
+
+    def run():
+        *_, recall = step(batches[0])
+        int(recall["gt_num"])
+
+    prof = profile_serve.device_profile(run, 1)[1]
+    out["device_time"] = {k: v for k, v in prof.items() if k != "top_kernels"}
+    out["top_kernels"] = prof.get("top_kernels", [])[:8]
+    log(f"[pointrcnn] instrumented request {out['phase_ms']['step']:.2f} ms, FPS "
+        f"{out['fps_ms']:.2f} ms ({out['fps_share']:.1%}); keep-scan iterations "
+        f"{[(tuple(c['shape']), c['iterations']) for c in out['keep_scan'][:2]]}; device "
+        f"{json.dumps(out['device_time'])}")
+    return out
+
+
+def pointrcnn_cli(work, root, model, device):
+    """tools.test with the PointRCNN config on phase 7's root (its val split),
+    from a checkpoint of the seeded weights: fatal unless every class's 3D
+    moderate R40 is in AP_DICT, one KITTI txt per val frame, and B1 launched
+    POINTRCNN_B1_PER_BATCH times per eval batch, B2 never."""
+    import torch
+
+    from dfu3d_tpu_torch.tools import test as test_cli
+
+    ckpt = work / "pointrcnn_seeded.pth"
+    torch.save({"model_state": model.state_dict(), "epoch": 0}, ckpt)
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, result_dir, res),) = test_cli.main([
+        "--cfg_file", POINTRCNN_CLI_CFG, "--ckpt", str(ckpt), "--workers", str(LOADER_WORKERS),
+        "--extra_tag", "chip_smoke", "--save_to_file", "--set", "DATA_CONFIG.DATA_PATH",
+        str(root)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+    log_file = next(result_dir.parents[2].glob("log_eval_*.txt"))
+    ap_dict = json.loads(log_file.read_text().split("AP_DICT ", 1)[1].splitlines()[0])
+    classes = model.class_names
+    missing = [c for c in classes if f"{c}_3d/moderate_R40" not in ap_dict]
+    log(f"[pointrcnn] tools.test: {res['num_frames']} frames in {res['eval_batches']} "
+        f"batches, {res['sec_per_example']:.4f} s/frame, {seconds:.2f} s in all, {txts} KITTI "
+        f"txts, kernel launches {json.dumps(launches)}; 3D moderate R40 "
+        f"{ {c: round(ap_dict.get(f'{c}_3d/moderate_R40', -1), 2) for c in classes} }")
+    if missing or len(classes) != 8 or txts != CLI_VAL_FRAMES:
+        fail(f"tools.test with {POINTRCNN_CLI_CFG}: AP_DICT lacks {missing} of {classes}; "
+             f"{txts} txts for {CLI_VAL_FRAMES} val frames")
+    if launches["iou_bev_overlap"] != POINTRCNN_B1_PER_BATCH * res["eval_batches"] or \
+            launches["gather_gemm"]:
+        fail(f"tools.test with {POINTRCNN_CLI_CFG}: kernel launches {launches}, not B1 "
+             f"{POINTRCNN_B1_PER_BATCH} times per eval batch ({res['eval_batches']}) and B2 "
+             f"never")
+    return {"seconds": seconds, "sec_per_example": res["sec_per_example"],
+            "eval_batches": res["eval_batches"], "num_frames": res["num_frames"], "txts": txts,
+            "launches": launches,
+            "ap_3d_moderate_R40": {c: ap_dict[f"{c}_3d/moderate_R40"] for c in classes}}
+
+
+def pointrcnn_phase(device, card):
+    """Phase 10: PointRCNN (pointrcnn_nuscenes2kitti, full widths, seeded
+    weights) on phase 7's synthetic root in a temporary working directory
+    whose cfgs/ links to tools/cfgs/. Returns (summary, serving launches,
+    tools.test launches, the served request's overlap entries)."""
+    import os
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.zoo import pointrcnn, pointrcnn_batches
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            root, _, _ = synthetic_kitti_root(work, flagship_on(work / "train_28130").CLASS_NAMES)
+            cfg, _, model = pointrcnn(device=device)
+            seeded_weights_(model, seed=0)
+            # the 16 train frames, read in test mode: sample_points to 16,384
+            batches = pointrcnn_batches(
+                cfg, root, root / "nuscenes2kitti_infos_train_28130_initial_pseudo_box.pkl",
+                POINTRCNN_REQUESTS)
+            seconds = {"setup": time.perf_counter() - t0}
+            log(f"[pointrcnn] {sum(p.numel() for p in model.parameters())} parameters; "
+                f"{POINTRCNN_REQUESTS} requests of B=4 x {batches[0].points.shape[1]} points from "
+                f"phase 7's root, gt per frame {[b.gt_valid.sum(1).tolist() for b in batches]}, "
+                f"set-up {seconds['setup']:.2f} s")
+
+            def timed(name, fn, *args):
+                t = time.perf_counter()
+                out = fn(*args)
+                seconds[name] = time.perf_counter() - t
+                return out
+
+            res, launches, ms, kept = timed("serve", pointrcnn_serve, model, batches, device)
+            profile = timed("profile", pointrcnn_profile, model, batches, device)
+            served = timed("b1_served", time_served_overlaps, "pointrcnn", model, batches[0],
+                           device, POINTRCNN_OVERLAPS)
+            check = timed("fp32_check", check_paths, "pointrcnn", model, cfg, batches[0],
+                          res.preds[0], [(iou_kernel, "overlap_bev", "overlap_bev_plain")],
+                          device)
+            cli_eval = timed("tools_test", pointrcnn_cli, work, root, model, device)
+            log(f"[pointrcnn] seconds by step "
+                f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+        finally:
+            os.chdir(cwd)
+    summary = {
+        "config": POINTRCNN_CLI_CFG.replace("cfgs/", "tools/cfgs/", 1),
+        "workload": "B=4 frames of phase 7's synthetic root (train split, test-mode "
+                    "processors: sample_points to 16384), bf16 autocast, seeded weights",
+        "card": card, "ms_per_request": {"median": statistics.median(ms), "all": ms},
+        "kept_per_frame": kept, "recall": res.metric, "launches": launches, **profile,
+        "b1_served": [{k: e[k] for k in ("problem", "shape", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "survivor_share", "overlapping_share")}
+                      for e in served],
+        "fp32_kernel_vs_plain": check, "tools_test": cli_eval, "phase_seconds": seconds}
+    return summary, launches, cli_eval["launches"], served
+
+
 def main():
     import torch
 
@@ -1915,7 +2115,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2015,6 +2216,12 @@ def main():
     evolve_summary, evolve_launches, v8_served, v8_dx = evolve_phase(device)
     ev_iou = sum(v["iou_bev_overlap"] for v in evolve_launches.values())
 
+    # 10. PointRCNN serving, in memory and through tools.test
+    prcnn_summary, prcnn_launches, prcnn_cli_launches, prcnn_served = pointrcnn_phase(device,
+                                                                                      card)
+    served_iou += prcnn_served
+    prcnn_nms = prcnn_served[0]
+
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
@@ -2023,7 +2230,8 @@ def main():
         "source": "dfu3d_tpu_torch/core/geometry/csrc/iou_bev.cu",
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
         "launches": (pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"]
-                     + cli_eval["iou_bev_overlap"] + ev_iou),
+                     + cli_eval["iou_bev_overlap"] + ev_iou + prcnn_launches["iou_bev_overlap"]
+                     + prcnn_cli_launches["iou_bev_overlap"]),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -2031,8 +2239,10 @@ def main():
                              "cli_train": cli_train["iou_bev_overlap"],
                              "cli_eval": cli_eval["iou_bev_overlap"],
                              "pseudo": pseudo_launches["iou_bev_overlap"],
-                             **{k: v["iou_bev_overlap"] for k, v in evolve_launches.items()}},
-        "max_abs_err": iou_err,
+                             **{k: v["iou_bev_overlap"] for k, v in evolve_launches.items()},
+                             "pointrcnn": prcnn_launches["iou_bev_overlap"],
+                             "pointrcnn_cli_eval": prcnn_cli_launches["iou_bev_overlap"]},
+        "max_abs_err": max([iou_err] + [e["max_abs_err"] for e in served_iou]),
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
@@ -2044,9 +2254,12 @@ def main():
         "survivor_share": nms_entry["survivor_share"],
         "overlapping_share": nms_entry["overlapping_share"],
         "cull_margin_m": iou_kernel.CULL_MARGIN,
-        "shapes": [e["shape"] for e in iou_shapes],
+        "shapes": [e["shape"] for e in iou_shapes + served_iou],
         "per_shape": iou_shapes,
         "served": served_iou,
+        "pointrcnn_proposal_nms": {k: prcnn_nms[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ops", "bytes",
+            "survivor_share", "overlapping_share", "share_of_bound", "bound_all_pairs_ms")},
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -2060,7 +2273,9 @@ def main():
                              "cli_train": cli_train["gather_gemm"],
                              "cli_eval": cli_eval["gather_gemm"],
                              "pseudo": pseudo_launches["gather_gemm"],
-                             **{k: v["gather_gemm"] for k, v in evolve_launches.items()}},
+                             **{k: v["gather_gemm"] for k, v in evolve_launches.items()},
+                             "pointrcnn": prcnn_launches["gather_gemm"],
+                             "pointrcnn_cli_eval": prcnn_cli_launches["gather_gemm"]},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -2103,6 +2318,7 @@ def main():
     log(json.dumps({"cli": cli_summary}, default=str))
     log(json.dumps({"pseudo": pseudo_summary}))
     log(json.dumps({"evolve": evolve_summary}, default=str))
+    log(json.dumps({"pointrcnn": prcnn_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -1,9 +1,10 @@
 """Weights carried across from the JAX package.
 
 The port's submodules carry the flax module names (vfe.pfn_0.Dense_0,
-backbone_2d.block0_down.Conv_0, dense_head.fused_heads.out, ...), so a flax
-variable path maps to a state_dict key one to one and only the leaf is
-transformed:
+backbone_2d.block0_down.Conv_0, dense_head.fused_heads.out, PointRCNN's
+backbone.sa_0.mlp_0.dense_0, point_head.cls_out, roi_head.sa0_bn1,
+roi_head.cls_fc.fc0, ...), so a flax variable path maps to a state_dict key
+one to one and only the leaf is transformed:
 
     Dense kernel (in, out)          → weight (out, in)
     sparse conv kernel (K, Cin, Cout) → kernel, as is (taps in kernel_offsets

@@ -40,3 +40,25 @@ def boxes_to_corners_bev(boxes):
     c, s = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
     corners = torch.stack([x * c - y * s, x * s + y * c], dim=-1)
     return corners + ctr[..., None, :]
+
+
+def points_in_boxes(points, boxes):
+    """Point-in-rotated-box tests: points (..., N, 3+), boxes (..., M, 7) →
+    (..., N, M) bool, point n inside box m (boundary included). The same
+    elementwise operations as the JAX version, boxes.py:108-127."""
+    shifted = points[..., :, None, :3] - boxes[..., None, :, 0:3]  # (..., N, M, 3)
+    c = torch.cos(-boxes[..., 6])[..., None, :]
+    s = torch.sin(-boxes[..., 6])[..., None, :]
+    local_x = shifted[..., 0] * c - shifted[..., 1] * s
+    local_y = shifted[..., 0] * s + shifted[..., 1] * c
+    local_z = shifted[..., 2]
+    half = (boxes[..., 3:6] * 0.5)[..., None, :, :]  # (..., 1, M, 3)
+    return ((local_x.abs() <= half[..., 0]) & (local_y.abs() <= half[..., 1])
+            & (local_z.abs() <= half[..., 2]))
+
+
+def enlarge_box3d(boxes, extra_width=(0.0, 0.0, 0.0)):
+    """Grow dx, dy, dz of (..., 7+) boxes by `extra_width` (the JAX version,
+    boxes.py:130-133)."""
+    extra = torch.as_tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([boxes[..., :3], boxes[..., 3:6] + extra, boxes[..., 6:]], dim=-1)

@@ -6,6 +6,7 @@ and voxel branches):
             height_compression → BaseBEVBackbone → CenterHead
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
+`build_network` also builds PointRCNN (models/pointrcnn.py) for serving.
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
 from .backbone_2d import BaseBEVBackbone
 from .center_head import CenterHead
+from .pointrcnn import PointRCNN
 from .sparse_backbone import VoxelBackBone8x, VoxelResBackBone8x, height_compression
 from .vfe import DynPillarVFE, MeanVFE
 
@@ -144,11 +146,16 @@ class CenterPoint(nn.Module):
 
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
                   **overrides):
-    """Build a detector by MODEL.NAME on `device` (the card unless the caller
-    asks for the CPU), in eval mode, or in train mode with `train`.
-    `overrides` are constructor keywords (num_point_features, max_pillars,
-    max_voxels)."""
+    """Build a detector by MODEL.NAME (CenterPoint, or PointRCNN for serving)
+    on `device` (the card unless the caller asks for the CPU), in eval mode,
+    or in train mode with `train`. `overrides` are constructor keywords
+    (num_point_features, max_pillars, max_voxels); PointRCNN reads no grid
+    and takes num_point_features only."""
+    dev = resolve_device(device)
+    if model_cfg.NAME == "PointRCNN":
+        if train:
+            raise NotImplementedError("PointRCNN training is not ported yet")
+        return PointRCNN(model_cfg, class_names, **overrides).to(dev).eval()
     if model_cfg.NAME != "CenterPoint":
         raise NotImplementedError(f"detector {model_cfg.NAME} is not ported yet")
-    dev = resolve_device(device)
     return CenterPoint(model_cfg, class_names, grid, **overrides).to(dev).train(train)

@@ -1,23 +1,34 @@
 """Where the serving time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel] [--batches 8]
+    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn] [--batches 8]
                                             [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
-CenterPoint-pillar (256 x 512 BEV) or voxel CenterPoint
-(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid). B=4, 60,000
-uniform points in a 50 m extent, 256 gt slots, bf16 autocast, weights from
-`seeded_weights_`. It reports, as one JSON object (printed, and written to
---out):
+CenterPoint-pillar (256 x 512 BEV), voxel CenterPoint
+(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid) or PointRCNN
+(pointrcnn_nuscenes2kitti). CenterPoint: B=4, 60,000 uniform points in a
+50 m extent, 256 gt slots. PointRCNN: B=4 frames of a synthetic KITTI root
+(40,000-60,000 points in the camera frustum, 20-40 boxes; uniform points
+would give PointNet++'s 0.1 m balls no neighbours) read through
+KittiDataset in test mode, so 16,384 sampled points each. bf16 autocast,
+weights from `seeded_weights_`. It reports, as one JSON object (printed,
+and written to --out):
 
 * step_ms: host clock per step, no instrumentation (median over batches);
 * phase_ms: the same step with a device sync at each phase boundary
   (pillar: batch upload, VFE, 2D backbone, head convs, decode + NMS,
   recall; voxel: batch upload, voxelize + MeanVFE, neighbour tables, sparse
-  convs, height compression, 2D backbone, head convs, decode + NMS, recall);
-* nms_scan: fixed-point iterations of the keep-scan per step and its time;
-* profile: torch.profiler over the batches, device time by kernel name and
-  the device's busy share of the window.
+  convs, height compression, 2D backbone, head convs, decode + NMS, recall;
+  pointrcnn: the exclusive time of each span, a span's nested spans
+  apart: each SA level and its FPS and ball queries, each FP level and
+  its 3-NN, the point head, the proposal layer with its B1 launch and
+  keep-scan, the RoI pooling, the RoI head with its FPS and ball queries,
+  the final NMS with its B1 launch and keep-scan, the recall IoU with its
+  B1 launch, and the rest of the step; pointrcnn also reports fps_share,
+  the FPS spans' share of the instrumented step);
+* nms_scan: fixed-point iterations of the keep-scan per call and its time;
+* profile: torch.profiler over the batches (PointRCNN: the first two),
+  device time by kernel name and the device's busy share of the window.
 
 Needs a CUDA device; numbers are tagged with the card's name and power limit.
 """
@@ -27,17 +38,23 @@ import argparse
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
 
+from .core import pointnet2
+from .core.geometry import iou_kernel
 from .core.geometry import nms as nms_mod
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
+from .models import roi_head
+from .train import train_state
 from .train.train_state import make_eval_step
-from .zoo import voxel_centerpoint
+from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, voxel_centerpoint,
+                  write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -88,6 +105,117 @@ def _phase_times(model, step, batch):
     return {b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])}
 
 
+class Spans:
+    """Exclusive host-clock ms of nested spans, with a device sync at each
+    span's start and end. A span opened inside another is keyed
+    "<outer>.<name>" and its time is taken out of the outer span's."""
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+        self.stack = []  # [name, ms of the nested spans]
+        self.saved = []
+
+    def wrap(self, obj, attr, name):
+        """Time every call of obj.attr as span `name` until `restore`."""
+        orig = getattr(obj, attr)
+        self.saved.append((obj, attr, orig, attr in vars(obj)))
+
+        def timed(*a, **k):
+            key = f"{self.stack[-1][0]}.{name}" if self.stack else name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.stack.append([key, 0.0])
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                _, nested = self.stack.pop()
+                self.ms[key] += dt - nested
+                if self.stack:
+                    self.stack[-1][1] += dt
+
+        setattr(obj, attr, timed)
+
+    def restore(self):
+        for obj, attr, orig, own in reversed(self.saved):
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+        self.saved = []
+
+
+def pointrcnn_phase_times(model, step, batch):
+    """One PointRCNN step with every span of `Spans` timed."""
+    spans = Spans()
+    wraps = [(mod, "forward", f"backbone.{name}")
+             for name, mod in model.backbone.named_children()]
+    wraps += [(model.point_head, "forward", "point_head"),
+              (model.roi_head, "forward", "roi_head"), (model, "pool_rois", "pool_rois"),
+              (pointnet2, "farthest_point_sample", "fps"), (pointnet2, "ball_query", "ball_query"),
+              (pointnet2, "three_nn", "three_nn"), (roi_head, "proposal_layer", "proposal_layer"),
+              (roi_head, "final_nms", "final_nms"),
+              (train_state, "pairwise_iou3d", "recall_iou"), (iou_kernel, "overlap_bev", "b1"),
+              (nms_mod, "_suppression_scan", "keep_scan")]
+    try:
+        for obj, attr, name in wraps:
+            spans.wrap(obj, attr, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run(step, batch)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        spans.restore()
+    phases = dict(spans.ms)
+    phases["rest"] = total - sum(phases.values())
+    phases["step"] = total
+    return phases
+
+
+def keep_scans(step, batches):
+    """Runs each batch once with the NMS keep-scan timed: per call, the IoU
+    matrix's shape, the scan's fixed-point iterations (one host sync each,
+    plus one) and its host-clock ms."""
+    scans, orig = [], nms_mod._suppression_scan
+
+    def timed(iou_mat, valid, thresh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep, iterations = orig(iou_mat, valid, thresh)
+        torch.cuda.synchronize()
+        scans.append({"shape": list(iou_mat.shape), "iterations": iterations,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return keep, iterations
+
+    nms_mod._suppression_scan = timed
+    try:
+        for batch in batches:
+            step(batch)
+    finally:
+        nms_mod._suppression_scan = orig
+    return scans
+
+
+def pointrcnn_profile(model, step, batches):
+    """Where a PointRCNN step's time goes: phase_ms, the median over the
+    batches of each span's exclusive ms (`pointrcnn_phase_times`); fps_ms
+    and fps_share, the FPS spans' ms and their share of the instrumented
+    step (medians); the FPS iterations per step; keep_scan, `keep_scans`
+    over the batches."""
+    phases = [pointrcnn_phase_times(model, step, b) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    fps_ms = [sum(v for k, v in p.items() if k.endswith(".fps")) for p in phases]
+    return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
+            "fps_ms": statistics.median(fps_ms),
+            "fps_share": statistics.median(f / p["step"] for f, p in zip(fps_ms, phases)),
+            "fps_iterations_per_step": sum(getattr(model.backbone, f"sa_{i}").npoint
+                                           for i in range(model.backbone.num_levels))
+            + sum(n for n in model.roi_head.sa_npoints if n > 0),
+            "keep_scan": keep_scans(step, batches)}
+
+
 def device_profile(run, steps: int):
     """torch.profiler over run(), which runs `steps` steps and waits for
     their results: (the profile, {wall and device-busy ms per step, the idle
@@ -133,7 +261,7 @@ def _profile(step, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel"), default="pillar")
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn"), default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -142,10 +270,22 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    cfg, grid, model = (flagship if args.model == "pillar" else voxel_centerpoint)(device="cuda")
+    build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn}[args.model]
+    cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
-    batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(args.batches)]
+    if args.model == "pointrcnn":
+        with tempfile.TemporaryDirectory() as work:
+            info = write_pointrcnn_root(cfg, Path(work), POINTRCNN_BATCH_SIZE * args.batches)
+            batches = pointrcnn_batches(cfg, Path(work), info, args.batches)
+        workload = ("PointRCNN pointrcnn_nuscenes2kitti (4.04 M parameters), B=4 synthetic "
+                    "KITTI frames sampled to 16384 points (40000-60000 in the frustum, 20-40 "
+                    "boxes)")
+    else:
+        batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(args.batches)]
+        workload = ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
+                    "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000") + \
+            ", B=4, 60000 points, 256 gt slots"
     for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
         step(batch)
     torch.cuda.synchronize()
@@ -156,41 +296,28 @@ def main(argv=None):
         _run(step, batch)
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
-    phases = [_phase_times(model, step, b) for b in batches]
-    phase_ms = {k: statistics.median(p[k] for p in phases) for k in phases[0]}
-
-    scans = []
-    orig_scan = nms_mod._suppression_scan
-
-    def timed_scan(iou_mat, valid, thresh):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        keep, iterations = orig_scan(iou_mat, valid, thresh)
-        torch.cuda.synchronize()
-        scans.append(((time.perf_counter() - t0) * 1e3, iterations, tuple(iou_mat.shape)))
-        return keep, iterations
-
-    nms_mod._suppression_scan = timed_scan
-    try:
-        for batch in batches:
-            step(batch)
-    finally:
-        nms_mod._suppression_scan = orig_scan
+    if args.model == "pointrcnn":
+        extra = pointrcnn_profile(model, step, batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    else:
+        phases = [_phase_times(model, step, b) for b in batches]
+        phase_ms = {k: statistics.median(p[k] for p in phases) for k in phases[0]}
+        extra, scans = {}, keep_scans(step, batches)
 
     result = {
         "device": smi.stdout.strip(),
-        "workload": ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
-                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000")
-                    + ", B=4, 60000 points, 256 gt slots, bf16 autocast, seeded random weights",
+        "workload": workload + ", bf16 autocast, seeded random weights",
         "batches": args.batches,
         "step_ms": {"median": statistics.median(step_ms), "all": step_ms},
         "phase_ms": phase_ms,
+        **extra,
         "nms_scan": {"calls_per_step": len(scans) / len(batches),
-                     "shape": list(scans[0][2]),
-                     "iterations": [s[1] for s in scans],
-                     "host_syncs_per_call": [s[1] + 1 for s in scans],
-                     "ms": [s[0] for s in scans]},
-        "profile": _profile(step, batches),
+                     "shapes": sorted({tuple(s["shape"]) for s in scans}),
+                     "iterations": [s["iterations"] for s in scans],
+                     "host_syncs_per_call": [s["iterations"] + 1 for s in scans],
+                     "ms": [s["ms"] for s in scans]},
+        # PointRCNN's trace holds ~50,000 launches a step: two steps suffice
+        "profile": _profile(step, batches[:2] if args.model == "pointrcnn" else batches),
     }
     text = json.dumps(result, indent=1)
     print(text)
