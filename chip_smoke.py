@@ -125,9 +125,35 @@ Phases, each fatal on failure:
               tools.test with the config on the val split from a checkpoint of
               the seeded weights: an AP_DICT with the 8 classes, B1 3 times
               per eval batch.
+ 11. pointrcnn_train  PointRCNN training on the same config at full width
+              with seeded weights, in a temporary working directory on
+              phase 7's synthetic root again: 5 bf16 steps through
+              trainer.train_model (B=4, the train split read in train mode:
+              gt sampling and world augmentations, sample_points to 16,384;
+              each batch with 16 gt per frame made of the model's proposals
+              just before its step, zoo.proposal_gt, so that the RoI head's
+              reg branch gets gradient; the config's adam_onecycle over 1000
+              steps), per step the loss terms, grad_norm, host-clock ms and
+              the kernel launches; fatal on a non-finite loss or gradient, a
+              step without a RoI over REG_FG_THRESH (rcnn_reg_loss 0), a
+              parameter or BN buffer left unchanged, or a step that does not
+              launch B1 exactly twice
+              (proposal NMS over (4, 4096, 4096), the RoI targets' 3D IoU over
+              (4, 128, G)) or that launches B2; the checkpoint reloaded
+              into a fresh model and optimizer must equal them. Each of one
+              step's 2 B1 calls held against the plain twin and timed beside
+              its bound; one fp32 step through B1 and one through its plain
+              twin from the same weights and RoI uniforms (sampled RoIs
+              equal, loss within 1e-5 relative, every gradient leaf within
+              1e-4 of its largest entry or 4x the card's run-to-run spread);
+              where a step's time goes (profile_train's spans: FPS, targets,
+              backward, clip + optimizer; busy and idle); tools.train on the
+              config for 1 epoch (16 frames, 4 steps, B1 twice per step) and
+              tools.test --ckpt of its checkpoint (an AP_DICT with the 8
+              classes, B1 3 times per eval batch).
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
-{"evolve": {...}}, {"pointrcnn": {...}} and {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.
+{"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}} and
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -861,14 +887,15 @@ def read_launches():
             **{f"gather_gemm_{k}": n for k, n in gather_gemm_kernel.launches_by_variant.items()}}
 
 
-def train(name, build, velocity, device):
-    """Phase 6 for one model: 5 bf16 steps through train_model with every
-    kernel count set to 0 just before and read just after, the checkpoint
-    round trip, and the checks on each step. Returns (model, launches,
-    steps, batches)."""
+def train(name, build, batches, device):
+    """Phase 6 for one model (and phase 11's steps): a bf16 step through
+    train_model per batch with every kernel count set to 0 just before and
+    read just after, the checkpoint round trip, and the checks on each step.
+    `batches` may be made as they are read (phase 11 makes part of each
+    batch's gt then): a step's host clock starts once its batch is in hand.
+    Returns (model, launches, steps, state)."""
     import torch
 
-    from dfu3d_tpu_torch.data.batch import synthetic_batch
     from dfu3d_tpu_torch.flagship import seeded_weights_
     from dfu3d_tpu_torch.train import checkpoint
     from dfu3d_tpu_torch.train.train_state import create_train_state
@@ -877,37 +904,41 @@ def train(name, build, velocity, device):
     cfg, _, model = build(device=device, train=True)
     seeded_weights_(model, seed=0)
     state = create_train_state(model, cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
-    batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s, velocity=velocity)
-               for s in range(TRAIN_STEPS)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     steps, last = [], {}
 
     def on_step(it, metrics):
-        vals = {k: float(metrics[k]) for k in ("loss", "grad_norm")}   # waits for the card
+        vals = {k: float(v) for k, v in metrics.items()}   # waits for the card
         now = time.perf_counter()
         launched = read_launches()
         step = {"it": it, **vals, "host_ms": (now - last["t"]) * 1e3,
                 **{k: launched[k] - last["launches"][k] for k in launched}}
-        last.update(t=now, launches=launched)
+        last.update(launches=launched)
         steps.append(step)
-        log(f"[train] {name} step {it}: loss {vals['loss']:.4f}, grad_norm "
-            f"{vals['grad_norm']:.4f}, {step['host_ms']:.2f} ms host clock, gather-GEMM "
-            f"{step['gather_gemm_tensor_core']} tensor-core / {step['gather_gemm_cuda_core']} "
-            "CUDA-core launches")
+        terms = ", ".join(f"{k} {v:.4f}" for k, v in vals.items() if k not in ("loss", "grad_norm"))
+        log(f"[train] {name} step {it}: loss {vals['loss']:.4f} ({terms}), grad_norm "
+            f"{vals['grad_norm']:.4f}, {step['host_ms']:.2f} ms host clock; B1 "
+            f"{step['iou_bev_overlap']}, gather-GEMM {step['gather_gemm_tensor_core']} "
+            f"tensor-core / {step['gather_gemm_cuda_core']} CUDA-core launches")
         if not all(math.isfinite(v) for v in vals.values()):
             fail(f"{name} train step {it}: loss or gradient not finite {vals}")
+
+    def fed():
+        for batch in batches:
+            last.update(t=time.perf_counter())
+            yield batch
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         torch.cuda.synchronize()
         reset_launches()
-        last.update(t=time.perf_counter(), launches=read_launches())
-        train_model(state, batches, epochs=1, ckpt_dir=ckpt_dir, device=device,
+        last.update(launches=read_launches())
+        train_model(state, fed(), epochs=1, ckpt_dir=ckpt_dir, device=device,
                     dtype=torch.bfloat16, on_step=on_step)
         launches = read_launches()
         _, _, fresh_model = build(device=device, train=True)
         fresh = create_train_state(fresh_model, cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
         loaded, epoch = checkpoint.load_latest(ckpt_dir, fresh)
-    if loaded is None or epoch != 1 or fresh.step != TRAIN_STEPS:
+    if loaded is None or epoch != 1 or fresh.step != len(steps):
         fail(f"{name}: the checkpoint did not reload (epoch {epoch}, step {fresh.step})")
     for k, v in model.state_dict().items():
         if not torch.equal(v, fresh_model.state_dict()[k]):
@@ -928,9 +959,10 @@ def train(name, build, velocity, device):
     log(f"[train] {name}: {len(steps)} steps, median {median:.2f} ms host clock "
         f"({4 / (median / 1e3):.2f} samples/s; without the first step "
         f"{statistics.median(ms[1:]):.2f} ms); checkpoint reloaded equal "
-        f"(model {len(before)} tensors, optimizer step {fresh.step}); every parameter and "
-        f"BN buffer changed; kernel launches {json.dumps(launches)}")
-    return model, launches, steps, batches
+        f"(model {len(before)} tensors, optimizer step {fresh.step}); "
+        f"{len(before) - len(unchanged)} of {len(before)} parameters and BN buffers changed; "
+        f"kernel launches {json.dumps(launches)}")
+    return model, launches, steps, state
 
 
 def time_train_dx(model, batch, device):
@@ -1960,31 +1992,57 @@ def pointrcnn_serve(model, batches, device):
     return res, launches, ms, kept
 
 
+DEFERRED_PROFILES = []
+
+
+def defer_device_profile(tag, run):
+    """Queue torch.profiler over one step, run(), for the end of the script
+    (`run_deferred_profiles`), and return the dict it then fills: the card's
+    busy and idle share and its top kernels. A step run after torch.profiler
+    in the same process is slower on the host (`profile_train`'s
+    step_ms_after_profiler), so it runs after every host-clock reading."""
+    device = {}
+
+    def profile():
+        from dfu3d_tpu_torch import profile_serve
+
+        prof = profile_serve.device_profile(run, 1)[1]
+        device.update({k: v for k, v in prof.items() if k != "top_kernels"})
+        log(f"[{tag}] device over one step {json.dumps(device)}")
+        device["top_kernels"] = prof.get("top_kernels", [])[:8]
+
+    DEFERRED_PROFILES.append(profile)
+    return device
+
+
+def run_deferred_profiles():
+    while DEFERRED_PROFILES:
+        DEFERRED_PROFILES.pop(0)()
+
+
 def pointrcnn_profile(model, batches, device):
     """Where one request's time goes (profile_serve.pointrcnn_profile over
     the requests: the spans' medians, the FPS share, the keep-scan's
     iterations per NMS call) and the card's busy and idle share over the
-    first request (torch.profiler; its trace holds ~50,000 launches a
-    request, and reading it back costs more host time than the request)."""
+    first request (torch.profiler, deferred to the end of the script; its
+    trace holds ~50,000 launches a request, and reading it back costs more
+    host time than the request)."""
     import torch
 
     from dfu3d_tpu_torch import profile_serve
     from dfu3d_tpu_torch.train.train_state import make_eval_step
 
     step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
-    out = profile_serve.pointrcnn_profile(model, step, batches)
+    out = profile_serve.pointrcnn_profile(model, lambda b: profile_serve._run(step, b), batches)
 
     def run():
         *_, recall = step(batches[0])
         int(recall["gt_num"])
 
-    prof = profile_serve.device_profile(run, 1)[1]
-    out["device_time"] = {k: v for k, v in prof.items() if k != "top_kernels"}
-    out["top_kernels"] = prof.get("top_kernels", [])[:8]
+    out["device_time"] = defer_device_profile("pointrcnn", run)
     log(f"[pointrcnn] instrumented request {out['phase_ms']['step']:.2f} ms, FPS "
         f"{out['fps_ms']:.2f} ms ({out['fps_share']:.1%}); keep-scan iterations "
-        f"{[(tuple(c['shape']), c['iterations']) for c in out['keep_scan'][:2]]}; device "
-        f"{json.dumps(out['device_time'])}")
+        f"{[(tuple(c['shape']), c['iterations']) for c in out['keep_scan'][:2]]}")
     return out
 
 
@@ -2092,6 +2150,317 @@ def pointrcnn_phase(device, card):
     return summary, launches, cli_eval["launches"], served
 
 
+POINTRCNN_TRAIN_STEPS = 5
+POINTRCNN_TRAIN_B1 = 2       # proposal NMS, RoI target IoU
+POINTRCNN_TRAIN_OVERLAPS = ("proposal_nms", "roi_target_iou")
+POINTRCNN_UNIFORMS_SEED = 0  # the fp32 check's RoI sampler draws
+
+
+def pointrcnn_train_overlaps(model, batch, device):
+    """Each of one bf16 train step's B1 calls (the proposal NMS over
+    (4, 4096, 4096), the RoI targets' 3D IoU over (4, 128, G)), recorded
+    from a forward in train mode, held against the plain twin on its own
+    inputs (fatal on a miss) and timed beside its bound. The model's weights
+    and BN statistics are put back."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.train.train_state import SAMPLER_SEED, step_generator
+
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    calls, kernel_fn = [], iou_kernel.overlap_bev
+
+    def recording(ca, cb):
+        calls.append((ca, cb))
+        return kernel_fn(ca, cb)
+
+    iou_kernel.overlap_bev = recording
+    try:
+        model.train()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(batch.to(device), sampler=step_generator(device, SAMPLER_SEED, 0))
+    finally:
+        iou_kernel.overlap_bev = kernel_fn
+        model.load_state_dict(weights)
+    torch.cuda.synchronize()
+    if len(calls) != POINTRCNN_TRAIN_B1:
+        fail(f"one PointRCNN train forward made {len(calls)} B1 calls, not "
+             f"{POINTRCNN_TRAIN_B1} ({', '.join(POINTRCNN_TRAIN_OVERLAPS)})")
+    entries = []
+    for name, (ca, cb) in zip(POINTRCNN_TRAIN_OVERLAPS, calls):
+        got = iou_kernel.overlap_bev(ca, cb)
+        torch.cuda.synchronize()
+        entry, culled = overlap_agreement(f"pointrcnn train {name}", ca, cb, got)
+        entry = {"path": "pointrcnn_train", "problem": name, **entry}
+        entries.append(time_overlap(entry, ca, cb, got, culled, reps=10))
+        log(overlap_line(f"pointrcnn train {name}", entry))
+    return entries
+
+
+def check_pointrcnn_train_paths(model, batch, device):
+    """One fp32 PointRCNN train step (loss and gradients, no update) through
+    B1 and the same step through its plain twin, from the same weights and
+    the same RoI uniforms. The sampled RoI indices must be equal and the
+    loss within TRAIN_LOSS_TOL relative. B1 has no backward: it enters only
+    the NMS keep decisions, the targets' IoUs and the soft class labels
+    made of them. The batch carries gt made of the model's own proposals
+    (`zoo.proposal_gt`), so that RoIs lie on both sides of every threshold
+    and the reg and corner losses carry gradient. Each gradient leaf must be within
+    TRAIN_GRAD_TOL of its
+    largest entry or, where the card's own rounding moves it more, within
+    4x the difference between two runs of the step through B1 (the
+    gathers' backward adds with atomics, in no fixed order)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.models import roi_head
+    from dfu3d_tpu_torch.zoo import proposal_gt
+
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = proposal_gt(model, batch.to(device))
+    gen = torch.Generator(device=device).manual_seed(POINTRCNN_UNIFORMS_SEED)
+    p = model.train_proposal_nms["post_max"]
+    uniforms = torch.rand((batch.points.shape[0], 2, p), generator=gen, device=device)
+    sampled, fg, targets_fn = [], [], roi_head.assign_roi_targets
+
+    def recording(*a, **k):
+        out = targets_fn(*a, **k)
+        sampled.append(out["sampled_idx"].clone())
+        fg.append(int(out["reg_valid_mask"].sum()))
+        return out
+
+    def step(plain):
+        roi_head.assign_roi_targets = recording
+        try:
+            with plain_twins([(iou_kernel, "overlap_bev", "overlap_bev_plain")] if plain else []):
+                model.load_state_dict(weights)
+                model.train()
+                model.zero_grad(set_to_none=True)
+                loss, _ = model(batch, roi_uniforms=uniforms)
+                loss.backward()
+                torch.cuda.synchronize()
+        finally:
+            roi_head.assign_roi_targets = targets_fn
+        return loss.item(), {k: q.grad.detach().clone() for k, q in model.named_parameters()}
+
+    k_loss, k_grads = step(False)
+    p_loss, p_grads = step(True)
+    _, r_grads = step(False)
+    model.load_state_dict(weights)
+    model.zero_grad(set_to_none=True)
+    if not (torch.equal(sampled[0], sampled[1]) and torch.equal(sampled[0], sampled[2])):
+        fail(f"PointRCNN fp32 train step: the sampled RoIs differ between B1 and its plain twin "
+             f"({int((sampled[0] != sampled[1]).sum())} slots)")
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    leaves = []
+    for key, pg in p_grads.items():
+        scale = pg.abs().max().item()
+        if not torch.isfinite(k_grads[key]).all() or not scale > 0:
+            fail(f"PointRCNN fp32 train step: gradient {key} not finite or all zero")
+        err = (k_grads[key] - pg).abs().max().item() / scale
+        spread = (r_grads[key] - k_grads[key]).abs().max().item() / scale
+        leaves.append((err / max(TRAIN_GRAD_TOL, 4 * spread), key, err, spread))
+    leaves.sort(reverse=True)
+    within = sum(err <= TRAIN_GRAD_TOL for _, _, err, _ in leaves)
+    log(f"[pointrcnn_train] fp32 train step: loss through B1 {k_loss:.6f}, through the plain "
+        f"twin {p_loss:.6f} ({rel:.2e} relative); sampled RoIs equal ({sampled[0].numel()}, "
+        f"{fg[0]} over REG_FG_THRESH); "
+        f"{within} of {len(leaves)} gradient leaves within {TRAIN_GRAD_TOL:g} of their largest "
+        f"entry; worst leaves (B1 - plain, B1 run to run, of the leaf's largest entry): "
+        + ", ".join(f"{key} {err:.2e} / {spread:.2e}" for _, key, err, spread in leaves[:5]))
+    if not rel <= TRAIN_LOSS_TOL or leaves[0][0] > 1.0:
+        fail(f"PointRCNN fp32 train step: B1 vs plain twin differ (loss {rel:.3g} relative, "
+             f"gradient {leaves[0][1]} {leaves[0][2]:.3g} of its largest entry where two runs "
+             f"through B1 differ by {leaves[0][3]:.3g})")
+    return {"loss_rel_err": rel, "sampled_rois_equal": True, "fg_rois": fg[0],
+            "leaves_within_tol": within,
+            "leaves": len(leaves),
+            "worst": [{"leaf": key, "b1_vs_plain": err, "b1_run_to_run": spread}
+                      for _, key, err, spread in leaves[:5]]}
+
+
+def pointrcnn_train_profile(model, state, batches, device):
+    """Where a train step's time goes: profile_serve.pointrcnn_profile with
+    the optimizer (what `profile_train --model pointrcnn` reports: the spans'
+    exclusive ms, the FPS share, the keep-scan's iterations) over the
+    batches, and the card's busy and idle share over one step
+    (torch.profiler)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve
+    from dfu3d_tpu_torch.train.train_state import make_train_step
+
+    step = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+    def run(batch):
+        return float(step(batch)["loss"])
+
+    out = profile_serve.pointrcnn_profile(model, run, batches, state.optimizer)
+    out["device_time"] = defer_device_profile("pointrcnn_train", lambda: run(batches[0]))
+    ph = out["phase_ms"]
+    log(f"[pointrcnn_train] instrumented step {ph['step']:.2f} ms: FPS {out['fps_ms']:.2f} ms "
+        f"({out['fps_share']:.1%}), backward {ph.get('backward', 0.0):.2f}, clip + optimizer "
+        f"{ph.get('clip_optimizer', 0.0):.2f}, point targets {ph.get('point_targets', 0.0):.2f}, "
+        f"RoI targets {ph.get('roi_targets', 0.0):.2f} (B1 {ph.get('roi_targets.b1', 0.0):.2f}), "
+        f"proposal layer {ph.get('proposal_layer', 0.0):.2f} (B1 "
+        f"{ph.get('proposal_layer.b1', 0.0):.2f}, keep-scan "
+        f"{ph.get('proposal_layer.keep_scan', 0.0):.2f}); keep-scan iterations "
+        f"{[c['iterations'] for c in out['keep_scan']]}")
+    return out
+
+
+def pointrcnn_train_cli(root, device):
+    """tools.train with the PointRCNN config for 1 epoch on the train split
+    (CLI_TRAIN_FRAMES frames, B=4), then tools.test --ckpt of its checkpoint
+    on the val split: fatal on a non-finite loss, no checkpoint, B1 other
+    than POINTRCNN_TRAIN_B1 times per train step or POINTRCNN_B1_PER_BATCH
+    times per eval batch, any B2 launch, or an AP_DICT without the 8
+    classes."""
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    common = ["--cfg_file", POINTRCNN_CLI_CFG, "--workers", str(LOADER_WORKERS), "--extra_tag",
+              "chip_smoke_train"]
+    data_path = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = train_cli.main([*common, "--epochs", "1", "--fix_random_seed", *data_path])
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    (epoch,) = trained["epochs"]
+    ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    log(f"[pointrcnn_train] tools.train: {epoch['steps']} steps, losses "
+        f"{[round(v, 4) for v in epoch['losses']]}, {epoch['batch_time'] / max(epoch['steps'], 1) * 1e3:.1f} "
+        f"ms per step host clock, data_time {epoch['data_time']:.3f} s, {train_s:.2f} s in all; "
+        f"kernel launches {json.dumps(train_launches)}")
+    if not epoch["steps"] or not all(math.isfinite(v) for v in epoch["losses"]):
+        fail(f"tools.train with {POINTRCNN_CLI_CFG}: a loss is not finite or no step ran: {epoch}")
+    if not ckpt.exists():
+        fail(f"tools.train with {POINTRCNN_CLI_CFG} wrote no {ckpt}")
+    if train_launches["iou_bev_overlap"] != POINTRCNN_TRAIN_B1 * epoch["steps"] or \
+            train_launches["gather_gemm"]:
+        fail(f"tools.train with {POINTRCNN_CLI_CFG}: kernel launches {train_launches}, not B1 "
+             f"{POINTRCNN_TRAIN_B1} times per step ({epoch['steps']}) and B2 never")
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, result_dir, res),) = test_cli.main([*common, "--ckpt", str(ckpt), "--save_to_file",
+                                             *data_path])
+    test_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+    log_file = next((trained["output_dir"] / "eval").glob("log_eval_*.txt"))
+    ap_dict = json.loads(log_file.read_text().split("AP_DICT ", 1)[1].splitlines()[0])
+    classes = [c for c in ap_dict if c.endswith("_3d/moderate_R40")]
+    log(f"[pointrcnn_train] tools.test --ckpt {ckpt.name}: {res['num_frames']} frames in "
+        f"{res['eval_batches']} batches, {res['sec_per_example']:.4f} s/frame, {txts} KITTI "
+        f"txts, {test_s:.2f} s in all; kernel launches {json.dumps(eval_launches)}; 3D moderate "
+        f"R40 { {c.split('_3d')[0]: round(ap_dict[c], 2) for c in classes} }")
+    if len(classes) != 8 or txts != CLI_VAL_FRAMES:
+        fail(f"tools.test --ckpt of the trained PointRCNN: AP_DICT holds {classes}, not 8 "
+             f"classes; {txts} txts for {CLI_VAL_FRAMES} val frames")
+    if eval_launches["iou_bev_overlap"] != POINTRCNN_B1_PER_BATCH * res["eval_batches"] or \
+            eval_launches["gather_gemm"]:
+        fail(f"tools.test --ckpt of the trained PointRCNN: kernel launches {eval_launches}, not "
+             f"B1 {POINTRCNN_B1_PER_BATCH} times per eval batch ({res['eval_batches']}) and B2 "
+             f"never")
+    return ({"train": {**epoch, "ms_per_step": epoch["batch_time"] / epoch["steps"] * 1e3,
+                       "seconds": train_s, "launches": train_launches},
+             "eval": {"sec_per_example": res["sec_per_example"],
+                      "eval_batches": res["eval_batches"], "num_frames": res["num_frames"],
+                      "txts": txts, "seconds": test_s, "launches": eval_launches,
+                      "ap_3d_moderate_R40": {c: ap_dict[c] for c in classes}}},
+            train_launches, eval_launches)
+
+
+def pointrcnn_train_phase(device, card):
+    """Phase 11: PointRCNN training (pointrcnn_nuscenes2kitti, full widths,
+    seeded weights) on phase 7's synthetic root in a temporary working
+    directory whose cfgs/ links to tools/cfgs/. Returns (summary, train
+    launches, tools.train launches, tools.test launches, the train step's
+    B1 entries)."""
+    import os
+
+    import torch
+
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+    from dfu3d_tpu_torch.zoo import POINTRCNN_CFG, pointrcnn, pointrcnn_batches, proposal_gt
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            root, _, _ = synthetic_kitti_root(work, flagship_on(work / "train_28130").CLASS_NAMES)
+            cfg = cfg_from_yaml_file(POINTRCNN_CFG, CfgDict())
+            # the train split read in train mode: gt sampling, flip, rotation,
+            # scaling, translation, then sample_points to 16,384 and shuffle
+            batches = pointrcnn_batches(
+                cfg, root, root / "nuscenes2kitti_infos_train_28130_initial_pseudo_box.pkl",
+                POINTRCNN_TRAIN_STEPS, training=True)
+            seconds = {"setup": time.perf_counter() - t0}
+            log(f"[pointrcnn_train] {POINTRCNN_TRAIN_STEPS} batches of B=4 x "
+                f"{batches[0].points.shape[1]} points read in train mode from phase 7's root, "
+                f"gt per frame {[b.gt_valid.sum(1).tolist() for b in batches]}, set-up "
+                f"{seconds['setup']:.2f} s")
+
+            def timed(name, fn, *args):
+                t = time.perf_counter()
+                out = fn(*args)
+                seconds[name] = time.perf_counter() - t
+                return out
+
+            built = []
+
+            def build(device, train):
+                out = pointrcnn(device=device, train=train)
+                built.append(out[2])
+                return out
+
+            def with_gt():
+                # each batch's proposal gt from the model as its step finds it
+                for batch in batches:
+                    yield proposal_gt(built[0], batch, torch.bfloat16)
+
+            model, launches, steps, state = timed("train", train, "pointrcnn", build,
+                                                  with_gt(), device)
+            no_fg = [s["it"] for s in steps if not s["rcnn_reg_loss"] > 0]
+            if no_fg:
+                fail(f"PointRCNN train steps {no_fg} had no RoI over REG_FG_THRESH "
+                     "(rcnn_reg_loss 0): the RoI head's reg branch got no gradient")
+            bad = [s["it"] for s in steps if s["iou_bev_overlap"] != POINTRCNN_TRAIN_B1
+                   or s["gather_gemm"]]
+            if bad or launches["iou_bev_overlap"] != POINTRCNN_TRAIN_B1 * len(steps) or \
+                    launches["gather_gemm"]:
+                fail(f"PointRCNN train steps {bad} did not launch B1 exactly "
+                     f"{POINTRCNN_TRAIN_B1} times and B2 never: {launches}")
+            gt_batch = proposal_gt(model, batches[0], torch.bfloat16)
+            b1 = timed("b1_train", pointrcnn_train_overlaps, model, gt_batch, device)
+            check = timed("fp32_check", check_pointrcnn_train_paths, model, batches[0], device)
+            profile = timed("profile", pointrcnn_train_profile, model, state,
+                            [proposal_gt(model, b, torch.bfloat16) for b in batches[:3]], device)
+            del model, state
+            cli, cli_train, cli_eval = timed("cli", pointrcnn_train_cli, root, device)
+            log(f"[pointrcnn_train] seconds by step "
+                f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+        finally:
+            os.chdir(cwd)
+    ms = [s["host_ms"] for s in steps]
+    summary = {
+        "config": POINTRCNN_CLI_CFG.replace("cfgs/", "tools/cfgs/", 1),
+        "workload": "B=4 frames of phase 7's synthetic root (train split, train mode: gt "
+                    "sampling and world augmentations, sample_points to 16384), bf16 autocast, "
+                    "seeded weights, adam_onecycle over 1000 steps",
+        "card": card, "steps": steps,
+        "ms_per_step": {"median": statistics.median(ms), "all": ms},
+        "samples_per_s": 4 / (statistics.median(ms) / 1e3), "launches": launches,
+        "rcnn_reg_loss_per_step": [s["rcnn_reg_loss"] for s in steps], **profile,
+        "b1_train": [{k: e[k] for k in ("problem", "shape", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "survivor_share", "overlapping_share")}
+                     for e in b1],
+        "fp32_b1_vs_plain": check, "cli": cli, "phase_seconds": seconds}
+    return summary, launches, cli_train, cli_eval, b1
+
+
 def main():
     import torch
 
@@ -2186,12 +2555,14 @@ def main():
     # 6. train
     swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
              (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
-    model, pillar_train, pillar_steps, train_batches = train("pillar", flagship, False, device)
+    train_batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(TRAIN_STEPS)]
+    model, pillar_train, pillar_steps, _ = train("pillar", flagship, train_batches, device)
     train_checks = {"pillar": check_train_paths("pillar", model, train_batches[0], swaps,
                                                 device)}
     del model
-    model, voxel_train, voxel_steps, train_batches = train("voxel", voxel_centerpoint, True,
-                                                           device)
+    train_batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s, velocity=True)
+                     for s in range(TRAIN_STEPS)]
+    model, voxel_train, voxel_steps, _ = train("voxel", voxel_centerpoint, train_batches, device)
     bad = [s for s in voxel_steps if s["gather_gemm_tensor_core"] != VOXEL_TRAIN_B2
            or s["gather_gemm_cuda_core"] != 0]
     if bad or voxel_train["gather_gemm"] != VOXEL_TRAIN_B2 * TRAIN_STEPS:
@@ -2222,6 +2593,13 @@ def main():
     served_iou += prcnn_served
     prcnn_nms = prcnn_served[0]
 
+    # 11. PointRCNN training, in memory and through tools.train / tools.test
+    prcnn_train_summary, prcnn_train, prcnn_cli_train, prcnn_cli_train_eval, prcnn_train_b1 = \
+        pointrcnn_train_phase(device, card)
+
+    # the device profiles of phases 10 and 11, after every host-clock reading
+    run_deferred_profiles()
+
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
     kernels = [{
@@ -2231,7 +2609,9 @@ def main():
         "replaces": "dfu3d_tpu/core/geometry/iou_pallas.py:116",
         "launches": (pillar_launches["iou_bev_overlap"] + voxel_launches["iou_bev_overlap"]
                      + cli_eval["iou_bev_overlap"] + ev_iou + prcnn_launches["iou_bev_overlap"]
-                     + prcnn_cli_launches["iou_bev_overlap"]),
+                     + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
+                     + prcnn_cli_train["iou_bev_overlap"]
+                     + prcnn_cli_train_eval["iou_bev_overlap"]),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -2241,8 +2621,15 @@ def main():
                              "pseudo": pseudo_launches["iou_bev_overlap"],
                              **{k: v["iou_bev_overlap"] for k, v in evolve_launches.items()},
                              "pointrcnn": prcnn_launches["iou_bev_overlap"],
-                             "pointrcnn_cli_eval": prcnn_cli_launches["iou_bev_overlap"]},
-        "max_abs_err": max([iou_err] + [e["max_abs_err"] for e in served_iou]),
+                             "pointrcnn_cli_eval": prcnn_cli_launches["iou_bev_overlap"],
+                             "pointrcnn_train": prcnn_train["iou_bev_overlap"],
+                             "pointrcnn_cli_train": prcnn_cli_train["iou_bev_overlap"],
+                             "pointrcnn_cli_train_eval":
+                                 prcnn_cli_train_eval["iou_bev_overlap"]},
+        "train_launches_per_step": {"pointrcnn": sorted(
+            {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]})},
+        "max_abs_err": max([iou_err] + [e["max_abs_err"]
+                                        for e in served_iou + prcnn_train_b1]),
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
@@ -2254,9 +2641,10 @@ def main():
         "survivor_share": nms_entry["survivor_share"],
         "overlapping_share": nms_entry["overlapping_share"],
         "cull_margin_m": iou_kernel.CULL_MARGIN,
-        "shapes": [e["shape"] for e in iou_shapes + served_iou],
+        "shapes": [e["shape"] for e in iou_shapes + served_iou + prcnn_train_b1],
         "per_shape": iou_shapes,
         "served": served_iou,
+        "pointrcnn_train": prcnn_train_b1,
         "pointrcnn_proposal_nms": {k: prcnn_nms[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ops", "bytes",
             "survivor_share", "overlapping_share", "share_of_bound", "bound_all_pairs_ms")},
@@ -2275,7 +2663,10 @@ def main():
                              "pseudo": pseudo_launches["gather_gemm"],
                              **{k: v["gather_gemm"] for k, v in evolve_launches.items()},
                              "pointrcnn": prcnn_launches["gather_gemm"],
-                             "pointrcnn_cli_eval": prcnn_cli_launches["gather_gemm"]},
+                             "pointrcnn_cli_eval": prcnn_cli_launches["gather_gemm"],
+                             "pointrcnn_train": prcnn_train["gather_gemm"],
+                             "pointrcnn_cli_train": prcnn_cli_train["gather_gemm"],
+                             "pointrcnn_cli_train_eval": prcnn_cli_train_eval["gather_gemm"]},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -2319,6 +2710,7 @@ def main():
     log(json.dumps({"pseudo": pseudo_summary}))
     log(json.dumps({"evolve": evolve_summary}, default=str))
     log(json.dumps({"pointrcnn": prcnn_summary}, default=str))
+    log(json.dumps({"pointrcnn_train": prcnn_train_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -1,4 +1,5 @@
-"""Box geometry the serving path needs (port of dfu3d_tpu/core/geometry/boxes.py).
+"""Box geometry of the serving and training paths (port of
+dfu3d_tpu/core/geometry/boxes.py).
 
 LiDAR box: [x, y, z, dx, dy, dz, heading], (x, y, z) the 3D centre, heading
 around +z with x→y positive. Every function takes any leading batch dims.
@@ -24,6 +25,26 @@ def rotate_points_along_z(points, angle):
     rx = x * c - y * s
     ry = x * s + y * c
     return torch.cat([rx[..., None], ry[..., None], points[..., 2:]], dim=-1)
+
+
+# the reference's corner order (pcdet/utils/box_utils.py:44-46), times 1/2:
+#         7 -------- 4
+#        /|         /|
+#       6 -------- 5 .
+#       | |        | |
+#       . 3 -------- 0
+#       |/         |/
+#       2 -------- 1
+CORNER_TEMPLATE_3D = ((1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1),
+                      (1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1))
+
+
+def boxes_to_corners_3d(boxes):
+    """(..., 7+) lidar boxes → (..., 8, 3) corners in the reference's order."""
+    template = torch.tensor(CORNER_TEMPLATE_3D, dtype=boxes.dtype, device=boxes.device) / 2.0
+    corners = boxes[..., None, 3:6] * template
+    corners = rotate_points_along_z(corners, boxes[..., 6])
+    return corners + boxes[..., None, 0:3]
 
 
 def boxes_to_corners_bev(boxes):

@@ -6,7 +6,7 @@ and voxel branches):
             height_compression → BaseBEVBackbone → CenterHead
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
-`build_network` also builds PointRCNN (models/pointrcnn.py) for serving.
+`build_network` also builds PointRCNN (models/pointrcnn.py).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 from ..core.voxel import VoxelGrid
 from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
+from ..train import torch_convert
 from .backbone_2d import BaseBEVBackbone
 from .center_head import CenterHead
 from .pointrcnn import PointRCNN
@@ -125,10 +126,11 @@ class CenterPoint(nn.Module):
             bev = self.vfe(batch.points, batch.points_valid)
         return self.dense_head(self.backbone_2d(bev))
 
-    def forward(self, batch):
+    def forward(self, batch, sampler=None, dropout=None):
         """Train: (loss, {hm_loss_head_i, loc_loss_head_i, rpn_loss}); BN
         layers use batch statistics and update their running ones when the
-        module is in train mode."""
+        module is in train mode. The train step's `sampler` and `dropout`
+        generators are not used: CenterPoint draws nothing."""
         return self.get_loss(batch, self.features(batch))
 
     def get_loss(self, batch, pred_dicts):
@@ -143,19 +145,22 @@ class CenterPoint(nn.Module):
         return self.dense_head.generate_predicted_boxes(
             self.features(batch), self.model_cfg.DENSE_HEAD.POST_PROCESSING)
 
+    def reference_mapping(self):
+        """The reference-key mapping of a checkpoint (train/torch_convert):
+        the flagship's, the JAX package's convert_state_dict default."""
+        return torch_convert.centerpoint_pillar_mapping()
+
 
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
                   **overrides):
-    """Build a detector by MODEL.NAME (CenterPoint, or PointRCNN for serving)
-    on `device` (the card unless the caller asks for the CPU), in eval mode,
-    or in train mode with `train`. `overrides` are constructor keywords
+    """Build a detector by MODEL.NAME (CenterPoint or PointRCNN) on `device`
+    (the card unless the caller asks for the CPU), in eval mode, or in train
+    mode with `train`. `overrides` are constructor keywords
     (num_point_features, max_pillars, max_voxels); PointRCNN reads no grid
     and takes num_point_features only."""
     dev = resolve_device(device)
     if model_cfg.NAME == "PointRCNN":
-        if train:
-            raise NotImplementedError("PointRCNN training is not ported yet")
-        return PointRCNN(model_cfg, class_names, **overrides).to(dev).eval()
+        return PointRCNN(model_cfg, class_names, **overrides).to(dev).train(train)
     if model_cfg.NAME != "CenterPoint":
         raise NotImplementedError(f"detector {model_cfg.NAME} is not ported yet")
     return CenterPoint(model_cfg, class_names, grid, **overrides).to(dev).train(train)

@@ -1,15 +1,29 @@
-"""The serving part of the RoI head template (port of
-dfu3d_tpu/models/roi_head.py, itself the reference's
-roi_heads/roi_head_template.py):
+"""The RoI head template (port of dfu3d_tpu/models/roi_head.py, itself the
+reference's roi_heads/roi_head_template.py and
+target_assigner/proposal_target_layer.py):
 
 - `resolve_nms_cfg`          — NMS_CONFIG.TRAIN/TEST, or the flat legacy keys;
 - `proposal_layer`           — class-agnostic proposal NMS (roi_head_template.py:45-102);
+- `assign_roi_targets`       — the proposal target layer: per-class max-IoU gt
+  matching, fg / hard-bg / easy-bg subsampling to ROI_PER_IMAGE, soft or hard
+  class labels, and the canonical transform of the matched gt
+  (`canonicalize_gt_of_rois`);
+- `roi_head_loss`            — BCE (or CE) on the class labels, canonical
+  smooth-L1 against RoI-sized anchors and the corner loss
+  (roi_head_template.py:136-231);
 - `generate_predicted_boxes` — the canonical decode (roi_head_template.py:233-261);
 - `final_nms`                — post-processing NMS over the refined boxes;
-- `FCStack`                  — make_fc_layers (roi_head_template.py:29-43).
+- `FCStack`                  — make_fc_layers (roi_head_template.py:29-43),
+  with its dropout after block 0 in training.
 
-Both NMS steps take every frame of the batch at once, so each is one launch
-of the overlap kernel (B1) over (B, N, N) through `nms_bev`.
+Both NMS steps and the RoI targets' 3D IoU take every frame of the batch at
+once, so each is one launch of the overlap kernel (B1): (B, N, N) through
+`nms_bev`, (B, R, G) through `pairwise_iou3d`.
+
+The subsampler's random draws are an argument: (B, 2, P) uniforms in
+[0, 1), one pair of vectors per frame, where JAX draws them from its key
+(threefry cannot be reproduced in torch). Sorts are stable throughout, as
+jnp.argsort is: their keys tie by the hundred.
 """
 from __future__ import annotations
 
@@ -18,10 +32,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..core.geometry.boxes import rotate_points_along_z
+from ..core.geometry.boxes import boxes_to_corners_3d, rotate_points_along_z
+from ..core.geometry.iou import pairwise_iou3d
 from ..core.geometry.nms import nms_bev
-from .anchor_head import decode_boxes
+from .anchor_head import decode_boxes, encode_boxes
 from .backbone_2d import BatchNorm
+from .losses import bce_with_logits
+
+PI = 3.141592653589793
 
 
 def resolve_nms_cfg(roi_cfg, train: bool) -> dict:
@@ -68,6 +86,255 @@ def proposal_layer(batch_boxes, batch_cls, nms_cfg):
     return rois, roi_scores, roi_labels, keep
 
 
+DEFAULT_TARGET_CONFIG = {
+    "BOX_CODER": "ResidualCoder",
+    "ROI_PER_IMAGE": 128,
+    "FG_RATIO": 0.5,
+    "SAMPLE_ROI_BY_EACH_CLASS": True,
+    "CLS_SCORE_TYPE": "roi_iou",
+    "CLS_FG_THRESH": 0.75,
+    "CLS_BG_THRESH": 0.25,
+    "CLS_BG_THRESH_LO": 0.1,
+    "HARD_BG_RATIO": 0.8,
+    "REG_FG_THRESH": 0.55,
+}
+
+DEFAULT_LOSS_CONFIG = {
+    "CLS_LOSS": "BinaryCrossEntropy",
+    "REG_LOSS": "smooth-l1",
+    "CORNER_LOSS_REGULARIZATION": True,
+    "LOSS_WEIGHTS": {
+        "rcnn_cls_weight": 1.0,
+        "rcnn_reg_weight": 1.0,
+        "rcnn_corner_weight": 1.0,
+        "code_weights": [1.0] * 7,
+    },
+}
+
+
+def roi_head_target_cfg(rh_cfg) -> dict:
+    """TARGET_CONFIG with the reference voxel_rcnn_car.yaml defaults filled."""
+    out = dict(DEFAULT_TARGET_CONFIG)
+    out.update(dict(rh_cfg.get("TARGET_CONFIG", {})))
+    return out
+
+
+def roi_head_loss_cfg(rh_cfg) -> dict:
+    """LOSS_CONFIG with the defaults filled, LOSS_WEIGHTS key by key."""
+    out = dict(DEFAULT_LOSS_CONFIG)
+    given = dict(rh_cfg.get("LOSS_CONFIG", {}))
+    lw = dict(out["LOSS_WEIGHTS"])
+    lw.update(dict(given.pop("LOSS_WEIGHTS", {})))
+    out.update(given)
+    out["LOSS_WEIGHTS"] = lw
+    return out
+
+
+def _rank(key):
+    """Rank of each entry of (..., n) under a stable ascending sort."""
+    order = torch.argsort(key, dim=-1, stable=True)
+    ar = torch.arange(key.shape[-1], device=key.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, ar)
+
+
+def max_iou_with_same_class(rois, roi_labels, gt_boxes, gt_labels, gt_valid):
+    """Per RoI, the largest 3D IoU with a valid gt of its class and that gt's
+    index, the first on ties (proposal_target_layer.py:194-228): rois
+    (B, R, 7+), roi_labels (B, R), gt_boxes (B, G, 7+), gt_labels and gt_valid
+    (B, G) → (B, R) fp32, (B, R) int64. A RoI whose class has no valid gt gets
+    0 and 0, as the reference's zeroed buffers."""
+    iou = pairwise_iou3d(rois[..., :7], gt_boxes[..., :7])     # (B, R, G), one B1 launch
+    mask = (roi_labels[..., :, None] == gt_labels[..., None, :]) & gt_valid[..., None, :]
+    max_overlaps = torch.where(mask, iou, 0.0).amax(dim=-1)
+    assignment = torch.argmax(torch.where(mask, iou, -1.0), dim=-1)
+    return max_overlaps, torch.where(mask.any(dim=-1), assignment, 0)
+
+
+def _subsample_rois(uniforms, max_overlaps, tcfg):
+    """Fixed-size fg / hard-bg / easy-bg sampling (proposal_target_layer.py:
+    117-162): uniforms (B, 2, n), max_overlaps (B, n) → (B, M) indices into
+    the RoI axis, M = ROI_PER_IMAGE. The first uniform vector ranks the fg,
+    the second the bg; the fp32 keys are JAX's, ties included."""
+    n = max_overlaps.shape[-1]
+    m = int(tcfg["ROI_PER_IMAGE"])
+    fg_per_image = int(round(float(tcfg["FG_RATIO"]) * m))
+    fg_thresh = min(float(tcfg["REG_FG_THRESH"]), float(tcfg["CLS_FG_THRESH"]))
+    lo = float(tcfg["CLS_BG_THRESH_LO"])
+    hard_ratio = float(tcfg["HARD_BG_RATIO"])
+
+    is_fg = max_overlaps >= fg_thresh
+    is_easy = max_overlaps < lo
+    is_hard = (max_overlaps < float(tcfg["REG_FG_THRESH"])) & ~is_easy & ~is_fg
+    u, u2 = uniforms[:, 0], uniforms[:, 1]
+    inf = torch.tensor(float("inf"), device=u.device)
+    big = torch.tensor(1e9, dtype=torch.float32, device=u.device)
+
+    fg_rank = _rank(torch.where(is_fg, u, inf))
+    sel_fg = is_fg & (fg_rank < fg_per_image)
+    # bg priority: hard and easy interleaved at HARD_BG_RATIO by scaled rank
+    hard_rank = _rank(torch.where(is_hard, u2, inf)).float()
+    easy_rank = _rank(torch.where(is_easy, u2, inf)).float()
+    bg_key = torch.where(is_hard, (hard_rank + 0.5) / max(hard_ratio, 1e-3),
+                         torch.where(is_easy, (easy_rank + 0.5) / max(1.0 - hard_ratio, 1e-3),
+                                     big))
+    # selected fg first, then bg, then the fg beyond FG_RATIO (last resort)
+    fg_rank = fg_rank.float()
+    order_key = torch.where(sel_fg, fg_rank - 2.0 * big,
+                            torch.where(is_fg, 2.0 * big + fg_rank, bg_key))
+    order = torch.argsort(order_key, dim=-1, stable=True)
+
+    n_avail = sel_fg.sum(-1) + is_hard.sum(-1) + is_easy.sum(-1)
+    # wrap-around refill emulates the reference's sampling with replacement
+    # when one side runs out (proposal_target_layer.py:143-155)
+    pos = torch.arange(m, device=u.device).expand(max_overlaps.shape[0], m)
+    pos = torch.where(pos < n_avail[:, None], pos,
+                      torch.remainder(pos, torch.clamp(n_avail, min=1)[:, None]))
+    return torch.gather(order, -1, pos)
+
+
+def assign_roi_targets(uniforms, rois, roi_labels, roi_scores, gt_boxes, gt_valid, tcfg):
+    """Sample ROI_PER_IMAGE RoIs of the proposals and build their targets.
+
+    uniforms (B, 2, P) in [0, 1); rois (B, P, 7+), roi_labels (B, P) in 1..K,
+    roi_scores (B, P); gt_boxes (B, G, 8+) with the class id last, gt_valid
+    (B, G); tcfg from `roi_head_target_cfg`. Returns the reference's
+    targets dict: rois (B, M, 7), roi_labels, roi_scores, gt_iou_of_rois,
+    gt_of_rois (canonical, (B, M, 8)), gt_of_rois_src, reg_valid_mask,
+    rcnn_cls_labels and sampled_idx (B, M) into the proposal axis. No
+    gradient flows into any of them."""
+    with torch.no_grad():
+        gt_labels = gt_boxes[..., -1].to(torch.int64)
+        if tcfg.get("SAMPLE_ROI_BY_EACH_CLASS", False):
+            overlaps, assignment = max_iou_with_same_class(rois, roi_labels, gt_boxes,
+                                                           gt_labels, gt_valid)
+        else:
+            iou = torch.where(gt_valid[..., None, :],
+                              pairwise_iou3d(rois[..., :7], gt_boxes[..., :7]), 0.0)
+            overlaps = iou.amax(dim=-1)
+            assignment = torch.argmax(torch.where(gt_valid[..., None, :], iou, -1.0), dim=-1)
+        sampled = _subsample_rois(uniforms, overlaps, tcfg)
+        gt_of = torch.cat([gt_boxes[..., :7], gt_labels[..., None].to(gt_boxes.dtype)], dim=-1)
+        s_rois = _take(rois, sampled)[..., :7]
+        s_ious = torch.gather(overlaps, 1, sampled)
+        gt_of_rois = _take(gt_of, torch.gather(assignment, 1, sampled))
+
+        reg_valid_mask = (s_ious > float(tcfg["REG_FG_THRESH"])).to(torch.int32)
+        cls_type = tcfg.get("CLS_SCORE_TYPE", "roi_iou")
+        fg_t, bg_t = float(tcfg["CLS_FG_THRESH"]), float(tcfg["CLS_BG_THRESH"])
+        if cls_type == "cls":
+            cls_labels = (s_ious > fg_t).float()
+            cls_labels = torch.where((s_ious > bg_t) & (s_ious < fg_t), -1.0, cls_labels)
+        elif cls_type == "roi_iou":
+            soft = (s_ious - bg_t) / (fg_t - bg_t)
+            cls_labels = torch.where(s_ious > fg_t, 1.0, torch.where(s_ious < bg_t, 0.0, soft))
+        else:
+            raise NotImplementedError(cls_type)
+        return {"rois": s_rois, "roi_labels": torch.gather(roi_labels, 1, sampled),
+                "roi_scores": torch.gather(roi_scores, 1, sampled), "gt_iou_of_rois": s_ious,
+                "gt_of_rois": canonicalize_gt_of_rois(s_rois, gt_of_rois),
+                "gt_of_rois_src": gt_of_rois, "reg_valid_mask": reg_valid_mask,
+                "rcnn_cls_labels": cls_labels, "sampled_idx": sampled}
+
+
+def canonicalize_gt_of_rois(rois, gt_of_rois):
+    """The gt in its RoI's frame, its heading flipped by π where it faces
+    away and put into [-π/2, π/2] (roi_head_template.py assign_targets:
+    113-132). Columns past 7 (the class id) pass through. The floor-mod is
+    torch.remainder, as JAX's %."""
+    roi_ry = torch.remainder(rois[..., 6], 2 * PI)
+    ct = torch.cat([gt_of_rois[..., 0:3] - rois[..., 0:3], gt_of_rois[..., 3:6],
+                    (gt_of_rois[..., 6] - roi_ry)[..., None], gt_of_rois[..., 7:]], dim=-1)
+    ct = rotate_points_along_z(ct[..., None, :], -roi_ry)[..., 0, :]
+    heading = torch.remainder(ct[..., 6], 2 * PI)
+    opposite = (heading > PI * 0.5) & (heading < PI * 1.5)
+    heading = torch.where(opposite, torch.remainder(heading + PI, 2 * PI), heading)
+    heading = torch.where(heading > PI, heading - 2 * PI, heading)
+    heading = torch.clamp(heading, -PI / 2, PI / 2)
+    return torch.cat([ct[..., :6], heading[..., None], ct[..., 7:]], dim=-1)
+
+
+def _smooth_l1(diff, beta: float):
+    n = diff.abs()
+    return torch.where(n < beta, 0.5 * n * n / beta, n - 0.5 * beta)
+
+
+def _norm(x):
+    """The Euclidean norm over the last axis as jnp.linalg.norm sums it."""
+    return torch.sqrt((x * x).sum(dim=-1))
+
+
+def get_corner_loss_lidar(pred_boxes, gt_boxes):
+    """(N, 7) × (N, 7) → (N,): the mean over the 8 corners of the smooth-L1
+    (β 1) of each corner's distance, to the gt or to the gt turned by π,
+    whichever is nearer (loss_utils.py:211-234)."""
+    pc = boxes_to_corners_3d(pred_boxes)
+    gc = boxes_to_corners_3d(gt_boxes)
+    flipped = torch.cat([gt_boxes[:, :6], gt_boxes[:, 6:7] + PI, gt_boxes[:, 7:]], dim=-1)
+    gcf = boxes_to_corners_3d(flipped)
+    dist = torch.minimum(_norm(pc - gc), _norm(pc - gcf))
+    return _smooth_l1(dist, 1.0).mean(dim=1)
+
+
+def roi_cls_loss(rcnn_cls, rcnn_cls_labels, loss_cfg):
+    """get_box_cls_layer_loss (roi_head_template.py:200-218): BCE on the
+    (soft) labels, or CE, over the RoIs whose label is >= 0."""
+    lw = float(loss_cfg["LOSS_WEIGHTS"]["rcnn_cls_weight"])
+    kind = loss_cfg.get("CLS_LOSS", "BinaryCrossEntropy")
+    labels = rcnn_cls_labels.reshape(-1)
+    mask = (labels >= 0).float()
+    if kind == "BinaryCrossEntropy":
+        per = bce_with_logits(rcnn_cls.reshape(-1), labels)
+    elif kind == "CrossEntropy":
+        logits = rcnn_cls.reshape(labels.shape[0], -1)
+        # JAX's gather clamps an index past the last class to it
+        lab = torch.clamp(labels.to(torch.int64), 0, logits.shape[1] - 1)
+        per = -torch.log_softmax(logits, dim=-1).gather(1, lab[:, None])[:, 0]
+    else:
+        raise NotImplementedError(kind)
+    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0) * lw
+
+
+def roi_reg_loss(rcnn_reg, targets, loss_cfg):
+    """get_box_reg_layer_loss (roi_head_template.py:136-198): smooth-L1 (β
+    1/9) of the canonical residuals against zero-centred RoI-sized anchors,
+    and with CORNER_LOSS_REGULARIZATION the corner loss of the decoded box,
+    over the RoIs of reg_valid_mask. Returns (loss, tb)."""
+    lw = loss_cfg["LOSS_WEIGHTS"]
+    code_w = torch.as_tensor(lw["code_weights"], dtype=torch.float32, device=rcnn_reg.device)
+    rois = targets["rois"].reshape(-1, targets["rois"].shape[-1])[:, :7]
+    gt_ct = targets["gt_of_rois"][..., :7].reshape(-1, 7)
+    gt_src = targets["gt_of_rois_src"][..., :7].reshape(-1, 7)
+    reg = rcnn_reg.reshape(-1, rcnn_reg.shape[-1])[:, :7]
+    fg = (targets["reg_valid_mask"].reshape(-1) > 0).float()
+    fg_sum = torch.clamp(fg.sum(), min=1.0)
+
+    zeros = torch.zeros_like(rois[:, :3])
+    rois_anchor = torch.cat([zeros, rois[:, 3:6], zeros[:, :1]], dim=-1)
+    per = _smooth_l1((encode_boxes(gt_ct, rois_anchor) - reg) * code_w, 1.0 / 9.0)
+    loss = (per.sum(dim=-1) * fg).sum() / fg_sum * float(lw["rcnn_reg_weight"])
+    tb = {"rcnn_loss_reg": loss}
+    if loss_cfg.get("CORNER_LOSS_REGULARIZATION", False):
+        boxes = decode_boxes(reg, torch.cat([zeros, rois[:, 3:7]], dim=-1))
+        boxes = rotate_points_along_z(boxes[:, None, :], rois[:, 6])[:, 0, :]
+        boxes = torch.cat([boxes[:, 0:3] + rois[:, 0:3], boxes[:, 3:]], dim=-1)
+        corner = get_corner_loss_lidar(boxes[:, :7], gt_src)
+        corner = (corner * fg).sum() / fg_sum * float(lw["rcnn_corner_weight"])
+        loss = loss + corner
+        tb["rcnn_loss_corner"] = corner
+    tb["rcnn_loss_reg_total"] = loss
+    return loss, tb
+
+
+def roi_head_loss(rcnn_cls, rcnn_reg, targets, loss_cfg):
+    """get_loss (roi_head_template.py:220-231): (total, tb)."""
+    cls_loss = roi_cls_loss(rcnn_cls, targets["rcnn_cls_labels"], loss_cfg)
+    reg_loss, tb = roi_reg_loss(rcnn_reg, targets, loss_cfg)
+    tb["rcnn_loss_cls"] = cls_loss
+    total = cls_loss + reg_loss
+    tb["rcnn_loss"] = total
+    return total, tb
+
+
 def generate_predicted_boxes(rois, box_preds):
     """rois (B, N, 7+), box_preds (B, N, code) → (B, N, 7): decoded in the
     RoI's frame, rotated by its heading, shifted to its centre."""
@@ -109,19 +376,30 @@ def final_nms(boxes, scores, labels, valid, pp_cfg):
 
 class FCStack(nn.Module):
     """[Dense (no bias) + BN1d + ReLU]* and an optional final biased Dense
-    (the JAX FCStack; BN at torch's defaults, eps 1e-5, keep 0.9). Dropout
-    only acts in training, which this slice does not port."""
+    (the JAX FCStack as make_fc_stack builds it; BN at torch's defaults, eps
+    1e-5, keep 0.9). In training, with a `dropout` generator and dp_ratio >
+    0, inverted dropout follows block 0, as make_fc_layers places it:
+    flax's nn.Dropout, a unit kept where a uniform draw is < 1 - p and
+    scaled by 1 / (1 - p), drawn from the generator. Without a generator it
+    is the identity, as JAX's FCStack is without a "dropout" rng."""
 
-    def __init__(self, in_channels: int, fc_list: Sequence[int], out_channels=None):
+    def __init__(self, in_channels: int, fc_list: Sequence[int], out_channels=None,
+                 dp_ratio: float = 0.0):
         super().__init__()
         self.num = len(fc_list)
+        self.dp_ratio = float(dp_ratio)
         for i, c in enumerate(fc_list):
             self.add_module(f"fc{i}", nn.Linear(in_channels, int(c), bias=False))
             self.add_module(f"bn{i}", BatchNorm(int(c), eps=1e-5, keep=0.9))
             in_channels = int(c)
         self.out = nn.Linear(in_channels, out_channels) if out_channels is not None else None
 
-    def forward(self, x):
+    def forward(self, x, dropout: torch.Generator | None = None):
         for i in range(self.num):
             x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x)))
+            if i == 0 and self.dp_ratio > 0 and self.training and dropout is not None:
+                keep_prob = 1.0 - self.dp_ratio
+                keep = torch.rand(x.shape, generator=dropout, device=x.device) < keep_prob
+                x = torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
         return self.out(x) if self.out is not None else x

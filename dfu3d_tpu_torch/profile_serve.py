@@ -50,6 +50,7 @@ from .core.geometry import iou_kernel
 from .core.geometry import nms as nms_mod
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
+from .models import pointrcnn as pointrcnn_mod
 from .models import roi_head
 from .train import train_state
 from .train.train_state import make_eval_step
@@ -146,8 +147,12 @@ class Spans:
         self.saved = []
 
 
-def pointrcnn_phase_times(model, step, batch):
-    """One PointRCNN step with every span of `Spans` timed."""
+def pointrcnn_phase_times(model, run, batch, optimizer=None):
+    """One PointRCNN step, `run(batch)` (an eval step, or with its
+    `optimizer` a train step), with every span of `Spans` timed. A train
+    step adds the point targets, the point losses, the RoI targets (with
+    their B1 launch), the RCNN loss, the backward and the clip + optimizer
+    update."""
     spans = Spans()
     wraps = [(mod, "forward", f"backbone.{name}")
              for name, mod in model.backbone.named_children()]
@@ -158,12 +163,19 @@ def pointrcnn_phase_times(model, step, batch):
               (roi_head, "final_nms", "final_nms"),
               (train_state, "pairwise_iou3d", "recall_iou"), (iou_kernel, "overlap_bev", "b1"),
               (nms_mod, "_suppression_scan", "keep_scan")]
+    if optimizer is not None:
+        wraps += [(pointrcnn_mod, "assign_point_targets", "point_targets"),
+                  (pointrcnn_mod, "sigmoid_focal_loss", "point_loss"),
+                  (pointrcnn_mod, "weighted_smooth_l1", "point_loss"),
+                  (roi_head, "assign_roi_targets", "roi_targets"),
+                  (roi_head, "roi_head_loss", "rcnn_loss"),
+                  (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
     try:
         for obj, attr, name in wraps:
             spans.wrap(obj, attr, name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _run(step, batch)
+        run(batch)
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
@@ -174,10 +186,10 @@ def pointrcnn_phase_times(model, step, batch):
     return phases
 
 
-def keep_scans(step, batches):
-    """Runs each batch once with the NMS keep-scan timed: per call, the IoU
-    matrix's shape, the scan's fixed-point iterations (one host sync each,
-    plus one) and its host-clock ms."""
+def keep_scans(run, batches):
+    """Runs each batch once, `run(batch)`, with the NMS keep-scan timed: per
+    call, the IoU matrix's shape, the scan's fixed-point iterations (one
+    host sync each, plus one) and its host-clock ms."""
     scans, orig = [], nms_mod._suppression_scan
 
     def timed(iou_mat, valid, thresh):
@@ -192,19 +204,21 @@ def keep_scans(step, batches):
     nms_mod._suppression_scan = timed
     try:
         for batch in batches:
-            step(batch)
+            run(batch)
     finally:
         nms_mod._suppression_scan = orig
     return scans
 
 
-def pointrcnn_profile(model, step, batches):
-    """Where a PointRCNN step's time goes: phase_ms, the median over the
-    batches of each span's exclusive ms (`pointrcnn_phase_times`); fps_ms
-    and fps_share, the FPS spans' ms and their share of the instrumented
-    step (medians); the FPS iterations per step; keep_scan, `keep_scans`
-    over the batches."""
-    phases = [pointrcnn_phase_times(model, step, b) for b in batches]
+def pointrcnn_profile(model, run, batches, optimizer=None):
+    """Where a PointRCNN step's time goes, `run(batch)` running an eval
+    step or (given its `optimizer`) a train step through to its result on
+    the host: phase_ms, the median over the batches of
+    each span's exclusive ms (`pointrcnn_phase_times`); fps_ms and
+    fps_share, the FPS spans' ms and their share of the instrumented step
+    (medians); the FPS iterations per step; keep_scan, `keep_scans` over the
+    batches."""
+    phases = [pointrcnn_phase_times(model, run, b, optimizer) for b in batches]
     keys = sorted({k for p in phases for k in p})
     fps_ms = [sum(v for k, v in p.items() if k.endswith(".fps")) for p in phases]
     return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
@@ -213,7 +227,7 @@ def pointrcnn_profile(model, step, batches):
             "fps_iterations_per_step": sum(getattr(model.backbone, f"sa_{i}").npoint
                                            for i in range(model.backbone.num_levels))
             + sum(n for n in model.roi_head.sa_npoints if n > 0),
-            "keep_scan": keep_scans(step, batches)}
+            "keep_scan": keep_scans(run, batches)}
 
 
 def device_profile(run, steps: int):
@@ -297,7 +311,7 @@ def main(argv=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
     if args.model == "pointrcnn":
-        extra = pointrcnn_profile(model, step, batches)
+        extra = pointrcnn_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     else:
         phases = [_phase_times(model, step, b) for b in batches]

@@ -1,22 +1,36 @@
 """Where the training time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel] [--steps 8]
+    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn] [--steps 8]
                                             [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
 CenterPoint-pillar (256 x 512 BEV) or voxel CenterPoint
 (cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid, 10-column gt for its
-vel branch). B=4, 60,000 uniform points in a 50 m extent, 256 gt slots (16
-valid), bf16 autocast, weights from `seeded_weights_`, the config's
-adam_onecycle over 1000 steps. It reports, as one JSON object (printed, and
-written to --out):
+vel branch), B=4, 60,000 uniform points in a 50 m extent, 256 gt slots (16
+valid); or PointRCNN (pointrcnn_nuscenes2kitti), B=4 frames of a synthetic
+KITTI root (40,000-60,000 points in the camera frustum, 20-40 boxes of the
+config's classes) read through KittiDataset in train mode (gt sampling from
+the root's gt database, flip, rotation, scaling, translation, then 16,384
+sampled points), each batch with `zoo.proposal_gt`'s 16 gt per frame made
+of the model's proposals just before its step, outside the timed step, so
+that every step has RoIs over REG_FG_THRESH. bf16 autocast, weights from
+`seeded_weights_`, the config's adam_onecycle over 1000 steps. It reports,
+as one JSON object (printed, and written to --out):
 
 * step_ms: host clock per step, no instrumentation (median over steps), and
-  samples_per_s = 4 / step_ms;
+  samples_per_s = 4 / step_ms; PointRCNN adds each step's rcnn_reg_loss
+  and step_ms_after_profiler, three steps timed after torch.profiler has
+  run in the process (slower on the host: the metric is read before it);
 * phase_ms: the same step with a device sync at each phase boundary:
   upload; the features, split into the VFE (voxelize + MeanVFE on the voxel
   path), the neighbour and transpose tables (voxel only) and the backbones
-  and head convs; targets + loss; backward; clip + optimizer;
+  and head convs; targets + loss; backward; clip + optimizer. PointRCNN:
+  the exclusive ms of each span of `profile_serve.pointrcnn_phase_times`
+  (each SA level with its FPS and ball queries, each FP level with its
+  3-NN, the point head, the point targets and losses, the proposal layer
+  with its B1 launch and keep-scan, the RoI targets with their B1 launch,
+  the RoI pooling, the RoI head with its FPS, the RCNN loss, the backward,
+  clip + optimizer), with fps_share and the keep-scan's iterations;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -41,9 +55,10 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import device_profile
+from .profile_serve import device_profile, pointrcnn_profile
 from .train.train_state import create_train_state, make_train_step
-from .zoo import voxel_centerpoint
+from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
+                  voxel_centerpoint, write_pointrcnn_root)
 
 TOTAL_STEPS = 1000
 B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
@@ -139,9 +154,69 @@ def _profile(step, batches, b2_forward_per_step):
     return out
 
 
+def pointrcnn_train(steps: int, device_name: str) -> dict:
+    """profile_train --model pointrcnn: step times, the spans of
+    `pointrcnn_profile` over the steps, and the device profile of two."""
+    import tempfile
+
+    cfg, _, model = pointrcnn(device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as work:
+        info = write_pointrcnn_root(cfg, Path(work), POINTRCNN_BATCH_SIZE * steps, training=True)
+        batches = pointrcnn_batches(cfg, Path(work), info, steps, training=True)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        run(proposal_gt(model, batch, torch.bfloat16))
+    step_ms, reg_loss = [], []
+    for batch in batches:
+        batch = proposal_gt(model, batch, torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run(batch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        reg_loss.append(metrics["rcnn_reg_loss"])
+    median = statistics.median(step_ms)
+    batches = [proposal_gt(model, b, torch.bfloat16) for b in batches]
+    spans = pointrcnn_profile(model, run, batches, state.optimizer)
+    # its trace holds ~50,000 launches a step: two steps suffice
+    profile = device_profile(lambda: [run(b) for b in batches[:2]], 2)[1]
+    after_ms = []
+    for batch in batches[:3]:
+        t0 = time.perf_counter()
+        run(batch)
+        after_ms.append((time.perf_counter() - t0) * 1e3)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    scans = spans.pop("keep_scan")
+    return {
+        "device": device_name,
+        "workload": "PointRCNN pointrcnn_nuscenes2kitti (4.04 M parameters), B=4 synthetic "
+                    "KITTI frames (40000-60000 points in the frustum, 20-40 boxes) read in "
+                    "train mode with the augmentations and sampled to 16384 points, 16 gt per "
+                    "frame made of proposals, bf16 autocast, seeded random weights, "
+                    "adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": 4 / (median / 1e3),
+        "step_ms_after_profiler": after_ms,
+        "rcnn_reg_loss": reg_loss,
+        **spans,
+        "nms_scan": {"calls_per_step": len(scans) / len(batches),
+                     "shapes": sorted({tuple(c["shape"]) for c in scans}),
+                     "iterations": [c["iterations"] for c in scans],
+                     "ms": [c["ms"] for c in scans]},
+        "profile": profile,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel"), default="pillar")
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn"), default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -150,6 +225,9 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    if args.model == "pointrcnn":
+        _write(pointrcnn_train(args.steps, smi.stdout.strip()), args.out)
+        return
     voxel = args.model == "voxel"
     cfg, _, model = (voxel_centerpoint if voxel else flagship)(device="cuda", train=True)
     seeded_weights_(model, seed=0)
@@ -205,11 +283,15 @@ def main(argv=None):
         # the profiler's own cost stretches its window; against the step
         # time taken without it the card idles for this share
         result["profile"]["device_idle_share_of_step_ms"] = 1 - busy / median
+    _write(result, args.out)
+
+
+def _write(result, out):
     text = json.dumps(result, indent=1)
     print(text)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(text)
+    if out:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(text)
 
 
 if __name__ == "__main__":

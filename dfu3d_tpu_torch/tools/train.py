@@ -6,12 +6,15 @@ reference's tools/train.py:21-65 flag surface).
         [--epochs N] [--workers 4] [--device cuda|cpu] [--dtype bfloat16|float32] \\
         [--set DATA_CONFIG.DATA_PATH /data/kitti ...]
 
+The config may name CenterPoint or PointRCNN
+(tools/cfgs/kitti_models/pointrcnn_nuscenes2kitti.yaml).
 Output goes to output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>/ under the working
 directory: the log, and ckpt/ with the per-epoch checkpoints; a run resumes
 from the newest checkpoint there unless --ckpt names one. --ckpt and
 --pretrained_model also take a reference (OpenPCDet / DFU3D) checkpoint of
-the flagship: its weights are overlaid onto the model and training starts at
-epoch 0 with a fresh optimizer.
+the flagship or of PointRCNN (its point and RoI heads; the backbone is
+reported unconverted): its weights are overlaid onto the model and training
+starts at epoch 0 with a fresh optimizer.
 --num_epochs_to_eval > 0 evaluates the trained model on the test split
 afterwards. Scalars go to the log (no TensorBoard).
 """

@@ -1,6 +1,8 @@
-"""Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship (own copy
-of the JAX package's train/torch_convert.py: `centerpoint_pillar_mapping`
-and `apply_mapping`'s partial overlay, :50-146, :300-375, :959-1029).
+"""Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship and
+PointRCNN (own copy of the JAX package's train/torch_convert.py:
+`centerpoint_pillar_mapping`, `point_head_box_mapping`,
+`pointrcnn_head_mapping` and `apply_mapping`'s partial overlay, :50-146,
+:300-375, :397-451, :549-589, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -20,14 +22,19 @@ into the port's state_dict names, so every transform is reference → port:
     fused head out      each tower's OIHW weight (and bias) zero-padded on O
                         to the widest branch, then concatenated: the port's
                         grouped out conv
+    Linear              identity: both (out, in)
+    Conv1d / Conv2d k=1 (out, in, 1[, 1]) reshaped to the Linear's (out, in)
 
 The overlay is partial, as the reference's load_params_from_file is
 (strict=False): keys of the mapping that the model lacks are skipped (the
 mapping lists a deblock's Conv2d and ConvTranspose2d alternatives), keys the checkpoint lacks are reported as missing and the
 model keeps its values there, and the model's keys outside the mapping are
-reported as unmatched and kept. A shape mismatch raises. The mapping is the
-flagship's only (CenterPoint-pillar, centerpoint_nuscenes2kitti.yaml), as the
-JAX package's convert_state_dict default is.
+reported as unmatched and kept. A shape mismatch raises. The model picks
+its mapping (its `reference_mapping()` method): the flagship's (CenterPoint-pillar,
+centerpoint_nuscenes2kitti.yaml, the JAX package's convert_state_dict
+default) for CenterPoint, the point head's and the RoI head's for PointRCNN.
+The JAX package has no PointNet2MSG backbone mapping, so neither has the
+port: a PointRCNN backbone keeps its values and is reported unmatched.
 """
 from __future__ import annotations
 
@@ -37,11 +44,14 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-__all__ = ["is_reference_state", "centerpoint_pillar_mapping", "apply_mapping",
+__all__ = ["is_reference_state", "centerpoint_pillar_mapping", "point_head_box_mapping",
+           "pointrcnn_head_mapping", "apply_mapping",
            "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
-_REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list)\.\d")
+_REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
+                            r"|reg_layers|xyz_up_layer|merge_down_layer|SA_modules|FP_modules)"
+                            r"\.\d")
 
 Mapping = Dict[str, Tuple[object, Callable]]
 
@@ -55,6 +65,11 @@ def is_reference_state(model_state) -> bool:
 
 def t_identity(w):
     return w
+
+
+def t_fc(w):
+    """Linear / Conv1d(k=1) / Conv2d(k=1) weight → the port's Linear (out, in)."""
+    return w.reshape(w.shape[0], -1)
 
 
 def t_cat(ws):
@@ -139,6 +154,71 @@ def centerpoint_pillar_mapping() -> Mapping:
     return m
 
 
+def point_head_box_mapping(cls_fc=(256, 256), reg_fc=(256, 256), ours_prefix="point_head",
+                           ref_prefix="point_head") -> Mapping:
+    """PointHeadBox (point_head_box.py:13-30, point_head_template
+    make_fc_layers:36-47): each stack is [Linear (no bias), BatchNorm1d,
+    ReLU] per width and a biased Linear, the reference's cls_layers /
+    box_layers; the port's SharedMLP dense_{i} / bn_{i} and {cls,reg}_out."""
+    m: Mapping = {}
+    for which, fc in (("cls", tuple(cls_fc)), ("reg", tuple(reg_fc))):
+        ref_stack = f"{ref_prefix}.{'cls' if which == 'cls' else 'box'}_layers"
+        for i in range(len(fc)):
+            m[f"{ours_prefix}.{which}_fc.dense_{i}.weight"] = (f"{ref_stack}.{3 * i}.weight",
+                                                              t_identity)
+            _bn(m, f"{ours_prefix}.{which}_fc.bn_{i}", f"{ref_stack}.{3 * i + 1}")
+        m[f"{ours_prefix}.{which}_out.weight"] = (f"{ref_stack}.{3 * len(fc)}.weight", t_identity)
+        m[f"{ours_prefix}.{which}_out.bias"] = (f"{ref_stack}.{3 * len(fc)}.bias", t_identity)
+    return m
+
+
+def _fc_make(m, ours, ref, n):
+    """make_fc_layers (roi_head_template.py:29-43: dropout after block 0, a
+    biased prediction conv last) ↔ roi_head.FCStack fc{i} / bn{i} / out."""
+    idx = 0
+    for i in range(n):
+        m[f"{ours}.fc{i}.weight"] = (f"{ref}.{idx}.weight", t_fc)
+        _bn(m, f"{ours}.bn{i}", f"{ref}.{idx + 1}")
+        idx += 3
+        if i == 0:
+            idx += 1
+    m[f"{ours}.out.weight"] = (f"{ref}.{idx}.weight", t_fc)
+    m[f"{ours}.out.bias"] = (f"{ref}.{idx}.bias", t_identity)
+
+
+def pointrcnn_head_mapping(xyz_up=(128, 128), sa_mlps=((128, 128, 128), (128, 128, 256),
+                                                       (256, 256, 512)),
+                           cls_fc=(256, 256), reg_fc=(256, 256), use_bn=False,
+                           ours_prefix="roi_head", ref_prefix="roi_head") -> Mapping:
+    """PointRCNNHead (pointrcnn_head.py:10-65): the xyz_up and merge_down
+    Conv2d(k=1) stacks (biased without USE_BN), the batch SA modules' MLPs
+    (always Conv2d + BN2d, pointnet2_batch modules:90-97) and the
+    make_fc_layers cls / reg stacks."""
+    m: Mapping = {}
+    step = 3 if use_bn else 2  # [conv, (bn,) relu] per block
+    for i in range(len(xyz_up)):
+        base = f"{ref_prefix}.xyz_up_layer.{step * i}"
+        m[f"{ours_prefix}.xyz_up_d{i}.weight"] = (f"{base}.weight", t_fc)
+        if use_bn:
+            _bn(m, f"{ours_prefix}.xyz_up_bn{i}", f"{ref_prefix}.xyz_up_layer.{step * i + 1}")
+        else:
+            m[f"{ours_prefix}.xyz_up_d{i}.bias"] = (f"{base}.bias", t_identity)
+    m[f"{ours_prefix}.merge_down_d0.weight"] = (f"{ref_prefix}.merge_down_layer.0.weight", t_fc)
+    if use_bn:
+        _bn(m, f"{ours_prefix}.merge_down_bn0", f"{ref_prefix}.merge_down_layer.1")
+    else:
+        m[f"{ours_prefix}.merge_down_d0.bias"] = (f"{ref_prefix}.merge_down_layer.0.bias",
+                                                  t_identity)
+    for k, mlp in enumerate(sa_mlps):
+        base = f"{ref_prefix}.SA_modules.{k}.mlps.0"
+        for j in range(len(mlp)):
+            m[f"{ours_prefix}.sa{k}_d{j}.weight"] = (f"{base}.{3 * j}.weight", t_fc)
+            _bn(m, f"{ours_prefix}.sa{k}_bn{j}", f"{base}.{3 * j + 1}")
+    _fc_make(m, f"{ours_prefix}.cls_fc", f"{ref_prefix}.cls_layers", len(cls_fc))
+    _fc_make(m, f"{ours_prefix}.reg_fc", f"{ref_prefix}.reg_layers", len(reg_fc))
+    return m
+
+
 def apply_mapping(own: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
                   mapping: Mapping):
     """Overlay reference tensors onto a port state_dict. Returns (new
@@ -175,11 +255,12 @@ def apply_mapping(own: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
 
 
 def load_reference_state(model, state, logger=None) -> dict:
-    """Overlay a reference model_state (key → tensor) onto the flagship
-    `model` in place. Raises when no key converts: the checkpoint is for
-    another model. Logs the report's counts to `logger` (default: this
-    module's), as a warning when the overlay is partial, and returns it."""
-    new, report = apply_mapping(model.state_dict(), state, centerpoint_pillar_mapping())
+    """Overlay a reference model_state (key → tensor) onto `model` in place
+    through the mapping its `reference_mapping()` gives. Raises when no key converts: the
+    checkpoint is for another model. Logs the report's counts to `logger`
+    (default: this module's), as a warning when the overlay is partial, and
+    returns it."""
+    new, report = apply_mapping(model.state_dict(), state, model.reference_mapping())
     if not report["converted"]:
         raise ValueError("no key of the reference checkpoint converts onto this model "
                          f"({len(state)} keys, {len(report['missing_in_torch'])} missing); "

@@ -4,7 +4,11 @@ The train step is the JAX package's `make_train_step`: forward and loss
 under bf16 autocast (its compute dtype on the chip), the backward, the
 global-norm clip and the optimizer update; BN layers update their running
 statistics in the forward. bf16 needs no loss scaling, so there is no
-GradScaler. The eval step predicts, then counts the reference's recall
+GradScaler. Each step hands the model two generators on the device, its
+`sampler` (PointRCNN's RoI subsampler) and `dropout` draws, seeded from
+(17, update count) and (23, update count) as JAX folds the update count into
+PRNGKey(17) and PRNGKey(23): a resumed run draws what an uninterrupted one
+draws. The eval step predicts, then counts the reference's recall
 (detector3d_template generate_recall_record) over the fixed-size padded
 outputs.
 """
@@ -44,12 +48,33 @@ def _autocast(dev, dtype):
             else contextlib.nullcontext())
 
 
+SAMPLER_SEED, DROPOUT_SEED = 17, 23
+
+
+def step_seed(base: int, step: int) -> int:
+    """A 64-bit seed of (base, step), splitmix64-mixed: the CPU generator
+    reads only part of its seed, so every bit must depend on both."""
+    mask = (1 << 64) - 1
+    z = ((base << 32) + step + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return z ^ (z >> 31)
+
+
+def step_generator(dev, base: int, step: int) -> torch.Generator:
+    """A generator on `dev` seeded from (base, step), one stream per pair."""
+    return torch.Generator(device=dev).manual_seed(step_seed(base, step))
+
+
 def make_train_step(model, optimizer: Optimizer, device="cuda", dtype=torch.bfloat16):
-    """Returns train_step(batch) → metrics: {"loss", "hm_loss_head_i",
-    "loc_loss_head_i", "rpn_loss", "grad_norm"}, 0-dim tensors on the device
-    (reading one syncs the host). The batch is moved to `device`, where the
-    model must live; the model is put in train mode. With `dtype`
-    torch.float32 nothing runs under autocast."""
+    """Returns train_step(batch) → metrics: {"loss", the model's loss terms
+    (CenterPoint: "hm_loss_head_i", "loc_loss_head_i"; PointRCNN:
+    "point_cls_loss", "point_reg_loss", "rcnn_cls_loss", "rcnn_reg_loss"),
+    "rpn_loss", "grad_norm"}, 0-dim tensors on the device (reading one syncs
+    the host). The batch is moved to `device`, where the model must live; the
+    model is put in train mode and called with the step's `sampler` and
+    `dropout` generators. With `dtype` torch.float32 nothing runs under
+    autocast."""
     dev = resolve_device(device)
 
     def train_step(batch):
@@ -57,8 +82,10 @@ def make_train_step(model, optimizer: Optimizer, device="cuda", dtype=torch.bflo
             model.train()
         batch = batch.to(dev)
         optimizer.zero_grad()
+        count = optimizer.count
         with _autocast(dev, dtype):
-            loss, tb = model(batch)
+            loss, tb = model(batch, sampler=step_generator(dev, SAMPLER_SEED, count),
+                             dropout=step_generator(dev, DROPOUT_SEED, count))
         loss.backward()
         grad_norm = optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()},

@@ -14,6 +14,7 @@ import copy
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .core.voxel import VoxelGrid
 from .models import build_network
@@ -49,47 +50,101 @@ POINTRCNN_BATCH_SIZE = 4  # the config's BATCH_SIZE_PER_GPU
 POINTRCNN_SEED = 0
 
 
-def pointrcnn(device="cuda"):
+def pointrcnn(device="cuda", train: bool = False):
     """PointRCNN on DFU3D's second detector config
     tools/cfgs/kitti_models/pointrcnn_nuscenes2kitti.yaml at its published
-    widths, for serving: returns (cfg, grid, model) in eval mode, with the
-    grid of the config's voxel placeholder (the model reads no grid). The
-    model's weights are PyTorch's defaults."""
+    widths: returns (cfg, grid, model) in eval mode, or in train mode with
+    `train`, with the grid of the config's voxel placeholder (the model
+    reads no grid). The model's weights are PyTorch's defaults."""
     cfg = cfg_from_yaml_file(POINTRCNN_CFG, CfgDict())
     voxel_cfg = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
                  if p.NAME.startswith("transform_points_to_voxels")][-1]
     grid = VoxelGrid.create(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, voxel_cfg.VOXEL_SIZE)
-    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device)
+    model = build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device, train=train)
     return cfg, grid, model
 
 
-def pointrcnn_batches(cfg, root, info_file, num_batches: int):
+def pointrcnn_batches(cfg, root, info_file, num_batches: int, training: bool = False):
     """`num_batches` PointBatches of POINTRCNN_BATCH_SIZE frames read from
-    `root` through KittiDataset in test mode, the frames of `info_file` in
-    order (repeated if there are fewer): the config's processors mask the
-    range, sample 16,384 points (sample_points) and shuffle them. numpy's
-    global generator, which those processors draw from, is seeded with
-    POINTRCNN_SEED."""
+    `root` through KittiDataset, the frames of `info_file` in order
+    (repeated if there are fewer): the config's processors mask the range,
+    sample 16,384 points (sample_points) and shuffle them. In test mode, or
+    with `training` in train mode: then the base dataset config's
+    augmentations run first (gt sampling from the gt database of `root`,
+    flip, rotation, scaling, translation). numpy's global generator, which
+    those draw from, is seeded with POINTRCNN_SEED."""
     from .data.kitti_dataset import KittiDataset
 
     ds_cfg = copy.deepcopy(cfg.DATA_CONFIG)
     ds_cfg.DATA_PATH = str(root)
-    ds_cfg.INFO_PATH = {"train": [], "test": [str(info_file)]}
-    dataset = KittiDataset(ds_cfg, cfg.CLASS_NAMES, training=False, root_path=Path(root))
+    ds_cfg.INFO_PATH = {"train": [str(info_file)] if training else [],
+                        "test": [] if training else [str(info_file)]}
+    dataset = KittiDataset(ds_cfg, cfg.CLASS_NAMES, training=training, root_path=Path(root))
     np.random.seed(POINTRCNN_SEED)
     b = POINTRCNN_BATCH_SIZE
     frames = [dataset[i % len(dataset)] for i in range(num_batches * b)]
     return [dataset.collate_batch(frames[i:i + b])[0] for i in range(0, len(frames), b)]
 
 
-def write_pointrcnn_root(cfg, root, num_frames: int):
-    """A synthetic KITTI-format root of `num_frames` frames in the val split
-    (data.kitti_synthetic at its defaults: 40,000-60,000 points in the
-    camera frustum, 20-40 boxes of the config's classes, seed
-    POINTRCNN_SEED) and its info file; returns the info file's path."""
+def write_pointrcnn_root(cfg, root, num_frames: int, training: bool = False):
+    """A synthetic KITTI-format root of `num_frames` frames in the val split,
+    or with `training` in the train split with its gt database under the
+    name the config's gt sampling reads (data.kitti_synthetic at its
+    defaults: 40,000-60,000 points in the camera frustum, 20-40 boxes of the
+    config's classes, seed POINTRCNN_SEED), and its info file; returns the
+    info file's path."""
     from .data import kitti_synthetic
-    from .data.kitti_dataset import create_kitti_infos
+    from .data.kitti_dataset import KittiDataset, create_kitti_infos
 
-    kitti_synthetic.write_root(root, 0, num_frames, cfg.CLASS_NAMES, seed=POINTRCNN_SEED)
-    (info,) = create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, splits=("val",))
+    split = "train" if training else "val"
+    kitti_synthetic.write_root(root, num_frames if training else 0, 0 if training else num_frames,
+                               cfg.CLASS_NAMES, seed=POINTRCNN_SEED)
+    (info,) = create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, splits=(split,))
+    if training:
+        dataset = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root)
+        dataset.set_split("train")
+        dbinfos = dataset.create_groundtruth_database(info, root, used_classes=cfg.CLASS_NAMES,
+                                                      split="train")
+        (sampling,) = [a for a in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+                       if a.NAME == "gt_sampling"]
+        Path(dbinfos).rename(Path(root) / sampling.DB_INFO_PATH[0])
     return info
+
+
+PROPOSAL_GT = 16  # gt boxes per frame that proposal_gt appends
+
+
+def proposal_gt(model, batch, dtype=torch.float32, count: int = PROPOSAL_GT):
+    """`batch` on the model's device with `count` gt boxes per frame
+    appended after its own, made of the PointRCNN `model`'s first-stage
+    boxes as its train step would propose them now (train mode, under
+    `dtype` autocast; the BN running statistics are put back): gt j of a
+    frame is the box of its j-th highest score, with its class, shifted
+    along x by 0.05·j of its length. The proposal NMS always keeps the
+    highest-scored box, so every frame then has a RoI at IoU 1 with its gt
+    0, over REG_FG_THRESH: the RoI head's reg and corner losses carry
+    gradient, as a trained model's do, where seeded random weights alone
+    almost never propose a box over it. The shifts put RoIs on both sides
+    of each IoU threshold of the target layer. Runs no NMS, so no kernel."""
+    from .models.pointrcnn import point_decode
+
+    dev = next(model.parameters()).device
+    batch = batch.to(dev)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    with torch.no_grad(), torch.autocast(dev.type, dtype=dtype,
+                                         enabled=dtype != torch.float32):
+        _, cls_logits, box_codes = model.stage1(batch)
+    for k, v in model.named_buffers():
+        v.copy_(buffers[k])
+    pred_cls = torch.argmax(cls_logits, dim=-1) + 1
+    boxes = point_decode(box_codes, batch.points[..., :3].float(), pred_cls, model.mean_sizes)
+    scores = torch.where(batch.points_valid, torch.sigmoid(cls_logits).amax(dim=-1), -1.0)
+    top = torch.argsort(scores, dim=1, descending=True, stable=True)[:, :count]
+    gt = torch.cat([torch.gather(boxes, 1, top[..., None].expand(-1, -1, 7)),
+                    torch.gather(pred_cls, 1, top)[..., None].float()], dim=-1)
+    shift = 0.05 * torch.arange(count, device=dev, dtype=gt.dtype)
+    gt[..., 0] += shift * gt[..., 3]
+    return batch._replace(
+        gt_boxes=torch.cat([batch.gt_boxes, gt.to(batch.gt_boxes.dtype)], dim=1),
+        gt_valid=torch.cat([batch.gt_valid, torch.ones_like(top, dtype=torch.bool)], dim=1))
