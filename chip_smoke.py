@@ -150,10 +150,37 @@ Phases, each fatal on failure:
               backward, clip + optimizer; busy and idle); tools.train on the
               config for 1 epoch (16 frames, 4 steps, B1 twice per step) and
               tools.test --ckpt of its checkpoint (an AP_DICT with the 8
-              classes, B1 3 times per eval batch).
+              classes, B1 3 times per eval batch); then one tools.evolve
+              --rounds 1 --epochs 1 round on the config over the same root
+              (--score_thresh 0, set on MODEL.POST_PROCESSING: the config has
+              no dense head), fatal unless B1 runs twice per train step and 3
+              times per eval batch, B2 never, label_refine0 is the epoch's
+              predictions byte for byte and the rebuilt infos count them.
+ 12. depth_train  pipeline 2's depth nets trained through tools.train_depth
+              on the card, in a temporary directory: ENet, PENetC2, and
+              PENetC2 with its backbone frozen, each 9 bf16 steps and a val
+              frame of --synthetic frames at 352 x 1216, widths 32-256, B=1;
+              fatal on a non-finite loss or metric, a B1 or B2 launch, or a
+              tensor left unchanged (under --freeze_backbone the backbone's
+              parameters must stay unchanged and its BN statistics change).
+              Per run the losses, ms per step (host clock), frames/s and peak
+              memory. Then one fp32 PENetC2 step (BN biases +3) on the card,
+              on this machine's CPU and in fp64 on the card: losses within
+              1e-5 relative, every gradient leaf of the card's step within
+              3e-4 of fp64's and of the pairs with the CPU within 2e-3 (of
+              the leaf's largest entry, at least 1e-3 of the gradient's),
+              BN statistics within 1e-5; the step with TF32 on and in bf16
+              must fail those limits; the step's six
+              propagations alone, forward and backward, timed with CUDA
+              events; pipeline 2 from the trained ENet (tools.depth_e2e over
+              phase 8's 8 frames: complete_depth --ckpt, then the factory
+              under gt, sparse and completed depth; one label file per
+              frame, no kernel launch); device busy, idle and the
+              propagations' share of a step from torch.profiler, last.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
-{"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}} and
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+{"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
+{"depth_train": {...}} and {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -2370,12 +2397,63 @@ def pointrcnn_train_cli(root, device):
             train_launches, eval_launches)
 
 
+def pointrcnn_evolve(root, device):
+    """tools.evolve --rounds 1 --epochs 1 on the PointRCNN config over phase 7's
+    root (--score_thresh 0, as phase 9's flagship round, for the same
+    reason): the threshold lands on MODEL.POST_PROCESSING, the config has no
+    dense head. Kernel counts are set to 0 just before and read just after:
+    B1 POINTRCNN_TRAIN_B1 times per train step and POINTRCNN_B1_PER_BATCH
+    times per eval batch of the predict pass, B2 never. label_refine0 must be
+    the epoch's predictions byte for byte and the rebuilt infos must count
+    each frame's labels."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.tools import evolve
+
+    reset_launches()
+    t0 = time.perf_counter()
+    (rec,) = evolve.main(["--cfg_file", POINTRCNN_CLI_CFG, "--rounds", "1", "--epochs", "1",
+                          "--score_thresh", "0.0", "--device", device.type, "--set",
+                          "DATA_CONFIG.DATA_PATH", str(root)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = sum(e["steps"] for e in rec["train"]["epochs"])
+    batches = sum(res["eval_batches"] for _, _, res in rec["predictions"])
+    want_b1 = POINTRCNN_TRAIN_B1 * steps + POINTRCNN_B1_PER_BATCH * batches
+    if not steps or launches["iou_bev_overlap"] != want_b1 or launches["gather_gemm"]:
+        fail(f"tools.evolve on {POINTRCNN_CLI_CFG}: kernel launches {launches}, not B1 "
+             f"{POINTRCNN_TRAIN_B1} per train step ({steps}) and {POINTRCNN_B1_PER_BATCH} per "
+             f"eval batch ({batches}), B2 never")
+    newest = rec["prediction_dir"]
+    labels = sorted(rec["label_dir"].glob("*.txt"))
+    if len(labels) != CLI_TRAIN_FRAMES or \
+            [p.name for p in labels] != sorted(p.name for p in newest.glob("*.txt")) or any(
+            p.read_bytes() != (newest / p.name).read_bytes() for p in labels):
+        fail(f"{rec['label_dir']} is not a copy of the round's {CLI_TRAIN_FRAMES} prediction "
+             f"files {newest}")
+    infos = np.load(rec["next_info"], allow_pickle=True)
+    counts = {i["point_cloud"]["lidar_idx"]: len(i["annos"]["name"]) for i in infos}
+    lines = {p.stem: len(p.read_text().splitlines()) for p in labels}
+    if counts != lines or not sum(lines.values()):
+        fail(f"the rebuilt PointRCNN infos count {counts} boxes where label_refine0 holds {lines}")
+    log(f"[pointrcnn_train] tools.evolve --rounds 1 --epochs 1 ({POINTRCNN_CLI_CFG}, "
+        f"{CLI_TRAIN_FRAMES} frames): {seconds:.2f} s "
+        f"({json.dumps({k: round(v, 3) for k, v in rec['seconds'].items()})}); {steps} train "
+        f"steps, {batches} eval batches, kernel launches {json.dumps(launches)}; "
+        f"{rec['label_dir'].name} = the epoch's predictions, {sum(lines.values())} boxes, "
+        f"{rec['next_info'].name} counts the same per frame")
+    return ({"seconds": seconds, "split_s": rec["seconds"], "train_steps": steps,
+             "eval_batches": batches, "launches": launches, "boxes": sum(lines.values()),
+             "label_dir": rec["label_dir"].name, "next_info": rec["next_info"].name},
+            launches)
+
+
 def pointrcnn_train_phase(device, card):
     """Phase 11: PointRCNN training (pointrcnn_nuscenes2kitti, full widths,
     seeded weights) on phase 7's synthetic root in a temporary working
     directory whose cfgs/ links to tools/cfgs/. Returns (summary, train
     launches, tools.train launches, tools.test launches, the train step's
-    B1 entries)."""
+    B1 entries, the tools.evolve round's launches)."""
     import os
 
     import torch
@@ -2440,6 +2518,7 @@ def pointrcnn_train_phase(device, card):
                             [proposal_gt(model, b, torch.bfloat16) for b in batches[:3]], device)
             del model, state
             cli, cli_train, cli_eval = timed("cli", pointrcnn_train_cli, root, device)
+            evolve_round, evolve_launches = timed("evolve", pointrcnn_evolve, root, device)
             log(f"[pointrcnn_train] seconds by step "
                 f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
         finally:
@@ -2457,8 +2536,338 @@ def pointrcnn_train_phase(device, card):
         "b1_train": [{k: e[k] for k in ("problem", "shape", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "survivor_share", "overlapping_share")}
                      for e in b1],
-        "fp32_b1_vs_plain": check, "cli": cli, "phase_seconds": seconds}
-    return summary, launches, cli_train, cli_eval, b1
+        "fp32_b1_vs_plain": check, "cli": cli, "evolve": evolve_round,
+        "phase_seconds": seconds}
+    return summary, launches, cli_train, cli_eval, b1, evolve_launches
+
+
+DEPTH_TRAIN_FRAMES = 10   # tools.train_depth --synthetic: 9 train steps and 1 val frame per run
+DEPTH_TRAIN_RUNS = (("enet", ["--model", "enet"]), ("penet_c2", ["--model", "penet_c2"]),
+                    ("penet_c2_frozen", ["--model", "penet_c2", "--freeze_backbone"]))
+DEPTH_HW = (352, 1216)    # the train CLI's --height / --width defaults
+# the fp32 PENetC2 step on the card vs the CPU, BN biases +3 (ReLU inputs
+# away from 0, as phase 6; without the shift, ReLU kinks moved leaves by up
+# to 0.44 % between fp32 and fp64 on the CPU at 88 x 304), with the same step
+# in fp64 on the card as the reference of both. Each gradient leaf's error is
+# taken of max(that leaf's largest |entry| in fp64, DEPTH_GRAD_FLOOR x the
+# largest |entry| of the whole fp64 gradient): with every ReLU active, a BN
+# bias that feeds the next train-mode BN through a conv has a true gradient
+# of about 0 (the batch mean takes the shift out, all but the zero-padded
+# border), so its own largest entry is no scale for rounding (one such
+# leaf, at 1.1e-5 of the gradient's largest entry, moved by 1.35e-3 of its
+# own). The card's step is held against fp64 within DEPTH_GRAD_TOL (at most
+# 1.55e-4 read); the two pairs with the CPU within DEPTH_CPU_GRAD_TOL, since
+# the CPU's own fp32 step lies 1.36e-3 from fp64 on guide_feat_s2's BN bias
+# (under 1e-4 on the card; every other leaf of those pairs within 3.0e-4), on an
+# H100 80GB HBM3 at 700 W. The same step on the card with TF32 on and in
+# bf16 are controls that must exceed DEPTH_GRAD_TOL against fp64 (they read
+# 8.5e-3 and 2.0e-2), and the TF32 step DEPTH_CPU_GRAD_TOL against the CPU:
+# a limit that passed them could not tell a step in lower precision from a
+# true fp32 one.
+DEPTH_LOSS_TOL = 1e-5      # relative
+DEPTH_GRAD_TOL = 3e-4      # of max(the leaf's largest |entry|, DEPTH_GRAD_FLOOR x the gradient's)
+DEPTH_CPU_GRAD_TOL = 2e-3  # the same, for card vs CPU and CPU vs fp64
+DEPTH_GRAD_FLOOR = 1e-3
+DEPTH_BN_TOL = 1e-5        # of 1 + |x|
+DEPTH_PROFILE_STEPS = 3
+DEPTH_E2E_FRAMES = 6       # tools.depth_e2e --frames: 6 + 2 frames, make_scene seeds 0-7 (phase 8's)
+
+
+def depth_train_run(tag, extra, work, device, card):
+    """One tools.train_depth run on the card: --synthetic DEPTH_TRAIN_FRAMES
+    at 352 x 1216, widths 32-256, bf16, 1 epoch. Every kernel count is set to
+    0 just before and read just after. Fatal on a non-finite loss or metric,
+    any kernel launch, or a tensor left unchanged (a frozen backbone's
+    parameters must stay unchanged and its BN statistics must change).
+    Returns (summary, the trained model, the CLI's result)."""
+    import torch
+
+    from dfu3d_tpu_torch.tools import train_depth
+
+    name = extra[1]
+    frozen = "--freeze_backbone" in extra
+    initial = {k: v.detach().clone() for k, v in train_depth.build_model(
+        name, train_depth.DEFAULT_WIDTHS, 0, device).state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_depth.train(["--synthetic", str(DEPTH_TRAIN_FRAMES), "--epochs", "1",
+                             "--val_frac", "0.1", "--out", str(work / tag), "--seed", "0",
+                             "--device", device.type, *extra])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    model, steps = res["model"], res["steps"]
+    if len(steps) != DEPTH_TRAIN_FRAMES - 1 or not all(
+            math.isfinite(v) for st in steps for v in st.values()):
+        fail(f"tools.train_depth {tag}: {len(steps)} steps, or a loss or metric not finite: "
+             f"{steps}")
+    if any(launches.values()):
+        fail(f"tools.train_depth {tag} launched a kernel that is not on its path: {launches}")
+    params = dict(model.named_parameters())
+    frozen_keys = [k for k in params if frozen and k.startswith("backbone.")]
+    moved = [k for k in frozen_keys if not torch.equal(params[k], initial[k])]
+    unchanged = [k for k, v in model.state_dict().items()
+                 if k not in frozen_keys and torch.equal(v, initial[k])]
+    if moved or unchanged:
+        fail(f"tools.train_depth {tag}: frozen parameters changed {moved[:5]}, tensors left "
+             f"unchanged {unchanged[:5]} ({len(moved)}, {len(unchanged)})")
+    if not all(torch.isfinite(v).all() for v in model.state_dict().values()):
+        fail(f"tools.train_depth {tag}: a parameter or buffer is not finite after training")
+    if res["ckpt"] is None or not res["ckpt"].exists():
+        fail(f"tools.train_depth {tag} wrote no checkpoint")
+    ms = [st["host_ms"] for st in steps]
+    median = statistics.median(ms)
+    n = len(initial)
+    log(f"[depth_train] {tag} ({card}): {len(steps)} bf16 steps at {DEPTH_HW[0]}x{DEPTH_HW[1]}, "
+        f"B=1, losses {[round(st['loss'], 3) for st in steps]}; median "
+        f"{median:.2f} ms host clock ({1e3 / median:.2f} frames/s; without the first step "
+        f"{statistics.median(ms[1:]):.2f} ms); peak memory {peak / 2**30:.3f} GiB; "
+        f"{n - len(unchanged) - len(frozen_keys)} of {n} tensors changed"
+        + (f", {len(frozen_keys)} frozen backbone parameters unchanged, its BN statistics "
+           "changed" if frozen else "")
+        + f"; val rmse {res['best_rmse']:.1f} mm; {seconds:.2f} s in all; kernel launches "
+        f"{json.dumps(launches)}")
+    summary = {"model": name, "freeze_backbone": frozen, "steps": len(steps),
+               "losses": [st["loss"] for st in steps], "host_ms": ms,
+               "ms_per_step_median": median, "frames_per_s": 1e3 / median,
+               "peak_memory_bytes": peak, "tensors": n, "frozen_unchanged": len(frozen_keys),
+               "val_rmse_mm": res["best_rmse"], "seconds": seconds, "launches": launches}
+    return summary, model, res
+
+
+def depth_step_card_vs_cpu(device):
+    """One fp32 PENetC2 step (DepthTrainStep, refined L2, Adam) at 352 x 1216,
+    widths 32-256, from the same weights (the CLI's init, BN biases +3) and
+    the same synthetic frame, on the card (TF32 off) and on this machine's
+    CPU, and the same step in fp64 on the card as the reference of both:
+    losses within DEPTH_LOSS_TOL, every gradient leaf of each pair within
+    DEPTH_GRAD_TOL for the card against fp64 and DEPTH_CPU_GRAD_TOL for the
+    pairs with the CPU (of the floored scale above), BN statistics within
+    DEPTH_BN_TOL. The step with TF32 on and in bf16 must each exceed
+    DEPTH_GRAD_TOL against fp64, and the TF32 step DEPTH_CPU_GRAD_TOL
+    against the CPU."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.models.depth_completion import masked_l2_loss
+    from dfu3d_tpu_torch.tools import complete_depth, train_depth
+
+    h, w = DEPTH_HW
+    rng = np.random.RandomState(1)
+    rgb, dense = train_depth.synthetic_frame(rng, h, w)
+    keep = rng.rand(h, w) < 0.05
+    frame = (rgb, np.where(keep, dense, 0.0).astype(np.float32),
+             np.where(~keep, dense, 0.0).astype(np.float32), (w / 2.0, h / 2.0, 720.0, 720.0))
+
+    def step_on(dev, dtype=torch.float32, compute=torch.float32):
+        model = train_depth.build_model("penet_c2", train_depth.DEFAULT_WIDTHS, 0, dev)
+        with torch.no_grad():
+            for k, prm in model.named_parameters():
+                if k.endswith("BatchNorm_0.bias"):
+                    prm += 3.0
+        model.to(dtype)
+        step = train_depth.DepthTrainStep(model, True, masked_l2_loss, 1e-3, 1, True, False,
+                                          dev, compute)
+        t0 = time.perf_counter()
+        loss = step(tuple(x.astype(np.float64) if dtype == torch.float64 and
+                          isinstance(x, np.ndarray) else x for x in frame))[0].item()
+        return (loss, {k: prm.grad.double().cpu() for k, prm in model.named_parameters()},
+                {k: b.double().cpu() for k, b in model.named_buffers()},
+                time.perf_counter() - t0)
+
+    runs = {"card": step_on(device), "fp64": step_on(device, torch.float64),
+            "cpu": step_on(torch.device("cpu"))}
+    with mock.patch.object(train_depth, "fp32_math", lambda tf32: complete_depth.fp32_math(True)):
+        runs["tf32"] = step_on(device)
+    runs["bf16"] = step_on(device, compute=torch.bfloat16)
+    ref = runs["fp64"][1]
+    scale = {k: g.abs().max().item() for k, g in ref.items()}
+    floor = DEPTH_GRAD_FLOOR * max(scale.values())
+    out = {"hw": [h, w], "loss": {k: v[0] for k, v in runs.items()},
+           "seconds": {k: v[3] for k, v in runs.items()},
+           "tol": {"loss": DEPTH_LOSS_TOL, "grad": DEPTH_GRAD_TOL,
+                   "grad_with_cpu": DEPTH_CPU_GRAD_TOL, "grad_floor": DEPTH_GRAD_FLOOR,
+                   "bn": DEPTH_BN_TOL},
+           "fp64_largest_entry": max(scale.values())}
+    for a, b in (("card", "cpu"), ("card", "fp64"), ("cpu", "fp64"), ("tf32", "fp64"),
+                 ("tf32", "cpu"), ("bf16", "fp64")):
+        (la, ga, sa, _), (lb, gb, sb, _) = runs[a], runs[b]
+        err = {k: (ga[k] - g).abs().max().item() for k, g in gb.items()}
+        rel = {k: e / max(scale[k], floor) for k, e in err.items()}
+        own = sorted(((e / scale[k], scale[k] / max(scale.values()), k)
+                      for k, e in err.items()), reverse=True)[:5]
+        worst = max(rel, key=rel.get)
+        beyond = sorted((round(r, 6), k) for k, r in rel.items() if r > 1e-4)
+        loss_rel = abs(la - lb) / abs(lb)
+        bn_rel = max(((sa[k] - s_).abs() / (1 + s_.abs())).max().item() for k, s_ in sb.items())
+        log(f"[depth_train] PENetC2 step at {h}x{w}, {a} vs {b}: loss {la:.6f} vs {lb:.6f} "
+            f"({loss_rel:.3g} relative), worst gradient leaf {worst} {rel[worst]:.3g} of its "
+            f"floored scale, {len(beyond)} of {len(rel)} leaves beyond 1e-4 {beyond}; of their "
+            f"own largest entry (with that of the gradient's largest) at most {own}; BN "
+            f"statistics {bn_rel:.3g} of 1 + |x|")
+        out[f"{a}_vs_{b}"] = {"loss_rel": loss_rel, "worst_leaf": worst,
+                              "grad_rel": rel[worst], "leaves_beyond_1e-4": beyond,
+                              "worst_of_own_scale": own, "bn_rel": bn_rel}
+        tol = DEPTH_CPU_GRAD_TOL if "cpu" in (a, b) else DEPTH_GRAD_TOL
+        if a in ("tf32", "bf16"):
+            if rel[worst] <= tol:
+                fail(f"the PENetC2 step in {a} passed the fp32 gradient limit against {b} "
+                     f"({worst} {rel[worst]}, tol {tol})")
+        elif not (loss_rel <= DEPTH_LOSS_TOL and rel[worst] <= tol and bn_rel <= DEPTH_BN_TOL):
+            fail(f"the fp32 PENetC2 step, {a} vs {b}: loss {loss_rel}, gradient {worst} "
+                 f"{rel[worst]} (tol {tol}), BN {bn_rel}")
+    log(f"[depth_train] the step took {runs['card'][3]:.2f} s on the card (TF32 off), "
+        f"{runs['fp64'][3]:.2f} s in fp64, {runs['cpu'][3]:.2f} s on the CPU, "
+        f"{runs['tf32'][3]:.2f} s with TF32 and {runs['bf16'][3]:.2f} s in bf16")
+    return out
+
+
+def cspn_device_ms(device):
+    """Device ms of one PENetC2 step's propagations alone, forward and
+    backward, fp32 as in the step: 3 guides (k = 3, 5, 7) x 6 iterations at
+    176 x 608 with dilation 2 and at 352 x 1216 with dilation 1, random
+    normalised guides and 5 % sparse pins, CUDA events."""
+    import torch
+
+    from dfu3d_tpu_torch.models.depth_completion import CSPN_KERNELS, cspn_iterate
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    scales = []
+    for (h, w), dilation in (((DEPTH_HW[0] // 2, DEPTH_HW[1] // 2), 2), (DEPTH_HW, 1)):
+        depth = (torch.rand(1, 1, h, w, device=device, generator=gen) * 30).requires_grad_(True)
+        sparse = torch.where(torch.rand(1, 1, h, w, device=device, generator=gen) < 0.05,
+                             depth.detach(), 0.0)
+        valid = (sparse > 1e-3).float()
+        guides = []
+        for k in CSPN_KERNELS:
+            g = torch.randn(1, k * k, h, w, device=device, generator=gen)
+            guides.append((g / g.abs().sum(1, keepdim=True)).requires_grad_(True))
+        scales.append((depth, sparse, valid, guides, dilation))
+
+    def run():
+        total = 0
+        for depth, sparse, valid, guides, dilation in scales:
+            for k, g in zip(CSPN_KERNELS, guides):
+                total = total + cspn_iterate(depth, g, sparse, valid, k, dilation, 6).sum()
+        total.backward()
+
+    return time_ms(run, reps=10, warmup=2)
+
+
+def depth_pipeline_from_trained(ckpt, work, device):
+    """Pipeline 2 from the trained ENet: tools.depth_e2e over phase 8's frames
+    (6 + 2 make_scene frames) with the checkpoint in place of its own
+    training run, so that tools.complete_depth --ckpt completes every frame
+    (bf16) and the factory runs under the gt, sparse and completed depth.
+    Fatal unless each source gives a quality line, the completed maps are
+    finite, dense and (352, 1216), the factory writes one label file per
+    frame, and no kernel launches."""
+    import shutil
+
+    import numpy as np
+
+    from dfu3d_tpu_torch.tools import depth_e2e
+
+    wd = work / "depth_e2e"
+    (wd / "depth_run").mkdir(parents=True)
+    shutil.copy(ckpt, wd / "depth_run" / "best_ckpt.pth")
+    reset_launches()
+    t0 = time.perf_counter()
+    results = depth_e2e.main(["--frames", str(DEPTH_E2E_FRAMES), "--workdir", str(wd),
+                              "--device", device.type])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    root = wd / "data"
+    ids = sorted(p.stem for p in (root / "velodyne").glob("*.bin"))
+    labels = sorted(p.stem for p in (root / "label_train").glob("*.txt"))
+    maps = [np.load(root / "depth" / f"{i}.npy") for i in ids]
+    if len(ids) != DEPTH_E2E_FRAMES + 2 or labels != ids or set(results) != {
+            "gt_depth", "sparse_depth", "completed_depth"}:
+        fail(f"tools.depth_e2e: frames {ids}, labels {labels}, sources {list(results)}")
+    if not all(m.shape == DEPTH_HW and np.isfinite(m).all() and (m > 0).mean() > 0.5
+               for m in maps):
+        fail("tools.complete_depth --ckpt of the trained ENet wrote a map that is not finite, "
+             "dense and (352, 1216)")
+    if any(launches.values()):
+        fail(f"pipeline 2 from the trained ENet launched a kernel: {launches}")
+    log(f"[depth_train] pipeline 2 from the trained ENet (tools.depth_e2e, {len(ids)} frames, "
+        f"{seconds:.2f} s): Car precision / recall by depth source "
+        f"{ {k: (v['Car']['precision'], v['Car']['recall']) for k, v in results.items()} }; "
+        f"kernel launches {json.dumps(launches)}")
+    return {"frames": len(ids), "seconds": seconds, "sources": results, "launches": launches}
+
+
+def depth_profile(name, model, frames, device):
+    """Queue torch.profiler over DEPTH_PROFILE_STEPS bf16 steps of `model`
+    (a fresh DepthTrainStep) for the end of the script; returns the dict it
+    then fills: busy and idle, the top kernels, and the unfold / fold
+    kernels (im2col, col2im: the propagations' patches and their backward)."""
+    import torch
+
+    from dfu3d_tpu_torch.models.depth_completion import masked_l2_loss
+    from dfu3d_tpu_torch.tools import train_depth
+
+    device_stats = {}
+
+    def profile():
+        from dfu3d_tpu_torch import profile_serve
+
+        step = train_depth.DepthTrainStep(model, name != "enet", masked_l2_loss, 1e-3,
+                                          len(frames), name != "enet", False, device,
+                                          torch.bfloat16)
+        step(frames[0])                                   # Adam's state, outside the window
+
+        def run():
+            for f in frames[1:1 + DEPTH_PROFILE_STEPS]:
+                step(f)
+            torch.cuda.synchronize()
+
+        prof = profile_serve.device_profile(run, DEPTH_PROFILE_STEPS)[1]
+        top = prof.get("top_kernels", [])
+        patches = sum(k["ms_per_step"] for k in top if "im2col" in k["name"]
+                      or "col2im" in k["name"])
+        device_stats.update({k: v for k, v in prof.items() if k != "top_kernels"},
+                            im2col_col2im_ms_per_step=patches, top_kernels=top[:10])
+        log(f"[depth_train] {name} device over {DEPTH_PROFILE_STEPS} bf16 steps "
+            f"{json.dumps({k: v for k, v in device_stats.items() if k != 'top_kernels'})}")
+
+    DEFERRED_PROFILES.append(profile)
+    return device_stats
+
+
+def depth_train_phase(device, card):
+    """Phase 12: depth-completion training on the card through
+    tools.train_depth, the fp32 step against the CPU's, the propagations'
+    device time, and pipeline 2 from the trained ENet. Returns (summary,
+    launches)."""
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        models = {}
+        for tag, extra in DEPTH_TRAIN_RUNS:
+            runs[tag], model, res = depth_train_run(tag, extra, work, device, card)
+            launches[tag] = runs[tag]["launches"]
+            if tag in ("enet", "penet_c2"):
+                models[tag] = (model, res["frames"][1])
+            if tag == "enet":
+                enet_ckpt = res["ckpt"]
+        check = depth_step_card_vs_cpu(device)
+        cspn_ms = cspn_device_ms(device)
+        log(f"[depth_train] one PENetC2 step's propagations alone (3 kernels x 6 iterations at "
+            f"176x608 d2 and 352x1216 d1, forward + backward, fp32): {cspn_ms:.3f} ms of device "
+            f"time ({card})")
+        pipeline = depth_pipeline_from_trained(enet_ckpt, work, device)
+        launches["pipeline2"] = pipeline["launches"]
+    profiles = {tag: depth_profile(tag, m, frames, device) for tag, (m, frames) in models.items()}
+    summary = {"card": card, "hw": list(DEPTH_HW), "widths": [32, 64, 128, 256],
+               "dtype": "bfloat16", "batch": 1, "runs": runs, "fp32_card_vs_cpu": check,
+               "cspn_fwd_bwd_device_ms": cspn_ms, "device": profiles,
+               "pipeline2_from_trained": pipeline}
+    return summary, launches
 
 
 def main():
@@ -2594,11 +3003,26 @@ def main():
     prcnn_nms = prcnn_served[0]
 
     # 11. PointRCNN training, in memory and through tools.train / tools.test
-    prcnn_train_summary, prcnn_train, prcnn_cli_train, prcnn_cli_train_eval, prcnn_train_b1 = \
-        pointrcnn_train_phase(device, card)
+    (prcnn_train_summary, prcnn_train, prcnn_cli_train, prcnn_cli_train_eval, prcnn_train_b1,
+     prcnn_evolve) = pointrcnn_train_phase(device, card)
 
-    # the device profiles of phases 10 and 11, after every host-clock reading
+    # 12. depth-completion training, then pipeline 2 from the trained weights
+    depth_summary, depth_launches = depth_train_phase(device, card)
+    depth_b1 = sum(v["iou_bev_overlap"] for v in depth_launches.values())
+    depth_b2 = sum(v["gather_gemm"] for v in depth_launches.values())
+
+    # the device profiles of phases 10-12, after every host-clock reading
     run_deferred_profiles()
+    cspn = depth_summary["cspn_fwd_bwd_device_ms"]
+    for tag, prof in depth_summary["device"].items():
+        busy = prof.get("device_busy_ms_per_step")
+        if busy:
+            prof["cspn_share_of_busy"] = cspn / busy if tag != "enet" else 0.0
+    log(f"[depth_train] ({card}) device busy per bf16 step, idle share, CSPN share: "
+        + "; ".join(f"{tag} {p.get('device_busy_ms_per_step', float('nan')):.2f} ms, idle "
+                    f"{p.get('device_idle_share', float('nan')):.3f}, CSPN "
+                    f"{p.get('cspn_share_of_busy', float('nan')):.3f}"
+                    for tag, p in depth_summary["device"].items()))
 
     nms_entry = next(e for e in iou_shapes if e["case"] == "nms")
     gemm_timed = [e for e in gemm_shapes if "ms" in e]
@@ -2611,7 +3035,8 @@ def main():
                      + cli_eval["iou_bev_overlap"] + ev_iou + prcnn_launches["iou_bev_overlap"]
                      + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
                      + prcnn_cli_train["iou_bev_overlap"]
-                     + prcnn_cli_train_eval["iou_bev_overlap"]),
+                     + prcnn_cli_train_eval["iou_bev_overlap"]
+                     + prcnn_evolve["iou_bev_overlap"] + depth_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -2625,7 +3050,10 @@ def main():
                              "pointrcnn_train": prcnn_train["iou_bev_overlap"],
                              "pointrcnn_cli_train": prcnn_cli_train["iou_bev_overlap"],
                              "pointrcnn_cli_train_eval":
-                                 prcnn_cli_train_eval["iou_bev_overlap"]},
+                                 prcnn_cli_train_eval["iou_bev_overlap"],
+                             "pointrcnn_evolve": prcnn_evolve["iou_bev_overlap"],
+                             **{f"depth_{k}": v["iou_bev_overlap"]
+                                for k, v in depth_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]})},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
@@ -2654,7 +3082,8 @@ def main():
         "source": "dfu3d_tpu_torch/core/voxel/csrc/gather_gemm.cu",
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
-                     + sum(v["gather_gemm"] for v in evolve_launches.values())),
+                     + sum(v["gather_gemm"] for v in evolve_launches.values())
+                     + prcnn_evolve["gather_gemm"] + depth_b2),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -2666,7 +3095,9 @@ def main():
                              "pointrcnn_cli_eval": prcnn_cli_launches["gather_gemm"],
                              "pointrcnn_train": prcnn_train["gather_gemm"],
                              "pointrcnn_cli_train": prcnn_cli_train["gather_gemm"],
-                             "pointrcnn_cli_train_eval": prcnn_cli_train_eval["gather_gemm"]},
+                             "pointrcnn_cli_train_eval": prcnn_cli_train_eval["gather_gemm"],
+                             "pointrcnn_evolve": prcnn_evolve["gather_gemm"],
+                             **{f"depth_{k}": v["gather_gemm"] for k, v in depth_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -2711,6 +3142,7 @@ def main():
     log(json.dumps({"evolve": evolve_summary}, default=str))
     log(json.dumps({"pointrcnn": prcnn_summary}, default=str))
     log(json.dumps({"pointrcnn_train": prcnn_train_summary}, default=str))
+    log(json.dumps({"depth_train": depth_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

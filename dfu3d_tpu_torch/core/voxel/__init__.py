@@ -1,3 +1,4 @@
+from .spherical import spherical_min_range_resample, to_sphere_coords  # noqa: F401
 from .voxelize import (  # noqa: F401
     Voxelized,
     VoxelGrid,

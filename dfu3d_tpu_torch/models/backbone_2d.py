@@ -15,8 +15,8 @@ from torch import nn
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 (flax BatchNorm(dtype=float32) followed by the
-    module's compute-dtype cast): fp32 math, the result cast back to the
-    input's dtype. Eval uses the running statistics. Training uses the batch
+    module's compute-dtype cast): fp32 math (fp64 for an fp64 input), the
+    result cast back to the input's dtype. Eval uses the running statistics. Training uses the batch
     statistics of flax: mean and the biased variance E[x²] - mean², clamped
     at 0, and updates the running statistics as running · keep + batch ·
     (1 - keep) (flax `momentum` = keep; torch's momentum would be 1 - keep)."""
@@ -31,11 +31,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        # fp32 math for bf16 / fp16 / fp32 inputs, fp64 for fp64 ones
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
-            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
                              self.bias, training=False, eps=self.eps)
             return y.to(x.dtype)
-        xf = x.float()
         dims = [d for d in range(xf.dim()) if d != 1]
         mean = xf.mean(dims)
         var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)

@@ -6,7 +6,8 @@ layout).
 
     python -m dfu3d_tpu_torch.tools.complete_depth --detpath ROOT \\
         [--model enet|enet_ref] [--ckpt STATE_DICT.pth | --torch_ckpt pe.pth.tar] \\
-        [--height 352 --width 1216] [--out_dir DIR] [--device cuda] [--dtype bfloat16]
+        [--height 352 --width 1216] [--widths 32 64 128 256] [--out_dir DIR] \\
+        [--device cuda] [--dtype bfloat16]
 
 Each frame's image is cropped to (height, width) at the bottom centre
 (PENet's BottomCrop; zeros where the image is smaller), the LiDAR projected
@@ -61,11 +62,14 @@ def position_plane(h, w):
     return np.stack([uu, vv])
 
 
-def build_depth_model(name: str, device):
+def build_depth_model(name: str, device, widths=None):
+    """enet_ref, or the compact ENet at `widths` (default (32, 64, 128, 256))."""
     from ..models.depth_completion import ENet
     from ..models.penet_ref import ENetRef
 
-    return ENetRef(device=device) if name == "enet_ref" else ENet(device=device)
+    if name == "enet_ref":
+        return ENetRef(device=device)
+    return ENet(widths, device=device) if widths else ENet(device=device)
 
 
 @contextlib.contextmanager
@@ -134,6 +138,9 @@ def main(argv=None):
                              "across by convert.enet_mapping (needs --model enet_ref)")
     parser.add_argument("--height", type=int, default=352)
     parser.add_argument("--width", type=int, default=1216)
+    parser.add_argument("--widths", type=int, nargs="+", default=None,
+                        help="the compact ENet's encoder widths, as tools.train_depth "
+                             "--widths trained it (default 32 64 128 256)")
     parser.add_argument("--start", type=int, default=0)
     parser.add_argument("--end", type=int, default=None)
     parser.add_argument("--out_dir", type=str, default=None,
@@ -158,7 +165,7 @@ def main(argv=None):
     ids = sorted(p.stem for p in (root / "velodyne").glob("*.bin"))[args.start:args.end]
 
     torch.manual_seed(args.seed)
-    model = build_depth_model(args.model, device)
+    model = build_depth_model(args.model, device, args.widths)
     report = None
     if args.torch_ckpt:
         report = convert.load_enet_reference(model, convert.load_torch_state(args.torch_ckpt))

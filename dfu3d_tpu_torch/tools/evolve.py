@@ -21,8 +21,12 @@ Run from the directory that holds cfgs/ (as the train and test CLIs are):
 output goes to output/<EXP_GROUP_PATH>/<cfg name>/evolve_round<r>/. --set
 overrides reach every train and test run (and DATA_PATH create_infos).
 
-Three things differ from the JAX script, each where the JAX one picks the
-wrong files: the newest epoch is taken by number (the JAX script sorts the
+Four things differ from the JAX script, each where the JAX one fails or
+picks the wrong files: the score threshold is set where the config's model
+reads it (`score_thresh_key`: MODEL.DENSE_HEAD.POST_PROCESSING for a dense
+head with post-processing, else MODEL.POST_PROCESSING, PointRCNN's), where
+the JAX script always names the dense head's and so cannot run DFU3D's
+PointRCNN config; the newest epoch is taken by number (the JAX script sorts the
 names, so epoch_9 comes after epoch_20); the predictions are looked up under
 the output directory the CLIs write (with EXP_GROUP_PATH, which the JAX
 script leaves out); and the rebuilt infos are also written under the name
@@ -48,6 +52,16 @@ def round_info_name(round_name: str) -> str:
     """The train info pkl a round reads (the flagship dataset config's
     naming)."""
     return f"nuscenes2kitti_infos_train_28130_{round_name}_pseudo_box.pkl"
+
+
+def score_thresh_key(cfg) -> str:
+    """The --set key of the emission threshold the config's model reads:
+    a dense head's POST_PROCESSING where it has one (CenterPoint), else the
+    model's (PointRCNN, read by models/roi_head.py)."""
+    head = cfg.MODEL.get("DENSE_HEAD", None)
+    if head is not None and "POST_PROCESSING" in head:
+        return "MODEL.DENSE_HEAD.POST_PROCESSING.SCORE_THRESH"
+    return "MODEL.POST_PROCESSING.SCORE_THRESH"
 
 
 def main(argv=None):
@@ -101,7 +115,7 @@ def main(argv=None):
         predictions = test_cli.main([
             "--cfg_file", args.cfg_file, "--extra_tag", tag, "--eval_all",
             "--max_waiting_mins", "0", "--save_to_file", *device, "--set",
-            "MODEL.DENSE_HEAD.POST_PROCESSING.SCORE_THRESH", str(args.score_thresh),
+            score_thresh_key(cfg), str(args.score_thresh),
             "DATA_CONFIG.DATA_SPLIT.test", "train",
             "DATA_CONFIG.INFO_PATH.test", f"['{info_name}']", *extra])
         seconds["predict"] = time.perf_counter() - t0

@@ -19,6 +19,10 @@ tools/evolve.py (imported by path):
   and gt database counts;
 * `tools.evolve` on the CPU: one round from disk, its label dir equal to
   the newest epoch's predictions and its infos counting their boxes;
+* the predict pass's threshold override on both shipped detector configs:
+  it lands where the model reads it (the dense head's POST_PROCESSING for
+  CenterPoint, the model's for PointRCNN, whose config has no DENSE_HEAD
+  and where the JAX script's key raises);
 * one tiny `e2e_synthetic --device cpu --evolve_rounds 1` that finishes
   with both AP lines.
 """
@@ -47,7 +51,7 @@ from dfu3d_tpu_torch.tools import common as tools_common
 from dfu3d_tpu_torch.tools.common import newest_epoch_dir
 from dfu3d_tpu_torch.train import checkpoint
 from dfu3d_tpu_torch.train.train_state import create_train_state
-from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_list, cfg_from_yaml_file
 
 from test_torch_port_models import numpy_variables
 
@@ -434,6 +438,26 @@ def test_evolve_round_from_disk(tmp_path, monkeypatch, few_threads):
     assert (root / "kitti_infos_train_refine0_pseudo_box.pkl").exists()
     # the next round reads the file the flagship config names
     assert rec["next_info"].name == "nuscenes2kitti_infos_train_28130_refine0_pseudo_box.pkl"
+
+
+@pytest.mark.parametrize("cfg_name,where", [
+    ("centerpoint_nuscenes2kitti", ("MODEL", "DENSE_HEAD", "POST_PROCESSING")),
+    ("pointrcnn_nuscenes2kitti", ("MODEL", "POST_PROCESSING"))])
+def test_score_thresh_override_lands_on_both_shipped_configs(cfg_name, where):
+    cfg_file = REPO / "tools" / "cfgs" / "kitti_models" / f"{cfg_name}.yaml"
+    cfg = cfg_from_yaml_file(cfg_file, CfgDict())
+    key = evolve.score_thresh_key(cfg)
+    assert key == ".".join(where + ("SCORE_THRESH",))
+    cfg_from_list([key, "0.5"], cfg)
+    node = cfg
+    for k in where:
+        node = node[k]
+    assert node["SCORE_THRESH"] == 0.5
+    if "DENSE_HEAD" not in where:
+        # the JAX script's key (tools/evolve.py:74) cannot be set on this config
+        with pytest.raises(KeyError, match="DENSE_HEAD"):
+            cfg_from_list(["MODEL.DENSE_HEAD.POST_PROCESSING.SCORE_THRESH", "0.5"],
+                          cfg_from_yaml_file(cfg_file, CfgDict()))
 
 
 def test_e2e_synthetic_tiny(tmp_path, monkeypatch, capsys, few_threads):

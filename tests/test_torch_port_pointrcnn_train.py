@@ -35,14 +35,22 @@ within 1e-5, the variances within 1e-5 of var + (1 - keep) · mean_b² (the
 batch variance is the one-pass E[x²] - mean_b²); parameters after the
 optimizer step within PARAM_TOL.
 
-The two whole-model tests use weight seed 3. The scene clusters points at
-the gt centres (so that RoIs lie over REG_FG_THRESH), and the RoI head's
-grouped maxes then see near-ties between neighbouring points: at seeds 4
-and 7 the two packages' pooled inputs, ~1e-5 apart, break one such tie
-differently and the stage-2 gradients move by 0.4-0.6 % (the point losses'
-gradients still agree within 1e-5). From equal inputs the RoI head's
-gradients agree within GRAD_TOL at seed 4
-(`test_roi_head_gradients_match_jax_on_the_models_inputs`).
+The two whole-model tests run at weight seeds 3 and 4. The scene clusters
+points at the gt centres (so that RoIs lie over REG_FG_THRESH), and the RoI
+head's grouped maxes then see near-ties between neighbouring points: at
+seeds 4 and 7 the two packages' pooled inputs, ~1e-5 apart, break one such
+tie differently, and even from equal inputs the head's MLPs round
+differently (at seed 4 two candidates of a sa1 max lie 4e-7 apart), which
+moves the stage-2 gradients by 0.4-0.6 %. So inside these tests the port's
+RoI head reads JAX's four pooled inputs (each first checked within POOL_TOL
+of the port's own, the pooled samples equal; gradients still flow through
+the port's graph, `ReplaceValue`) and takes each of its grouped maxes where
+JAX takes it: the values stay the port's own MLP outputs, checked within
+POOL_TOL of JAX's, and only the choice among near-tied candidates is JAX's.
+`test_roi_head_gradients_match_jax_on_the_models_inputs` holds the head
+alone at seed 4 from the model's own inputs. JAX's whole-model programs
+are traced and compiled once, with the weights as arguments, and run at
+both seeds.
 """
 import re
 from pathlib import Path
@@ -77,6 +85,7 @@ from dfu3d_tpu_torch.flagship import seeded_weights_
 from dfu3d_tpu_torch.models import build_network
 from dfu3d_tpu_torch.models import losses as plosses
 from dfu3d_tpu_torch.models import pointrcnn as pprcnn
+from dfu3d_tpu_torch.models.pointnet2_backbone import masked_max
 from dfu3d_tpu_torch.models import roi_head as proi
 from dfu3d_tpu_torch.tools import create_infos, train as train_cli
 from dfu3d_tpu_torch.train import torch_convert
@@ -94,6 +103,8 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
 STRADDLE = 1e-5
+POOL_TOL = 1e-4     # of the largest |entry|: JAX's pooled inputs and grouped-max candidates vs the port's
+WEIGHT_SEEDS = [3, 4]
 TOTAL_STEPS = 100
 TINY_MEAN = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]
 
@@ -474,8 +485,8 @@ class CaptureTargets:
     """Wraps JAX's assign_roi_targets and reads, through debug callbacks,
     the key the model hands it and its sampled indices and reg masks."""
 
-    def __init__(self, monkeypatch):
-        self.seen = {}
+    def __init__(self, monkeypatch, seen=None):
+        self.seen = {} if seen is None else seen
         orig = jroi.assign_roi_targets
 
         def wrapped(key, *a, **k):
@@ -565,36 +576,164 @@ def tiny():
     return jmodel, batch, jbatch
 
 
-def test_train_forward_and_gradients_match_jax(tiny, monkeypatch):
+class ReplaceValue(torch.autograd.Function):
+    """`value` in the forward pass, the identity for x's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def replaced(name, got, want):
+    """JAX's `want` in place of the port's `got` (checked within POOL_TOL)."""
+    scale = np.abs(want).max()
+    assert np.abs(got.detach().numpy() - want).max() <= POOL_TOL * scale, name
+    return ReplaceValue.apply(got, torch.from_numpy(np.array(want)))
+
+
+def jax_tie_break_max(name, g, mask, dim, want):
+    """The port's grouped max over `dim` of its own candidates `g`, taken
+    where JAX's candidates `want` (checked within POOL_TOL of g) have their
+    maximum: the mean of the port's values at JAX's maxima (JAX's max sends
+    its gradient in equal parts to exact ties), 0 for a group with no valid
+    entry. The values stay the port's, only the choice is JAX's; each chosen
+    value lies within POOL_TOL of the port's own max."""
+    scale = np.abs(want).max()
+    assert np.abs(g.detach().numpy() - want).max() <= POOL_TOL * scale, name
+    valid = np.broadcast_to(mask.numpy(), want.shape)
+    jg = np.where(valid, want, -np.inf)
+    chosen = torch.from_numpy(valid & (jg == jg.max(axis=dim, keepdims=True)))
+    count = chosen.sum(dim).clamp(min=1)
+    h = torch.where(chosen, g, 0.0).sum(dim) / count
+    own = masked_max(g, mask, dim).detach()
+    assert (h.detach() - own).abs().max() <= POOL_TOL * scale, name
+    return h
+
+
+def hand_jax_roi_inputs(model, seen, monkeypatch):
+    """Make the port's RoI head read JAX's pooled inputs (`seen` of the same
+    weights and batch; the samples must be the same, the values within
+    POOL_TOL of the port's own) and take each of its grouped maxes where JAX
+    takes it (`jax_tie_break_max`, candidates matched by shape). Returns the
+    model."""
+    pool = model.pool_rois
+
+    def pooled(*a, **k):
+        got = pool(*a, **k)
+        names = ("local", "prefix", "feats", "valid")
+        np.testing.assert_array_equal(got[3].numpy(), seen["roi_inputs"][3])
+        return tuple(g if n == "valid" else replaced(n, g, w)
+                     for n, g, w in zip(names, got, seen["roi_inputs"]))
+
+    def grouped_max(g, mask, dim):
+        (name,) = [n for n, w in seen["roi_sa"].items() if w.shape == tuple(g.shape)]
+        return jax_tie_break_max(name, g, mask, dim, seen["roi_sa"][name])
+
+    model.pool_rois = pooled
+    monkeypatch.setattr(pprcnn, "masked_max", grouped_max)
+    return model
+
+
+@pytest.fixture(scope="module")
+def jax_programs(tiny):
+    """JAX's whole train forward with its gradients (jax.value_and_grad of
+    apply(train=True)) and one make_train_step (the shipped config's
+    adam_onecycle over TOTAL_STEPS, clip 10) of the tiny model, each traced
+    and compiled once with the weights as arguments. Debug callbacks read,
+    into `seen`, the key the model hands assign_roi_targets, its sampled
+    indices and reg masks, the RoI head's four inputs and its SA levels'
+    MLP outputs (the candidates of its grouped maxes)."""
+    jmodel, _, jbatch = tiny
+    variables = tiny_variables(jmodel, jbatch, seed=WEIGHT_SEEDS[0])
+    seen = {}
+    with pytest.MonkeyPatch.context() as mp:
+        CaptureTargets(mp, seen)
+        head_call = jprcnn.PointRCNNRoIHead.__call__
+
+        def recording(self, local_xyz, prefix, feats, sample_valid, train):
+            jax.debug.callback(
+                lambda *xs: seen.__setitem__("roi_inputs", [np.asarray(x) for x in xs]),
+                local_xyz, prefix, feats, sample_valid)
+            return head_call(self, local_xyz, prefix, feats, sample_valid, train)
+
+        mp.setattr(jprcnn.PointRCNNRoIHead, "__call__", recording)
+        mlp = jprcnn.PointRCNNRoIHead._mlp
+
+        def recording_mlp(self, x, mask, widths, name, train, bn=None):
+            out = mlp(self, x, mask, widths, name, train, bn=bn)
+            if name.startswith("sa"):
+                jax.debug.callback(
+                    lambda v, n=name: seen.setdefault("roi_sa", {}).__setitem__(n, np.asarray(v)),
+                    out)
+            return out
+
+        mp.setattr(jprcnn.PointRCNNRoIHead, "_mlp", recording_mlp)
+
+        def loss_fn(params, batch_stats):
+            (loss, tb), upd = jmodel.apply(
+                {"params": params, "batch_stats": batch_stats}, jbatch, train=True,
+                mutable=["batch_stats"], rngs={"sampler": jax.random.PRNGKey(5)})
+            return loss, (tb, upd["batch_stats"])
+
+        grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(
+            variables["params"], variables["batch_stats"]).compile()
+
+        import optax
+        jcfg = j_cfg_from_yaml_file(POINTRCNN_CFG, JCfgDict())
+        tx, _ = j_build_optimizer(jcfg.OPTIMIZATION, TOTAL_STEPS)
+        grads_seen = {}
+
+        def recording_update(grads, state, params=None):
+            grads_seen["g"] = grads
+            return tx.update(grads, state, params)
+
+        rtx = optax.GradientTransformation(tx.init, recording_update)
+        step = j_make_train_step(jmodel, rtx)
+
+        def run(st, b):
+            new, metrics = step(st, b)
+            return new, metrics, grads_seen["g"]
+
+        train = jax.jit(run).lower(jax_state(rtx, variables), jbatch).compile()
+    return {"seen": seen, "grad": grad, "train": train, "rtx": rtx}
+
+
+def jax_state(rtx, variables):
+    return JTrainState(jnp.zeros((), jnp.int32), variables["params"],
+                       variables["batch_stats"], rtx.init(variables["params"]))
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+def test_train_forward_and_gradients_match_jax(tiny, jax_programs, monkeypatch, seed):
     """The whole train forward (B=2, 256 points, fp32) and its gradients
     against jax.value_and_grad of the JAX model's apply(train=True), with
-    JAX's sampler draws handed in; BN running statistics after it."""
+    JAX's sampler draws and the RoI head's values handed in; BN running
+    statistics after it."""
     jmodel, batch, jbatch = tiny
-    variables = tiny_variables(jmodel, jbatch, seed=3)
-    cap = CaptureTargets(monkeypatch)
-
-    def loss_fn(params):
-        (loss, tb), upd = jmodel.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]}, jbatch, train=True,
-            mutable=["batch_stats"], rngs={"sampler": jax.random.PRNGKey(5)})
-        return loss, (tb, upd["batch_stats"])
-
-    (wloss, (wtb, wstats)), wgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        variables["params"])
-    assert cap.seen["reg_valid_mask"].sum() > 0          # fg RoIs: reg and corner losses act
+    variables = tiny_variables(jmodel, jbatch, seed=seed)
+    seen = jax_programs["seen"]
+    seen.clear()
+    (wloss, (wtb, wstats)), wgrads = jax_programs["grad"](variables["params"],
+                                                          variables["batch_stats"])
+    assert seen["reg_valid_mask"].sum() > 0          # fg RoIs: reg and corner losses act
     assert float(wtb["rcnn_reg_loss"]) > 0
 
     def model_fn():
-        return params_from_jax(variables, build_network(
-            CfgDict(prcnn_cfg()), CLASS_NAMES, tiny_grid(), device="cpu", train=True))
+        return hand_jax_roi_inputs(params_from_jax(variables, build_network(
+            CfgDict(prcnn_cfg()), CLASS_NAMES, tiny_grid(), device="cpu", train=True)), seen,
+            monkeypatch)
 
-    draws = jax_draws(cap.seen["key"], 2, 32)
+    draws = jax_draws(seen["key"], 2, 32)
     model = model_fn()
-    seen = capture_port_targets(monkeypatch)
+    ported = capture_port_targets(monkeypatch)
     loss, tb = model(batch, roi_uniforms=draws)
     loss.backward()
-    np.testing.assert_array_equal(seen["sampled_idx"].numpy(), cap.seen["sampled_idx"])
-    np.testing.assert_array_equal(seen["reg_valid_mask"].numpy(), cap.seen["reg_valid_mask"])
+    np.testing.assert_array_equal(ported["sampled_idx"].numpy(), seen["sampled_idx"])
+    np.testing.assert_array_equal(ported["reg_valid_mask"].numpy(), seen["reg_valid_mask"])
     assert set(tb) == set(wtb) == {"point_cls_loss", "point_reg_loss", "rcnn_cls_loss",
                                    "rcnn_reg_loss", "rpn_loss"}
     np.testing.assert_allclose(loss.item(), float(wloss), rtol=LOSS_TOL)
@@ -667,44 +806,30 @@ def test_roi_head_gradients_match_jax_on_the_models_inputs(tiny):
                                atol=GRAD_TOL * np.abs(wfeats).max())
 
 
-def test_train_step_matches_jax(tiny, monkeypatch):
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+def test_train_step_matches_jax(tiny, jax_programs, monkeypatch, seed):
     """One make_train_step of each package from the same weights, with the
     shipped config's adam_onecycle (clip 10) over 100 steps: metrics, the
     raw gradients, the updated parameters and BN statistics. The port's
     sampler draws are JAX's, read from the key its train step's fold_in
-    makes."""
+    makes, and its RoI head reads JAX's values."""
     jmodel, batch, jbatch = tiny
-    variables = tiny_variables(jmodel, jbatch, seed=3)
-    jcfg = j_cfg_from_yaml_file(POINTRCNN_CFG, JCfgDict())
-    tx, _ = j_build_optimizer(jcfg.OPTIMIZATION, TOTAL_STEPS)
-    grads_seen = {}
-
-    def recording(grads, state, params=None):
-        grads_seen["g"] = grads
-        return tx.update(grads, state, params)
-
-    import optax
-    rtx = optax.GradientTransformation(tx.init, recording)
-    cap = CaptureTargets(monkeypatch)
-    state = JTrainState(jnp.zeros((), jnp.int32), variables["params"],
-                        variables["batch_stats"], rtx.init(variables["params"]))
-    step = j_make_train_step(jmodel, rtx)
-
-    def run(st, b):
-        new, metrics = step(st, b)
-        return new, metrics, grads_seen["g"]
-
-    new_state, jmetrics, jgrads = jax.device_get(jax.jit(run)(state, jbatch))
-    assert cap.seen["reg_valid_mask"].sum() > 0
+    variables = tiny_variables(jmodel, jbatch, seed=seed)
+    seen = jax_programs["seen"]
+    seen.clear()
+    new_state, jmetrics, jgrads = jax.device_get(
+        jax_programs["train"](jax_state(jax_programs["rtx"], variables), jbatch))
+    assert seen["reg_valid_mask"].sum() > 0
 
     def model_fn():
-        return params_from_jax(variables, build_network(
-            CfgDict(prcnn_cfg()), CLASS_NAMES, tiny_grid(), device="cpu", train=True))
+        return hand_jax_roi_inputs(params_from_jax(variables, build_network(
+            CfgDict(prcnn_cfg()), CLASS_NAMES, tiny_grid(), device="cpu", train=True)), seen,
+            monkeypatch)
 
     model = model_fn()
     cfg = yaml.safe_load(POINTRCNN_CFG.read_text())
     tstate = create_train_state(model, CfgDict(cfg["OPTIMIZATION"]), TOTAL_STEPS)
-    draws = jax_draws(cap.seen["key"], 2, 32)
+    draws = jax_draws(seen["key"], 2, 32)
     monkeypatch.setattr(pprcnn, "draw_roi_uniforms", lambda gen, shape, device: draws)
     raw, opt_step = {}, tstate.optimizer.step
 
@@ -713,9 +838,9 @@ def test_train_step_matches_jax(tiny, monkeypatch):
         return opt_step()
 
     tstate.optimizer.step = snapshot
-    seen = capture_port_targets(monkeypatch)
+    ported = capture_port_targets(monkeypatch)
     metrics = make_train_step(model, tstate.optimizer, device="cpu", dtype=torch.float32)(batch)
-    np.testing.assert_array_equal(seen["sampled_idx"].numpy(), cap.seen["sampled_idx"])
+    np.testing.assert_array_equal(ported["sampled_idx"].numpy(), seen["sampled_idx"])
     assert set(metrics) == set(jmetrics)
     for k, v in jmetrics.items():
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=LOSS_TOL, err_msg=k)
