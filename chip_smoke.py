@@ -177,10 +177,41 @@ Phases, each fatal on failure:
               under gt, sparse and completed depth; one label file per
               frame, no kernel launch); device busy, idle and the
               propagations' share of a step from torch.profiler, last.
+ 13. nuscenes  nuScenes from disk and the anchor detectors, in a temporary
+              working directory: data.nuscenes_synthetic writes 16 train + 8
+              val key frames, each with 9 sweeps of 34,000 points, 20-40 boxes
+              of the ten classes; create_nuscenes_infos(max_sweeps=10) (fatal
+              unless every info has 9 sweeps and the gt count is what was
+              written); one frame in test mode (5 features, time lags 0-0.45
+              s, capped at MAX_POINTS_PER_FRAME). SECOND
+              (cbgs_second_multihead at its published widths: 1024 x 1024 x
+              40 grid, max_voxels 60,000, AnchorHeadMulti with 327,680
+              anchors, NMS 1000 -> 83) with seeded weights: 4 requests of
+              B=4 through eval_batches (bf16), fatal unless each launches the
+              tensor-core B2 12 times and B1 twice (NMS, recall); each B1 and
+              B2 call of one request held against its plain twin and timed;
+              one fp32 request through the kernels and through the twins.
+              PointPillar multi-head (cbgs_pp_multihead): 2 requests, pillars
+              kept and dropped, B1 twice per batch, B2 never. SECOND
+              training: 5 bf16 steps through trainer.train_model (train mode:
+              class-balanced resampling, flip, rotation, scaling), the loss
+              terms, grad_norm, host-clock ms and launches per step; fatal on
+              a non-finite loss, a tensor left unchanged, a step without a
+              positive anchor or other than 23 tensor-core B2 launches (12
+              forward, 11 dX) and no B1; the checkpoint reloaded equal; the
+              11 dX launches held against the twin and timed; one fp32 step
+              through the kernels against the twins (as phase 6). tools.train
+              (1 epoch) and tools.test on cbgs_second_multihead and on
+              cbgs_voxel01_res3d_centerpoint from the root, gt sampling off
+              (no nuScenes gt database exists): fatal unless each train step
+              launches B2 23 (41) times, each eval batch 12 (21) times and B1
+              twice, every val frame comes back and the AP_DICT holds the ten
+              classes. Last, with the deferred profiles, profile_serve and
+              profile_train --model second in processes of their own.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
-{"depth_train": {...}} and {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+{"depth_train": {...}}, {"nuscenes": {...}} and {"kernels": [...]}; the
+last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -740,8 +771,11 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
     iou_k = orig_iou_bev(cand, cand)
     with plain_twins(swaps):
         iou_p = orig_iou_bev(cand, cand)
-    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH
-                   if "DENSE_HEAD" in cfg.MODEL else cfg.MODEL.ROI_HEAD.NMS_THRESH)
+    dense_head = cfg.MODEL.get("DENSE_HEAD") or {}
+    thresh = float(dense_head.POST_PROCESSING.NMS_CONFIG.NMS_THRESH
+                   if "POST_PROCESSING" in dense_head
+                   else cfg.MODEL.ROI_HEAD.NMS_THRESH if "ROI_HEAD" in cfg.MODEL
+                   else cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
     flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
     near = int(((iou_k - thresh).abs() < 1e-5).sum())
     log(f"[check] {name} fp32 NMS IoU over {tuple(iou_k.shape)}: max |kernel - plain| "
@@ -2870,6 +2904,326 @@ def depth_train_phase(device, card):
     return summary, launches
 
 
+NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES = 16, 8   # phase 13's synthetic nuScenes key frames
+NUSC_SWEEPS = 10                             # MAX_SWEEPS of the nuScenes configs
+NUSC_REQUESTS = 4                            # SECOND serving, B=4 each
+NUSC_PP_REQUESTS = 2                         # PointPillar multi-head serving
+NUSC_TRAIN_STEPS = 5
+NUSC_LAG_MAX = 0.45                          # s, the ninth sweep's time lag
+SECOND_CFG = "cfgs/nuscenes_models/cbgs_second_multihead.yaml"  # from phase 13's work dir
+NUSC_VOXEL_CFG = "cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml"
+NUSC_CLASSES = ("Car", "Truck", "Construction_vehicle", "Bus", "Trailer", "Barrier",
+                "Motorcycle", "Bicycle", "Pedestrian", "Traffic_cone")   # AP_DICT's names
+
+
+def nuscenes_data(root):
+    """Phase 13's data: the synthetic tree, its infos (fatal unless every
+    info has 9 sweeps and the gt count is what was written) and one
+    __getitem__ in test mode (5 features, time lags 0 .. 0.45 s, capped at
+    MAX_POINTS_PER_FRAME by the collate)."""
+    import pickle
+
+    import numpy as np
+
+    from dfu3d_tpu_torch.data import nuscenes_synthetic
+    from dfu3d_tpu_torch.data.nuscenes_dataset import NuScenesDataset
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    t0 = time.perf_counter()
+    written = nuscenes_synthetic.write_root(root, NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infos = nuscenes_synthetic.write_infos(root, written, NUSC_SWEEPS)
+    infos_s = time.perf_counter() - t0
+    for split, path in infos.items():
+        got = pickle.loads(path.read_bytes())
+        sweeps = sorted({len(i["sweeps"]) for i in got})
+        gt = sum(len(i["gt_boxes"]) for i in got)
+        if sweeps != [NUSC_SWEEPS - 1] or gt != written["gt"][split] or \
+                len(got) != len(written[split]):
+            fail(f"nuScenes infos ({split}): sweeps per info {sweeps}, {gt} gt of "
+                 f"{written['gt'][split]} written, {len(got)} infos of {len(written[split])}")
+    from dfu3d_tpu_torch.zoo import SECOND_MULTIHEAD_CFG
+
+    cfg = cfg_from_yaml_file(SECOND_MULTIHEAD_CFG, CfgDict())
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ds = NuScenesDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root)
+    t0 = time.perf_counter()
+    item = ds[0]
+    get_ms = (time.perf_counter() - t0) * 1e3
+    batch, _ = ds.collate_batch([item])
+    pts, lags = item["points"], np.unique(item["points"][:, -1])
+    kept = int(batch.points_valid.sum())
+    if pts.shape[1] != 5 or lags.min() != 0 or not abs(lags.max() - NUSC_LAG_MAX) < 1e-3 or \
+            len(lags) != NUSC_SWEEPS or kept != min(len(pts), ds.max_points_per_frame) or \
+            len(item["gt_boxes"]) == 0:
+        fail(f"nuScenes __getitem__: points {pts.shape}, time lags {lags.tolist()}, "
+             f"{kept} kept of {len(pts)} (cap {ds.max_points_per_frame}), "
+             f"{len(item['gt_boxes'])} gt")
+    summary = {"frames": [NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES], "sweeps_per_info": NUSC_SWEEPS - 1,
+               "gt_written": written["gt"], "write_s": write_s, "infos_s": infos_s,
+               "getitem_ms": get_ms, "points_per_frame": len(pts), "points_kept": kept,
+               "time_lags_s": [float(lags.min()), float(lags.max())],
+               "gt_per_frame": len(item["gt_boxes"])}
+    log(f"[nuscenes] synthetic root: {NUSC_TRAIN_FRAMES} train + {NUSC_VAL_FRAMES} val key "
+        f"frames with {NUSC_SWEEPS - 1} sweeps each written in {write_s:.2f} s, infos in "
+        f"{infos_s:.2f} s (gt {written['gt']}); one test-mode frame {get_ms:.1f} ms: "
+        f"{len(pts)} points x 5 features, time lags {lags.min():.2f}-{lags.max():.2f} s, "
+        f"{kept} kept by the collate's cap, {len(item['gt_boxes'])} gt")
+    return infos, summary
+
+
+def serve_anchor(name, model, batches, device, b1_per_batch, b2_per_batch):
+    """A warm-up request, the counts set to 0, the requests through
+    eval_batches (bf16), the counts read; fatal unless each batch launched
+    B1 and the tensor-core B2 exactly as its step implies and no CUDA-core
+    B2. Returns (EvalResult, launches)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    n = len(batches)
+    post_max = int(model.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if boxes.shape != (4, post_max, 7) or not torch.isfinite(boxes).all() or \
+                not torch.isfinite(scores).all() or not valid.any(dim=1).all():
+            fail(f"{name} batch {k}: boxes {tuple(boxes.shape)}, finite "
+                 f"{bool(torch.isfinite(boxes).all())}, kept per sample {valid.sum(1).tolist()}")
+    if launches["iou_bev_overlap"] != b1_per_batch * n or \
+            launches["gather_gemm_tensor_core"] != b2_per_batch * n or \
+            launches["gather_gemm_cuda_core"]:
+        fail(f"{name} serving: kernel launches {launches} for {n} batches, not "
+             f"{b1_per_batch} B1 and {b2_per_batch} tensor-core B2 per batch")
+    log(f"[nuscenes] {name} serving, {n} requests of B=4 (bf16): per-request ms median "
+        f"{statistics.median(res.batch_seconds) * 1e3:.2f} (all: "
+        f"{', '.join(f'{s * 1e3:.2f}' for s in res.batch_seconds)}); kept per sample "
+        f"{[p[3].sum(1).tolist() for p in res.preds]}; recall {json.dumps(res.metric)}; "
+        f"kernel launches {json.dumps(launches)}")
+    return res, launches
+
+
+def count_positive_anchors():
+    """A hook on the anchor detectors' target assignment that records each
+    call's positive anchors; returns (the list they go to, undo)."""
+    from dfu3d_tpu_torch.models import pointpillar
+
+    seen, orig = [], pointpillar.AnchorDetectorBase.assign_targets
+
+    def counting(self, *a, **k):
+        out = orig(self, *a, **k)
+        seen.append(int((out.box_cls_labels > 0).sum()))
+        return out
+
+    pointpillar.AnchorDetectorBase.assign_targets = counting
+    return seen, lambda: setattr(pointpillar.AnchorDetectorBase, "assign_targets", orig)
+
+
+def nuscenes_cli(root, cfg_file, b2_train, b2_eval, device):
+    """tools.train (1 epoch, bf16) and tools.test of its checkpoint on a
+    nuScenes config from `root`, gt sampling disabled (no nuScenes gt
+    database exists); fatal unless every train step launched the
+    tensor-core B2 `b2_train` times and no B1, the eval launched B2
+    `b2_eval` and B1 twice per batch, results came back for every val frame
+    and the AP_DICT holds the ten classes. Returns the summary and the
+    launches of training and evaluation."""
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    sets = ["--set", "DATA_CONFIG.DATA_PATH", str(root),
+            "DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST", "gt_sampling"]
+    common = ["--cfg_file", cfg_file, "--device", device.type, "--workers", str(LOADER_WORKERS)]
+    tag = Path(cfg_file).stem
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train_cli.main(common + ["--epochs", "1"] + sets)
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    steps = out["epochs"][0]["steps"]
+    if train_launches["gather_gemm_tensor_core"] != b2_train * steps or \
+            train_launches["gather_gemm_cuda_core"] or train_launches["iou_bev_overlap"] or \
+            not math.isfinite(out["epochs"][0]["loss"]):
+        fail(f"tools.train {tag}: {steps} steps, loss {out['epochs'][0]['loss']}, kernel "
+             f"launches {train_launches} (want {b2_train} tensor-core B2 per step, no B1)")
+    ckpt = sorted(Path(out["ckpt_dir"]).glob("checkpoint_epoch_*.pth"))
+    if not ckpt:
+        fail(f"tools.train {tag} wrote no checkpoint")
+    reset_launches()
+    t0 = time.perf_counter()
+    (_, _, result), = test_cli.main(common + ["--ckpt", str(ckpt[-1])] + sets)
+    eval_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    batches = result["eval_batches"]
+    classes = {k.split("/")[0].rsplit("_", 1)[0] for k in result if "_3d/" in k}
+    if result["num_frames"] != NUSC_VAL_FRAMES or classes != set(NUSC_CLASSES) or \
+            eval_launches["gather_gemm_tensor_core"] != b2_eval * batches or \
+            eval_launches["iou_bev_overlap"] != 2 * batches:
+        fail(f"tools.test {tag}: {result['num_frames']} frames of {NUSC_VAL_FRAMES}, classes "
+             f"{sorted(classes)}, {batches} batches, kernel launches {eval_launches}")
+    summary = {"train_steps": steps, "train_s": train_s, "train_loss": out["epochs"][0]["loss"],
+               "train_launches": train_launches, "eval_s": eval_s, "eval_batches": batches,
+               "eval_launches": eval_launches, "eval_frames": result["num_frames"],
+               "gt_num": result["gt_num"],
+               "car_3d_moderate_R40": result["Car_3d/moderate_R40"],
+               "time_split_s": {k: result[k] for k in result if k.startswith("time/")}}
+    log(f"[nuscenes] {tag} from disk: tools.train {steps} steps (class-balanced resampling of "
+        f"{NUSC_TRAIN_FRAMES} frames) in {train_s:.2f} s, loss {out['epochs'][0]['loss']:.4f}, "
+        f"launches {json.dumps(train_launches)}; tools.test {result['num_frames']} frames in "
+        f"{eval_s:.2f} s, AP_DICT with {len(classes)} classes, launches "
+        f"{json.dumps(eval_launches)}")
+    return summary, train_launches, eval_launches
+
+
+def nuscenes_profiles(summary):
+    """profile_serve --model second and profile_train --model second, each in
+    a process of its own, run with the deferred profiles after every
+    host-clock reading; their spans and device profiles go into
+    `summary`."""
+    for tool, flag, key in (("profile_serve", "--batches", "profile_serve"),
+                            ("profile_train", "--steps", "profile_train")):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            out = Path(work) / f"{key}.json"
+            run = subprocess.run([sys.executable, "-m", f"dfu3d_tpu_torch.{tool}", "--model",
+                                  "second", flag, "4", "--out", str(out)], cwd=REPO,
+                                 capture_output=True, text=True)
+            if run.returncode != 0 or not out.exists():
+                fail(f"{tool} --model second failed: {run.stderr[-3000:]}")
+            prof = json.loads(out.read_text())
+        keep = {k: prof[k] for k in ("step_ms", "samples_per_s", "phase_ms", "nms_scan")
+                if k in prof}
+        keep["profile"] = {k: v for k, v in prof["profile"].items() if k != "top_kernels"}
+        keep["profile"]["top_kernels"] = prof["profile"].get("top_kernels", [])[:8]
+        summary[key] = keep
+        p = keep["profile"]
+        log(f"[nuscenes] {tool} --model second ({time.perf_counter() - t0:.1f} s): step "
+            f"{prof['step_ms']['median']:.2f} ms host clock; busy "
+            f"{p.get('device_busy_ms_per_step', float('nan')):.2f} ms, idle "
+            f"{p.get('device_idle_share', float('nan')):.3f}; spans (ms) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["phase_ms"].items(),
+                                                           key=lambda kv: -kv[1])[:10]))
+
+
+def nuscenes_phase(device, card):
+    """Phase 13: nuScenes from disk and the anchor detectors. Returns (the
+    summary, launches by path, the B1 entries timed, B2 totals and entries
+    of one served SECOND request and of one train step's dX)."""
+    import os
+
+    import torch
+
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            root = work / "data" / "nuscenes"
+            infos, summary = nuscenes_data(root)
+            launches = {}
+
+            # SECOND serving
+            cfg, grid, model = zoo.second_multihead(device=device)
+            seeded_weights_(model, seed=0)
+            batches = zoo.nuscenes_batches(cfg, root, infos["train"], NUSC_REQUESTS)
+            log(f"[nuscenes] SECOND multi-head {'x'.join(map(str, grid.grid_size))} grid, "
+                f"max_voxels {model.vfe.max_voxels}, {model.anchors_flat.shape[0]} anchors per "
+                f"frame, {sum(p.numel() for p in model.parameters())} parameters; points per "
+                f"request {[b.points_valid.sum(1).tolist() for b in batches]}")
+            res, launches["second"] = serve_anchor("second", model, batches, device, 2, 12)
+            served_iou = time_served_overlaps("second", model, batches[0], device)
+            calls = record_gemm_calls(
+                lambda: make_eval_step(model, device=device, dtype=torch.bfloat16)(batches[0]))
+            if len(calls) != len(VOXEL8X_CONVS):
+                fail(f"one SECOND eval step made {len(calls)} gather-GEMM calls, not 12")
+            served_b2 = hold_gemm_calls("SECOND, one served request", zip(VOXEL8X_CONVS, calls))
+            check = check_paths("second", model, cfg, batches[0], res.preds[0], swaps, device)
+            summary["second_serve"] = {
+                "request_ms": [s * 1e3 for s in res.batch_seconds],
+                "request_ms_median": statistics.median(res.batch_seconds) * 1e3,
+                "recall": res.metric, "launches": launches["second"], "fp32_check": check}
+            del model, res
+
+            # PointPillar multi-head serving
+            pcfg, pgrid, pp = zoo.pp_multihead(device=device)
+            seeded_weights_(pp, seed=0)
+            pbatches = zoo.nuscenes_batches(pcfg, root, infos["train"], NUSC_PP_REQUESTS)
+            res, launches["pp"] = serve_anchor("pp", pp, pbatches, device, 2, 0)
+            pillars = [pillar_counts(b, pgrid, pp.vfe.max_pillars) for b in pbatches]
+            for k, (distinct, kept) in enumerate(pillars):
+                log(f"[nuscenes] pp batch {k}: pillars per sample {distinct}, kept {kept} (cap "
+                    f"{4 * pp.vfe.max_pillars} per batch), dropped "
+                    f"{[d - p for d, p in zip(distinct, kept)]}")
+            summary["pp_serve"] = {
+                "request_ms": [s * 1e3 for s in res.batch_seconds],
+                "launches": launches["pp"],
+                "pillars": [{"per_sample": d, "kept": p} for d, p in pillars]}
+            del pp, res
+
+            # SECOND training
+            tbatches = zoo.nuscenes_batches(cfg, root, infos["train"], NUSC_TRAIN_STEPS,
+                                            training=True)
+            positives, undo = count_positive_anchors()
+            try:
+                model, launches["second_train"], steps, _ = train(
+                    "second", zoo.second_multihead, tbatches, device)
+            finally:
+                undo()
+            bad = [s for s in steps if s["gather_gemm_tensor_core"] != VOXEL8X_TRAIN_B2
+                   or s["gather_gemm_cuda_core"] or s["iou_bev_overlap"]]
+            if bad or len(positives) != len(steps) or min(positives) == 0:
+                fail(f"a SECOND train step launched other than {VOXEL8X_TRAIN_B2} tensor-core "
+                     f"B2 and no B1 ({bad}), or had no positive anchor ({positives})")
+            log(f"[nuscenes] SECOND train steps: positive anchors {positives}")
+
+            def step():
+                model.train()
+                model.zero_grad(set_to_none=True)
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    loss, _ = model(tbatches[0].to(device))
+                loss.backward()
+                model.zero_grad(set_to_none=True)
+
+            calls = record_gemm_calls(step)
+            if len(calls) != VOXEL8X_TRAIN_B2:
+                fail(f"one SECOND train step made {len(calls)} gather-GEMM calls, not "
+                     f"{VOXEL8X_TRAIN_B2}")
+            train_dx = hold_gemm_calls("dX of one SECOND train step",
+                                       zip(VOXEL8X_CONVS[::-1], calls[len(VOXEL8X_CONVS):]))
+            train_check = check_train_paths("second", model, tbatches[0], swaps, device)
+            ms = [s["host_ms"] for s in steps]
+            summary["second_train"] = {
+                "steps": steps, "positive_anchors": positives,
+                "step_ms_median": statistics.median(ms),
+                "samples_per_s": 4 / (statistics.median(ms) / 1e3),
+                "launches": launches["second_train"], "fp32_check": train_check}
+            del model
+
+            # from disk through the CLIs
+            summary["cli_second"], launches["second_cli_train"], launches["second_cli_eval"] = \
+                nuscenes_cli(root, SECOND_CFG, VOXEL8X_TRAIN_B2, 12, device)
+            summary["cli_voxel"], launches["voxel_cli_train"], launches["voxel_cli_eval"] = \
+                nuscenes_cli(root, NUSC_VOXEL_CFG, VOXEL_TRAIN_B2, 21, device)
+
+            # where the time goes: with the deferred profiles, last
+            DEFERRED_PROFILES.append(lambda: nuscenes_profiles(summary))
+        finally:
+            os.chdir(cwd)
+    summary["device"] = card
+    return summary, launches, served_iou, served_b2, train_dx
+
+
 def main():
     import torch
 
@@ -3011,6 +3365,12 @@ def main():
     depth_b1 = sum(v["iou_bev_overlap"] for v in depth_launches.values())
     depth_b2 = sum(v["gather_gemm"] for v in depth_launches.values())
 
+    # 13. nuScenes from disk and the anchor detectors (SECOND, PointPillar multi-head)
+    nusc_summary, nusc_launches, nusc_iou, nusc_served_b2, nusc_dx = nuscenes_phase(device, card)
+    served_iou += nusc_iou
+    nusc_b1 = sum(v["iou_bev_overlap"] for v in nusc_launches.values())
+    nusc_b2 = sum(v["gather_gemm"] for v in nusc_launches.values())
+
     # the device profiles of phases 10-12, after every host-clock reading
     run_deferred_profiles()
     cspn = depth_summary["cspn_fwd_bwd_device_ms"]
@@ -3036,7 +3396,7 @@ def main():
                      + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
-                     + prcnn_evolve["iou_bev_overlap"] + depth_b1),
+                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -3053,9 +3413,13 @@ def main():
                                  prcnn_cli_train_eval["iou_bev_overlap"],
                              "pointrcnn_evolve": prcnn_evolve["iou_bev_overlap"],
                              **{f"depth_{k}": v["iou_bev_overlap"]
-                                for k, v in depth_launches.items()}},
+                                for k, v in depth_launches.items()},
+                             **{f"nuscenes_{k}": v["iou_bev_overlap"]
+                                for k, v in nusc_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
-            {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]})},
+            {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
+            "second": sorted({st["iou_bev_overlap"]
+                              for st in nusc_summary["second_train"]["steps"]})},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1]),
         "ms": nms_entry["ms"],
@@ -3083,7 +3447,7 @@ def main():
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
-                     + prcnn_evolve["gather_gemm"] + depth_b2),
+                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -3097,10 +3461,13 @@ def main():
                              "pointrcnn_cli_train": prcnn_cli_train["gather_gemm"],
                              "pointrcnn_cli_train_eval": prcnn_cli_train_eval["gather_gemm"],
                              "pointrcnn_evolve": prcnn_evolve["gather_gemm"],
-                             **{f"depth_{k}": v["gather_gemm"] for k, v in depth_launches.items()}},
+                             **{f"depth_{k}": v["gather_gemm"] for k, v in depth_launches.items()},
+                             **{f"nuscenes_{k}": v["gather_gemm"]
+                                for k, v in nusc_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in nusc_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -3133,6 +3500,15 @@ def main():
                                **v8_served[0], "per_conv": v8_served[1]},
             "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
                          **v8_dx[0], "per_conv": v8_dx[1]}},
+        "second_multihead": {
+            "model": "cbgs_second_multihead (MeanVFE + VoxelBackBone8x, max_voxels 60000) on "
+                     "synthetic nuScenes frames with 9 sweeps, bf16",
+            "train_launches_per_step": {"forward": 12, "dx": VOXEL8X_TRAIN_B2 - 12},
+            "shapes": [e["shape"] for e in nusc_served_b2[1] + nusc_dx[1]],
+            "served_request": {"unit": "one served bf16 request: its 12 launches, summed",
+                               **nusc_served_b2[0], "per_conv": nusc_served_b2[1]},
+            "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
+                         **nusc_dx[0], "per_conv": nusc_dx[1]}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -3143,6 +3519,7 @@ def main():
     log(json.dumps({"pointrcnn": prcnn_summary}, default=str))
     log(json.dumps({"pointrcnn_train": prcnn_train_summary}, default=str))
     log(json.dumps({"depth_train": depth_summary}, default=str))
+    log(json.dumps({"nuscenes": nusc_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

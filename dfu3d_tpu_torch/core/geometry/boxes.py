@@ -83,3 +83,37 @@ def enlarge_box3d(boxes, extra_width=(0.0, 0.0, 0.0)):
     boxes.py:130-133)."""
     extra = torch.as_tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
     return torch.cat([boxes[..., :3], boxes[..., 3:6] + extra, boxes[..., 6:]], dim=-1)
+
+
+# axis-aligned BEV helpers (the JAX version, boxes.py:240-281; reference
+# box_utils.py:291-341): the anchors' target-assignment IoU
+
+def boxes3d_lidar_to_aligned_bev_boxes(boxes):
+    """(N, 7+) → (N, 4) axis-aligned [x1, y1, x2, y2], the heading snapped to
+    0 or 90°."""
+    rot = limit_period(boxes[:, 6], offset=0.5, period=math.pi)
+    choose_xy = torch.abs(rot) < math.pi / 4.0
+    half_dx = torch.where(choose_xy, boxes[:, 3], boxes[:, 4]) * 0.5
+    half_dy = torch.where(choose_xy, boxes[:, 4], boxes[:, 3]) * 0.5
+    return torch.stack([boxes[:, 0] - half_dx, boxes[:, 1] - half_dy,
+                        boxes[:, 0] + half_dx, boxes[:, 1] + half_dy], dim=-1)
+
+
+def boxes_iou_normal(boxes_a, boxes_b):
+    """Axis-aligned 2D IoU: (..., N, 4) × (..., M, 4) → (..., N, M)."""
+    a, b = boxes_a[..., :, None, :], boxes_b[..., None, :, :]
+    x_overlap = torch.clamp(torch.minimum(a[..., 2], b[..., 2])
+                            - torch.maximum(a[..., 0], b[..., 0]), min=0.0)
+    y_overlap = torch.clamp(torch.minimum(a[..., 3], b[..., 3])
+                            - torch.maximum(a[..., 1], b[..., 1]), min=0.0)
+    inter = x_overlap * y_overlap
+    area_a = (boxes_a[..., 2] - boxes_a[..., 0]) * (boxes_a[..., 3] - boxes_a[..., 1])
+    area_b = (boxes_b[..., 2] - boxes_b[..., 0]) * (boxes_b[..., 3] - boxes_b[..., 1])
+    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :] - inter, min=1e-6)
+
+
+def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
+    """The snapped axis-aligned BEV IoU of (N, 7+) × (M, 7+) boxes → (N, M)
+    (reference box_utils.boxes3d_nearest_bev_iou:328-341)."""
+    return boxes_iou_normal(boxes3d_lidar_to_aligned_bev_boxes(boxes_a),
+                            boxes3d_lidar_to_aligned_bev_boxes(boxes_b))

@@ -12,7 +12,10 @@ and compute what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
 Two variants, chosen by dtype and widths (`variant`):
 
 * ``tensor_core``, bf16 at Cin % 4 == 0, Cin <= 128, Cout in {16, 32, 64,
-  128}, K <= 32 (every conv of the served path): one block per (sample,
+  128}, K <= 32 (every conv of the served paths; `gather_gemm` first pads a
+  bf16 Cin that is not a multiple of 4 with zero channels, in feats and
+  in the kernel, as the nuScenes configs' 5 point features need, which
+  leaves every product unchanged): one block per (sample,
   64 queries) builds the tile's live-tap list once, gathers the rows of
   the live taps with cp.async into a ring of shared-memory stages (dead rows
   zero-filled, never read) and runs mma.sync m16n8k16 bf16 products into
@@ -95,12 +98,22 @@ def _kernel(kind):
 
 
 def variant(dtype, k, cin, cout):
-    """The kernel that takes these inputs on the card: "tensor_core" or
-    "cuda_core"."""
+    """The kernel that takes inputs of these widths on the card:
+    "tensor_core" or "cuda_core" (`gather_gemm` asks it after padding Cin;
+    `padded_cin`)."""
     if (dtype == torch.bfloat16 and k <= 32 and 4 <= cin <= 128 and cin % 4 == 0
             and cout in TC_COUTS):
         return "tensor_core"
     return "cuda_core"
+
+
+def padded_cin(dtype, k, cin, cout) -> int:
+    """Cin as `gather_gemm` launches it: a bf16 Cin rounded up to a multiple
+    of 4 where that width takes the tensor-core kernel, else Cin."""
+    up = -(-cin // 4) * 4
+    if dtype == torch.bfloat16 and up != cin and variant(dtype, k, up, cout) == "tensor_core":
+        return up
+    return cin
 
 
 def check_aligned(feats, kernel):
@@ -150,6 +163,11 @@ def gather_gemm(feats, valid, nbr, kernel):
     q, k, cout = nbr.shape[1], nbr.shape[2], kernel.shape[2]
     if cout > MAX_COUT:
         raise ValueError(f"the gather-GEMM kernel takes Cout <= {MAX_COUT}, got {cout}")
+    pad = padded_cin(feats.dtype, k, cin, cout) - cin
+    if pad:
+        feats = torch.nn.functional.pad(feats, (0, pad))
+        kernel = torch.nn.functional.pad(kernel, (0, 0, 0, pad))
+        cin += pad
     kind = variant(feats.dtype, k, cin, cout)
     if kind == "tensor_core":
         check_aligned(feats, kernel)

@@ -5,7 +5,7 @@ DataLoader + DistributedSampler): each host takes every `process_count`-th
 index of a seeded, per-epoch reshuffled order (as sampler.set_epoch does),
 loads and augments frames in a thread pool, and collates them into a
 `PointBatch` of CPU tensors and a `BatchMeta`. The registry holds the KITTI
-datasets; the other datasets are not ported yet.
+datasets and NuScenesDataset; the other datasets are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,10 +16,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .kitti_dataset import KittiDataset, KittiKittiDataset
+from .nuscenes_dataset import NuScenesDataset
 
 __all_datasets__ = {
     "KittiDataset": KittiDataset,
     "KittiKittiDataset": KittiKittiDataset,
+    "NuScenesDataset": NuScenesDataset,
 }
 
 
@@ -108,7 +110,7 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, worke
     if dataset_cfg.DATASET not in __all_datasets__:
         raise NotImplementedError(
             f"dataset {dataset_cfg.DATASET} is not ported yet (ROADMAP Queue A: the other "
-            f"datasets, NuScenesDataset first); ported: {sorted(__all_datasets__)}")
+            f"datasets); ported: {sorted(__all_datasets__)}")
     dataset = __all_datasets__[dataset_cfg.DATASET](
         dataset_cfg=dataset_cfg,
         class_names=class_names,

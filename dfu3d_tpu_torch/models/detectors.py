@@ -6,7 +6,8 @@ and voxel branches):
             height_compression → BaseBEVBackbone → CenterHead
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
-`build_network` also builds PointRCNN (models/pointrcnn.py).
+`build_network` also builds PointRCNN (models/pointrcnn.py), PointPillar
+and SECONDNet (models/pointpillar.py).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -153,14 +154,21 @@ class CenterPoint(nn.Module):
 
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
                   **overrides):
-    """Build a detector by MODEL.NAME (CenterPoint or PointRCNN) on `device`
-    (the card unless the caller asks for the CPU), in eval mode, or in train
-    mode with `train`. `overrides` are constructor keywords
-    (num_point_features, max_pillars, max_voxels); PointRCNN reads no grid
-    and takes num_point_features only."""
+    """Build a detector by MODEL.NAME (CenterPoint, PointRCNN, PointPillar or
+    SECONDNet) on `device` (the card unless the caller asks for the CPU), in
+    eval mode, or in train mode with `train`. `overrides` are constructor
+    keywords (num_point_features, max_pillars, max_voxels); PointRCNN reads
+    no grid and takes num_point_features only, PointPillar takes no
+    max_voxels and SECONDNet no max_pillars."""
+    from .pointpillar import PointPillar, SECONDNet
+
     dev = resolve_device(device)
     if model_cfg.NAME == "PointRCNN":
         return PointRCNN(model_cfg, class_names, **overrides).to(dev).train(train)
+    if model_cfg.NAME == "PointPillar":
+        return PointPillar(model_cfg, class_names, grid, **overrides).to(dev).train(train)
+    if model_cfg.NAME == "SECONDNet":
+        return SECONDNet(model_cfg, class_names, grid, **overrides).to(dev).train(train)
     if model_cfg.NAME != "CenterPoint":
         raise NotImplementedError(f"detector {model_cfg.NAME} is not ported yet")
     return CenterPoint(model_cfg, class_names, grid, **overrides).to(dev).train(train)

@@ -1,7 +1,8 @@
 """Detection losses, fp32 and mask-aware (port of dfu3d_tpu/models/losses.py:
-13-108): CenterPoint's clamped sigmoid, the CornerNet focal loss on gaussian
-heat maps and the masked L1 at target cells; PointRCNN's point-head sigmoid
-focal loss and weighted smooth-L1. The formulas are JAX's, term for term:
+13-119): CenterPoint's clamped sigmoid, the CornerNet focal loss on gaussian
+heat maps and the masked L1 at target cells; the sigmoid focal loss and
+weighted smooth-L1 of PointRCNN's point head and the anchor heads; the
+anchor heads' direction cross entropy. The formulas are JAX's, term for term:
 the BCE is clip(x, 0) - x·t + log1p(exp(-|x|)), not
 F.binary_cross_entropy_with_logits, which rounds otherwise."""
 from __future__ import annotations
@@ -77,3 +78,10 @@ def weighted_smooth_l1(pred, target, weights, beta: float = 1.0 / 9.0, code_weig
     n = diff.abs()
     loss = torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
     return loss * weights[..., None]
+
+
+def weighted_cross_entropy(pred_logits, target_onehot, weights):
+    """WeightedCrossEntropyLoss (loss_utils.py:183-208): per-anchor CE of
+    pred_logits against target_onehot (B, A, C), times weights (B, A) → (B, A)."""
+    logprob = torch.log_softmax(pred_logits.float(), dim=-1)
+    return -(target_onehot.float() * logprob).sum(dim=-1) * weights

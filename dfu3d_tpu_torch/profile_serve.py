@@ -1,18 +1,23 @@
 """Where the serving time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn] [--batches 8]
-                                            [--out FILE.json]
+    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn|second|pp]
+                                            [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
 CenterPoint-pillar (256 x 512 BEV), voxel CenterPoint
-(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid) or PointRCNN
-(pointrcnn_nuscenes2kitti). CenterPoint: B=4, 60,000 uniform points in a
-50 m extent, 256 gt slots. PointRCNN: B=4 frames of a synthetic KITTI root
-(40,000-60,000 points in the camera frustum, 20-40 boxes; uniform points
-would give PointNet++'s 0.1 m balls no neighbours) read through
-KittiDataset in test mode, so 16,384 sampled points each. bf16 autocast,
-weights from `seeded_weights_`. It reports, as one JSON object (printed,
-and written to --out):
+(cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid), PointRCNN
+(pointrcnn_nuscenes2kitti), SECOND multi-head (cbgs_second_multihead,
+1024 x 1024 x 40 grid, max_voxels 60,000) or PointPillar multi-head
+(cbgs_pp_multihead, 512 x 512 pillars). CenterPoint: B=4, 60,000 uniform
+points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
+synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
+boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
+read through KittiDataset in test mode, so 16,384 sampled points each.
+SECOND and PointPillar: B=4 key frames of a synthetic nuScenes root
+(`data.nuscenes_synthetic`: 10 sweeps of 34,000 points, 20-40 boxes of the
+ten classes) read through NuScenesDataset in test mode, at most 65,536
+points each. bf16 autocast, weights from `seeded_weights_`. It reports,
+as one JSON object (printed, and written to --out):
 
 * step_ms: host clock per step, no instrumentation (median over batches);
 * phase_ms: the same step with a device sync at each phase boundary
@@ -25,7 +30,11 @@ and written to --out):
   keep-scan, the RoI pooling, the RoI head with its FPS and ball queries,
   the final NMS with its B1 launch and keep-scan, the recall IoU with its
   B1 launch, and the rest of the step; pointrcnn also reports fps_share,
-  the FPS spans' share of the instrumented step);
+  the FPS spans' share of the instrumented step; second and pp: the
+  exclusive ms of the spans of `anchor_phase_times`: the VFE, the
+  neighbour tables, the sparse convs with their B2 launches, the 2D
+  backbone, the head, the decode, the NMS with its B1 launch and keep-scan,
+  the recall IoU with its B1 launch, and the rest);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -50,11 +59,14 @@ from .core.geometry import iou_kernel
 from .core.geometry import nms as nms_mod
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
+from .core.voxel import gather_gemm_kernel
+from .models import pointpillar as pointpillar_mod
 from .models import pointrcnn as pointrcnn_mod
 from .models import roi_head
 from .train import train_state
 from .train.train_state import make_eval_step
-from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, voxel_centerpoint,
+from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, nuscenes_batches, pointrcnn,
+                  pointrcnn_batches, pp_multihead, second_multihead, voxel_centerpoint,
                   write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
@@ -186,6 +198,69 @@ def pointrcnn_phase_times(model, run, batch, optimizer=None):
     return phases
 
 
+def anchor_phase_times(model, run, batch, optimizer=None):
+    """One step of an anchor detector (PointPillar or SECONDNet), `run(batch)`
+    (an eval step, or with its `optimizer` a train step), with every span of
+    `Spans` timed: the VFE, the neighbour tables and the sparse convs with
+    their B2 launches (SECONDNet), the 2D backbone, the head, the decode, the
+    NMS with its B1 launch and keep-scan, the recall IoU with its B1 launch;
+    a train step adds the anchor targets, the loss, the backward (with B2's
+    dX launches) and the clip + optimizer update."""
+    spans = Spans()
+    wraps = [(model.vfe, "forward", "vfe"), (model.backbone_2d, "forward", "backbone_2d"),
+             (model.dense_head, "forward", "dense_head"),
+             (pointpillar_mod, "decode_anchor_predictions", "decode"),
+             (pointpillar_mod, "nms_bev", "nms"), (iou_kernel, "overlap_bev", "b1"),
+             (nms_mod, "_suppression_scan", "keep_scan"),
+             (train_state, "pairwise_iou3d", "recall_iou")]
+    if hasattr(model, "backbone_3d"):
+        wraps += [(model.backbone_3d, "plan", "neighbour_tables"),
+                  (model.backbone_3d, "forward", "sparse_convs"),
+                  (gather_gemm_kernel, "gather_gemm", "b2")]
+    if optimizer is not None:
+        wraps += [(model, "assign_targets", "anchor_targets"),
+                  (pointpillar_mod, "anchor_head_loss", "loss"),
+                  (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
+    try:
+        for obj, attr, name in wraps:
+            spans.wrap(obj, attr, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(batch)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        spans.restore()
+    phases = dict(spans.ms)
+    phases["rest"] = total - sum(phases.values())
+    phases["step"] = total
+    return phases
+
+
+def anchor_profile(model, run, batches, optimizer=None):
+    """Where an anchor detector's step goes, `run(batch)` running an eval
+    step or (given its `optimizer`) a train step through to its result on
+    the host: phase_ms, the median over the batches of each span's
+    exclusive ms (`anchor_phase_times`), and keep_scan (`keep_scans`)."""
+    phases = [anchor_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
+            "keep_scan": keep_scans(run, batches)}
+
+
+def nuscenes_workload(cfg, work, num_batches: int, training: bool = False):
+    """`num_batches` batches of a synthetic nuScenes root written under
+    `work` (NUSCENES_BATCH_SIZE key frames each, 10 sweeps of 34,000
+    points, 20-40 boxes of the ten classes), read through NuScenesDataset."""
+    from .data import nuscenes_synthetic
+
+    n = NUSCENES_BATCH_SIZE * num_batches
+    written = nuscenes_synthetic.write_root(work, n_train=n if training else 0,
+                                            n_val=0 if training else n)
+    info = nuscenes_synthetic.write_infos(work, written)["train" if training else "val"]
+    return nuscenes_batches(cfg, work, info, num_batches, training=training)
+
+
 def keep_scans(run, batches):
     """Runs each batch once, `run(batch)`, with the NMS keep-scan timed: per
     call, the IoU matrix's shape, the scan's fixed-point iterations (one
@@ -275,7 +350,8 @@ def _profile(step, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn"), default="pillar")
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp"),
+                    default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -284,7 +360,8 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn}[args.model]
+    build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
+             "second": second_multihead, "pp": pp_multihead}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -295,6 +372,13 @@ def main(argv=None):
         workload = ("PointRCNN pointrcnn_nuscenes2kitti (4.04 M parameters), B=4 synthetic "
                     "KITTI frames sampled to 16384 points (40000-60000 in the frustum, 20-40 "
                     "boxes)")
+    elif args.model in ("second", "pp"):
+        with tempfile.TemporaryDirectory() as work:
+            batches = nuscenes_workload(cfg, Path(work), args.batches)
+        workload = (("SECOND cbgs_second_multihead 1024x1024x40 grid, max_voxels 60000"
+                     if args.model == "second" else "PointPillar cbgs_pp_multihead 512x512")
+                    + ", AnchorHeadMulti, B=4 synthetic nuScenes key frames with 9 sweeps "
+                      "(34000 points each, at most 65536 per frame, 20-40 boxes)")
     else:
         batches = [synthetic_batch(4, 60000, 256, 50.0, seed=s) for s in range(args.batches)]
         workload = ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
@@ -312,6 +396,9 @@ def main(argv=None):
 
     if args.model == "pointrcnn":
         extra = pointrcnn_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    elif args.model in ("second", "pp"):
+        extra = anchor_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     else:
         phases = [_phase_times(model, step, b) for b in batches]

@@ -1,6 +1,6 @@
 """Where the training time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn] [--steps 8]
+    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn|second] [--steps 8]
                                             [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -13,7 +13,12 @@ config's classes) read through KittiDataset in train mode (gt sampling from
 the root's gt database, flip, rotation, scaling, translation, then 16,384
 sampled points), each batch with `zoo.proposal_gt`'s 16 gt per frame made
 of the model's proposals just before its step, outside the timed step, so
-that every step has RoIs over REG_FG_THRESH. bf16 autocast, weights from
+that every step has RoIs over REG_FG_THRESH; or SECOND multi-head
+(cbgs_second_multihead, 1024 x 1024 x 40 grid, max_voxels 60,000), B=4 key
+frames of a synthetic nuScenes root (10 sweeps of 34,000 points, 20-40
+boxes of the ten classes) read through NuScenesDataset in train mode
+(class-balanced resampling, flip, rotation, scaling; no gt sampling: no
+nuScenes gt database exists). bf16 autocast, weights from
 `seeded_weights_`, the config's adam_onecycle over 1000 steps. It reports,
 as one JSON object (printed, and written to --out):
 
@@ -30,7 +35,11 @@ as one JSON object (printed, and written to --out):
   3-NN, the point head, the point targets and losses, the proposal layer
   with its B1 launch and keep-scan, the RoI targets with their B1 launch,
   the RoI pooling, the RoI head with its FPS, the RCNN loss, the backward,
-  clip + optimizer), with fps_share and the keep-scan's iterations;
+  clip + optimizer), with fps_share and the keep-scan's iterations.
+  SECOND: the spans of `profile_serve.anchor_phase_times` with the
+  optimizer: the VFE, the neighbour tables, the sparse convs with their B2
+  launches, the 2D backbone, the head, the anchor targets, the loss, the
+  backward with B2's dX launches, clip + optimizer;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -55,10 +64,10 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import device_profile, pointrcnn_profile
+from .profile_serve import anchor_profile, device_profile, nuscenes_workload, pointrcnn_profile
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
-                  voxel_centerpoint, write_pointrcnn_root)
+                  second_multihead, voxel_centerpoint, write_pointrcnn_root)
 
 TOTAL_STEPS = 1000
 B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
@@ -214,9 +223,60 @@ def pointrcnn_train(steps: int, device_name: str) -> dict:
     }
 
 
+VOXEL8X_FORWARD_B2 = 12  # VoxelBackBone8x's sparse convs
+
+
+def second_train(steps: int, device_name: str) -> dict:
+    """profile_train --model second: step times, the spans of
+    `anchor_profile` over the steps with the optimizer, and the device
+    profile with the sparse convs' split."""
+    import tempfile
+
+    cfg, _, model = second_multihead(device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as work:
+        batches = nuscenes_workload(cfg, Path(work), steps, training=True)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        run(batch)
+    step_ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(step_ms)
+    spans = anchor_profile(model, run, batches, state.optimizer)
+    profile = _profile(step, batches, VOXEL8X_FORWARD_B2)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    scans = spans.pop("keep_scan")
+    return {
+        "device": device_name,
+        "workload": "SECOND cbgs_second_multihead 1024x1024x40 grid, max_voxels 60000, "
+                    "AnchorHeadMulti (327680 anchors per frame), B=4 synthetic nuScenes key "
+                    "frames with 9 sweeps (34000 points each, at most 65536 per frame) read in "
+                    "train mode (CBGS, flip, rotation, scaling), bf16 autocast, seeded random "
+                    "weights, adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": 4 / (median / 1e3),
+        "losses": losses,
+        **spans,
+        "nms_scan": {"calls_per_step": len(scans) / len(batches)},
+        "profile": profile,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn"), default="pillar")
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second"),
+                    default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -225,8 +285,9 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    if args.model == "pointrcnn":
-        _write(pointrcnn_train(args.steps, smi.stdout.strip()), args.out)
+    if args.model in ("pointrcnn", "second"):
+        run = pointrcnn_train if args.model == "pointrcnn" else second_train
+        _write(run(args.steps, smi.stdout.strip()), args.out)
         return
     voxel = args.model == "voxel"
     cfg, _, model = (voxel_centerpoint if voxel else flagship)(device="cuda", train=True)

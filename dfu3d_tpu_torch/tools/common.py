@@ -10,6 +10,7 @@ from pathlib import Path
 import torch
 
 from ..core.voxel import VoxelGrid
+from ..data.point_feature_encoder import PointFeatureEncoder
 from ..models import build_network
 from ..utils.config import CfgDict, cfg_from_list, cfg_from_yaml_file
 
@@ -43,20 +44,29 @@ def output_dir(cfg, extra_tag) -> Path:
     return Path("output") / cfg.EXP_GROUP_PATH / cfg.TAG / extra_tag
 
 
+def model_grid(cfg) -> VoxelGrid:
+    """The grid of POINT_CLOUD_RANGE and the last voxel processor's VOXEL_SIZE."""
+    return VoxelGrid.create(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, _voxel_processor(cfg).VOXEL_SIZE)
+
+
+def _voxel_processor(cfg):
+    return [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+            if p.NAME.startswith("transform_points_to_voxels")][-1]
+
+
 def build_model(cfg, mode: str, device, train: bool = False):
-    """The detector of cfg.MODEL on the grid of POINT_CLOUD_RANGE and the last
-    voxel processor's VOXEL_SIZE, with its voxel cap from
-    MAX_NUMBER_OF_VOXELS[mode] where the config sets one (reference
-    transform_points_to_voxels, data_processor.py:133)."""
-    voxel_cfg = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
-                 if p.NAME.startswith("transform_points_to_voxels")][-1]
-    grid = VoxelGrid.create(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, voxel_cfg.VOXEL_SIZE)
-    overrides = {}
-    mv = voxel_cfg.get("MAX_NUMBER_OF_VOXELS", None)
+    """The detector of cfg.MODEL on `model_grid(cfg)`, reading the point
+    features the dataset's encoding gives (x, y, z, intensity, and nuScenes'
+    time lag), with its voxel cap from MAX_NUMBER_OF_VOXELS[mode] where the
+    config sets one (reference transform_points_to_voxels,
+    data_processor.py:133)."""
+    encoding = cfg.DATA_CONFIG.POINT_FEATURE_ENCODING
+    overrides = {"num_point_features": PointFeatureEncoder(encoding).num_point_features}
+    mv = _voxel_processor(cfg).get("MAX_NUMBER_OF_VOXELS", None)
     if mv:
         overrides["max_voxels"] = int(mv[mode] if hasattr(mv, "get") else mv)
-    return build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device=device, train=train,
-                         **overrides)
+    return build_network(cfg.MODEL, cfg.CLASS_NAMES, model_grid(cfg), device=device,
+                         train=train, **overrides)
 
 
 def newest_epoch_dir(eval_dir: Path, rel: str) -> Path:

@@ -1,8 +1,9 @@
-"""Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship and
-PointRCNN (own copy of the JAX package's train/torch_convert.py:
-`centerpoint_pillar_mapping`, `point_head_box_mapping`,
-`pointrcnn_head_mapping` and `apply_mapping`'s partial overlay, :50-146,
-:300-375, :397-451, :549-589, :959-1029).
+"""Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship,
+PointRCNN and the anchor detectors (own copy of the JAX package's
+train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
+`anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`
+and `apply_mapping`'s partial overlay, :50-166, :300-394, :397-451,
+:549-589, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -32,9 +33,11 @@ model keeps its values there, and the model's keys outside the mapping are
 reported as unmatched and kept. A shape mismatch raises. The model picks
 its mapping (its `reference_mapping()` method): the flagship's (CenterPoint-pillar,
 centerpoint_nuscenes2kitti.yaml, the JAX package's convert_state_dict
-default) for CenterPoint, the point head's and the RoI head's for PointRCNN.
-The JAX package has no PointNet2MSG backbone mapping, so neither has the
-port: a PointRCNN backbone keeps its values and is reported unmatched.
+default) for CenterPoint, the point head's and the RoI head's for PointRCNN,
+the pillar VFE's, the 2D backbone's and AnchorHeadSingle's for PointPillar
+and SECONDNet. The JAX package has no PointNet2MSG, sparse-backbone or
+AnchorHeadMulti mapping, so neither has the port: those modules keep their
+values and are reported unmatched.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-__all__ = ["is_reference_state", "centerpoint_pillar_mapping", "point_head_box_mapping",
+__all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
+           "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "apply_mapping",
            "load_reference_state"]
 
@@ -101,20 +105,22 @@ HM_COUNTS = (1, 2, 2, 1, 2, 2)
 BRANCHES = (("center", 2), ("center_z", 1), ("dim", 3), ("rot", 2))
 
 
-def centerpoint_pillar_mapping() -> Mapping:
-    """Port state_dict key → (reference key, or a tuple of them, transform)
-    for the flagship CenterPoint-pillar (DynamicPillarVFE + BaseBEVBackbone +
-    CenterHead), in the JAX package's entry order."""
+def pfn_mapping(num_pfn: int) -> Mapping:
+    """PFNLayerV2 stack (dynamic_pillar_vfe.py:14-46): Linear (no bias) + BN
+    per layer (the JAX package's pfn_mapping with USE_NORM)."""
     m: Mapping = {}
-    # PFNLayerV2 stack (dynamic_pillar_vfe.py:14-46): Linear (+ BN) per layer
-    for i in range(NUM_PFN):
+    for i in range(num_pfn):
         m[f"vfe.pfn_{i}.Dense_0.weight"] = (f"vfe.pfn_layers.{i}.linear.weight", t_identity)
         _bn(m, f"vfe.pfn_{i}.MaskedBatchNorm_0", f"vfe.pfn_layers.{i}.norm")
+    return m
 
-    # BaseBEVBackbone: reference blocks.{i} = [ZeroPad, Conv(stride), BN,
-    # ReLU, (Conv, BN, ReLU) × LAYER_NUMS[i]]; deblocks.{i} = [ConvT|Conv,
-    # BN, ReLU] (base_bev_backbone.py:26-79)
-    for i, n in enumerate(LAYER_NUMS):
+
+def bev_backbone_mapping(layer_nums) -> Mapping:
+    """BaseBEVBackbone: reference blocks.{i} = [ZeroPad, Conv(stride), BN,
+    ReLU, (Conv, BN, ReLU) × layer_nums[i]]; deblocks.{i} = [ConvT|Conv, BN,
+    ReLU] (base_bev_backbone.py:26-79)."""
+    m: Mapping = {}
+    for i, n in enumerate(layer_nums):
         _conv(m, f"backbone_2d.block{i}_down.Conv_0", f"backbone_2d.blocks.{i}.1")
         _bn(m, f"backbone_2d.block{i}_down.BatchNorm_0", f"backbone_2d.blocks.{i}.2")
         for j in range(n):
@@ -127,7 +133,26 @@ def centerpoint_pillar_mapping() -> Mapping:
         m[f"backbone_2d.deblock{i}.Conv_0.weight"] = (
             f"backbone_2d.deblocks.{i}.0.weight", t_identity)
         _bn(m, f"backbone_2d.deblock{i}.BatchNorm_0", f"backbone_2d.deblocks.{i}.1")
+    return m
 
+
+def anchor_head_mapping(use_dir: bool = True, prefix: str = "dense_head") -> Mapping:
+    """AnchorHeadSingle (anchor_head_single.py:10-74): the 1×1 conv_cls,
+    conv_box and conv_dir_cls, OIHW on both sides. The per-location anchor
+    order is the reference's (class-major, size-major, rotation-minor), so
+    the channels line up (the JAX package's anchor_head_mapping,
+    :378-394)."""
+    m: Mapping = {}
+    for name in ["conv_cls", "conv_box"] + (["conv_dir_cls"] if use_dir else []):
+        _conv(m, f"{prefix}.{name}", f"{prefix}.{name}", bias=True)
+    return m
+
+
+def centerpoint_pillar_mapping() -> Mapping:
+    """Port state_dict key → (reference key, or a tuple of them, transform)
+    for the flagship CenterPoint-pillar (DynamicPillarVFE + BaseBEVBackbone +
+    CenterHead), in the JAX package's entry order."""
+    m: Mapping = {**pfn_mapping(NUM_PFN), **bev_backbone_mapping(LAYER_NUMS)}
     _conv(m, "dense_head.shared_conv.layers_0", "dense_head.shared_conv.0", bias=True)
     _bn(m, "dense_head.shared_bn", "dense_head.shared_conv.1")
     # the JAX package also maps its per-tower SeparateHead fallback; the

@@ -1,5 +1,6 @@
-"""Builders for the port's other supported models: voxel CenterPoint and
-PointRCNN.
+"""Builders for the port's other supported models: voxel CenterPoint,
+PointRCNN and the nuScenes anchor detectors (SECOND and PointPillar
+multi-head).
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -148,3 +149,61 @@ def proposal_gt(model, batch, dtype=torch.float32, count: int = PROPOSAL_GT):
     return batch._replace(
         gt_boxes=torch.cat([batch.gt_boxes, gt.to(batch.gt_boxes.dtype)], dim=1),
         gt_valid=torch.cat([batch.gt_valid, torch.ones_like(top, dtype=torch.bool)], dim=1))
+
+
+SECOND_MULTIHEAD_CFG = (Path(__file__).resolve().parents[1]
+                        / "tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml")
+PP_MULTIHEAD_CFG = (Path(__file__).resolve().parents[1]
+                    / "tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml")
+NUSCENES_BATCH_SIZE = 4  # the configs' BATCH_SIZE_PER_GPU
+
+
+def _nuscenes_detector(path, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = cfg_from_yaml_file(path, CfgDict())
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def second_multihead(train: bool = False, device="cuda"):
+    """SECONDNet on tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml at
+    its published widths, built as the CLIs build it (tools.common.
+    build_model): MeanVFE over the 5 point features (x, y, z, intensity,
+    time lag), VoxelBackBone8x on the 1024 x 1024 x 40 grid with
+    MAX_NUMBER_OF_VOXELS (60,000), BaseBEVBackbone [5, 5], AnchorHeadMulti
+    with six class groups. Returns (cfg, grid, model), in eval mode or in
+    train mode with `train`; the weights are PyTorch's defaults."""
+    return _nuscenes_detector(SECOND_MULTIHEAD_CFG, device, train)
+
+
+def pp_multihead(train: bool = False, device="cuda"):
+    """PointPillar on tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml at
+    its published widths (DynPillarVFE 64 on the 512 x 512 grid,
+    BaseBEVBackbone [3, 5, 5], AnchorHeadMulti); as `second_multihead`."""
+    return _nuscenes_detector(PP_MULTIHEAD_CFG, device, train)
+
+
+def nuscenes_batches(cfg, root, info_file, num_batches: int, training: bool = False, seed=0):
+    """`num_batches` PointBatches of NUSCENES_BATCH_SIZE frames read from the
+    nuScenes-layout `root` through NuScenesDataset, the frames of
+    `info_file` in order (repeated if there are fewer): key frame plus
+    MAX_SWEEPS - 1 sweeps with the time-lag channel, the config's processors
+    (range mask, shuffle), at most MAX_POINTS_PER_FRAME points per frame. In
+    test mode, or with `training` in train mode (the config's augmentations
+    but gt sampling, whose database neither package can write for nuScenes;
+    class-balanced resampling); numpy's global generator, which the
+    augmentations draw from, is seeded with `seed`."""
+    from .data.nuscenes_dataset import NuScenesDataset
+
+    ds_cfg = copy.deepcopy(cfg.DATA_CONFIG)
+    ds_cfg.DATA_AUGMENTOR.DISABLE_AUG_LIST = ["gt_sampling"]
+    ds_cfg.DATA_PATH = str(root)
+    ds_cfg.INFO_PATH = {"train": [str(info_file)] if training else [],
+                        "test": [] if training else [str(info_file)]}
+    dataset = NuScenesDataset(ds_cfg, cfg.CLASS_NAMES, training=training, root_path=Path(root),
+                              rng=np.random.RandomState(seed))
+    np.random.seed(seed)
+    b = NUSCENES_BATCH_SIZE
+    frames = [dataset[i % len(dataset)] for i in range(num_batches * b)]
+    return [dataset.collate_batch(frames[i:i + b])[0] for i in range(0, len(frames), b)]

@@ -237,13 +237,14 @@ def _launch_tc(feats, valid, nbr, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,k", [
-    (4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27), (64, 64, 27),
-    (64, 128, 27), (128, 128, 27), (128, 128, 3),
+    (4, 16, 27), (5, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
+    (64, 64, 27), (64, 128, 27), (128, 128, 27), (128, 128, 3),
 ])
 def test_gather_gemm_tensor_core_widths(cuda_device, cin, cout, k):
-    """The bf16 tensor-core kernel at every (Cin, Cout, K) of the voxel path,
-    on a random table with ~20 % masked rows and a ragged Q (not a multiple
-    of the 64-row tile)."""
+    """The bf16 tensor-core kernel at every (Cin, Cout, K) of the voxel
+    paths (Cin 5: the nuScenes configs' first conv, padded to 8 by the
+    wrapper), on a random table with ~20 % masked rows and a ragged Q (not a
+    multiple of the 64-row tile)."""
     rng = np.random.default_rng(cin * 1000 + cout + k)
     args = _gather_gemm_case(rng, 2, 700, 333, k, cin, cout, torch.bfloat16, cuda_device)
     got = _launch_tc(*args)
@@ -320,6 +321,16 @@ def test_gather_gemm_fp32_repeats_bit_for_bit(cuda_device):
 ])
 def test_gather_gemm_variant(dtype, k, cin, cout, want):
     assert gather_gemm_kernel.variant(dtype, k, cin, cout) == want
+
+
+@pytest.mark.parametrize("dtype,cin,want", [
+    (torch.bfloat16, 5, 8), (torch.bfloat16, 4, 4), (torch.bfloat16, 1, 4),
+    (torch.bfloat16, 127, 128), (torch.bfloat16, 130, 130), (torch.float32, 5, 5),
+])
+def test_gather_gemm_padded_cin(dtype, cin, want):
+    """The wrapper pads a bf16 Cin to a multiple of 4 where that width takes
+    the tensor-core kernel, and leaves every other width as it is."""
+    assert gather_gemm_kernel.padded_cin(dtype, 27, cin, 16) == want
 
 
 @pytest.mark.parametrize("cin,offset,ok", [(16, 8, True), (16, 1, False), (4, 4, True),
