@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (dfu3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py              # from the repository root, one card
 
 Phases, each fatal on failure:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for the
@@ -208,10 +208,38 @@ Phases, each fatal on failure:
               twice, every val frame comes back and the AP_DICT holds the ten
               classes. Last, with the deferred profiles, profile_serve and
               profile_train --model second in processes of their own.
+ 14. two_stage  SECOND-IoU, Voxel R-CNN and PV-RCNN on their KITTI configs
+              (second_iou, voxel_rcnn_car, pv_rcnn) at full width with seeded
+              weights, in a temporary working directory: kitti_synthetic
+              writes 16 train + 8 val frames of Car, Pedestrian and Cyclist,
+              tools.create_infos their infos and gt database. Per model: 4
+              requests of B=4 through eval_batches (bf16), fatal unless each
+              launches B1 3 times (proposal NMS, final NMS, recall) and the
+              tensor-core B2 once per sparse conv (12 for SECOND-IoU, 9 for
+              the SparseEncoder of the others); each served B1 and B2 call
+              held against its twin and timed; one fp32 request through the
+              kernels and through the twins. Then the train batches' gt,
+              made once from the seeded model's proposals (zoo.proposal_gt,
+              its forwards counted on a path of their own); one train
+              forward's B1 calls (the proposal NMS at (B, 9000, 9000), the
+              RoI targets' 3D IoU) held against the twin, each pair within
+              4 ulps of the square of its own largest coordinate, and
+              timed; one bf16 step's forward and dX B2 calls counted, the dX
+              calls checked to mirror the forwards, held and timed; one fp32
+              step through the kernels against the twins with the RoI
+              regression branch's gradient nonzero. 5 bf16 steps through
+              trainer.train_model (B=4, PV-RCNN B=2; gt sampling and the
+              world augmentations): fatal on a non-finite loss, a tensor
+              left unchanged, a first step without a RoI over REG_FG_THRESH, other
+              than 2 B1 and 2 x convs - 1 tensor-core B2 launches, or
+              the 99th percentile of its proposals beyond 10 x the
+              point-cloud range. Last, Voxel
+              R-CNN through tools.train (1 epoch) and tools.test on the
+              root, with their launch counts.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
-{"depth_train": {...}}, {"nuscenes": {...}} and {"kernels": [...]}; the
-last line is {"ok": true, "device": {...}}.
+{"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}} and
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -351,17 +379,23 @@ def corners(boxes):
     return gboxes.boxes_to_corners_bev(boxes).contiguous()
 
 
-def overlap_agreement(label, ca, cb, got):
-    """The kernel's output against the plain twin's: within KERNEL_TOL, and
-    exactly 0 (in both) wherever the cull predicate culls. Fatal on a miss.
-    Returns (entry, cull mask)."""
+def overlap_agreement(label, ca, cb, got, tol=KERNEL_TOL):
+    """The kernel's output against the plain twin's: within `tol` (a number,
+    or a tensor of one tolerance per pair), and exactly 0 (in both) wherever
+    the cull predicate culls. Fatal on a miss. Returns (entry, cull mask)."""
+    import torch
+
     from dfu3d_tpu_torch.core.geometry import iou_kernel
 
     want = iou_kernel.overlap_bev_plain(ca, cb)
     culled = iou_kernel.overlap_bev_cull_plain(ca, cb)
-    err = (got - want).abs().max().item()
-    if not err <= KERNEL_TOL:
-        fail(f"overlap kernel vs plain on {label} {tuple(got.shape)}: max |diff| {err}")
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if not bool((diff <= tol).all()):
+        worst = int((diff - tol).argmax())
+        tol_at = tol.flatten()[worst].item() if torch.is_tensor(tol) else tol
+        fail(f"overlap kernel vs plain on {label} {tuple(got.shape)}: max |diff| {err}, a pair "
+             f"off by {diff.flatten()[worst].item():.3g} where its tolerance is {tol_at:.3g}")
     if culled.any() and (got[culled].abs().max().item() != 0.0
                          or want[culled].abs().max().item() != 0.0):
         fail(f"overlap on {label}: a culled pair is not exactly 0 (kernel "
@@ -369,7 +403,7 @@ def overlap_agreement(label, ca, cb, got):
     return {"shape": list(got.shape), "max_abs_err": err}, culled
 
 
-def time_overlap(entry, ca, cb, got, culled, reps=25):
+def time_overlap(entry, ca, cb, got, culled, reps=25, plain_reps=None, warmup=3):
     """Kernel and plain times beside the bound of what these inputs need:
     the full arithmetic (OPS_PER_PAIR, and >= 3 surviving clipped edges of
     OPS_PER_LIVE_EDGE) for each pair that overlaps, none for the others
@@ -388,8 +422,9 @@ def time_overlap(entry, ca, cb, got, culled, reps=25):
     nbytes = 4 * (ca.numel() + cb.numel() + got.numel())
     ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     entry.update(
-        ms=time_ms(lambda: iou_kernel.overlap_bev(ca, cb), reps=reps),
-        plain_ms=time_ms(lambda: iou_kernel.overlap_bev_plain(ca, cb), reps=max(reps // 5, 3)),
+        ms=time_ms(lambda: iou_kernel.overlap_bev(ca, cb), reps=reps, warmup=warmup),
+        plain_ms=time_ms(lambda: iou_kernel.overlap_bev_plain(ca, cb),
+                         reps=plain_reps or max(reps // 5, 3), warmup=warmup),
         bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         ops=ops, bytes=nbytes, overlapping_pairs=overlapping,
         survivor_share=1.0 - culled.float().mean().item(),
@@ -772,9 +807,11 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
     with plain_twins(swaps):
         iou_p = orig_iou_bev(cand, cand)
     dense_head = cfg.MODEL.get("DENSE_HEAD") or {}
+    roi = cfg.MODEL.get("ROI_HEAD") or {}
     thresh = float(dense_head.POST_PROCESSING.NMS_CONFIG.NMS_THRESH
                    if "POST_PROCESSING" in dense_head
-                   else cfg.MODEL.ROI_HEAD.NMS_THRESH if "ROI_HEAD" in cfg.MODEL
+                   else roi.NMS_CONFIG.TEST.NMS_THRESH if "NMS_CONFIG" in roi
+                   else roi.NMS_THRESH if roi
                    else cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
     flips = int(((iou_k > thresh) != (iou_p > thresh)).sum())
     near = int(((iou_k - thresh).abs() < 1e-5).sum())
@@ -1044,14 +1081,23 @@ def time_train_dx(model, batch, device):
     if len(calls) != VOXEL_TRAIN_B2:
         fail(f"one voxel train step made {len(calls)} gather-GEMM calls, not {VOXEL_TRAIN_B2}")
     fwd, dx = calls[:len(GEMM_CONVS)], calls[len(GEMM_CONVS):]
-    # the backward runs the convs in reverse; conv_input's input needs no dX
-    for name, f, args in zip(GEMM_CONVS[::-1], fwd[::-1], dx):
+    check_dx_mirrors(GEMM_CONVS, fwd, dx)
+    return hold_gemm_calls("dX of one voxel train step", zip(GEMM_CONVS[::-1], dx))
+
+
+def check_dx_mirrors(convs, fwd, dx):
+    """Fatal unless each dX call mirrors its forward call: the backward runs
+    the convs (`convs`, forward order) in reverse, with the transposed
+    weights, and the first conv's input needs no dX."""
+    if len(fwd) != len(convs) or len(dx) != len(convs) - 1:
+        fail(f"{len(fwd)} forward and {len(dx)} dX gather-GEMM calls for the {len(convs)} "
+             f"convs {convs[0]} ... {convs[-1]}")
+    for name, f, args in zip(convs[::-1], fwd[::-1], dx):
         k, cin, cout = f[3].shape
         if tuple(args[3].shape) != (k, cout, cin) or args[0].shape != (f[0].shape[0],
                                                                        f[2].shape[1], cout):
             fail(f"dX launch for {name}: shapes {[tuple(a.shape) for a in args]} do not mirror "
                  f"its forward's {[tuple(a.shape) for a in f]}")
-    return hold_gemm_calls("dX of one voxel train step", zip(GEMM_CONVS[::-1], dx))
 
 
 def gather_gemm_plain_reversed(feats, valid, nbr, kernel):
@@ -1063,7 +1109,7 @@ def gather_gemm_plain_reversed(feats, valid, nbr, kernel):
                                 kernel.flip(0).contiguous())
 
 
-def check_train_paths(name, model, batch, swaps, device):
+def check_train_paths(name, model, batch, swaps, device, scales=False):
     """One fp32 train step (loss and gradients, no update) through the kernels
     against the same step through their plain twins (`swaps`: (module,
     kernel, plain)) from the same weights. The loss of the step all through
@@ -1134,9 +1180,12 @@ def check_train_paths(name, model, batch, swaps, device):
         fail(f"{name} fp32 train step: kernels vs plain twins differ (loss {rel:.3g} relative, "
              f"gradient {leaves[0][1]} {leaves[0][2]:.3g} of its largest entry where the "
              f"plain path's own rounding moves it {leaves[0][3]:.3g})")
-    return {"loss_rel_err": rel, "leaves_within_tol": within, "leaves": len(leaves),
-            "worst": [{"leaf": key, "kernel_vs_plain": err, "plain_vs_reversed": spread}
-                      for _, key, err, spread in leaves[:5]]}
+    out = {"loss_rel_err": rel, "leaves_within_tol": within, "leaves": len(leaves),
+           "worst": [{"leaf": key, "kernel_vs_plain": err, "plain_vs_reversed": spread}
+                     for _, key, err, spread in leaves[:5]]}
+    if scales:   # each leaf's largest |entry|
+        out["leaf_scales"] = {key: pg.abs().max().item() for key, pg in p_grads.items()}
+    return out
 
 
 def synthetic_kitti_root(base, class_names):
@@ -2213,16 +2262,23 @@ def pointrcnn_phase(device, card):
 
 POINTRCNN_TRAIN_STEPS = 5
 POINTRCNN_TRAIN_B1 = 2       # proposal NMS, RoI target IoU
-POINTRCNN_TRAIN_OVERLAPS = ("proposal_nms", "roi_target_iou")
+TRAIN_OVERLAPS = ("proposal_nms", "roi_target_iou")   # a two-stage train step's B1 calls
 POINTRCNN_UNIFORMS_SEED = 0  # the fp32 check's RoI sampler draws
 
 
-def pointrcnn_train_overlaps(model, batch, device):
-    """Each of one bf16 train step's B1 calls (the proposal NMS over
-    (4, 4096, 4096), the RoI targets' 3D IoU over (4, 128, G)), recorded
-    from a forward in train mode, held against the plain twin on its own
-    inputs (fatal on a miss) and timed beside its bound. The model's weights
-    and BN statistics are put back."""
+def train_overlaps(path, model, batch, device, coord_tol=False):
+    """Each of one bf16 train step's B1 calls (the proposal NMS, over (4,
+    4096, 4096) for PointRCNN and (B, 9000, 9000) for the two-stage voxel
+    detectors; the RoI targets' 3D IoU over (B, R, G)), recorded from a
+    forward in train mode, held against the plain twin on its own inputs
+    (fatal on a miss) and timed beside its bound (the twin 3 times: at
+    (4, 9000, 9000) it takes seconds). With `coord_tol` each pair's
+    tolerance is KERNEL_TOL or 4 ulps of the square of the pair's own
+    largest |coordinate|, whichever is larger: the shoelace sums' fp32
+    rounding grows with the squared coordinates, and some of the two-stage
+    proposals reach hundreds of metres, while a pair of boxes within the
+    point-cloud range keeps a tolerance near KERNEL_TOL. The model's
+    weights and BN statistics are put back."""
     import torch
 
     from dfu3d_tpu_torch.core.geometry import iou_kernel
@@ -2244,17 +2300,31 @@ def pointrcnn_train_overlaps(model, batch, device):
         iou_kernel.overlap_bev = kernel_fn
         model.load_state_dict(weights)
     torch.cuda.synchronize()
-    if len(calls) != POINTRCNN_TRAIN_B1:
-        fail(f"one PointRCNN train forward made {len(calls)} B1 calls, not "
-             f"{POINTRCNN_TRAIN_B1} ({', '.join(POINTRCNN_TRAIN_OVERLAPS)})")
+    if len(calls) != len(TRAIN_OVERLAPS):
+        fail(f"one {path} train forward made {len(calls)} B1 calls, not {len(TRAIN_OVERLAPS)} "
+             f"({', '.join(TRAIN_OVERLAPS)})")
     entries = []
-    for name, (ca, cb) in zip(POINTRCNN_TRAIN_OVERLAPS, calls):
+    for name, (ca, cb) in zip(TRAIN_OVERLAPS, calls):
         got = iou_kernel.overlap_bev(ca, cb)
         torch.cuda.synchronize()
-        entry, culled = overlap_agreement(f"pointrcnn train {name}", ca, cb, got)
-        entry = {"path": "pointrcnn_train", "problem": name, **entry}
-        entries.append(time_overlap(entry, ca, cb, got, culled, reps=10))
-        log(overlap_line(f"pointrcnn train {name}", entry))
+        coord = max(ca.abs().max().item(), cb.abs().max().item())
+        tol = KERNEL_TOL
+        if coord_tol:
+            sa, sb = ca.abs().flatten(2).amax(-1), cb.abs().flatten(2).amax(-1)
+            scale = torch.maximum(sa[:, :, None], sb[:, None, :])
+            tol = (4 * 2.0 ** -23 * scale * scale).clamp_min(KERNEL_TOL)
+            del scale
+        entry, culled = overlap_agreement(f"{path} train {name}", ca, cb, got, tol)
+        tols = {"tol_max": tol.max().item(),
+                "share_of_pairs_over_kernel_tol": (tol > KERNEL_TOL).float().mean().item()} \
+            if coord_tol else {"tol_max": tol, "share_of_pairs_over_kernel_tol": 0.0}
+        entry = {"path": f"{path}_train", "problem": name, **entry, "max_abs_coord": coord,
+                 **tols}
+        entries.append(time_overlap(entry, ca, cb, got, culled, reps=10, plain_reps=3, warmup=1))
+        del got, culled, tol
+        log(overlap_line(f"{path} train {name}", entry) + f"; largest |coordinate| "
+            f"{coord:.1f} m, per-pair tolerance up to {tols['tol_max']:.3g} m^2, above "
+            f"{KERNEL_TOL:g} m^2 on {tols['share_of_pairs_over_kernel_tol']:.4%} of the pairs")
     return entries
 
 
@@ -2546,7 +2616,7 @@ def pointrcnn_train_phase(device, card):
                 fail(f"PointRCNN train steps {bad} did not launch B1 exactly "
                      f"{POINTRCNN_TRAIN_B1} times and B2 never: {launches}")
             gt_batch = proposal_gt(model, batches[0], torch.bfloat16)
-            b1 = timed("b1_train", pointrcnn_train_overlaps, model, gt_batch, device)
+            b1 = timed("b1_train", train_overlaps, "pointrcnn", model, gt_batch, device)
             check = timed("fp32_check", check_pointrcnn_train_paths, model, batches[0], device)
             profile = timed("profile", pointrcnn_train_profile, model, state,
                             [proposal_gt(model, b, torch.bfloat16) for b in batches[:3]], device)
@@ -3224,6 +3294,460 @@ def nuscenes_phase(device, card):
     return summary, launches, served_iou, served_b2, train_dx
 
 
+TWO_STAGE_REQUESTS = 4                     # B=4 each
+TWO_STAGE_TRAIN_STEPS = 5
+TWO_STAGE_FRAMES = (16, 8)                 # phase 14's synthetic KITTI root: train, val
+TWO_STAGE_CLASSES = ("Car", "Pedestrian", "Cyclist")
+TWO_STAGE_B1_PER_BATCH = 3                 # proposal NMS, final NMS, recall
+TWO_STAGE_B1_PER_STEP = 2                  # proposal NMS, the RoI targets' 3D IoU
+ENCODER_CONVS = ["conv_in", "conv1", "down2", "down2_refine", "down3", "down3_refine", "down4",
+                 "down4_refine", "conv_out"]   # SparseEncoder, forward order
+TWO_STAGE_CONVS = {"second_iou": VOXEL8X_CONVS, "voxel_rcnn": ENCODER_CONVS,
+                   "pv_rcnn": ENCODER_CONVS}   # phase 14's models, in the order it runs them
+# the RoI head's regression branch, which the fp32 train check requires a
+# gradient on (SECOND-IoU has only its IoU branch)
+TWO_STAGE_REG = {"second_iou": ("iou_fc.",), "voxel_rcnn": ("reg_fc.", "reg_pred."),
+                 "pv_rcnn": ("reg_fc.",)}
+# the 99th percentile of a train step's proposals' largest |corner
+# coordinate| may reach this many times the point-cloud range's largest
+# |coordinate|: it stays within 0.7-1.03 times it over 5 steps, while a
+# single box of a step's 9000 may reach 130 times it (exp of its size
+# codes) and a later step's largest fall back to 1.1 times; a loop that
+# fed the RPN its own proposals as gt sent them 7e6 times it away in 5 steps
+TWO_STAGE_EXTENT_FACTOR = 10
+
+
+def two_stage_cfg_file(name):
+    """A phase 14 model's config, as its work dir (cfgs/ -> tools/cfgs/)
+    names it."""
+    from dfu3d_tpu_torch.zoo import TWO_STAGE_CFGS
+
+    return f"cfgs/kitti_models/{TWO_STAGE_CFGS[name]}"
+
+
+def compact_gemm(entries):
+    """[conv, shape, ms, plain_ms, library_ms, bound_ms] of hold_gemm_calls'
+    entries."""
+    return [[e["conv"], e["shape"], *(round(e[k], 5) for k in ("ms", "plain_ms", "library_ms",
+                                                                 "bound_ms"))]
+            for e in entries]
+
+
+def two_stage_root(work):
+    """Phase 14's data: a synthetic KITTI root (kitti_synthetic at its
+    defaults: 40,000-60,000 points in the camera frustum, 20-40 boxes of
+    Car, Pedestrian and Cyclist) of TWO_STAGE_FRAMES, its infos and the
+    train split's gt database under the name the KITTI configs' gt sampling
+    reads (tools.create_infos)."""
+    from dfu3d_tpu_torch.data import kitti_synthetic
+    from dfu3d_tpu_torch.tools import create_infos
+
+    root = work / "data" / "kitti"
+    kitti_synthetic.write_root(root, *TWO_STAGE_FRAMES, list(TWO_STAGE_CLASSES), seed=14)
+    # the three-class config: its gt database holds every class
+    out = create_infos.main(["--cfg_file", two_stage_cfg_file("second_iou"), "--data_path",
+                             str(root)])
+    infos = {Path(p).stem.rsplit("_", 1)[-1]: Path(p) for p in out["infos"]}
+    if Path(out["dbinfos"]).name != "kitti_dbinfos_train.pkl" or set(infos) != {"train", "val"}:
+        fail(f"tools.create_infos on phase 14's root wrote {out}")
+    return root, infos
+
+
+def two_stage_serve(name, model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts and the peak read.
+    Fatal unless every request launched B1 TWO_STAGE_B1_PER_BATCH times and
+    the tensor-core B2 once per sparse conv, and no CUDA-core B2, or on a
+    non-finite, misshapen or empty output. Returns (EvalResult, launches,
+    summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n, convs = len(batches), len(TWO_STAGE_CONVS[name])
+    post_max = int(model.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if boxes.shape[:2] != (4, min(post_max, model.proposal_nms["post_max"])) or \
+                not torch.isfinite(boxes).all() or not torch.isfinite(scores).all() or \
+                not valid.any(dim=1).all():
+            fail(f"{name} request {k}: boxes {tuple(boxes.shape)}, finite "
+                 f"{bool(torch.isfinite(boxes).all())}, kept per frame {valid.sum(1).tolist()}")
+    if launches["iou_bev_overlap"] != TWO_STAGE_B1_PER_BATCH * n or \
+            launches["gather_gemm_tensor_core"] != convs * n or launches["gather_gemm_cuda_core"]:
+        fail(f"{name} serving: kernel launches {launches} for {n} requests, not "
+             f"{TWO_STAGE_B1_PER_BATCH} B1 and {convs} tensor-core B2 per request")
+    ms = [s * 1e3 for s in res.batch_seconds]
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
+               "recall": res.metric, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    log(f"[two_stage] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
+        f"{summary['kept_per_frame']}; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}")
+    return res, launches, summary
+
+
+def two_stage_profile(tag, model, run, batches, optimizer=None):
+    """profile_serve.two_stage_profile over the batches (the spans' medians,
+    PV-RCNN's FPS share, the keep-scan's iterations) and the card's busy
+    and idle share over one step (torch.profiler, deferred to the end)."""
+    from dfu3d_tpu_torch import profile_serve
+
+    out = profile_serve.two_stage_profile(model, run, batches, optimizer)
+    out["device_time"] = defer_device_profile(tag, lambda: run(batches[0]))
+    ph = out["phase_ms"]
+    log(f"[two_stage] {tag} instrumented step {ph['step']:.2f} ms; spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:12])
+        + (f"; FPS share {out['fps_share']:.1%}" if "fps_share" in out else "")
+        + f"; keep-scan iterations {[c['iterations'] for c in out['keep_scan']]}")
+    return out
+
+
+def check_two_stage_train_paths(name, model, batch, device):
+    """One fp32 train step of the two-stage model through the kernels
+    against the same through their plain twins, the batch with
+    `zoo.proposal_gt`'s gt and the RoI sampler's uniforms from a generator
+    seeded 0 in every run. B1 alone first: the train forward through B1 and
+    through its twin (B2 through the kernel in both; B1 has no backward and
+    enters only the NMS keep decisions and the targets' IoUs) must sample
+    the same RoIs, with RoIs over REG_FG_THRESH, and give the loss within
+    TRAIN_LOSS_TOL relative. Then B2 (`check_train_paths`): the loss of the
+    forward through B2's twin within TRAIN_LOSS_TOL relative, each gradient
+    with B2's dX through the kernel or the twin within TRAIN_GRAD_TOL of its
+    largest entry (or 4x the twin's reordering spread), and no leaf all
+    zero, the RoI head's regression branch among them. The twin's fp32 sums
+    reorder near-tied RPN scores, and the RoIs sampled from those differ:
+    B2's runs go on with the RoIs of the first (kernel) run, and how many
+    of them sampled the same on their own is reported."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.models import roi_head
+    from dfu3d_tpu_torch.zoo import proposal_gt
+
+    batch = proposal_gt(model, batch.to(device))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sampled, fg, targets_fn = [], [], roi_head.assign_roi_targets
+
+    def recording(*a, **k):
+        out = targets_fn(*a, **k)
+        sampled.append(out["sampled_idx"].clone())
+        fg.append(int(out["reg_valid_mask"].sum()))
+        return out
+
+    def forward(plain_b1):
+        with plain_twins([(iou_kernel, "overlap_bev", "overlap_bev_plain")] if plain_b1 else []):
+            model.load_state_dict(weights)
+            model.train()
+            with torch.no_grad():
+                loss, _ = model(batch)
+        return loss.item()
+
+    replay = []
+
+    def replaying(*a, **k):
+        # B2's runs: each samples its own RoIs (kept for the report) and
+        # goes on with the first run's, so that the loss and the gradients
+        # compare the same RoIs
+        out = targets_fn(*a, **k)
+        sampled.append(out["sampled_idx"].clone())
+        replay.append(replay[0] if replay else out)
+        return replay[0]
+
+    roi_head.assign_roi_targets = recording
+    try:
+        k_loss, p_loss = forward(False), forward(True)
+        b1_sampled, b1_fg = sampled[:2], fg[:2]
+        sampled.clear()
+        roi_head.assign_roi_targets = replaying
+        check = check_train_paths(
+            name, model, batch, [(gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")],
+            device, scales=True)
+    finally:
+        roi_head.assign_roi_targets = targets_fn
+    model.load_state_dict(weights)
+    model.zero_grad(set_to_none=True)
+    b1_rel = abs(k_loss - p_loss) / abs(p_loss)
+    if not b1_sampled[0].equal(b1_sampled[1]) or not min(b1_fg) > 0 or \
+            not b1_rel <= TRAIN_LOSS_TOL:
+        fail(f"{name} fp32 train forward, B1 vs its twin: sampled RoIs equal "
+             f"{b1_sampled[0].equal(b1_sampled[1])}, over REG_FG_THRESH {b1_fg}, loss "
+             f"{b1_rel:.3g} relative")
+    reg = {k: v for k, v in check.pop("leaf_scales").items()
+           if k.startswith(TWO_STAGE_REG[name])}
+    b2_equal = sum(s.equal(sampled[0]) for s in sampled)
+    check.update(b1_loss_rel_err=b1_rel, b1_sampled_rois_equal=True, fg_rois=b1_fg[0],
+                 b2_runs_sampling_as_the_kernels=f"{b2_equal} of {len(sampled)}",
+                 reg_branch_grad_max=reg)
+    log(f"[two_stage] {name} fp32 train step: B1 vs its twin samples the same "
+        f"{b1_sampled[0].numel()} RoIs ({b1_fg[0]} over REG_FG_THRESH), loss {b1_rel:.2e} "
+        f"relative; B2's runs sampling as the kernel run: {b2_equal} of {len(sampled)}; the "
+        f"regression branch's leaves all nonzero, largest entries "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in reg.items()})}")
+    return check
+
+
+def two_stage_cli(root, device):
+    """Voxel R-CNN (voxel_rcnn_car.yaml) from disk: tools.train for 1 epoch
+    (TWO_STAGE_FRAMES[0] frames, B=4, gt sampling and the world
+    augmentations, bf16) and tools.test --ckpt of its checkpoint on the val
+    split; fatal on a non-finite loss, no checkpoint, a train step that does
+    not launch B1 twice and the tensor-core B2 17 times, an eval batch that
+    does not launch B1 3 times and B2 9 times, a missing KITTI txt or no Car
+    in the AP_DICT."""
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    cfg_file = two_stage_cfg_file("voxel_rcnn")
+    common = ["--cfg_file", cfg_file, "--workers", str(LOADER_WORKERS), "--extra_tag",
+              "chip_smoke"]
+    data_path = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    b2_step = 2 * len(ENCODER_CONVS) - 1
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = train_cli.main([*common, "--epochs", "1", *data_path])
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    (epoch,) = trained["epochs"]
+    ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    if not epoch["steps"] or not all(math.isfinite(v) for v in epoch["losses"]) or \
+            not ckpt.exists():
+        fail(f"tools.train {cfg_file}: {epoch}, checkpoint {ckpt.exists()}")
+    if train_launches["iou_bev_overlap"] != TWO_STAGE_B1_PER_STEP * epoch["steps"] or \
+            train_launches["gather_gemm_tensor_core"] != b2_step * epoch["steps"] or \
+            train_launches["gather_gemm_cuda_core"]:
+        fail(f"tools.train {cfg_file}: kernel launches {train_launches}, not B1 "
+             f"{TWO_STAGE_B1_PER_STEP} and tensor-core B2 {b2_step} per step ({epoch['steps']})")
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, result_dir, res),) = test_cli.main([*common, "--ckpt", str(ckpt), "--save_to_file",
+                                             *data_path])
+    test_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+    batches = res["eval_batches"]
+    if txts != TWO_STAGE_FRAMES[1] or "Car_3d/moderate_R40" not in res or \
+            eval_launches["iou_bev_overlap"] != TWO_STAGE_B1_PER_BATCH * batches or \
+            eval_launches["gather_gemm_tensor_core"] != len(ENCODER_CONVS) * batches:
+        fail(f"tools.test {cfg_file}: {txts} txts for {TWO_STAGE_FRAMES[1]} val frames, AP keys "
+             f"{[k for k in res if '_3d/' in k][:3]}, kernel launches {eval_launches} for "
+             f"{batches} batches")
+    log(f"[two_stage] voxel_rcnn from disk: tools.train {epoch['steps']} steps, losses "
+        f"{[round(v, 4) for v in epoch['losses']]}, "
+        f"{epoch['batch_time'] / epoch['steps'] * 1e3:.1f} ms per step host clock, "
+        f"{train_s:.2f} s in all, launches {json.dumps(train_launches)}; tools.test "
+        f"{res['num_frames']} frames in {batches} batches, {txts} KITTI txts, "
+        f"{test_s:.2f} s, Car 3D moderate R40 {res['Car_3d/moderate_R40']:.2f}, launches "
+        f"{json.dumps(eval_launches)}")
+    return ({"config": cfg_file.replace("cfgs/", "tools/cfgs/", 1),
+             "train": {**epoch, "ms_per_step": epoch["batch_time"] / epoch["steps"] * 1e3,
+                       "seconds": train_s, "launches": train_launches},
+             "eval": {"sec_per_example": res["sec_per_example"], "eval_batches": batches,
+                      "num_frames": res["num_frames"], "txts": txts, "seconds": test_s,
+                      "launches": eval_launches,
+                      "car_3d_moderate_R40": res["Car_3d/moderate_R40"]}},
+            train_launches, eval_launches)
+
+
+def two_stage_model(name, root, infos, device, card):
+    """Phase 14 for one model: serving (launches, ms, peak memory, spans,
+    the served B1 and B2 calls held and timed, the fp32 request through the
+    kernels and through the twins), then at the seeded weights the train
+    batches' gt (made once from the seeded model's proposals), the train
+    forward's B1 calls held, the dX calls checked, held and timed and the
+    fp32 step through the kernels and through the twins, then training (5
+    bf16 steps through train_model on those batches, each step's proposal
+    extent, spans). Returns (summary, launches by path, served B1 entries,
+    train B1 entries, (served B2 totals, entries), (dX totals, entries))."""
+    import torch
+
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.profile_serve import _run
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    build = getattr(zoo, name)
+    convs = TWO_STAGE_CONVS[name]
+    seconds, launches = {}, {}
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    batches = zoo.kitti_batches(cfg, root, infos["val"], TWO_STAGE_REQUESTS, 4)
+    seconds["setup_serve"] = time.perf_counter() - t0
+    log(f"[two_stage] {name}: {cfg.MODEL.NAME} {'x'.join(map(str, grid.grid_size))} grid, "
+        f"max_voxels {model.vfe.max_voxels}, {model.anchors_flat.shape[0]} anchors per frame, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; points per request "
+        f"{[b.points_valid.sum(1).tolist() for b in batches]}")
+
+    t0 = time.perf_counter()
+    res, launches[name], serve = two_stage_serve(name, model, batches, device)
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    serve["profile"] = two_stage_profile(name, model, lambda b: _run(step, b), batches)
+    served_b1 = time_served_overlaps(name, model, batches[0], device,
+                                     ("proposal_nms", "final_nms", "recall"))
+    calls = record_gemm_calls(lambda: step(batches[0]))
+    if len(calls) != len(convs):
+        fail(f"one {name} eval step made {len(calls)} gather-GEMM calls, not {len(convs)}")
+    served_b2 = hold_gemm_calls(f"{name}, one served request", zip(convs, calls))
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    serve["fp32_check"] = check_paths(name, model, cfg, batches[0], res.preds[0], swaps, device)
+    seconds["serve"] = time.perf_counter() - t0
+    del res   # the model and its step stay for the deferred device profile
+
+    t0 = time.perf_counter()
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = zoo.kitti_batches(cfg, root, infos["train"], TWO_STAGE_TRAIN_STEPS, b,
+                                 training=True)
+    b2_step = 2 * len(convs) - 1
+
+    # every train batch's gt (zoo.proposal_gt), made once from the seeded
+    # model, so that no step trains on its own proposals; its forwards'
+    # launches are a path of their own
+    _, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    reset_launches()
+    gt_batches = [zoo.proposal_gt(model, bt, torch.bfloat16) for bt in tbatches]
+    launches[f"{name}_gt"] = read_launches()
+    train_b1 = train_overlaps(name, model, gt_batches[0], device, coord_tol=True)
+
+    # one bf16 step's forward and backward B2 calls, recorded apart
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = []
+
+    def bf16_forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss.append(model(gt_batches[0].to(device))[0])
+
+    fwd = record_gemm_calls(bf16_forward)
+    dx = record_gemm_calls(lambda: loss[0].backward())
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(weights)
+    check_dx_mirrors(convs, fwd, dx)
+    b2_split = {"forward": len(fwd), "dx": len(dx)}
+    train_dx = hold_gemm_calls(f"dX of one {name} train step", zip(convs[::-1], dx))
+    check = check_two_stage_train_paths(name, model, tbatches[0], device)
+    del model, loss, fwd, dx
+
+    # each step's proposals, read from the corners of its proposal NMS (the
+    # first of its B1 calls)
+    reach = max(abs(float(v)) for v in cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    extents, b1_fn = [], iou_kernel.overlap_bev
+
+    def measuring(ca, cb):
+        # per proposal its largest |corner coordinate|: the largest, the
+        # 99th percentile, the share beyond the range
+        e = ca.detach().abs().amax(dim=(2, 3)).flatten().float()
+        extents.append(torch.stack([e.max(), torch.quantile(e, 0.99), (e > reach).float().mean()]))
+        return b1_fn(ca, cb)
+
+    torch.cuda.reset_peak_memory_stats()
+    iou_kernel.overlap_bev = measuring
+    try:
+        model, launches[f"{name}_train"], steps, state = train(name, build, gt_batches, device)
+    finally:
+        iou_kernel.overlap_bev = b1_fn
+    peak = torch.cuda.max_memory_allocated()
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != TWO_STAGE_B1_PER_STEP
+           or s["gather_gemm_tensor_core"] != b2_step or s["gather_gemm_cuda_core"]]
+    # the first step runs the seeded weights that made the gt, so it has a
+    # RoI over REG_FG_THRESH; later steps' models propose elsewhere at times
+    fg_steps = [s["it"] for s in steps if name == "second_iou" or s["rcnn_reg_loss"] > 0]
+    if bad or steps[0]["it"] not in fg_steps:
+        fail(f"{name} train steps {bad} did not launch B1 {TWO_STAGE_B1_PER_STEP} times and the "
+             f"tensor-core B2 {b2_step} times, or the first step had no RoI over "
+             f"REG_FG_THRESH (steps with one: {fg_steps})")
+    for st, extent in zip(steps, extents[::TWO_STAGE_B1_PER_STEP]):
+        st["proposal_extent_m"], st["proposal_extent_p99_m"], st["proposals_beyond_range"] = \
+            extent.tolist()
+    log(f"[two_stage] {name} train steps' proposals reach (largest, 99th percentile, share "
+        f"beyond the range's {reach} m) "
+        + ", ".join(f"{st['proposal_extent_m']:.1f} / {st['proposal_extent_p99_m']:.1f} m / "
+                    f"{st['proposals_beyond_range']:.4f}" for st in steps)
+        + f"; steps with a RoI over REG_FG_THRESH: {fg_steps}")
+    far = [(st["it"], st["proposal_extent_p99_m"]) for st in steps
+           if not st["proposal_extent_p99_m"] <= TWO_STAGE_EXTENT_FACTOR * reach]
+    if far:
+        fail(f"{name} training ran away: the 99th percentile of steps' proposals reaches "
+             f"(step, m) {far}, beyond {TWO_STAGE_EXTENT_FACTOR} x the point-cloud range's "
+             f"{reach} m")
+    tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+    profile = two_stage_profile(f"{name}_train", model, lambda bt: float(tstep(bt)["loss"]),
+                                gt_batches[:3], state.optimizer)
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary = {
+        "config": f"tools/{two_stage_cfg_file(name)}", "card": card,
+        "serve": {**serve, "b1_served": [{k: e[k] for k in (
+            "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "survivor_share",
+            "overlapping_share")} for e in served_b1],
+                  "b2_served": {**served_b2[0], "per_conv": compact_gemm(served_b2[1])}},
+        "train": {"batch": b, "steps": steps, "ms_per_step": {"median": statistics.median(ms),
+                                                              "all": ms},
+                  "samples_per_s": b / (statistics.median(ms) / 1e3),
+                  "peak_memory_gib": peak / 2 ** 30, "launches": launches[f"{name}_train"],
+                  "gt_launches": launches[f"{name}_gt"], "steps_with_fg_rois": fg_steps,
+                  "b2_launches_per_step": {
+                      **b2_split, "steps": sorted({st["gather_gemm_tensor_core"]
+                                                   for st in steps})},
+                  "b1_train": train_b1,
+                  "b2_dx": {**train_dx[0], "per_conv": compact_gemm(train_dx[1])},
+                  "fp32_check": check,
+                  "profile": profile},
+        "phase_seconds": seconds}
+    log(f"[two_stage] {name} training: B={b}, median {statistics.median(ms):.2f} ms per step "
+        f"({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+        f"{summary['train']['peak_memory_gib']:.2f} GiB; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    return summary, launches, served_b1, train_b1, served_b2, train_dx
+
+
+def two_stage_phase(device, card):
+    """Phase 14: SECOND-IoU, Voxel R-CNN and PV-RCNN on their KITTI configs
+    at full width with seeded weights, in a temporary working directory
+    whose cfgs/ links to tools/cfgs/. Returns (summary, launches by path,
+    served B1 entries, train B1 entries, B2 served and dX (totals, entries)
+    by model)."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            root, infos = two_stage_root(work)
+            summary = {"data_seconds": time.perf_counter() - t0, "card": card}
+            launches, served_b1, train_b1, b2 = {}, [], [], {}
+            for name in TWO_STAGE_CONVS:
+                out = two_stage_model(name, root, infos, device, card)
+                summary[name] = out[0]
+                launches.update(out[1])
+                served_b1 += out[2]
+                train_b1 += out[3]
+                b2[name] = {"served": out[4], "dx": out[5]}
+            summary["voxel_rcnn_cli"], launches["voxel_rcnn_cli_train"], \
+                launches["voxel_rcnn_cli_eval"] = two_stage_cli(root, device)
+        finally:
+            os.chdir(cwd)
+    return summary, launches, served_b1, train_b1, b2
+
+
 def main():
     import torch
 
@@ -3371,7 +3895,14 @@ def main():
     nusc_b1 = sum(v["iou_bev_overlap"] for v in nusc_launches.values())
     nusc_b2 = sum(v["gather_gemm"] for v in nusc_launches.values())
 
-    # the device profiles of phases 10-12, after every host-clock reading
+    # 14. the two-stage voxel detectors (SECOND-IoU, Voxel R-CNN, PV-RCNN) on KITTI
+    two_summary, two_launches, two_b1_served, two_b1_train, two_b2 = two_stage_phase(device,
+                                                                                   card)
+    served_iou += two_b1_served
+    two_b1 = sum(v["iou_bev_overlap"] for v in two_launches.values())
+    two_b2_n = sum(v["gather_gemm"] for v in two_launches.values())
+
+    # the device profiles of phases 10-14, after every host-clock reading
     run_deferred_profiles()
     cspn = depth_summary["cspn_fwd_bwd_device_ms"]
     for tag, prof in depth_summary["device"].items():
@@ -3396,7 +3927,7 @@ def main():
                      + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
-                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1),
+                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -3415,13 +3946,17 @@ def main():
                              **{f"depth_{k}": v["iou_bev_overlap"]
                                 for k, v in depth_launches.items()},
                              **{f"nuscenes_{k}": v["iou_bev_overlap"]
-                                for k, v in nusc_launches.items()}},
+                                for k, v in nusc_launches.items()},
+                             **{f"two_stage_{k}": v["iou_bev_overlap"]
+                                for k, v in two_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
-                              for st in nusc_summary["second_train"]["steps"]})},
+                              for st in nusc_summary["second_train"]["steps"]}),
+            **{name: sorted({st["iou_bev_overlap"] for st in two_summary[name]["train"]["steps"]})
+               for name in TWO_STAGE_CONVS}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
-                                        for e in served_iou + prcnn_train_b1]),
+                                        for e in served_iou + prcnn_train_b1 + two_b1_train]),
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
@@ -3440,6 +3975,7 @@ def main():
         "pointrcnn_proposal_nms": {k: prcnn_nms[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ops", "bytes",
             "survivor_share", "overlapping_share", "share_of_bound", "bound_all_pairs_ms")},
+        "two_stage_train": two_b1_train,
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -3447,7 +3983,7 @@ def main():
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
-                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2),
+                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -3463,11 +3999,14 @@ def main():
                              "pointrcnn_evolve": prcnn_evolve["gather_gemm"],
                              **{f"depth_{k}": v["gather_gemm"] for k, v in depth_launches.items()},
                              **{f"nuscenes_{k}": v["gather_gemm"]
-                                for k, v in nusc_launches.items()}},
+                                for k, v in nusc_launches.items()},
+                             **{f"two_stage_{k}": v["gather_gemm"]
+                                for k, v in two_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in nusc_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in two_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -3509,6 +4048,14 @@ def main():
                                **nusc_served_b2[0], "per_conv": nusc_served_b2[1]},
             "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
                          **nusc_dx[0], "per_conv": nusc_dx[1]}},
+        "two_stage": {
+            name: {"model": f"{two_stage_cfg_file(name)[5:]} at full width, bf16",
+                   "train_launches_per_step": two_summary[name]["train"]["b2_launches_per_step"],
+                   "served_request": {"unit": "one served bf16 request, summed",
+                                      **two_b2[name]["served"][0]},
+                   "train_dx": {"unit": "one bf16 train step's dX launches, summed",
+                                **two_b2[name]["dx"][0]}}
+            for name in TWO_STAGE_CONVS},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -3520,6 +4067,7 @@ def main():
     log(json.dumps({"pointrcnn_train": prcnn_train_summary}, default=str))
     log(json.dumps({"depth_train": depth_summary}, default=str))
     log(json.dumps({"nuscenes": nusc_summary}, default=str))
+    log(json.dumps({"two_stage": two_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

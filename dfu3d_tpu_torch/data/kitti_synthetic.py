@@ -36,7 +36,7 @@ CLASS_DIMS = {
     "Car": (4.6, 1.9, 1.7), "Truck": (7.0, 2.5, 2.9), "Construction_vehicle": (6.4, 2.8, 3.1),
     "Bus": (11.0, 2.9, 3.5), "Trailer": (10.0, 2.5, 3.7), "Barrier": (0.5, 2.5, 1.0),
     "Motorcycle": (2.1, 0.8, 1.5), "Bicycle": (1.7, 0.6, 1.3), "Pedestrian": (0.7, 0.7, 1.75),
-    "Traffic_cone": (0.4, 0.4, 1.0),
+    "Traffic_cone": (0.4, 0.4, 1.0), "Cyclist": (1.76, 0.6, 1.73),
 }
 
 

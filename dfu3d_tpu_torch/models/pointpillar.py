@@ -125,10 +125,9 @@ class AnchorDetectorBase(nn.Module):
                              torch.cat(targets, dim=3).reshape(b, -1, 7),
                              torch.cat(weights, dim=3).reshape(b, -1))
 
-    def forward(self, batch, sampler=None, dropout=None):
-        """Train: (loss, {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss}).
-        The train step's `sampler` and `dropout` generators are not used."""
-        preds = self.features(batch)
+    def rpn_loss(self, preds, batch):
+        """The head's loss on its predictions: (total, {rpn_loss_cls,
+        rpn_loss_loc, rpn_loss_dir, rpn_loss})."""
         targets = self.assign_targets(batch.gt_boxes, batch.gt_valid)
         dh = self.model_cfg.DENSE_HEAD
         lw = dh.LOSS_CONFIG.LOSS_WEIGHTS
@@ -139,16 +138,24 @@ class AnchorDetectorBase(nn.Module):
              "code_weights": lw.get("code_weights", None)},
             dir_offset=dh.get("DIR_OFFSET", 0.78539), num_dir_bins=dh.get("NUM_DIR_BINS", 2))
 
+    def forward(self, batch, sampler=None, dropout=None):
+        """Train: (loss, {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss}).
+        The train step's `sampler` and `dropout` generators are not used."""
+        return self.rpn_loss(self.features(batch), batch)
+
+    def decode(self, preds):
+        """Decoded boxes (B, A, 7) and class scores (B, A, num_class)."""
+        dh = self.model_cfg.DENSE_HEAD
+        return decode_anchor_predictions(
+            preds, self.anchors_flat, len(self.class_names),
+            dir_offset=dh.get("DIR_OFFSET", 0.78539), num_dir_bins=dh.get("NUM_DIR_BINS", 2))
+
     def predict(self, batch):
         """Eval: decode, then class-agnostic rotated NMS per frame, all frames
         in one batched `nms_bev` (detector3d_template.post_processing's
         default path). Returns (boxes (B, S, 7), scores (B, S), labels (B, S)
         1-based, valid (B, S)), S = NMS_POST_MAXSIZE."""
-        dh = self.model_cfg.DENSE_HEAD
-        preds = self.features(batch)
-        boxes, cls_scores = decode_anchor_predictions(
-            preds, self.anchors_flat, len(self.class_names),
-            dir_offset=dh.get("DIR_OFFSET", 0.78539), num_dir_bins=dh.get("NUM_DIR_BINS", 2))
+        boxes, cls_scores = self.decode(self.features(batch))
         pp = self.model_cfg.POST_PROCESSING
         nms_cfg = pp.NMS_CONFIG
         max_scores = cls_scores.amax(dim=-1)

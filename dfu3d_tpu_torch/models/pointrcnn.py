@@ -31,6 +31,7 @@ from ..core import pointnet2 as P
 from ..core.geometry.boxes import enlarge_box3d, points_in_boxes, rotate_points_along_z
 from ..train import torch_convert
 from . import roi_head
+from .roi_head import draw_roi_uniforms
 from .losses import sigmoid_focal_loss, weighted_smooth_l1
 from .pointnet2_backbone import PointNet2MSG, SharedMLP, masked_max
 from .vfe import MaskedBatchNorm
@@ -94,15 +95,6 @@ def assign_point_targets(points_xyz, points_valid, gt_boxes, gt_valid,
     labels = torch.where(any_in, matched[..., -1].to(torch.int64), 0)
     labels = torch.where(any_ext & ~any_in, -1, labels)
     return torch.where(points_valid, labels, -1), matched
-
-
-def draw_roi_uniforms(generator, shape, device):
-    """The proposal target layer's draws, (B, 2, P) uniforms in [0, 1), from
-    `generator` (a generator seeded 0 when None, as JAX's PRNGKey(0) when
-    no "sampler" rng is given)."""
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    return torch.rand(shape, generator=generator, device=device)
 
 
 class PointHeadBox(nn.Module):

@@ -13,8 +13,14 @@ target_assigner/proposal_target_layer.py):
   (roi_head_template.py:136-231);
 - `generate_predicted_boxes` — the canonical decode (roi_head_template.py:233-261);
 - `final_nms`                — post-processing NMS over the refined boxes;
-- `FCStack`                  — make_fc_layers (roi_head_template.py:29-43),
-  with its dropout after block 0 in training.
+- `dense_grid_points` / `global_grid_points` — the RoI grid points in the
+  reference's order (x slowest, z fastest);
+- `FCStack`                  — make_fc_layers (roi_head_template.py:29-43,
+  `make_fc_stack`: dropout after block 0 and a biased pred layer) and the
+  per-head shared_fc_layer (`shared_fc_stack`: dropout between blocks, no
+  pred layer);
+- `NeighborVoxelSA`          — Voxel R-CNN's grid pooling from one voxel
+  stage (voxel_pool_modules.NeighborVoxelSAModuleMSG, single scale).
 
 Both NMS steps and the RoI targets' 3D IoU take every frame of the batch at
 once, so each is one launch of the overlap kernel (B1): (B, N, N) through
@@ -36,8 +42,10 @@ from ..core.geometry.boxes import boxes_to_corners_3d, rotate_points_along_z
 from ..core.geometry.iou import pairwise_iou3d
 from ..core.geometry.nms import nms_bev
 from .anchor_head import decode_boxes, encode_boxes
+from ..core import pointnet2 as P
 from .backbone_2d import BatchNorm
 from .losses import bce_with_logits
+from .vfe import MaskedBatchNorm
 
 PI = 3.141592653589793
 
@@ -57,6 +65,24 @@ def resolve_nms_cfg(roi_cfg, train: bool) -> dict:
                                          roi_cfg.get("NMS_POST_MAXSIZE_TEST", 100))),
                 thresh=float(roi_cfg.get("NMS_THRESH", 0.7)),
                 score_thresh=None)
+
+
+def dense_grid_points(rois, grid_size: int):
+    """rois (..., 7+) → (..., G³, 3) local grid points, x slowest and z
+    fastest (get_dense_grid_points, pvrcnn_head.py:123-132: ones(g, g,
+    g).nonzero(), then (idx + 0.5) / g · size - size / 2)."""
+    g = grid_size
+    ar = torch.arange(g, device=rois.device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1).reshape(-1, 3).float()
+    sizes = rois[..., None, 3:6]
+    return (idx + 0.5) / g * sizes - sizes / 2.0
+
+
+def global_grid_points(rois, grid_size: int):
+    """The local grid turned by each RoI's heading and moved to its centre
+    (get_global_grid_points_of_roi, pvrcnn_head.py:111-121)."""
+    local = dense_grid_points(rois, grid_size)
+    return rotate_points_along_z(local, rois[..., 6]) + rois[..., None, 0:3]
 
 
 def _take(x, sel):
@@ -128,6 +154,15 @@ def roi_head_loss_cfg(rh_cfg) -> dict:
     out.update(given)
     out["LOSS_WEIGHTS"] = lw
     return out
+
+
+def draw_roi_uniforms(generator, shape, device):
+    """The proposal target layer's draws, (B, 2, P) uniforms in [0, 1), from
+    `generator` (a generator seeded 0 when None, as JAX's PRNGKey(0) when
+    no "sampler" rng is given)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def _rank(key):
@@ -374,32 +409,137 @@ def final_nms(boxes, scores, labels, valid, pp_cfg):
             torch.gather(labels, 1, sel), keep)
 
 
+def dropout_keep(generator, shape, keep_prob: float, device):
+    """The kept units of one dropout layer: a uniform draw from `generator`
+    below `keep_prob`, as flax's bernoulli keeps them."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
 class FCStack(nn.Module):
     """[Dense (no bias) + BN1d + ReLU]* and an optional final biased Dense
-    (the JAX FCStack as make_fc_stack builds it; BN at torch's defaults, eps
-    1e-5, keep 0.9). In training, with a `dropout` generator and dp_ratio >
-    0, inverted dropout follows block 0, as make_fc_layers places it:
-    flax's nn.Dropout, a unit kept where a uniform draw is < 1 - p and
-    scaled by 1 / (1 - p), drawn from the generator. Without a generator it
-    is the identity, as JAX's FCStack is without a "dropout" rng."""
+    (the JAX FCStack; BN at torch's defaults, eps 1e-5, keep 0.9). In
+    training, with a `dropout` generator and dp_ratio > 0, inverted dropout
+    follows each block of `dropout_after`: flax's nn.Dropout, a unit kept
+    where `dropout_keep` holds and scaled by 1 / (1 - p). Without a
+    generator it is the identity, as JAX's FCStack is without a "dropout"
+    rng. `make_fc_stack` and `shared_fc_stack` build the two layouts."""
 
     def __init__(self, in_channels: int, fc_list: Sequence[int], out_channels=None,
-                 dp_ratio: float = 0.0):
+                 dp_ratio: float = 0.0, dropout_after: Sequence[int] = (0,)):
         super().__init__()
         self.num = len(fc_list)
         self.dp_ratio = float(dp_ratio)
+        self.dropout_after = tuple(int(i) for i in dropout_after)
         for i, c in enumerate(fc_list):
             self.add_module(f"fc{i}", nn.Linear(in_channels, int(c), bias=False))
             self.add_module(f"bn{i}", BatchNorm(int(c), eps=1e-5, keep=0.9))
             in_channels = int(c)
+        self.out_channels = in_channels if out_channels is None else int(out_channels)
         self.out = nn.Linear(in_channels, out_channels) if out_channels is not None else None
 
     def forward(self, x, dropout: torch.Generator | None = None):
         for i in range(self.num):
             x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x)))
-            if i == 0 and self.dp_ratio > 0 and self.training and dropout is not None:
+            if (i in self.dropout_after and self.dp_ratio > 0 and self.training
+                    and dropout is not None):
                 keep_prob = 1.0 - self.dp_ratio
-                keep = torch.rand(x.shape, generator=dropout, device=x.device) < keep_prob
+                keep = dropout_keep(dropout, x.shape, keep_prob, x.device)
                 x = torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
         return self.out(x) if self.out is not None else x
+
+
+def make_fc_stack(in_channels: int, fc_list, out_channels: int, dp_ratio: float) -> FCStack:
+    """The reference's make_fc_layers: dropout after block 0 only, then the
+    biased pred layer."""
+    return FCStack(in_channels, fc_list, out_channels, dp_ratio, dropout_after=(0,))
+
+
+def shared_fc_stack(in_channels: int, fc_list, dp_ratio: float) -> FCStack:
+    """A head's shared_fc_layer: dropout between blocks, none after the
+    last, no pred layer."""
+    return FCStack(in_channels, fc_list, None, dp_ratio,
+                   dropout_after=tuple(range(len(fc_list) - 1)))
+
+
+class NeighborVoxelSA(nn.Module):
+    """Single-scale NeighborVoxelSAModuleMSG (voxel_pool_modules.py:8-127),
+    as the JAX package builds it (roi_head.py NeighborVoxelSA): per grid
+    point, up to `nsample` voxel centres within `radius` (the ball query
+    that stands in for the reference's QUERY_RANGES window, which holds the
+    ball at the shipped configs), then in_dense + in_bn over the voxels (no
+    ReLU), pos_dense + pos_bn over the relative positions (no ReLU), the sum
+    through a ReLU, a max (or mean) over the neighbours, out_dense + out_bn
+    + ReLU. An empty ball's features and positions are zeroed before the
+    position MLP, as `grouped_features[empty_ball_mask] = 0`. The three BNs
+    are masked (eps 1e-5, keep 0.9): voxels by their validity, grid points
+    by theirs. The max is torch.amax: tied maxima share the gradient, as
+    JAX's reduce_max shares it (an empty slot repeats the first hit, so
+    ties are the rule)."""
+
+    def __init__(self, in_channels: int, mlp_spec: Sequence[int], radius: float, nsample: int,
+                 pool_method: str = "max_pool"):
+        super().__init__()
+        c_mid, c_out = int(mlp_spec[0]), int(mlp_spec[1])
+        self.radius = float(radius)
+        self.nsample = int(nsample)
+        self.pool_method = pool_method
+        self.out_channels = c_out
+        self.in_dense = nn.Linear(in_channels, c_mid, bias=False)
+        self.in_bn = MaskedBatchNorm(c_mid, eps=1e-5, keep=0.9)
+        self.pos_dense = nn.Linear(3, c_mid, bias=False)
+        self.pos_bn = MaskedBatchNorm(c_mid, eps=1e-5, keep=0.9)
+        self.out_dense = nn.Linear(c_mid, c_out, bias=False)
+        self.out_bn = MaskedBatchNorm(c_out, eps=1e-5, keep=0.9)
+
+    def query(self, grid_xyz, grid_valid, vox_xyz, vox_valid):
+        """(idx (B, M, nsample), has (B, M)) of the ball query."""
+        return P.ball_query(self.radius, self.nsample, vox_xyz, vox_valid, grid_xyz, grid_valid)
+
+    def forward(self, grid_xyz, grid_valid, vox_xyz, vox_feats, vox_valid):
+        """grid_xyz (B, M, 3), grid_valid (B, M), vox_xyz (B, N, 3), vox_feats
+        (B, N, C), vox_valid (B, N) → (B, M, C_out)."""
+        f = self.in_bn(self.in_dense(vox_feats), vox_valid)
+        idx, has = self.query(grid_xyz, grid_valid, vox_xyz, vox_valid)
+        empty = ~has[..., None, None]
+        gf = P.group_points(f, idx).masked_fill(empty, 0)
+        gx = (P.group_points(vox_xyz.float(), idx) - grid_xyz[:, :, None, :]).masked_fill(empty, 0)
+        pos = self.pos_dense(gx)
+        pos = self.pos_bn(pos, grid_valid[..., None].expand(pos.shape[:-1]))
+        h = torch.relu(gf + pos)
+        h = h.amax(dim=2) if self.pool_method == "max_pool" else h.mean(dim=2)
+        return torch.relu(self.out_bn(self.out_dense(h), grid_valid))
+
+
+class RoIStage:
+    """What SECOND-IoU, Voxel R-CNN and PV-RCNN share on top of an anchor
+    RPN (`AnchorDetectorBase`): the proposal NMS of each phase, the
+    proposal target layer and the RoI loss configs."""
+
+    def _setup_roi_stage(self, rh):
+        self.proposal_nms = resolve_nms_cfg(rh, False)
+        self.train_proposal_nms = resolve_nms_cfg(rh, True)
+        self.target_cfg = roi_head_target_cfg(rh)
+        self.loss_cfg = roi_head_loss_cfg(rh)
+
+    def proposals(self, preds, train: bool):
+        """The RPN's decoded boxes through `proposal_layer`: (rois, scores,
+        labels, valid), fp32."""
+        with torch.autocast(preds["cls_preds"].device.type, enabled=False):
+            boxes, cls_scores = self.decode({k: v.float() for k, v in preds.items()})
+            return proposal_layer(boxes, cls_scores,
+                                  self.train_proposal_nms if train else self.proposal_nms)
+
+    def sample_rois(self, preds, batch, sampler=None):
+        """Training's proposals and their targets (`assign_roi_targets`),
+        the (B, 2, P) uniforms drawn from `sampler`."""
+        rois, roi_scores, roi_labels, _ = self.proposals(preds, True)
+        roi_uniforms = draw_roi_uniforms(sampler, (rois.shape[0], 2, rois.shape[1]), rois.device)
+        with torch.autocast(rois.device.type, enabled=False):
+            return assign_roi_targets(roi_uniforms, rois, roi_labels, roi_scores,
+                                      batch.gt_boxes, batch.gt_valid, self.target_cfg)
+
+    def roi_loss(self, rcnn_cls, rcnn_reg, tgt):
+        """`roi_head_loss` in fp32: (loss, tb)."""
+        with torch.autocast(rcnn_cls.device.type, enabled=False):
+            return roi_head_loss(rcnn_cls.float(), rcnn_reg.float(), tgt, self.loss_cfg)

@@ -1,6 +1,7 @@
-"""Sparse 3D backbones: VoxelResBackBone8x, VoxelBackBone8x and
-height_compression (port of dfu3d_tpu/models/sparse_backbone.py:58-93,
-:244-328, :446-473, :530-765, :890-972).
+"""Sparse 3D backbones: VoxelResBackBone8x, VoxelBackBone8x, SparseEncoder,
+height_compression and voxel_centers_of (port of
+dfu3d_tpu/models/sparse_backbone.py:58-93, :244-328, :446-473, :530-821,
+:890-972).
 
 Every sparse conv is one call of the gather-GEMM kernel B2
 (`core/voxel/gather_gemm_kernel.gather_gemm`) over an element neighbour table
@@ -362,6 +363,48 @@ class VoxelBackBone8x(_Backbone8x):
             nbr = levels[s - 1].subm_nbr
             st = getattr(self, f"conv{s}b")(getattr(self, f"conv{s}a")(st, nbr), nbr)
         return self.down_bn_relu("conv_out", st, levels[4])
+
+
+class SparseEncoder(_Backbone8x):
+    """VoxelBackBone8x's stage layout with one submanifold block per stride
+    (port of dfu3d_tpu/models/sparse_backbone.py SparseEncoder, the trunk of
+    the JAX package's VoxelRCNN and PVRCNN): conv_in and conv1 at stride 1,
+    then per stride 2, 4, 8 a strided conv with no BN after it (down{s})
+    and one refine block (down{s}_refine), then conv_out, z-compressing,
+    with no BN either. 9 sparse convs. `forward` returns the conv_out tensor
+    and the four stages [s1, s2, s4, s8]."""
+
+    def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
+                 channels: Sequence[int] = (16, 16, 32, 64, 64), out_channels: int = 128):
+        super().__init__(grid, voxel_cap)
+        ch = tuple(channels)
+        self.conv_in = SparseConvBlock(in_channels, ch[0])
+        self.conv1 = SparseConvBlock(ch[0], ch[1])
+        for s in range(2, 5):
+            self.add_module(f"down{s}", SparseConv3dDown(ch[s - 1], ch[s], self.caps[s - 2]))
+            self.add_module(f"down{s}_refine", SparseConvBlock(ch[s], ch[s]))
+        self.conv_out = SparseConv3dDown(ch[4], out_channels, self.caps[2], z_only=True)
+
+    def forward(self, features, levels):
+        lv = levels[0]
+        st = SparseTensor(features, lv.coords, lv.valid, lv.grid)
+        st = self.conv1(self.conv_in(st, lv.subm_nbr), lv.subm_nbr)
+        stages = [st]
+        for s in range(2, 5):
+            st = getattr(self, f"down{s}")(st, levels[s - 1])
+            st = getattr(self, f"down{s}_refine")(st, levels[s - 1].subm_nbr)
+            stages.append(st)
+        return self.conv_out(st, levels[4]), stages
+
+
+def voxel_centers_of(st: SparseTensor, point_cloud_range, base_voxel_size, stride: int):
+    """World-frame centres (B, V, 3) fp32 of a sparse tensor's voxels at
+    `stride` times the base voxel size: (coords + 0.5) · size + range
+    minimum, in JAX's order of operations."""
+    dev = st.coords.device
+    vs = torch.tensor(base_voxel_size, dtype=torch.float32, device=dev) * stride
+    lo = torch.tensor(point_cloud_range[:3], dtype=torch.float32, device=dev)
+    return (st.coords.float() + 0.5) * vs + lo
 
 
 def height_compression(st: SparseTensor):

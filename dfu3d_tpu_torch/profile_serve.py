@@ -1,6 +1,7 @@
 """Where the serving time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn|second|pp]
+    python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn|second|pp|
+                                                     second_iou|voxel_rcnn|pv_rcnn]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -8,7 +9,9 @@ CenterPoint-pillar (256 x 512 BEV), voxel CenterPoint
 (cbgs_voxel01_res3d_centerpoint, 1024 x 1024 x 40 grid), PointRCNN
 (pointrcnn_nuscenes2kitti), SECOND multi-head (cbgs_second_multihead,
 1024 x 1024 x 40 grid, max_voxels 60,000) or PointPillar multi-head
-(cbgs_pp_multihead, 512 x 512 pillars). CenterPoint: B=4, 60,000 uniform
+(cbgs_pp_multihead, 512 x 512 pillars), or one of the two-stage KITTI
+detectors (second_iou.yaml, voxel_rcnn_car.yaml, pv_rcnn.yaml, 1408 x 1600 x
+40 grid, max_voxels 40,000). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -16,7 +19,10 @@ read through KittiDataset in test mode, so 16,384 sampled points each.
 SECOND and PointPillar: B=4 key frames of a synthetic nuScenes root
 (`data.nuscenes_synthetic`: 10 sweeps of 34,000 points, 20-40 boxes of the
 ten classes) read through NuScenesDataset in test mode, at most 65,536
-points each. bf16 autocast, weights from `seeded_weights_`. It reports,
+points each. The two-stage detectors: B=4 frames of a synthetic KITTI
+root (40,000-60,000 points in the frustum, 20-40 boxes of the config's
+classes) read through KittiDataset in test mode, at most 32,768 points
+each. bf16 autocast, weights from `seeded_weights_`. It reports,
 as one JSON object (printed, and written to --out):
 
 * step_ms: host clock per step, no instrumentation (median over batches);
@@ -34,7 +40,10 @@ as one JSON object (printed, and written to --out):
   exclusive ms of the spans of `anchor_phase_times`: the VFE, the
   neighbour tables, the sparse convs with their B2 launches, the 2D
   backbone, the head, the decode, the NMS with its B1 launch and keep-scan,
-  the recall IoU with its B1 launch, and the rest);
+  the recall IoU with its B1 launch, and the rest; second_iou, voxel_rcnn
+  and pv_rcnn: the spans of `two_stage_phase_times`: the trunk, the RPN,
+  the proposals, PV-RCNN's VSA and FPS (fps_share), the RoI pooling and
+  head, the final NMS, the recall IoU);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -63,11 +72,12 @@ from .core.voxel import gather_gemm_kernel
 from .models import pointpillar as pointpillar_mod
 from .models import pointrcnn as pointrcnn_mod
 from .models import roi_head
+from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
-from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, nuscenes_batches, pointrcnn,
-                  pointrcnn_batches, pp_multihead, second_multihead, voxel_centerpoint,
-                  write_pointrcnn_root)
+from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, kitti_batches, nuscenes_batches,
+                  pointrcnn, pointrcnn_batches, pp_multihead, pv_rcnn, second_iou,
+                  second_multihead, voxel_centerpoint, voxel_rcnn, write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -159,13 +169,32 @@ class Spans:
         self.saved = []
 
 
+def timed_spans(wraps, run, batch):
+    """run(batch) with each (obj, attr, name) of `wraps` timed as a span of
+    `Spans`: the exclusive ms of each span, "rest" and the whole "step"."""
+    spans = Spans()
+    try:
+        for obj, attr, name in wraps:
+            spans.wrap(obj, attr, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(batch)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        spans.restore()
+    phases = dict(spans.ms)
+    phases["rest"] = total - sum(phases.values())
+    phases["step"] = total
+    return phases
+
+
 def pointrcnn_phase_times(model, run, batch, optimizer=None):
     """One PointRCNN step, `run(batch)` (an eval step, or with its
     `optimizer` a train step), with every span of `Spans` timed. A train
     step adds the point targets, the point losses, the RoI targets (with
     their B1 launch), the RCNN loss, the backward and the clip + optimizer
     update."""
-    spans = Spans()
     wraps = [(mod, "forward", f"backbone.{name}")
              for name, mod in model.backbone.named_children()]
     wraps += [(model.point_head, "forward", "point_head"),
@@ -182,20 +211,7 @@ def pointrcnn_phase_times(model, run, batch, optimizer=None):
                   (roi_head, "assign_roi_targets", "roi_targets"),
                   (roi_head, "roi_head_loss", "rcnn_loss"),
                   (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
-    try:
-        for obj, attr, name in wraps:
-            spans.wrap(obj, attr, name)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(batch)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        spans.restore()
-    phases = dict(spans.ms)
-    phases["rest"] = total - sum(phases.values())
-    phases["step"] = total
-    return phases
+    return timed_spans(wraps, run, batch)
 
 
 def anchor_phase_times(model, run, batch, optimizer=None):
@@ -206,7 +222,6 @@ def anchor_phase_times(model, run, batch, optimizer=None):
     NMS with its B1 launch and keep-scan, the recall IoU with its B1 launch;
     a train step adds the anchor targets, the loss, the backward (with B2's
     dX launches) and the clip + optimizer update."""
-    spans = Spans()
     wraps = [(model.vfe, "forward", "vfe"), (model.backbone_2d, "forward", "backbone_2d"),
              (model.dense_head, "forward", "dense_head"),
              (pointpillar_mod, "decode_anchor_predictions", "decode"),
@@ -221,20 +236,7 @@ def anchor_phase_times(model, run, batch, optimizer=None):
         wraps += [(model, "assign_targets", "anchor_targets"),
                   (pointpillar_mod, "anchor_head_loss", "loss"),
                   (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
-    try:
-        for obj, attr, name in wraps:
-            spans.wrap(obj, attr, name)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(batch)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        spans.restore()
-    phases = dict(spans.ms)
-    phases["rest"] = total - sum(phases.values())
-    phases["step"] = total
-    return phases
+    return timed_spans(wraps, run, batch)
 
 
 def anchor_profile(model, run, batches, optimizer=None):
@@ -246,6 +248,74 @@ def anchor_profile(model, run, batches, optimizer=None):
     keys = sorted({k for p in phases for k in p})
     return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
             "keep_scan": keep_scans(run, batches)}
+
+
+def two_stage_phase_times(model, run, batch, optimizer=None):
+    """One step of a two-stage voxel detector (SECONDNetIoU, VoxelRCNN or
+    PVRCNN), `run(batch)` (an eval step, or with its `optimizer` a train
+    step), with every span of `Spans` timed: the VFE, the neighbour tables
+    and the sparse convs with their B2 launches (the trunk), the 2D backbone,
+    the head (the RPN), the proposals with their B1 launch and keep-scan,
+    PV-RCNN's voxel set abstraction with its FPS, the RoI pooling, the RoI
+    head's FC stacks, the final NMS with its B1 launch and keep-scan, the
+    recall IoU with its B1 launch; a train step adds the anchor targets, the
+    RPN loss, the RoI targets with their B1 launch, the RCNN loss, the
+    backward (with B2's dX launches) and the clip + optimizer update."""
+    trunk = model.encoder if hasattr(model, "encoder") else model.backbone_3d
+    wraps = [(model.vfe, "forward", "vfe"), (trunk, "plan", "neighbour_tables"),
+             (trunk, "forward", "sparse_convs"), (gather_gemm_kernel, "gather_gemm", "b2"),
+             (model.backbone_2d, "forward", "backbone_2d"),
+             (model.dense_head, "forward", "dense_head"), (model, "proposals", "proposals"),
+             (iou_kernel, "overlap_bev", "b1"), (nms_mod, "_suppression_scan", "keep_scan"),
+             (roi_head, "final_nms", "final_nms"),
+             (train_state, "pairwise_iou3d", "recall_iou")]
+    heads = [n for n in ("shared_fc", "iou_fc", "cls_fc", "reg_fc", "cls_pred", "reg_pred")
+             if hasattr(model, n)]
+    wraps += [(getattr(model, n), "forward", "roi_head") for n in heads]
+    pools = [m for n, m in model.named_children() if n.startswith(("pool_", "grid_sa"))]
+    wraps += [(m, "forward", "roi_pool") for m in pools]
+    if not pools:   # SECOND-IoU
+        wraps.append((second_iou_mod, "bev_roi_align", "roi_pool"))
+    if hasattr(model, "sa_raw"):   # PV-RCNN
+        wraps += [(model, "roi_sources", "vsa"), (pointnet2, "farthest_point_sample", "fps")]
+    if optimizer is not None:
+        wraps += [(model, "assign_targets", "anchor_targets"),
+                  (pointpillar_mod, "anchor_head_loss", "rpn_loss"),
+                  (roi_head, "assign_roi_targets", "roi_targets"),
+                  (roi_head, "roi_head_loss", "rcnn_loss"),
+                  (second_iou_mod, "iou_loss", "rcnn_loss"),
+                  (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
+        if hasattr(model, "sa_raw"):
+            wraps.append((model, "source_loss", "kp_seg_loss"))
+    return timed_spans(wraps, run, batch)
+
+
+def two_stage_profile(model, run, batches, optimizer=None):
+    """Where a two-stage voxel detector's step goes, `run(batch)` running an
+    eval step or (given its `optimizer`) a train step through to its result
+    on the host: phase_ms, the median over the batches of each span's
+    exclusive ms (`two_stage_phase_times`); keep_scan (`keep_scans`); for
+    PV-RCNN fps_share, the FPS span's share of the instrumented step."""
+    phases = [two_stage_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    out = {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys}}
+    if hasattr(model, "sa_raw"):
+        out["fps_share"] = statistics.median(
+            sum(v for k, v in p.items() if k.endswith("fps")) / p["step"] for p in phases)
+    out["keep_scan"] = keep_scans(run, batches)
+    return out
+
+
+TWO_STAGE = {"second_iou": second_iou, "voxel_rcnn": voxel_rcnn, "pv_rcnn": pv_rcnn}
+
+
+def kitti_workload(cfg, work, num_batches: int, batch_size: int, training: bool = False):
+    """`num_batches` batches of `batch_size` frames of a synthetic KITTI root
+    written under `work` (`zoo.write_pointrcnn_root`: 40,000-60,000 points
+    in the camera frustum, 20-40 boxes of the config's classes; in train
+    mode with its gt database), read through KittiDataset."""
+    info = write_pointrcnn_root(cfg, Path(work), num_batches * batch_size, training=training)
+    return kitti_batches(cfg, work, info, num_batches, batch_size, training=training)
 
 
 def nuscenes_workload(cfg, work, num_batches: int, training: bool = False):
@@ -350,8 +420,8 @@ def _profile(step, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp"),
-                    default="pillar")
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
+                                         *TWO_STAGE), default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -361,7 +431,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
-             "second": second_multihead, "pp": pp_multihead}[args.model]
+             "second": second_multihead, "pp": pp_multihead, **TWO_STAGE}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -372,6 +442,12 @@ def main(argv=None):
         workload = ("PointRCNN pointrcnn_nuscenes2kitti (4.04 M parameters), B=4 synthetic "
                     "KITTI frames sampled to 16384 points (40000-60000 in the frustum, 20-40 "
                     "boxes)")
+    elif args.model in TWO_STAGE:
+        with tempfile.TemporaryDirectory() as work:
+            batches = kitti_workload(cfg, Path(work), args.batches, 4)
+        workload = (f"{cfg.MODEL.NAME} {args.model} 1408x1600x40 grid, max_voxels 40000, B=4 "
+                    "synthetic KITTI frames (40000-60000 points in the frustum, at most 32768 "
+                    "per frame, 20-40 boxes)")
     elif args.model in ("second", "pp"):
         with tempfile.TemporaryDirectory() as work:
             batches = nuscenes_workload(cfg, Path(work), args.batches)
@@ -399,6 +475,9 @@ def main(argv=None):
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     elif args.model in ("second", "pp"):
         extra = anchor_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    elif args.model in TWO_STAGE:
+        extra = two_stage_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     else:
         phases = [_phase_times(model, step, b) for b in batches]

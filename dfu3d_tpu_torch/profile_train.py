@@ -1,7 +1,8 @@
 """Where the training time goes, on the card.
 
-    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn|second] [--steps 8]
-                                            [--out FILE.json]
+    python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn|second|
+                                                     second_iou|voxel_rcnn|pv_rcnn]
+                                            [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
 CenterPoint-pillar (256 x 512 BEV) or voxel CenterPoint
@@ -39,7 +40,11 @@ as one JSON object (printed, and written to --out):
   SECOND: the spans of `profile_serve.anchor_phase_times` with the
   optimizer: the VFE, the neighbour tables, the sparse convs with their B2
   launches, the 2D backbone, the head, the anchor targets, the loss, the
-  backward with B2's dX launches, clip + optimizer;
+  backward with B2's dX launches, clip + optimizer. second_iou,
+  voxel_rcnn, pv_rcnn (KITTI configs, B = BATCH_SIZE_PER_GPU frames of a
+  synthetic KITTI root read in train mode with gt sampling, 16 gt per
+  frame made of proposals as for PointRCNN): the spans of
+  `profile_serve.two_stage_phase_times` with the optimizer;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -64,7 +69,8 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import anchor_profile, device_profile, nuscenes_workload, pointrcnn_profile
+from .profile_serve import (TWO_STAGE, anchor_profile, device_profile, kitti_workload,
+                            nuscenes_workload, pointrcnn_profile, two_stage_profile)
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
                   second_multihead, voxel_centerpoint, write_pointrcnn_root)
@@ -273,9 +279,67 @@ def second_train(steps: int, device_name: str) -> dict:
     }
 
 
+ENCODER_FORWARD_B2 = 9  # SparseEncoder's sparse convs (Voxel R-CNN, PV-RCNN)
+
+
+def two_stage_train(name: str, steps: int, device_name: str) -> dict:
+    """profile_train --model second_iou|voxel_rcnn|pv_rcnn: step times at the
+    config's BATCH_SIZE_PER_GPU, the spans of `two_stage_profile` over the
+    steps with the optimizer, and the device profile with the sparse convs'
+    split. Each batch gets `zoo.proposal_gt`'s 16 gt per frame just before
+    its step, outside the timed step, so that every step has RoIs over
+    REG_FG_THRESH."""
+    import tempfile
+
+    cfg, _, model = TWO_STAGE[name](device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as work:
+        batches = kitti_workload(cfg, Path(work), steps, b, training=True)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        run(proposal_gt(model, batch, torch.bfloat16))
+    step_ms, losses = [], []
+    for batch in batches:
+        batch = proposal_gt(model, batch, torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(step_ms)
+    batches = [proposal_gt(model, batch, torch.bfloat16) for batch in batches]
+    spans = two_stage_profile(model, run, batches, state.optimizer)
+    forward_b2 = VOXEL8X_FORWARD_B2 if name == "second_iou" else ENCODER_FORWARD_B2
+    profile = _profile(step, batches, forward_b2)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    scans = spans.pop("keep_scan")
+    return {
+        "device": device_name,
+        "workload": f"{cfg.MODEL.NAME} ({name}) 1408x1600x40 grid, max_voxels 16000, B={b} "
+                    "synthetic KITTI frames (40000-60000 points in the frustum, at most 32768 "
+                    "per frame, 20-40 boxes) read in train mode (gt sampling, flip, rotation, "
+                    "scaling), 16 gt per frame made of proposals, bf16 autocast, seeded random "
+                    "weights, adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": b / (median / 1e3),
+        "losses": losses,
+        **spans,
+        "nms_scan": {"calls_per_step": len(scans) / len(batches),
+                     "shapes": sorted({tuple(c["shape"]) for c in scans})},
+        "profile": profile,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second"),
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -285,6 +349,9 @@ def main(argv=None):
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    if args.model in TWO_STAGE:
+        _write(two_stage_train(args.model, args.steps, smi.stdout.strip()), args.out)
+        return
     if args.model in ("pointrcnn", "second"):
         run = pointrcnn_train if args.model == "pointrcnn" else second_train
         _write(run(args.steps, smi.stdout.strip()), args.out)

@@ -1,9 +1,10 @@
 """Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship,
 PointRCNN and the anchor detectors (own copy of the JAX package's
 train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
-`anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`
+`anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
+`second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`
 and `apply_mapping`'s partial overlay, :50-166, :300-394, :397-451,
-:549-589, :959-1029).
+:424-505, :549-604, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -35,7 +36,8 @@ its mapping (its `reference_mapping()` method): the flagship's (CenterPoint-pill
 centerpoint_nuscenes2kitti.yaml, the JAX package's convert_state_dict
 default) for CenterPoint, the point head's and the RoI head's for PointRCNN,
 the pillar VFE's, the 2D backbone's and AnchorHeadSingle's for PointPillar
-and SECONDNet. The JAX package has no PointNet2MSG, sparse-backbone or
+and SECONDNet, and those two with the RoI head's for SECONDNetIoU,
+VoxelRCNN and PVRCNN. The JAX package has no PointNet2MSG, sparse-backbone or
 AnchorHeadMulti mapping, so neither has the port: those modules keep their
 values and are reported unmatched.
 """
@@ -49,12 +51,15 @@ import torch
 
 __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
            "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
-           "pointrcnn_head_mapping", "apply_mapping",
+           "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
+           "pvrcnn_head_mapping", "apply_mapping",
            "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
 _REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
-                            r"|reg_layers|xyz_up_layer|merge_down_layer|SA_modules|FP_modules)"
+                            r"|reg_layers|xyz_up_layer|merge_down_layer|SA_modules|FP_modules"
+                            r"|iou_layers|shared_fc_layer|cls_fc_layers|reg_fc_layers"
+                            r"|roi_grid_pool_layers)"
                             r"\.\d")
 
 Mapping = Dict[str, Tuple[object, Callable]]
@@ -197,6 +202,17 @@ def point_head_box_mapping(cls_fc=(256, 256), reg_fc=(256, 256), ours_prefix="po
     return m
 
 
+def _fc_between(m, ours, ref, n):
+    """A head's shared / cls / reg tower [Linear|Conv1d (no bias), BN, ReLU,
+    Dropout between blocks] (voxelrcnn_head.py:41-83, pvrcnn_head.py:20-33)
+    ↔ roi_head.FCStack fc{i} / bn{i}."""
+    idx = 0
+    for i in range(n):
+        m[f"{ours}.fc{i}.weight"] = (f"{ref}.{idx}.weight", t_fc)
+        _bn(m, f"{ours}.bn{i}", f"{ref}.{idx + 1}")
+        idx += 3 if i == n - 1 else 4
+
+
 def _fc_make(m, ours, ref, n):
     """make_fc_layers (roi_head_template.py:29-43: dropout after block 0, a
     biased prediction conv last) ↔ roi_head.FCStack fc{i} / bn{i} / out."""
@@ -241,6 +257,56 @@ def pointrcnn_head_mapping(xyz_up=(128, 128), sa_mlps=((128, 128, 128), (128, 12
             _bn(m, f"{ours_prefix}.sa{k}_bn{j}", f"{base}.{3 * j + 1}")
     _fc_make(m, f"{ours_prefix}.cls_fc", f"{ref_prefix}.cls_layers", len(cls_fc))
     _fc_make(m, f"{ours_prefix}.reg_fc", f"{ref_prefix}.reg_layers", len(reg_fc))
+    return m
+
+
+def second_head_mapping(shared_fc: int = 2, iou_fc: int = 2, ref_prefix="roi_head") -> Mapping:
+    """SECONDHead (second_head.py:10-42): the Conv1d SHARED_FC tower and the
+    make_fc_layers IOU_FC stack (the RoI-align has no weights); the
+    arguments are the stacks' depths."""
+    m: Mapping = {}
+    _fc_between(m, "shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
+    _fc_make(m, "iou_fc", f"{ref_prefix}.iou_layers", iou_fc)
+    return m
+
+
+def voxelrcnn_head_mapping(shared_fc: int = 2, cls_fc: int = 2, reg_fc: int = 2,
+                           pool_sources=("x_conv2", "x_conv3", "x_conv4"),
+                           ref_prefix="roi_head") -> Mapping:
+    """VoxelRCNNHead (voxelrcnn_head.py:8-101): per FEATURES_SOURCE stage a
+    NeighborVoxelSAModuleMSG (mlps_in, mlps_pos, mlps_out: Conv + BN each,
+    one scale), the Linear shared / cls / reg towers and the separate pred
+    layers; the arguments are the towers' depths."""
+    m: Mapping = {}
+    for i, src in enumerate(pool_sources):
+        base = f"{ref_prefix}.roi_grid_pool_layers.{i}"
+        for ours, ref in (("in", "mlps_in"), ("pos", "mlps_pos"), ("out", "mlps_out")):
+            m[f"pool_{src}.{ours}_dense.weight"] = (f"{base}.{ref}.0.0.weight", t_fc)
+            _bn(m, f"pool_{src}.{ours}_bn", f"{base}.{ref}.0.1")
+    _fc_between(m, "shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
+    _fc_between(m, "cls_fc", f"{ref_prefix}.cls_fc_layers", cls_fc)
+    _fc_between(m, "reg_fc", f"{ref_prefix}.reg_fc_layers", reg_fc)
+    for which in ("cls", "reg"):
+        m[f"{which}_pred.weight"] = (f"{ref_prefix}.{which}_pred_layer.weight", t_fc)
+        m[f"{which}_pred.bias"] = (f"{ref_prefix}.{which}_pred_layer.bias", t_identity)
+    return m
+
+
+def pvrcnn_head_mapping(shared_fc: int = 2, cls_fc: int = 2, reg_fc: int = 2,
+                        num_pool_groups: int = 2, pool_mlp_depth: int = 2,
+                        ref_prefix="roi_head") -> Mapping:
+    """PVRCNNHead (pvrcnn_head.py:8-63): the StackSAModuleMSG grid-pool
+    groups (Conv2d + BN2d shared MLPs over [rel xyz ‖ features]), the Conv1d
+    SHARED_FC tower and the make_fc_layers cls / reg stacks."""
+    m: Mapping = {}
+    for g in range(num_pool_groups):
+        base = f"{ref_prefix}.roi_grid_pool_layer.mlps.{g}"
+        for k in range(pool_mlp_depth):
+            m[f"grid_sa{g}.SharedMLP_0.dense_{k}.weight"] = (f"{base}.{3 * k}.weight", t_fc)
+            _bn(m, f"grid_sa{g}.SharedMLP_0.bn_{k}", f"{base}.{3 * k + 1}")
+    _fc_between(m, "shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
+    _fc_make(m, "cls_fc", f"{ref_prefix}.cls_layers", cls_fc)
+    _fc_make(m, "reg_fc", f"{ref_prefix}.reg_layers", reg_fc)
     return m
 
 

@@ -1,6 +1,7 @@
 """Builders for the port's other supported models: voxel CenterPoint,
-PointRCNN and the nuScenes anchor detectors (SECOND and PointPillar
-multi-head).
+PointRCNN, the nuScenes anchor detectors (SECOND and PointPillar
+multi-head) and the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
+R-CNN, PV-RCNN).
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -66,25 +67,13 @@ def pointrcnn(device="cuda", train: bool = False):
 
 
 def pointrcnn_batches(cfg, root, info_file, num_batches: int, training: bool = False):
-    """`num_batches` PointBatches of POINTRCNN_BATCH_SIZE frames read from
-    `root` through KittiDataset, the frames of `info_file` in order
-    (repeated if there are fewer): the config's processors mask the range,
-    sample 16,384 points (sample_points) and shuffle them. In test mode, or
-    with `training` in train mode: then the base dataset config's
-    augmentations run first (gt sampling from the gt database of `root`,
-    flip, rotation, scaling, translation). numpy's global generator, which
-    those draw from, is seeded with POINTRCNN_SEED."""
-    from .data.kitti_dataset import KittiDataset
-
-    ds_cfg = copy.deepcopy(cfg.DATA_CONFIG)
-    ds_cfg.DATA_PATH = str(root)
-    ds_cfg.INFO_PATH = {"train": [str(info_file)] if training else [],
-                        "test": [] if training else [str(info_file)]}
-    dataset = KittiDataset(ds_cfg, cfg.CLASS_NAMES, training=training, root_path=Path(root))
-    np.random.seed(POINTRCNN_SEED)
-    b = POINTRCNN_BATCH_SIZE
-    frames = [dataset[i % len(dataset)] for i in range(num_batches * b)]
-    return [dataset.collate_batch(frames[i:i + b])[0] for i in range(0, len(frames), b)]
+    """`kitti_batches` of POINTRCNN_BATCH_SIZE frames, numpy's global
+    generator seeded with POINTRCNN_SEED: the config's processors mask the
+    range, sample 16,384 points (sample_points) and shuffle them; in train
+    mode the base dataset config's augmentations run first (gt sampling,
+    flip, rotation, scaling, translation)."""
+    return kitti_batches(cfg, root, info_file, num_batches, POINTRCNN_BATCH_SIZE, training,
+                         seed=POINTRCNN_SEED)
 
 
 def write_pointrcnn_root(cfg, root, num_frames: int, training: bool = False):
@@ -117,16 +106,18 @@ PROPOSAL_GT = 16  # gt boxes per frame that proposal_gt appends
 
 def proposal_gt(model, batch, dtype=torch.float32, count: int = PROPOSAL_GT):
     """`batch` on the model's device with `count` gt boxes per frame
-    appended after its own, made of the PointRCNN `model`'s first-stage
+    appended after its own, made of the two-stage `model`'s first-stage
     boxes as its train step would propose them now (train mode, under
     `dtype` autocast; the BN running statistics are put back): gt j of a
     frame is the box of its j-th highest score, with its class, shifted
-    along x by 0.05·j of its length. The proposal NMS always keeps the
-    highest-scored box, so every frame then has a RoI at IoU 1 with its gt
-    0, over REG_FG_THRESH: the RoI head's reg and corner losses carry
-    gradient, as a trained model's do, where seeded random weights alone
-    almost never propose a box over it. The shifts put RoIs on both sides
-    of each IoU threshold of the target layer. Runs no NMS, so no kernel."""
+    along x by 0.05·j of its length. The first stage is PointRCNN's point
+    head, or the anchor RPN of SECONDNetIoU, VoxelRCNN and PVRCNN. The
+    proposal NMS always keeps the highest-scored box, so every frame then
+    has a RoI at IoU 1 with its gt 0, over REG_FG_THRESH: the RoI head's reg
+    and corner losses (SECOND-IoU's IoU labels) carry gradient, as a
+    trained model's do, where seeded random weights alone almost never
+    propose a box over it. The shifts put RoIs on both sides of each IoU
+    threshold of the target layer. Runs no NMS, so no kernel."""
     from .models.pointrcnn import point_decode
 
     dev = next(model.parameters()).device
@@ -135,12 +126,20 @@ def proposal_gt(model, batch, dtype=torch.float32, count: int = PROPOSAL_GT):
     model.train()
     with torch.no_grad(), torch.autocast(dev.type, dtype=dtype,
                                          enabled=dtype != torch.float32):
-        _, cls_logits, box_codes = model.stage1(batch)
+        if hasattr(model, "stage1"):
+            _, cls_logits, box_codes = model.stage1(batch)
+        else:
+            preds = model.features(batch)
     for k, v in model.named_buffers():
         v.copy_(buffers[k])
-    pred_cls = torch.argmax(cls_logits, dim=-1) + 1
-    boxes = point_decode(box_codes, batch.points[..., :3].float(), pred_cls, model.mean_sizes)
-    scores = torch.where(batch.points_valid, torch.sigmoid(cls_logits).amax(dim=-1), -1.0)
+    if hasattr(model, "stage1"):
+        pred_cls = torch.argmax(cls_logits, dim=-1) + 1
+        boxes = point_decode(box_codes, batch.points[..., :3].float(), pred_cls, model.mean_sizes)
+        scores = torch.where(batch.points_valid, torch.sigmoid(cls_logits).amax(dim=-1), -1.0)
+    else:
+        boxes, cls_scores = model.decode({k: v.float() for k, v in preds.items()})
+        pred_cls = torch.argmax(cls_scores, dim=-1) + 1
+        scores = cls_scores.amax(dim=-1)
     top = torch.argsort(scores, dim=1, descending=True, stable=True)[:, :count]
     gt = torch.cat([torch.gather(boxes, 1, top[..., None].expand(-1, -1, 7)),
                     torch.gather(pred_cls, 1, top)[..., None].float()], dim=-1)
@@ -207,3 +206,63 @@ def nuscenes_batches(cfg, root, info_file, num_batches: int, training: bool = Fa
     b = NUSCENES_BATCH_SIZE
     frames = [dataset[i % len(dataset)] for i in range(num_batches * b)]
     return [dataset.collate_batch(frames[i:i + b])[0] for i in range(0, len(frames), b)]
+
+
+KITTI_CFGS = Path(__file__).resolve().parents[1] / "tools/cfgs/kitti_models"
+TWO_STAGE_CFGS = {"second_iou": "second_iou.yaml", "voxel_rcnn": "voxel_rcnn_car.yaml",
+                  "pv_rcnn": "pv_rcnn.yaml"}
+
+
+def _kitti_detector(name, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = cfg_from_yaml_file(KITTI_CFGS / TWO_STAGE_CFGS[name], CfgDict())
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def second_iou(train: bool = False, device="cuda"):
+    """SECONDNetIoU on tools/cfgs/kitti_models/second_iou.yaml at its
+    published widths, built as the CLIs build it (tools.common.build_model):
+    MeanVFE, VoxelBackBone8x on the 1408 x 1600 x 40 grid with
+    MAX_NUMBER_OF_VOXELS (16,000 train, 40,000 test), BaseBEVBackbone
+    [5, 5], AnchorHeadSingle over Car, Pedestrian, Cyclist, the SECONDHead
+    IoU stage. Returns (cfg, grid, model), in eval mode or in train mode
+    with `train`; the weights are PyTorch's defaults."""
+    return _kitti_detector("second_iou", device, train)
+
+
+def voxel_rcnn(train: bool = False, device="cuda"):
+    """VoxelRCNN on tools/cfgs/kitti_models/voxel_rcnn_car.yaml (Car only) at
+    its published widths, on the JAX package's SparseEncoder trunk; as
+    `second_iou`."""
+    return _kitti_detector("voxel_rcnn", device, train)
+
+
+def pv_rcnn(train: bool = False, device="cuda"):
+    """PVRCNN on tools/cfgs/kitti_models/pv_rcnn.yaml at its published
+    widths (2,048 keypoints), on the JAX package's SparseEncoder trunk; as
+    `second_iou`."""
+    return _kitti_detector("pv_rcnn", device, train)
+
+
+def kitti_batches(cfg, root, info_file, num_batches: int, batch_size: int,
+                  training: bool = False, seed=0):
+    """`num_batches` PointBatches of `batch_size` frames read from the KITTI
+    root through KittiDataset, the frames of `info_file` in order (repeated
+    if there are fewer), through the config's processors (FOV, range mask,
+    shuffle). In test mode, or with `training` in train mode: the config's
+    augmentations first (gt sampling from the root's gt database, flip,
+    rotation, scaling); numpy's global generator, which they draw from, is
+    seeded with `seed`."""
+    from .data.kitti_dataset import KittiDataset
+
+    ds_cfg = copy.deepcopy(cfg.DATA_CONFIG)
+    ds_cfg.DATA_PATH = str(root)
+    ds_cfg.INFO_PATH = {"train": [str(info_file)] if training else [],
+                        "test": [] if training else [str(info_file)]}
+    dataset = KittiDataset(ds_cfg, cfg.CLASS_NAMES, training=training, root_path=Path(root))
+    np.random.seed(seed)
+    frames = [dataset[i % len(dataset)] for i in range(num_batches * batch_size)]
+    return [dataset.collate_batch(frames[i:i + batch_size])[0]
+            for i in range(0, len(frames), batch_size)]
