@@ -5,13 +5,15 @@ backbone_2d.block0_down.Conv_0, dense_head.fused_heads.out, PointRCNN's
 backbone.sa_0.mlp_0.dense_0, point_head.cls_out, roi_head.sa0_bn1,
 roi_head.cls_fc.fc0, the two-stage detectors' encoder.down2_refine,
 pool_x_conv2.in_dense, shared_fc.fc0, iou_fc.out, cls_pred, sa_stage0.
-SharedMLP_0.dense_0, vsa_fusion, kp_seg, grid_sa0, ...), so a flax variable
+SharedMLP_0.dense_0, vsa_fusion, kp_seg, grid_sa0, PV-RCNN++'s vp_raw and
+grid_msg, PartA2's unet.up3, seg_mlp, roi_head.part0_conv, ...), so a flax variable
 path maps to a state_dict key one to one and only the leaf is transformed:
 
     Dense kernel (in, out)          → weight (out, in)
     sparse conv kernel (K, Cin, Cout) → kernel, as is (taps in kernel_offsets
                                       order, x slowest, z fastest)
     Conv kernel HWIO (also grouped) → weight OIHW
+    3D Conv kernel (kx, ky, kz, I, O) → weight (O, I, kx, ky, kz)
     ConvTranspose kernel HWIO       → weight (in, out, kh, kw), flipped in
                                       both spatial dims (torch's transposed
                                       conv is the gradient of a conv; flax's
@@ -68,6 +70,8 @@ def params_from_jax(variables, model=None):
                     arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
                 elif arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 5:
+                    arr = arr.transpose(4, 3, 0, 1, 2)
                 if arr.ndim != 3:  # sparse conv kernels keep their name
                     name = "weight"
             else:

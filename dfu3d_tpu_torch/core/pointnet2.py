@@ -1,5 +1,6 @@
-"""PointNet++ ops (port of dfu3d_tpu/core/pointnet2.py:18-101): farthest point
-sampling, ball query, grouping and 3-NN interpolation.
+"""PointNet++ ops (port of dfu3d_tpu/core/pointnet2.py:18-154): farthest point
+sampling, ball query, grouping, 3-NN interpolation and PV-RCNN++'s vector
+pool.
 
 Every op takes a leading batch dimension (the JAX ops handle one frame and
 are vmapped) and keeps the JAX ops' masked semantics exactly: invalid points
@@ -7,9 +8,8 @@ never win a sample or a neighbour slot, and every gather index is in range.
 Squared distances are sum((a - b)²) in fp32, the three squares added in
 order, as JAX computes them; an expanded ‖a‖² + ‖b‖² - 2ab rounds otherwise
 and would flip a point on a radius boundary or an FPS argmax. The ops are
-elementwise and reductions, so bf16 autocast leaves them in fp32.
-
-`vector_pool` (PV-RCNN++) is not ported yet.
+elementwise and reductions, so bf16 autocast leaves them in fp32;
+`vector_pool` turns autocast off for its one product.
 """
 from __future__ import annotations
 
@@ -116,3 +116,52 @@ def three_interpolate(features, idx, dist):
     g = group_points(features, idx)  # (B, M, 3, C)
     return (g[..., 0, :] * w[..., 0, None] + g[..., 1, :] * w[..., 1, None]
             + g[..., 2, :] * w[..., 2, None])
+
+
+def vector_pool(queries, q_valid, xyz, xyz_valid, feats, radius: float, nsample: int,
+                bins=(3, 3, 3)):
+    """VectorPool aggregation (the JAX package's vector_pool, the
+    reference's pointnet2_stack vector_pool_gpu with avg pooling): each
+    query's cube of half-extent `radius` is split into bins = (nx, ny, nz)
+    sub-voxels, the ball query's neighbours are averaged per sub-voxel, and
+    the output is the flattened per-bin [mean Δxyz, mean features].
+
+    queries (B, M, 3), q_valid (B, M), xyz (B, N, 3), xyz_valid (B, N),
+    feats (B, N, C) or None → (B, M, nx·ny·nz·(3 + C)) fp32, has_neighbor
+    (B, M). A slot counts when its point lies within the radius, its query
+    has a neighbour, and it is not one of the ball query's repeats of slot 0
+    (a true neighbour's index differs from slot 0's). The bin of each axis
+    is trunc(rel · n) clipped to [0, n - 1], rel = (Δ + radius) / 2 radius;
+    bin ids run x slowest. The per-bin sums are a one-hot product in fp32,
+    as JAX's einsum; its summation order differs from XLA's by rounding."""
+    nx, ny, nz = (int(v) for v in bins)
+    nbins = nx * ny * nz
+    idx, has = ball_query(radius, nsample, xyz, xyz_valid, queries, q_valid)
+    with torch.autocast(queries.device.type, enabled=False):
+        grouped_xyz = group_points(xyz.float(), idx) - queries.float()[:, :, None, :]
+        sq = grouped_xyz * grouped_xyz
+        d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
+        thresh = torch.full((), radius * radius, dtype=torch.float32, device=d2.device)
+        slot_ok = (d2 <= thresh) & has[..., None]
+        first_dup = idx[..., 1:] != idx[..., :1]
+        slot_ok[..., 1:] &= first_dup
+        rel = (grouped_xyz + radius) / (2.0 * radius)
+        cells = []
+        for axis, n in enumerate((nx, ny, nz)):
+            cells.append(torch.clamp((rel[..., axis] * n).to(torch.int32), 0, n - 1))
+        bin_id = (cells[0] * ny + cells[1]) * nz + cells[2]
+        bin_id = torch.where(slot_ok, bin_id, nbins).long()
+        # (B, M, S, nbins + 1): the last column takes the slots that count nowhere
+        onehot = torch.zeros(*bin_id.shape, nbins + 1, dtype=torch.float32,
+                             device=bin_id.device)
+        onehot.scatter_(-1, bin_id[..., None], 1.0)
+        onehot = onehot[..., :nbins]
+        payload = grouped_xyz
+        if feats is not None:
+            payload = torch.cat([grouped_xyz, group_points(feats, idx).float()], dim=-1)
+        b, m, s = idx.shape
+        sums = torch.bmm(onehot.reshape(b * m, s, nbins).transpose(1, 2),
+                         payload.reshape(b * m, s, -1))
+        counts = onehot.sum(dim=2).reshape(b * m, nbins, 1)
+        means = sums / torch.clamp(counts, min=1.0)
+    return means.reshape(b, m, -1), has

@@ -21,7 +21,7 @@
 // tables), operations at Cin = Cout = 128 where most taps are live.
 //
 // bf16, on the tensor cores (dfu3d_gather_gemm_tc; Cin % 4 == 0, Cin <= 128,
-// Cout in {16, 32, 64, 128}, K <= 32). Output-stationary: one block of
+// Cout in {16, 32, 48, 64, 96, 128}, K <= 32). Output-stationary: one block of
 // 4 warps owns TQ = 64 query rows of one sample and all Cout columns; each
 // warp owns 16 rows.
 //  1. Live-tap list, built once per tile. The block reads its (TQ, K) slice
@@ -488,7 +488,9 @@ extern "C" int dfu3d_gather_gemm_tc(const void* feats, const void* valid, const 
   switch (cout) {
     case 16: return launch_tc<1>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
     case 32: return launch_tc<2>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
+    case 48: return launch_tc<3>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
     case 64: return launch_tc<4>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
+    case 96: return launch_tc<6>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
     case 128: return launch_tc<8>(feats, valid, nbr, w, out, b, v, q, k, cin, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,8 +11,9 @@ dfu3d_tpu/core/voxel/pallas_sparse.py::_fused_kernel (`fused_gather_gemm`)
 and compute what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
 Two variants, chosen by dtype and widths (`variant`):
 
-* ``tensor_core``, bf16 at Cin % 4 == 0, Cin <= 128, Cout in {16, 32, 64,
-  128}, K <= 32 (every conv of the served paths; `gather_gemm` first pads a
+* ``tensor_core``, bf16 at Cin % 4 == 0, Cin <= 128, Cout in {16, 32, 48,
+  64, 96, 128}, K <= 32 (every conv of the served paths and every dX of the
+  train paths, PartA2's decoder's 48 and 96 included; `gather_gemm` first pads a
   bf16 Cin that is not a multiple of 4 with zero channels, in feats and
   in the kernel, as the nuScenes configs' 5 point features need, which
   leaves every product unchanged): one block per (sample,
@@ -47,7 +48,7 @@ from ... import cuda_build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_gemm.cu"
 NVCC_FLAGS = ()
 MAX_COUT = 128
-TC_COUTS = (16, 32, 64, 128)
+TC_COUTS = (16, 32, 48, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, in all and per variant; read by chip_smoke.py

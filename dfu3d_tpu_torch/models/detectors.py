@@ -8,7 +8,8 @@ and voxel branches):
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 `build_network` also builds PointRCNN (models/pointrcnn.py), PointPillar
 and SECONDNet (models/pointpillar.py), SECONDNetIoU (models/second_iou.py),
-VoxelRCNN (models/voxelrcnn.py) and PVRCNN (models/pvrcnn.py).
+VoxelRCNN (models/voxelrcnn.py), PVRCNN and PVRCNNPlusPlus
+(models/pvrcnn.py) and PartA2Net (models/parta2.py).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -156,14 +157,16 @@ class CenterPoint(nn.Module):
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
                   **overrides):
     """Build a detector by MODEL.NAME (CenterPoint, PointRCNN, PointPillar,
-    SECONDNet, SECONDNetIoU, VoxelRCNN or PVRCNN) on `device` (the card
+    SECONDNet, SECONDNetIoU, VoxelRCNN, PVRCNN, PVRCNNPlusPlus or
+    PartA2Net) on `device` (the card
     unless the caller asks for the CPU), in eval mode, or in train mode with
     `train`. `overrides` are constructor keywords (num_point_features,
     max_pillars, max_voxels); PointRCNN reads no grid and takes
     num_point_features only, PointPillar takes no max_voxels and the voxel
     detectors no max_pillars."""
+    from .parta2 import PartA2Net
     from .pointpillar import PointPillar, SECONDNet
-    from .pvrcnn import PVRCNN
+    from .pvrcnn import PVRCNN, PVRCNNPlusPlus
     from .second_iou import SECONDNetIoU
     from .voxelrcnn import VoxelRCNN
 
@@ -171,7 +174,8 @@ def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train:
     if model_cfg.NAME == "PointRCNN":
         return PointRCNN(model_cfg, class_names, **overrides).to(dev).train(train)
     gridded = {"PointPillar": PointPillar, "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
-               "VoxelRCNN": VoxelRCNN, "PVRCNN": PVRCNN}
+               "VoxelRCNN": VoxelRCNN, "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus,
+               "PartA2Net": PartA2Net}
     if model_cfg.NAME in gridded:
         return gridded[model_cfg.NAME](model_cfg, class_names, grid, **overrides).to(dev).train(
             train)

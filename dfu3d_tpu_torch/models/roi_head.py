@@ -333,14 +333,24 @@ def roi_reg_loss(rcnn_reg, targets, loss_cfg):
     """get_box_reg_layer_loss (roi_head_template.py:136-198): smooth-L1 (β
     1/9) of the canonical residuals against zero-centred RoI-sized anchors,
     and with CORNER_LOSS_REGULARIZATION the corner loss of the decoded box,
-    over the RoIs of reg_valid_mask. Returns (loss, tb)."""
+    over the RoIs of reg_valid_mask. Returns (loss, tb).
+
+    The other RoIs enter as a unit box with a zero residual; the reference,
+    which indexes the fg RoIs, never reads them. An untrained RPN can
+    propose background RoIs so large that their corner distances overflow
+    fp32, and the JAX package's mask product (inf · 0) then makes the loss
+    and every gradient NaN. Where those terms are finite, the two agree:
+    they count 0 and pass no gradient."""
     lw = loss_cfg["LOSS_WEIGHTS"]
     code_w = torch.as_tensor(lw["code_weights"], dtype=torch.float32, device=rcnn_reg.device)
+    fg_rows = (targets["reg_valid_mask"].reshape(-1) > 0)[:, None]
+    unit = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0], device=rcnn_reg.device)
     rois = targets["rois"].reshape(-1, targets["rois"].shape[-1])[:, :7]
-    gt_ct = targets["gt_of_rois"][..., :7].reshape(-1, 7)
-    gt_src = targets["gt_of_rois_src"][..., :7].reshape(-1, 7)
-    reg = rcnn_reg.reshape(-1, rcnn_reg.shape[-1])[:, :7]
-    fg = (targets["reg_valid_mask"].reshape(-1) > 0).float()
+    rois = torch.where(fg_rows, rois, unit)
+    gt_ct = torch.where(fg_rows, targets["gt_of_rois"][..., :7].reshape(-1, 7), unit)
+    gt_src = torch.where(fg_rows, targets["gt_of_rois_src"][..., :7].reshape(-1, 7), unit)
+    reg = torch.where(fg_rows, rcnn_reg.reshape(-1, rcnn_reg.shape[-1])[:, :7], 0.0)
+    fg = fg_rows[:, 0].float()
     fg_sum = torch.clamp(fg.sum(), min=1.0)
 
     zeros = torch.zeros_like(rois[:, :3])

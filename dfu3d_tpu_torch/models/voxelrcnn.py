@@ -79,8 +79,9 @@ class VoxelTwoStage(roi_head.RoIStage, AnchorDetectorBase):
         b, r = pts.shape[:2]
         return pts.reshape(b, r * g3, 3), roi_valid.repeat_interleave(g3, dim=1)
 
-    def roi_sources(self, batch, bev, stages):
-        """What the RoI head pools from: here the encoder's stages."""
+    def roi_sources(self, batch, bev, stages, rois, roi_valid):
+        """What the RoI head pools from, given the RoIs it will pool: here
+        the encoder's stages."""
         return stages
 
     def source_loss(self, batch, sources):
@@ -95,12 +96,12 @@ class VoxelTwoStage(roi_head.RoIStage, AnchorDetectorBase):
     def forward(self, batch, sampler=None, dropout=None):
         preds, bev, stages = self.backbone(batch)
         total, tb = self.rpn_loss(preds, batch)
-        sources = self.roi_sources(batch, bev, stages)
-        extra, extra_tb = self.source_loss(batch, sources)
         tgt = self.sample_rois(preds, batch, sampler)
         b, m = tgt["rois"].shape[:2]
         # every sampled slot is a RoI, a zeroed padding proposal included
         roi_valid = torch.ones((b, m), dtype=torch.bool, device=tgt["rois"].device)
+        sources = self.roi_sources(batch, bev, stages, tgt["rois"], roi_valid)
+        extra, extra_tb = self.source_loss(batch, sources)
         rcnn_cls, rcnn_reg = self.refine(sources, tgt["rois"], roi_valid, dropout)
         rcnn_loss, rtb = self.roi_loss(rcnn_cls, rcnn_reg, tgt)
         total = total + extra + rcnn_loss
@@ -113,8 +114,8 @@ class VoxelTwoStage(roi_head.RoIStage, AnchorDetectorBase):
         """Eval: (boxes (B, S, 7), scores, labels, valid), S = the final
         NMS's post size."""
         preds, bev, stages = self.backbone(batch)
-        sources = self.roi_sources(batch, bev, stages)
         rois, _, roi_labels, roi_valid = self.proposals(preds, False)
+        sources = self.roi_sources(batch, bev, stages, rois, roi_valid)
         rcnn_cls, rcnn_reg = self.refine(sources, rois, roi_valid)
         refined = roi_head.generate_predicted_boxes(rois[..., :7], rcnn_reg)
         scores = torch.where(roi_valid, torch.sigmoid(rcnn_cls), 0.0)

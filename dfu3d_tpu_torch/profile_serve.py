@@ -1,7 +1,8 @@
 """Where the serving time goes, on the card.
 
     python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn|second|pp|
-                                                     second_iou|voxel_rcnn|pv_rcnn]
+                                                     second_iou|voxel_rcnn|pv_rcnn|
+                                                     parta2|pv_rcnn_plusplus]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -10,8 +11,8 @@ CenterPoint-pillar (256 x 512 BEV), voxel CenterPoint
 (pointrcnn_nuscenes2kitti), SECOND multi-head (cbgs_second_multihead,
 1024 x 1024 x 40 grid, max_voxels 60,000) or PointPillar multi-head
 (cbgs_pp_multihead, 512 x 512 pillars), or one of the two-stage KITTI
-detectors (second_iou.yaml, voxel_rcnn_car.yaml, pv_rcnn.yaml, 1408 x 1600 x
-40 grid, max_voxels 40,000). CenterPoint: B=4, 60,000 uniform
+detectors (second_iou.yaml, voxel_rcnn_car.yaml, pv_rcnn.yaml, PartA2.yaml,
+pv_rcnn_plusplus.yaml, 1408 x 1600 x 40 grid, max_voxels 40,000). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -40,10 +41,11 @@ as one JSON object (printed, and written to --out):
   exclusive ms of the spans of `anchor_phase_times`: the VFE, the
   neighbour tables, the sparse convs with their B2 launches, the 2D
   backbone, the head, the decode, the NMS with its B1 launch and keep-scan,
-  the recall IoU with its B1 launch, and the rest; second_iou, voxel_rcnn
-  and pv_rcnn: the spans of `two_stage_phase_times`: the trunk, the RPN,
-  the proposals, PV-RCNN's VSA and FPS (fps_share), the RoI pooling and
-  head, the final NMS, the recall IoU);
+  the recall IoU with its B1 launch, and the rest; the two-stage
+  detectors: the spans of `two_stage_phase_times`: the trunk (PartA2's
+  decoder apart), the RPN, the proposals, PV-RCNN's and PV-RCNN++'s VSA
+  and FPS (fps_share), PartA2's part head, the RoI pooling and head, the
+  final NMS, the recall IoU);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -76,8 +78,9 @@ from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
 from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, kitti_batches, nuscenes_batches,
-                  pointrcnn, pointrcnn_batches, pp_multihead, pv_rcnn, second_iou,
-                  second_multihead, voxel_centerpoint, voxel_rcnn, write_pointrcnn_root)
+                  parta2, pointrcnn, pointrcnn_batches, pp_multihead, pv_rcnn, pv_rcnn_plusplus,
+                  second_iou, second_multihead, voxel_centerpoint, voxel_rcnn,
+                  write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -251,17 +254,26 @@ def anchor_profile(model, run, batches, optimizer=None):
 
 
 def two_stage_phase_times(model, run, batch, optimizer=None):
-    """One step of a two-stage voxel detector (SECONDNetIoU, VoxelRCNN or
-    PVRCNN), `run(batch)` (an eval step, or with its `optimizer` a train
-    step), with every span of `Spans` timed: the VFE, the neighbour tables
-    and the sparse convs with their B2 launches (the trunk), the 2D backbone,
-    the head (the RPN), the proposals with their B1 launch and keep-scan,
-    PV-RCNN's voxel set abstraction with its FPS, the RoI pooling, the RoI
-    head's FC stacks, the final NMS with its B1 launch and keep-scan, the
-    recall IoU with its B1 launch; a train step adds the anchor targets, the
-    RPN loss, the RoI targets with their B1 launch, the RCNN loss, the
-    backward (with B2's dX launches) and the clip + optimizer update."""
-    trunk = model.encoder if hasattr(model, "encoder") else model.backbone_3d
+    """One step of a two-stage voxel detector (SECONDNetIoU, VoxelRCNN,
+    PVRCNN, PVRCNNPlusPlus or PartA2Net), `run(batch)` (an eval step, or
+    with its `optimizer` a train step), with every span of `Spans` timed:
+    the VFE, the neighbour tables and the sparse convs with their B2
+    launches (the trunk; PartA2's SparseUNet encoder, its decoder apart as
+    unet_decoder), the 2D backbone, the head (the RPN), the proposals with
+    their B1 launch and keep-scan, PV-RCNN's and PV-RCNN++'s voxel set
+    abstraction (vsa: the SA or vector pools) with its FPS (PV-RCNN++: over
+    the points near the RoIs, keypoint_mask apart), PartA2's part head, the
+    RoI pooling (PartA2's RoI-aware pools, PV-RCNN++'s grid vector pools),
+    the RoI head (FC stacks; PartA2's conv blocks too), the final NMS with
+    its B1 launch and keep-scan, the recall IoU with its B1 launch; a train
+    step adds the anchor targets, the RPN loss, the RoI targets with their
+    B1 launch, the RCNN loss, the keypoint segmentation loss or PartA2's
+    part losses, the backward (with B2's dX launches) and the clip +
+    optimizer update."""
+    from .models import parta2 as parta2_mod
+
+    trunk = next(getattr(model, n) for n in ("unet", "encoder", "backbone_3d")
+                 if hasattr(model, n))
     wraps = [(model.vfe, "forward", "vfe"), (trunk, "plan", "neighbour_tables"),
              (trunk, "forward", "sparse_convs"), (gather_gemm_kernel, "gather_gemm", "b2"),
              (model.backbone_2d, "forward", "backbone_2d"),
@@ -269,15 +281,25 @@ def two_stage_phase_times(model, run, batch, optimizer=None):
              (iou_kernel, "overlap_bev", "b1"), (nms_mod, "_suppression_scan", "keep_scan"),
              (roi_head, "final_nms", "final_nms"),
              (train_state, "pairwise_iou3d", "recall_iou")]
-    heads = [n for n in ("shared_fc", "iou_fc", "cls_fc", "reg_fc", "cls_pred", "reg_pred")
-             if hasattr(model, n)]
+    heads = [n for n in ("shared_fc", "iou_fc", "cls_fc", "reg_fc", "cls_pred", "reg_pred",
+                         "roi_head") if hasattr(model, n)]
     wraps += [(getattr(model, n), "forward", "roi_head") for n in heads]
-    pools = [m for n, m in model.named_children() if n.startswith(("pool_", "grid_sa"))]
+    pools = [m for n, m in model.named_children() if n.startswith(("pool_", "grid_sa",
+                                                                   "grid_vp"))]
     wraps += [(m, "forward", "roi_pool") for m in pools]
-    if not pools:   # SECOND-IoU
+    if hasattr(model, "unet"):   # PartA2
+        wraps += [(getattr(model.unet, n), "forward", "unet_decoder")
+                  for n in ("up3", "up2", "up1")]
+        wraps += [(parta2_mod, "parent_gather", "unet_decoder"),
+                  (model.seg_mlp, "forward", "part_head"), (model.seg_out, "forward", "part_head"),
+                  (model.part_out, "forward", "part_head"),
+                  (parta2_mod, "roiaware_pool", "roi_pool")]
+    elif not pools:   # SECOND-IoU
         wraps.append((second_iou_mod, "bev_roi_align", "roi_pool"))
-    if hasattr(model, "sa_raw"):   # PV-RCNN
+    if hasattr(model, "vsa_pools"):   # PV-RCNN, PV-RCNN++
         wraps += [(model, "roi_sources", "vsa"), (pointnet2, "farthest_point_sample", "fps")]
+        if hasattr(model, "keypoint_mask"):
+            wraps.append((model, "keypoint_mask", "keypoint_mask"))
     if optimizer is not None:
         wraps += [(model, "assign_targets", "anchor_targets"),
                   (pointpillar_mod, "anchor_head_loss", "rpn_loss"),
@@ -285,8 +307,10 @@ def two_stage_phase_times(model, run, batch, optimizer=None):
                   (roi_head, "roi_head_loss", "rcnn_loss"),
                   (second_iou_mod, "iou_loss", "rcnn_loss"),
                   (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
-        if hasattr(model, "sa_raw"):
+        if hasattr(model, "vsa_pools"):
             wraps.append((model, "source_loss", "kp_seg_loss"))
+        if hasattr(model, "unet"):
+            wraps.append((model, "part_loss", "part_loss"))
     return timed_spans(wraps, run, batch)
 
 
@@ -295,18 +319,20 @@ def two_stage_profile(model, run, batches, optimizer=None):
     eval step or (given its `optimizer`) a train step through to its result
     on the host: phase_ms, the median over the batches of each span's
     exclusive ms (`two_stage_phase_times`); keep_scan (`keep_scans`); for
-    PV-RCNN fps_share, the FPS span's share of the instrumented step."""
+    PV-RCNN and PV-RCNN++ fps_share, the FPS span's share of the
+    instrumented step."""
     phases = [two_stage_phase_times(model, run, b, optimizer) for b in batches]
     keys = sorted({k for p in phases for k in p})
     out = {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys}}
-    if hasattr(model, "sa_raw"):
+    if hasattr(model, "vsa_pools"):
         out["fps_share"] = statistics.median(
             sum(v for k, v in p.items() if k.endswith("fps")) / p["step"] for p in phases)
     out["keep_scan"] = keep_scans(run, batches)
     return out
 
 
-TWO_STAGE = {"second_iou": second_iou, "voxel_rcnn": voxel_rcnn, "pv_rcnn": pv_rcnn}
+TWO_STAGE = {"second_iou": second_iou, "voxel_rcnn": voxel_rcnn, "pv_rcnn": pv_rcnn,
+             "parta2": parta2, "pv_rcnn_plusplus": pv_rcnn_plusplus}
 
 
 def kitti_workload(cfg, work, num_batches: int, batch_size: int, training: bool = False):

@@ -1,7 +1,8 @@
 """Where the training time goes, on the card.
 
     python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn|second|
-                                                     second_iou|voxel_rcnn|pv_rcnn]
+                                                     second_iou|voxel_rcnn|pv_rcnn|
+                                                     parta2|pv_rcnn_plusplus]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -279,11 +280,13 @@ def second_train(steps: int, device_name: str) -> dict:
     }
 
 
-ENCODER_FORWARD_B2 = 9  # SparseEncoder's sparse convs (Voxel R-CNN, PV-RCNN)
+ENCODER_FORWARD_B2 = 9  # SparseEncoder's sparse convs (Voxel R-CNN, PV-RCNN, PV-RCNN++)
+UNET_FORWARD_B2 = 12    # SparseUNet's (PartA2)
 
 
 def two_stage_train(name: str, steps: int, device_name: str) -> dict:
-    """profile_train --model second_iou|voxel_rcnn|pv_rcnn: step times at the
+    """profile_train --model second_iou|voxel_rcnn|pv_rcnn|parta2|pv_rcnn_plusplus:
+    step times at the
     config's BATCH_SIZE_PER_GPU, the spans of `two_stage_profile` over the
     steps with the optimizer, and the device profile with the sparse convs'
     split. Each batch gets `zoo.proposal_gt`'s 16 gt per frame just before
@@ -314,7 +317,8 @@ def two_stage_train(name: str, steps: int, device_name: str) -> dict:
     median = statistics.median(step_ms)
     batches = [proposal_gt(model, batch, torch.bfloat16) for batch in batches]
     spans = two_stage_profile(model, run, batches, state.optimizer)
-    forward_b2 = VOXEL8X_FORWARD_B2 if name == "second_iou" else ENCODER_FORWARD_B2
+    forward_b2 = {"second_iou": VOXEL8X_FORWARD_B2, "parta2": UNET_FORWARD_B2}.get(
+        name, ENCODER_FORWARD_B2)
     profile = _profile(step, batches, forward_b2)
     if "device_busy_ms_per_step" in profile:
         profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median

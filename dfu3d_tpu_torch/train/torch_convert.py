@@ -2,9 +2,9 @@
 PointRCNN and the anchor detectors (own copy of the JAX package's
 train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
 `anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
-`second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`
-and `apply_mapping`'s partial overlay, :50-166, :300-394, :397-451,
-:424-505, :549-604, :959-1029).
+`second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`,
+`parta2_head_mapping` with `t_spconv_dense` and `apply_mapping`'s partial
+overlay, :50-166, :300-394, :397-451, :424-505, :513-604, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -26,6 +26,8 @@ into the port's state_dict names, so every transform is reference → port:
                         grouped out conv
     Linear              identity: both (out, in)
     Conv1d / Conv2d k=1 (out, in, 1[, 1]) reshaped to the Linear's (out, in)
+    SubMConv3d (PartA2   spconv's layout → Conv3d (out, in, kx, ky, kz)
+    RoI head)            (`t_spconv_dense`)
 
 The overlay is partial, as the reference's load_params_from_file is
 (strict=False): keys of the mapping that the model lacks are skipped (the
@@ -37,7 +39,8 @@ centerpoint_nuscenes2kitti.yaml, the JAX package's convert_state_dict
 default) for CenterPoint, the point head's and the RoI head's for PointRCNN,
 the pillar VFE's, the 2D backbone's and AnchorHeadSingle's for PointPillar
 and SECONDNet, and those two with the RoI head's for SECONDNetIoU,
-VoxelRCNN and PVRCNN. The JAX package has no PointNet2MSG, sparse-backbone or
+VoxelRCNN, PVRCNN and PartA2Net (PVRCNNPlusPlus has the RPN's only: the
+JAX package maps no PV-RCNN++ head). The JAX package has no PointNet2MSG, sparse-backbone or
 AnchorHeadMulti mapping, so neither has the port: those modules keep their
 values and are reported unmatched.
 """
@@ -52,14 +55,14 @@ import torch
 __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
            "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
-           "pvrcnn_head_mapping", "apply_mapping",
+           "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense", "apply_mapping",
            "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
 _REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
                             r"|reg_layers|xyz_up_layer|merge_down_layer|SA_modules|FP_modules"
                             r"|iou_layers|shared_fc_layer|cls_fc_layers|reg_fc_layers"
-                            r"|roi_grid_pool_layers)"
+                            r"|roi_grid_pool_layers|conv_part|conv_rpn)"
                             r"\.\d")
 
 Mapping = Dict[str, Tuple[object, Callable]]
@@ -307,6 +310,38 @@ def pvrcnn_head_mapping(shared_fc: int = 2, cls_fc: int = 2, reg_fc: int = 2,
     _fc_between(m, "shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
     _fc_make(m, "cls_fc", f"{ref_prefix}.cls_layers", cls_fc)
     _fc_make(m, "reg_fc", f"{ref_prefix}.reg_layers", reg_fc)
+    return m
+
+
+def t_spconv_dense(w):
+    """spconv SubMConv3d weight → the port's Conv3d weight (Cout, Cin, kx,
+    ky, kz), for PartA2FCHead's submanifold blocks that the port runs as
+    dense convs over the pooled grids (the JAX package's t_spconv_dense,
+    which gives flax's (kx, ky, kz, Cin, Cout)). spconv 1.x stores (kz, ky,
+    kx, Cin, Cout), 2.x (Cout, kz, ky, kx, Cin): three equal middle axes
+    mark 2.x."""
+    if w.dim() != 5:
+        raise ValueError(f"not a sparse conv weight: shape {tuple(w.shape)}")
+    if w.shape[1] == w.shape[2] == w.shape[3]:
+        w = w.movedim(0, -1)
+    return w.permute(4, 3, 2, 1, 0).contiguous()
+
+
+def parta2_head_mapping(shared_fc: int = 3, cls_fc: int = 2, reg_fc: int = 2,
+                        ours_prefix="roi_head", ref_prefix="roi_head") -> Mapping:
+    """PartA2FCHead (partA2_head.py:15-58): the conv_part / conv_rpn
+    submanifold stacks (two post_act_blocks each: conv, BN), the Conv1d
+    SHARED_FC tower and the make_fc_layers cls / reg stacks; the arguments
+    are the towers' depths."""
+    m: Mapping = {}
+    for stream, ref_name in (("part", "conv_part"), ("rpn", "conv_rpn")):
+        for blk in range(2):
+            base = f"{ref_prefix}.{ref_name}.{blk}.0"
+            m[f"{ours_prefix}.{stream}{blk}_conv.weight"] = (f"{base}.0.weight", t_spconv_dense)
+            _bn(m, f"{ours_prefix}.{stream}{blk}_bn", f"{base}.1")
+    _fc_between(m, f"{ours_prefix}.shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
+    _fc_make(m, f"{ours_prefix}.cls_fc", f"{ref_prefix}.cls_layers", cls_fc)
+    _fc_make(m, f"{ours_prefix}.reg_fc", f"{ref_prefix}.reg_layers", reg_fc)
     return m
 
 

@@ -1,7 +1,7 @@
 """Builders for the port's other supported models: voxel CenterPoint,
 PointRCNN, the nuScenes anchor detectors (SECOND and PointPillar
 multi-head) and the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
-R-CNN, PV-RCNN).
+R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++).
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -210,7 +210,8 @@ def nuscenes_batches(cfg, root, info_file, num_batches: int, training: bool = Fa
 
 KITTI_CFGS = Path(__file__).resolve().parents[1] / "tools/cfgs/kitti_models"
 TWO_STAGE_CFGS = {"second_iou": "second_iou.yaml", "voxel_rcnn": "voxel_rcnn_car.yaml",
-                  "pv_rcnn": "pv_rcnn.yaml"}
+                  "pv_rcnn": "pv_rcnn.yaml", "parta2": "PartA2.yaml",
+                  "parta2_free": "PartA2_free.yaml", "pv_rcnn_plusplus": "pv_rcnn_plusplus.yaml"}
 
 
 def _kitti_detector(name, device, train):
@@ -244,6 +245,29 @@ def pv_rcnn(train: bool = False, device="cuda"):
     widths (2,048 keypoints), on the JAX package's SparseEncoder trunk; as
     `second_iou`."""
     return _kitti_detector("pv_rcnn", device, train)
+
+
+def parta2(train: bool = False, device="cuda"):
+    """PartA2Net on tools/cfgs/kitti_models/PartA2.yaml at its published
+    widths (SparseUNet 16-64 with conv_out 128, the part head's seg_mlp 128,
+    128, the RoI-aware pools at 12³ with 512 samples per RoI, SHARED_FC
+    256 x 3); as `second_iou`."""
+    return _kitti_detector("parta2", device, train)
+
+
+def parta2_free(train: bool = False, device="cuda"):
+    """PartA2Net on tools/cfgs/kitti_models/PartA2_free.yaml: PartA2's
+    anchor RPN with DISABLE_PART and SEG_MASK_SCORE_THRESH 0, as the JAX
+    package builds it; as `second_iou`."""
+    return _kitti_detector("parta2_free", device, train)
+
+
+def pv_rcnn_plusplus(train: bool = False, device="cuda"):
+    """PVRCNNPlusPlus on tools/cfgs/kitti_models/pv_rcnn_plusplus.yaml at
+    its published widths (4,096 proposal-centric keypoints, vector pools of
+    3 x 3 x 3 bins), on the JAX package's SparseEncoder trunk; as
+    `second_iou`."""
+    return _kitti_detector("pv_rcnn_plusplus", device, train)
 
 
 def kitti_batches(cfg, root, info_file, num_batches: int, batch_size: int,

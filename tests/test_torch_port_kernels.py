@@ -239,12 +239,14 @@ def _launch_tc(feats, valid, nbr, w):
 @pytest.mark.parametrize("cin,cout,k", [
     (4, 16, 27), (5, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
     (64, 64, 27), (64, 128, 27), (128, 128, 27), (128, 128, 3),
+    (128, 64, 27), (96, 32, 27), (48, 16, 27), (16, 48, 27), (32, 96, 27),
 ])
 def test_gather_gemm_tensor_core_widths(cuda_device, cin, cout, k):
     """The bf16 tensor-core kernel at every (Cin, Cout, K) of the voxel
     paths (Cin 5: the nuScenes configs' first conv, padded to 8 by the
-    wrapper), on a random table with ~20 % masked rows and a ragged Q (not a
-    multiple of the 64-row tile)."""
+    wrapper; PartA2's SparseUNet decoder, Cin 128, 96, 48, and its dX, Cout
+    48 and 96), on a random table with ~20 % masked rows and a ragged Q (not
+    a multiple of the 64-row tile)."""
     rng = np.random.default_rng(cin * 1000 + cout + k)
     args = _gather_gemm_case(rng, 2, 700, 333, k, cin, cout, torch.bfloat16, cuda_device)
     got = _launch_tc(*args)
@@ -315,7 +317,9 @@ def test_gather_gemm_fp32_repeats_bit_for_bit(cuda_device):
     (torch.bfloat16, 27, 128, 128, "tensor_core"),
     (torch.bfloat16, 3, 128, 128, "tensor_core"),
     (torch.float32, 27, 64, 64, "cuda_core"),      # TF32 would change fp32 results
-    (torch.bfloat16, 27, 8, 8, "cuda_core"),       # Cout not in 16, 32, 64, 128
+    (torch.bfloat16, 27, 16, 48, "tensor_core"),   # PartA2's decoder dX
+    (torch.bfloat16, 27, 32, 96, "tensor_core"),
+    (torch.bfloat16, 27, 8, 8, "cuda_core"),       # Cout not in 16, 32, 48, 64, 96, 128
     (torch.bfloat16, 27, 6, 16, "cuda_core"),      # Cin % 4 != 0
     (torch.bfloat16, 33, 16, 16, "cuda_core"),     # more taps than a 32-bit mask holds
 ])

@@ -45,6 +45,37 @@ def numpy_variables(init_fn, seed=0, gains=None):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def flax_variables_like(model):
+    """The flax {"params", "batch_stats"} tree (zeros) that
+    `params_from_jax` maps onto `model`'s state_dict, each leaf in the flax
+    layout: the inverse of its transforms. `numpy_variables(lambda:
+    flax_variables_like(model))` draws the weights that it draws from the
+    JAX module's init, without tracing the init."""
+    modules = dict(model.named_modules())
+    params, stats = {}, {}
+    for key, t in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        shape = tuple(t.shape)
+        tree, name = params, {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+        if leaf in ("running_mean", "running_var"):
+            tree = stats
+        elif leaf == "weight" and t.dim() == 1:
+            name = "scale"
+        elif leaf == "weight":
+            name = "kernel"
+            if t.dim() == 2:
+                shape = shape[::-1]
+            elif isinstance(modules[".".join(mods)], torch.nn.ConvTranspose2d):
+                shape = (shape[2], shape[3], shape[0], shape[1])
+            else:   # (O, I, *k) → (*k, I, O)
+                shape = shape[2:] + (shape[1], shape[0])
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = jnp.zeros(shape, jnp.float32)
+    return {"params": params, "batch_stats": stats}
+
+
 def flagship_model_cfgs():
     """(port cfg, JAX cfg) of the flagship yaml."""
     return (cfg_from_yaml_file(FLAGSHIP_CFG, CfgDict()),

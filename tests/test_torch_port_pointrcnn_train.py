@@ -416,6 +416,33 @@ def test_roi_losses_match_jax(cls_loss):
     np.testing.assert_allclose(r.grad.numpy(), np.asarray(wgrads[1]), rtol=1e-4, atol=1e-6)
 
 
+def test_roi_reg_loss_skips_overflowed_bg_rois():
+    """A RoI outside reg_valid_mask whose size overflows the corner
+    distances (1e20 m, as an untrained RPN can propose) changes neither the
+    loss nor any gradient, as in the reference, which indexes the fg RoIs;
+    the JAX package's mask product gives NaN there."""
+    rng = np.random.RandomState(10)
+    targets, cls, reg = roi_loss_inputs(rng, "BinaryCrossEntropy")
+    lcfg = jroi.roi_head_loss_cfg({})
+    bg = np.argwhere(targets["reg_valid_mask"] == 0)[0]
+    huge = {k: v.copy() for k, v in targets.items()}
+    huge["rois"][tuple(bg)][3:6] = 1e20
+    huge["gt_of_rois"] = np.asarray(jroi.canonicalize_gt_of_rois(
+        jnp.asarray(huge["rois"]), jnp.asarray(huge["gt_of_rois_src"])))
+    jtotal, _ = jroi.roi_head_loss(jnp.asarray(cls), jnp.asarray(reg),
+                                   {k: jnp.asarray(v) for k, v in huge.items()}, lcfg)
+    assert np.isnan(float(jtotal))
+    out = []
+    for tg in (targets, huge):
+        r = t(reg).requires_grad_(True)
+        total, tb = proi.roi_head_loss(t(cls), r, {k: t(v) for k, v in tg.items()}, lcfg)
+        total.backward()
+        out.append((total.detach(), r.grad))
+    assert torch.isfinite(out[1][0]) and torch.isfinite(out[1][1]).all()
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert out[1][1][tuple(bg)].abs().max() == 0
+
+
 def test_fc_stack_dropout():
     """Identity in eval and without a generator; in training, inverted
     dropout after block 0: zeros at about rate p, the kept units scaled by

@@ -54,7 +54,7 @@ from test_model import CLASS_NAMES, make_batch
 from test_pointpillar import second_grid, second_model_cfg
 from test_pvrcnn import pv_cfg, pv_grid
 from test_pvrcnn_pp import _pool_layer
-from test_torch_port_models import numpy_variables
+from test_torch_port_models import flax_variables_like, numpy_variables
 from test_torch_port_sparse import PCR, VS, ground_points
 
 GRID = sparse_ops.SparseGrid(128, 128, 40)
@@ -62,6 +62,19 @@ MAX_VOXELS = 4096
 VOXEL_CAP = 1200
 CHANS, OUT_CH = (4, 8, 8, 16, 16), 8
 BN_SHIFT = 3.0
+TEST_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """TEST_THREADS intra-op threads for each module that imports this
+    fixture: with several test workers on the machine, each process's
+    default thread pool makes the many small ops of these test-scale models
+    tens of times slower (a loop of FPS steps, the keep-scans)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a):
@@ -105,22 +118,26 @@ MODELS = {"second_iou": (second_iou_cfg, second_grid),
           "pv_rcnn": (pv_cfg, pv_grid)}
 
 
-def pair(name, seed=1, bn_shift=0.0, train=False, jbatch=None):
+def pair(name, seed=1, bn_shift=0.0, train=False):
+    """(JAX model, flax variables, port model, JAX cfg) of MODELS[name]
+    (`build_pair`)."""
+    cfg_fn, grid_fn = MODELS[name]
+    return build_pair(cfg_fn(), grid_fn(), seed, bn_shift, train)
+
+
+def build_pair(jcfg, jgrid, seed=1, bn_shift=0.0, train=False):
     """(JAX model, flax variables, port model, JAX cfg): numpy weights with
-    the RPN's box conv at a tenth of its He scale."""
+    the RPN's box conv at a tenth of its He scale, drawn in the flax tree
+    of the port model's state_dict (the tree the JAX model's init makes)."""
     from test_torch_port_train_slice import _shift_bn_biases
 
-    cfg_fn, grid_fn = MODELS[name]
-    jcfg, jgrid = cfg_fn(), grid_fn()
     jmodel = j_build_network(jcfg, CLASS_NAMES, jgrid)
-    jbatch = make_batch(np.random.RandomState(4), b=2, n=512) if jbatch is None else jbatch
-    variables = numpy_variables(
-        lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, jbatch, train=False),
-        seed=seed, gains={"dense_head/conv_box/kernel": 0.1})
-    if bn_shift:
-        variables = _shift_bn_biases(variables, bn_shift)
     grid = voxel.VoxelGrid.create(jgrid.point_cloud_range, jgrid.voxel_size)
     model = build_network(CfgDict(jcfg), CLASS_NAMES, grid, device="cpu", train=train)
+    variables = numpy_variables(lambda: flax_variables_like(model), seed=seed,
+                                gains={"dense_head/conv_box/kernel": 0.1})
+    if bn_shift:
+        variables = _shift_bn_biases(variables, bn_shift)
     params_from_jax(variables, model)
     return jmodel, variables, model, jcfg
 
@@ -143,8 +160,8 @@ def encoder_setup():
     jc, jv = jnp.asarray(vox.voxel_coords.numpy()), jnp.asarray(vox.voxel_valid.numpy())
     jmod = jsb.SparseEncoder(grid=jsp.SparseGrid(*GRID), voxel_cap=VOXEL_CAP, channels=CHANS,
                              out_channels=OUT_CH, dtype=jnp.float32)
-    variables = numpy_variables(
-        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jc, jv, train=False),
+    variables = numpy_variables(lambda: flax_variables_like(
+        sb.SparseEncoder(GRID, VOXEL_CAP, in_channels=4, channels=CHANS, out_channels=OUT_CH)),
         seed=5)
     return vox, feats, jc, jv, jmod, variables
 
@@ -191,8 +208,12 @@ def test_sparse_encoder_backward_matches_jax(encoder_setup, monkeypatch):
         lambda path, x: x + BN_SHIFT if path[-1].key == "bias" else x, variables["params"]),
         "batch_stats": variables["batch_stats"]}
     rng = np.random.RandomState(42)
-    _, wstages = jmod.apply(variables, jnp.asarray(feats), jc, jv, train=False)
-    rs = [rng.normal(0, 1, np.asarray(s.features).shape).astype(np.float32) for s in wstages]
+    # R has each stage's shape, which the eval test holds equal to JAX's
+    with torch.no_grad():
+        enc = port_encoder(variables)
+        _, stages = enc(torch.from_numpy(feats),
+                        enc.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique))
+    rs = [rng.normal(0, 1, tuple(s.features.shape)).astype(np.float32) for s in stages]
 
     def j_loss(params):
         (bev, stages), upd = jmod.apply({"params": params,

@@ -13,6 +13,7 @@ import torch
 
 from test_model import make_batch
 from test_torch_port_two_stage import MODELS, pair, port_batch
+from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

@@ -38,6 +38,7 @@ from test_model import make_batch
 from test_torch_port_pointrcnn_train import CaptureTargets, capture_port_targets, jax_draws
 from test_torch_port_train_slice import recording
 from test_torch_port_two_stage import DropoutMasks, pair, port_batch
+from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
 
 TOTAL_STEPS = 100
 LOSS_TOL = 1e-5
@@ -56,6 +57,16 @@ def test_train_step_matches_jax(name, monkeypatch):
 
 def check_train_step(name, monkeypatch):
     jmodel, variables, model, _ = pair(name, seed=2, train=True)
+    # a dropout after every block of a stack but the last (shared_fc_stack)
+    # or after its first (make_fc_stack): one mask per stack of two blocks
+    check_model_train_step(jmodel, variables, model, REG_BRANCH[name],
+                           {"second_iou": 2, "voxel_rcnn": 1, "pv_rcnn": 3}[name], monkeypatch)
+
+
+def check_model_train_step(jmodel, variables, model, reg_branch, num_masks, monkeypatch):
+    """One train step of `model` against JAX's on `jmodel` with `variables`
+    (see the module docstring); `reg_branch` names the RoI head's regression
+    leaves, `num_masks` the dropout masks JAX draws."""
     batch = zoo.proposal_gt(model, port_batch(make_batch(np.random.RandomState(7), b=2, n=512)),
                             count=4)
     jbatch = JPointBatch(*(np.asarray(x) for x in batch))
@@ -69,11 +80,9 @@ def check_train_step(name, monkeypatch):
     new_state, jmetrics = jax.device_get(jax.jit(j_make_train_step(jmodel, tx))(state, jbatch))
     seen = capture.seen
     assert (seen["reg_valid_mask"].sum(1) > 0).all()
-    # a dropout after every block of a stack but the last (shared_fc_stack)
-    # or after its first (make_fc_stack): one mask per stack of two blocks
-    assert len(masks.masks) == {"second_iou": 2, "voxel_rcnn": 1, "pv_rcnn": 3}[name]
+    assert len(masks.masks) == num_masks
 
-    draws = jax_draws(seen["key"], 2, 32)
+    draws = jax_draws(seen["key"], 2, model.train_proposal_nms["post_max"])
     monkeypatch.setattr(proi, "draw_roi_uniforms", lambda gen, shape, device: draws)
     left = masks.hand_over(monkeypatch)
     ported = capture_port_targets(monkeypatch)
@@ -99,7 +108,8 @@ def check_train_step(name, monkeypatch):
         scale = np.abs(w).max()
         assert scale > 0, k
         np.testing.assert_allclose(raw[k].numpy(), w, rtol=0, atol=GRAD_TOL * scale, err_msg=k)
-    assert all(raw[k].abs().max() > 0 for k in raw if k.startswith(REG_BRANCH[name]))
+    assert any(k.startswith(reg_branch) for k in raw)
+    assert all(raw[k].abs().max() > 0 for k in raw if k.startswith(reg_branch))
     want = params_from_jax({"params": new_state.params})
     lr0 = tstate.optimizer.lr_fn(0)
     for k, p in model.named_parameters():
