@@ -927,8 +927,10 @@ GEMM_CONVS = (["conv_input"] + [f"res1_{i}" for i in range(4)]
 def hold_gemm_calls(label, named_calls):
     """Each recorded gather-GEMM call (name, args) launched again, held
     against the plain twin on its own inputs (`gemm_agreement`; fatal on a
-    miss or on another variant than the tensor-core one) and timed: kernel,
-    plain, library, bound. Returns (totals, entries)."""
+    miss or on another variant than the one its dtype and widths take,
+    `gather_gemm_kernel.variant`: the tensor-core one at every bf16 width of
+    the paths but K = 125) and timed: kernel, plain, library, bound.
+    Returns (totals, entries)."""
     import torch
 
     from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel as gk
@@ -937,11 +939,13 @@ def hold_gemm_calls(label, named_calls):
     for name, args in named_calls:
         got, ran = launch_variant(lambda: gk.gather_gemm(*args))
         torch.cuda.synchronize()
+        k, cin, cout = args[3].shape
+        want = gk.variant(args[0].dtype, k, gk.padded_cin(args[0].dtype, k, cin, cout), cout)
         e = {"conv": name, "shape": [list(args[0].shape), list(args[2].shape),
                                      list(args[3].shape)], "variant": ran,
              **gemm_agreement(args, got, gk.gather_gemm_plain(*args))}
-        if not e.pop("ok") or ran != "tensor_core":
-            fail(f"gather-GEMM {label}, {name}: {e}")
+        if not e.pop("ok") or ran != want:
+            fail(f"gather-GEMM {label}, {name}: {e} (want the {want} variant)")
         entries.append(time_gemm(e, *args, reps=10))
     total = {k: sum(e[k] for e in entries) for k in ("ms", "plain_ms", "library_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
@@ -949,7 +953,10 @@ def hold_gemm_calls(label, named_calls):
         by[e["bound_by"]] += e["bound_ms"]
     total.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get), launches=len(entries),
                  max_err_over_tol=max(e["max_err_over_tol"] for e in entries))
-    log(f"[kernels] gather_gemm {label} ({len(entries)} launches, all tensor-core, each within "
+    variants = {v: sum(e["variant"] == v for e in entries) for v in ("tensor_core", "cuda_core")}
+    total["launches_by_variant"] = variants
+    log(f"[kernels] gather_gemm {label} ({len(entries)} launches, {variants['tensor_core']} "
+        f"tensor-core and {variants['cuda_core']} CUDA-core, each within "
         f"tolerance of the plain twin, worst error {total['max_err_over_tol']:.3f} of its "
         f"tolerance): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
@@ -1091,11 +1098,12 @@ def time_train_dx(model, batch, device):
     return hold_gemm_calls("dX of one voxel train step", zip(GEMM_CONVS[::-1], dx))
 
 
-def check_dx_mirrors(convs, fwd, dx):
+def check_dx_mirrors(convs, fwd, dx, first_has_dx=False):
     """Fatal unless each dX call mirrors its forward call: the backward runs
     the convs (`convs`, forward order) in reverse, with the transposed
-    weights, and the first conv's input needs no dX."""
-    if len(fwd) != len(convs) or len(dx) != len(convs) - 1:
+    weights, and the first conv's input needs no dX unless `first_has_dx`
+    (PillarNet's: its pillar VFE trains)."""
+    if len(fwd) != len(convs) or len(dx) != len(convs) - (0 if first_has_dx else 1):
         fail(f"{len(fwd)} forward and {len(dx)} dX gather-GEMM calls for the {len(convs)} "
              f"convs {convs[0]} ... {convs[-1]}")
     for name, f, args in zip(convs[::-1], fwd[::-1], dx):
@@ -2986,6 +2994,7 @@ NUSC_REQUESTS = 4                            # SECOND serving, B=4 each
 NUSC_PP_REQUESTS = 2                         # PointPillar multi-head serving
 NUSC_TRAIN_STEPS = 5
 NUSC_LAG_MAX = 0.45                          # s, the ninth sweep's time lag
+NUSC_PROFILE_DEPTH = "2"                     # profile_serve batches, profile_train steps
 SECOND_CFG = "cfgs/nuscenes_models/cbgs_second_multihead.yaml"  # from phase 13's work dir
 NUSC_VOXEL_CFG = "cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml"
 NUSC_CLASSES = ("Car", "Truck", "Construction_vehicle", "Bus", "Trailer", "Barrier",
@@ -3164,7 +3173,8 @@ def nuscenes_profiles(summary):
         with tempfile.TemporaryDirectory() as work:
             out = Path(work) / f"{key}.json"
             run = subprocess.run([sys.executable, "-m", f"dfu3d_tpu_torch.{tool}", "--model",
-                                  "second", flag, "4", "--out", str(out)], cwd=REPO,
+                                  "second", flag, NUSC_PROFILE_DEPTH, "--out", str(out)],
+                                 cwd=REPO,
                                  capture_output=True, text=True)
             if run.returncode != 0 or not out.exists():
                 fail(f"{tool} --model second failed: {run.stderr[-3000:]}")
@@ -3300,10 +3310,11 @@ def nuscenes_phase(device, card):
     return summary, launches, served_iou, served_b2, train_dx
 
 
-# per model: served requests of B=4, bf16 train steps; the three models of
-# the previous slice run shorter to keep the whole script within 750 s
+# per model: served requests of B=4, bf16 train steps; all cut to 2 and 3
+# to keep the whole script within its time limit (with PartA2 and
+# PV-RCNN++ at 4 and 5, and phase 15 added, it took 1,027 s)
 TWO_STAGE_DEPTH = {"second_iou": (2, 3), "voxel_rcnn": (2, 3), "pv_rcnn": (2, 3),
-                   "parta2": (4, 5), "pv_rcnn_plusplus": (4, 5)}
+                   "parta2": (2, 3), "pv_rcnn_plusplus": (2, 3)}
 TWO_STAGE_FRAMES = (16, 8)                 # phase 14's synthetic KITTI root: train, val
 TWO_STAGE_CLASSES = ("Car", "Pedestrian", "Cyclist")
 TWO_STAGE_B1_PER_BATCH = 3                 # proposal NMS, final NMS, recall
@@ -3765,6 +3776,336 @@ def two_stage_phase(device, card):
     return summary, launches, served_b1, train_b1, b2
 
 
+# phase 15: per model, served requests of B=4 and bf16 train steps of B=4
+FULLY_SPARSE_DEPTH = {"voxelnext": (4, 5), "voxelnext_tta": (2, 0),
+                      "voxelnext_iou_large": (2, 3), "pillarnet": (4, 5),
+                      "pillarnet_waymo": (2, 3)}
+# B2 launches per request and per train step, worked out from the JAX
+# modules: VoxelNeXt runs 30 trunk convs (conv_input, two residual blocks of
+# two, five stages of a strided conv and two residual blocks), conv_out,
+# shared_conv and one conv per head branch (num_conv 2), 6 groups x 6
+# branches on nuScenes (36) and 6 branches on the large Waymo config; a
+# step adds one dX per conv but conv_input's (the voxel means need no
+# gradient). PillarNet's pyramids run 12 (PillarBackBone8x) and 21
+# (PillarRes18BackBone8x) convs, and its pillar VFE trains, so every conv
+# has a dX. voxelnext_iou_large's two 5 x 5 x 5 downs (125 taps) take the
+# CUDA-core variant, forward and dX; every other call the tensor cores.
+FULLY_SPARSE_B2 = {"voxelnext": (68, 135), "voxelnext_tta": (68, 0),
+                   "voxelnext_iou_large": (38, 75), "pillarnet": (12, 24),
+                   "pillarnet_waymo": (21, 42)}
+FULLY_SPARSE_CUDA_CORE = {"voxelnext_iou_large": (2, 4)}
+# the models served with the first request's BN statistics
+# (flagship.calibrate_bn_): VoxelNeXt reads raw point means (intensities up
+# to 255) into 31 residual convs, whose identity BN overflows its exp'd
+# dims; PillarNet KITTI's seeded anchor scores sit within 6e-8 of 0.5 at
+# identity BN and spread with them. PillarNet Waymo keeps identity BN: with
+# the statistics (variances floored at 1) its CenterHead's logits compress
+# to ±0.15 and top-K's 500th place falls among near-ties, while at identity
+# its boxes through two tap orders agree to 3e-5 (CPU, fp32)
+FULLY_SPARSE_CALIBRATED = ("voxelnext", "voxelnext_tta", "voxelnext_iou_large", "pillarnet")
+FULLY_SPARSE_B1 = (2, 0)   # per request (NMS, recall) and per train step
+FS_UNITS = {"served": "one served bf16 request, its launches summed",
+            "dx": "one bf16 train step, its dX launches summed"}
+VOXELNEXT_CFG = "cfgs/nuscenes_models/cbgs_voxel0075_voxelnext.yaml"   # from phase 15's work dir
+PILLARNET_CFG = "cfgs/kitti_models/pillarnet.yaml"
+# a regression branch per model, whose weights the fp32 train check requires a gradient on
+FULLY_SPARSE_REG = {"voxelnext": ("head_0.center_out.", "head_0.vel_out."),
+                    "voxelnext_iou_large": ("head_0.center_out.", "head_0.iou_out."),
+                    "pillarnet": ("dense_head.conv_box.",),
+                    "pillarnet_waymo": ("dense_head.fused_heads.out.",)}
+
+
+def fully_sparse_serve(name, model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts and the peak read.
+    Fatal unless every request launched B1 twice and B2 as FULLY_SPARSE_B2
+    and FULLY_SPARSE_CUDA_CORE say, or on a non-finite, misshapen or empty
+    output (the double-flip's kept boxes included). Returns (EvalResult,
+    launches, summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    b2, cuda_core = FULLY_SPARSE_B2[name][0], FULLY_SPARSE_CUDA_CORE.get(name, (0, 0))[0]
+    post_max = int(model.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if boxes.shape[:2] != (4, post_max) or not torch.isfinite(boxes[valid]).all() or \
+                not torch.isfinite(scores).all() or not valid.any(dim=1).all():
+            fail(f"{name} request {k}: boxes {tuple(boxes.shape)}, kept boxes finite "
+                 f"{bool(torch.isfinite(boxes[valid]).all())}, kept per frame "
+                 f"{valid.sum(1).tolist()}")
+    if launches["iou_bev_overlap"] != FULLY_SPARSE_B1[0] * n or \
+            launches["gather_gemm"] != b2 * n or launches["gather_gemm_cuda_core"] != cuda_core * n:
+        fail(f"{name} serving: kernel launches {launches} for {n} requests, not "
+             f"{FULLY_SPARSE_B1[0]} B1 and {b2} B2 ({cuda_core} of them CUDA-core) per request")
+    ms = [s * 1e3 for s in res.batch_seconds]
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
+               "recall": res.metric, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    log(f"[fully_sparse] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
+        f"{summary['kept_per_frame']}; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}")
+    return res, launches, summary
+
+
+def fully_sparse_batches(name, cfg, data, count, training):
+    """`count` batches of B=4 for a phase 15 model: nuScenes key frames with
+    9 sweeps from phase 15's root (VoxelNeXt's nuScenes configs), KITTI
+    frames from phase 15's KITTI root (PillarNet's KITTI config), or frames
+    made in memory in the config's range (the Waymo configs,
+    `zoo.waymo_batches`, 150,000 points and 20-40 boxes each)."""
+    from dfu3d_tpu_torch import zoo
+
+    if name.startswith("voxelnext") and name != "voxelnext_iou_large":
+        root, infos = data["nuscenes"]
+        return zoo.nuscenes_batches(cfg, root, infos["train" if training else "val"], count,
+                                    training=training)
+    if name == "pillarnet":
+        root, infos = data["kitti"]
+        return zoo.kitti_batches(cfg, root, infos["train" if training else "val"], count, 4,
+                                 training=training)
+    return zoo.waymo_batches(cfg, count, seed=1 if training else 0)
+
+
+def fully_sparse_model(name, data, device, card):
+    """Phase 15 for one model: serving at seeded weights (with the BN
+    statistics of the first request, `flagship.calibrate_bn_`, where
+    FULLY_SPARSE_CALIBRATED says; launches, ms, peak memory, spans,
+    the served B1 and B2 calls held and timed, the fp32 request through the
+    kernels and through the twins), then at the seeded weights one bf16
+    step's B2 calls (forward and dX) held and timed and the fp32 step
+    through the kernels and through the twins, then FULLY_SPARSE_DEPTH's
+    bf16 steps through train_model (launches, ms, peak memory, spans).
+    Returns (summary, launches by path, served B1 entries, B2 entries by
+    path)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.profile_serve import _run
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    build = getattr(zoo, name)
+    requests, train_steps = FULLY_SPARSE_DEPTH[name]
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    seconds, launches, b2 = {}, {}, {}
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    batches = fully_sparse_batches(name, cfg, data, requests, training=False)
+    if name in FULLY_SPARSE_CALIBRATED:
+        calibrate_bn_(model, batches[0])
+    seconds["setup_serve"] = time.perf_counter() - t0
+    log(f"[fully_sparse] {name}: {cfg.MODEL.NAME} ({type(model).__name__}) "
+        f"{'x'.join(map(str, grid.grid_size))} grid, max_voxels "
+        f"{profile_serve.cfg_max_voxels(model)}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters; points per request {[b.points_valid.sum(1).tolist() for b in batches]}")
+
+    t0 = time.perf_counter()
+    res, launches[name], serve = fully_sparse_serve(name, model, batches, device)
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    serve["profile"] = profile_serve.fully_sparse_profile(model, lambda b: _run(step, b),
+                                                          batches[:2])
+    serve["profile"]["device_time"] = defer_device_profile(f"fully_sparse {name}",
+                                                           lambda: _run(step, batches[0]))
+    served_b1 = time_served_overlaps(name, model, batches[0], device)
+    calls = record_gemm_calls(lambda: step(batches[0]))
+    if len(calls) != FULLY_SPARSE_B2[name][0]:
+        fail(f"one {name} eval step made {len(calls)} gather-GEMM calls, not "
+             f"{FULLY_SPARSE_B2[name][0]}")
+    b2["served"] = hold_gemm_calls(f"{name}, one served request",
+                                   ((f"conv{i}", c) for i, c in enumerate(calls)))
+    del calls
+    serve["fp32_check"] = check_paths(name, model, cfg, batches[0], res.preds[0], swaps, device)
+    seconds["serve"] = time.perf_counter() - t0
+    ph = serve["profile"]["phase_ms"]
+    log(f"[fully_sparse] {name} instrumented request {ph['step']:.2f} ms; spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:12]))
+    del res
+    summary = {"config": f"tools/cfgs/{zoo.FULLY_SPARSE_CFGS[name]}", "card": card, "serve": {**serve, "b1_served": [{k: e[k] for k in (
+                   "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                   for e in served_b1], "b2_served": {**b2["served"][0], "per_conv": compact_gemm(
+                       b2["served"][1])}},
+               "phase_seconds": seconds}
+    if not train_steps:
+        return summary, launches, served_b1, b2
+
+    t0 = time.perf_counter()
+    tbatches = fully_sparse_batches(name, cfg, data, train_steps, training=True)
+    _, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    loss = []
+
+    def bf16_forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss.append(model(tbatches[0].to(device))[0])
+
+    fwd = record_gemm_calls(bf16_forward)
+    dx = record_gemm_calls(lambda: loss[0].backward())
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(weights)
+    n_fwd, n_step = FULLY_SPARSE_B2[name]
+    check_dx_mirrors([f"conv{i}" for i in range(n_fwd)], fwd, dx,
+                     first_has_dx=n_step == 2 * n_fwd)
+    b2["dx"] = hold_gemm_calls(f"dX of one {name} train step",
+                               ((f"dx{i}", c) for i, c in enumerate(dx)))
+    del fwd, dx, loss
+    check = check_train_paths(name, model, tbatches[0], swaps, device, scales=True)
+    # the weights: an L1 loss's bias gradient is a sum of ±1 and may cancel
+    reg = {k: v for k, v in check.pop("leaf_scales").items()
+           if k.startswith(FULLY_SPARSE_REG[name]) and k.endswith(".weight")}
+    if not reg or not all(v > 0 for v in reg.values()):
+        fail(f"{name} fp32 train step: a regression branch leaf has no gradient {reg}")
+    check["reg_branch_grad_max"] = reg
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    model, launches[f"{name}_train"], steps, state = train(name, build, tbatches, device)
+    peak = torch.cuda.max_memory_allocated()
+    cc = FULLY_SPARSE_CUDA_CORE.get(name, (0, 0))[1]
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != FULLY_SPARSE_B1[1]
+           or s["gather_gemm_tensor_core"] + s["gather_gemm_cuda_core"] != n_step
+           or s["gather_gemm_cuda_core"] != cc]
+    if bad:
+        fail(f"{name} train steps {bad} did not launch B1 {FULLY_SPARSE_B1[1]} times and B2 "
+             f"{n_step} times ({cc} CUDA-core): {steps}")
+    tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+
+    def run_train(bt):
+        return float(tstep(bt)["loss"])
+
+    # the train step's device time: profile_train --model <name> (no deferred
+    # profile here, to keep the whole script within its time limit)
+    profile = profile_serve.fully_sparse_profile(model, run_train, tbatches[:2], state.optimizer)
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary["train"] = {
+        "batch": 4, "steps": steps, "ms_per_step": {"median": statistics.median(ms), "all": ms},
+        "samples_per_s": 4 / (statistics.median(ms) / 1e3), "peak_memory_gib": peak / 2 ** 30,
+        "launches": launches[f"{name}_train"],
+        "b2_launches_per_step": {"forward": n_fwd, "dx": n_step - n_fwd},
+        "b2_dx": {**b2["dx"][0], "per_conv": compact_gemm(b2["dx"][1])},
+        "fp32_check": check, "profile": profile}
+    ph = profile["phase_ms"]
+    log(f"[fully_sparse] {name} training: B=4, median {statistics.median(ms):.2f} ms per step "
+        f"({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; instrumented step {ph['step']:.2f} ms, spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:12]))
+    return summary, launches, served_b1, b2
+
+
+def pillarnet_cli(root, device):
+    """PillarNet's KITTI config from disk: tools.train for 1 epoch (phase
+    15's 16 train frames, B=4, gt sampling and the world augmentations,
+    bf16) and tools.test --ckpt of its checkpoint on the val split; fatal
+    on a non-finite loss, no checkpoint, a train step that does not launch
+    the tensor-core B2 24 times and no B1, an eval batch that does not
+    launch B1 twice and B2 12 times, a missing KITTI txt or no Car in the
+    AP_DICT."""
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    common = ["--cfg_file", PILLARNET_CFG, "--workers", str(LOADER_WORKERS), "--extra_tag",
+              "chip_smoke"]
+    data_path = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    n_fwd, n_step = FULLY_SPARSE_B2["pillarnet"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = train_cli.main([*common, "--epochs", "1", *data_path])
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    (epoch,) = trained["epochs"]
+    ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    if not epoch["steps"] or not all(math.isfinite(v) for v in epoch["losses"]) or \
+            not ckpt.exists() or train_launches["iou_bev_overlap"] or \
+            train_launches["gather_gemm_tensor_core"] != n_step * epoch["steps"] or \
+            train_launches["gather_gemm_cuda_core"]:
+        fail(f"tools.train {PILLARNET_CFG}: {epoch}, checkpoint {ckpt.exists()}, kernel "
+             f"launches {train_launches} (want {n_step} tensor-core B2 per step, no B1)")
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, result_dir, res),) = test_cli.main([*common, "--ckpt", str(ckpt), "--save_to_file",
+                                             *data_path])
+    test_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+    batches = res["eval_batches"]
+    if txts != TWO_STAGE_FRAMES[1] or "Car_3d/moderate_R40" not in res or \
+            eval_launches["iou_bev_overlap"] != FULLY_SPARSE_B1[0] * batches or \
+            eval_launches["gather_gemm_tensor_core"] != n_fwd * batches:
+        fail(f"tools.test {PILLARNET_CFG}: {txts} txts for {TWO_STAGE_FRAMES[1]} val frames, "
+             f"kernel launches {eval_launches} for {batches} batches")
+    log(f"[fully_sparse] pillarnet from disk: tools.train {epoch['steps']} steps, losses "
+        f"{[round(v, 4) for v in epoch['losses']]}, {train_s:.2f} s, launches "
+        f"{json.dumps(train_launches)}; tools.test {res['num_frames']} frames, {txts} KITTI "
+        f"txts, {test_s:.2f} s, Car 3D moderate R40 {res['Car_3d/moderate_R40']:.2f}, launches "
+        f"{json.dumps(eval_launches)}")
+    return ({"train": {"steps": epoch["steps"], "losses": epoch["losses"], "seconds": train_s,
+                       "launches": train_launches},
+             "eval": {"num_frames": res["num_frames"], "txts": txts, "seconds": test_s,
+                      "launches": eval_launches,
+                      "car_3d_moderate_R40": res["Car_3d/moderate_R40"]}},
+            train_launches, eval_launches)
+
+
+def fully_sparse_phase(device, card):
+    """Phase 15: VoxelNeXt (nuScenes, its double flip, the large Waymo config
+    with the IoU branch) and PillarNet (KITTI, Waymo) at full width with
+    seeded weights, bf16, in a temporary working directory whose cfgs/
+    links to tools/cfgs/: a synthetic nuScenes root (as phase 13's) and a
+    synthetic KITTI root (as phase 14's) written first, the Waymo configs
+    from memory; then VoxelNeXt's nuScenes config and PillarNet's KITTI
+    config from disk through tools.train and tools.test. Returns (summary,
+    launches by path, served B1 entries, B2 (totals, entries) by model and
+    path)."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            nusc_root = work / "data" / "nuscenes"
+            nusc_infos, nusc_data = nuscenes_data(nusc_root)
+            kitti_root, kitti_infos = two_stage_root(work)
+            data = {"nuscenes": (nusc_root, nusc_infos), "kitti": (kitti_root, kitti_infos)}
+            summary = {"data_seconds": time.perf_counter() - t0, "nuscenes_data": nusc_data,
+                       "card": card}
+            launches, served_b1, b2 = {}, [], {}
+            for name in FULLY_SPARSE_DEPTH:
+                out = fully_sparse_model(name, data, device, card)
+                summary[name] = out[0]
+                launches.update(out[1])
+                served_b1 += out[2]
+                b2[name] = out[3]
+            n_fwd, n_step = FULLY_SPARSE_B2["voxelnext"]
+            summary["voxelnext_cli"], launches["voxelnext_cli_train"], \
+                launches["voxelnext_cli_eval"] = nuscenes_cli(nusc_root, VOXELNEXT_CFG, n_step,
+                                                              n_fwd, device)
+            summary["pillarnet_cli"], launches["pillarnet_cli_train"], \
+                launches["pillarnet_cli_eval"] = pillarnet_cli(kitti_root, device)
+        finally:
+            os.chdir(cwd)
+    return summary, launches, served_b1, b2
+
+
 def main():
     import torch
 
@@ -3920,7 +4261,17 @@ def main():
     two_b1 = sum(v["iou_bev_overlap"] for v in two_launches.values())
     two_b2_n = sum(v["gather_gemm"] for v in two_launches.values())
 
-    # the device profiles of phases 10-14, after every host-clock reading
+    # 15. the fully sparse and pillar-sparse detectors (VoxelNeXt on nuScenes, its
+    # double flip and the large Waymo config; PillarNet on KITTI and Waymo)
+    fs_summary, fs_launches, fs_b1_served, fs_b2 = fully_sparse_phase(device, card)
+    served_iou += fs_b1_served
+    fs_b1 = sum(v["iou_bev_overlap"] for v in fs_launches.values())
+    fs_b2_n = sum(v["gather_gemm"] for v in fs_launches.values())
+    fs_wide = [dict(e, model=name, path=path) for name, by in fs_b2.items()
+               for path, (_, entries) in by.items() for e in entries
+               if max(e["shape"][2][1:]) == 256 or e["shape"][2][0] == 125]
+
+    # the device profiles of phases 10-15, after every host-clock reading
     run_deferred_profiles()
     cspn = depth_summary["cspn_fwd_bwd_device_ms"]
     for tag, prof in depth_summary["device"].items():
@@ -3945,7 +4296,7 @@ def main():
                      + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
-                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1),
+                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -3966,7 +4317,9 @@ def main():
                              **{f"nuscenes_{k}": v["iou_bev_overlap"]
                                 for k, v in nusc_launches.items()},
                              **{f"two_stage_{k}": v["iou_bev_overlap"]
-                                for k, v in two_launches.items()}},
+                                for k, v in two_launches.items()},
+                             **{f"fully_sparse_{k}": v["iou_bev_overlap"]
+                                for k, v in fs_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -4001,7 +4354,7 @@ def main():
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
-                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n),
+                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -4019,12 +4372,15 @@ def main():
                              **{f"nuscenes_{k}": v["gather_gemm"]
                                 for k, v in nusc_launches.items()},
                              **{f"two_stage_{k}": v["gather_gemm"]
-                                for k, v in two_launches.items()}},
+                                for k, v in two_launches.items()},
+                             **{f"fully_sparse_{k}": v["gather_gemm"]
+                                for k, v in fs_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in nusc_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in two_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in fs_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -4074,6 +4430,18 @@ def main():
                    "train_dx": {"unit": "one bf16 train step's dX launches, summed",
                                 **two_b2[name]["dx"][0]}}
             for name in TWO_STAGE_CONVS},
+        "fully_sparse": {
+            **{name: {"model": f"{fs_summary[name]['config'][6:]} at full width, bf16",
+                      "launches_per_request": FULLY_SPARSE_B2[name][0],
+                      "launches_per_train_step": FULLY_SPARSE_B2[name][1],
+                      "cuda_core_per_request_and_step": FULLY_SPARSE_CUDA_CORE.get(name, (0, 0)),
+                      **{path: {"unit": FS_UNITS[path], **totals}
+                         for path, (totals, _) in by.items()}}
+               for name, by in fs_b2.items()},
+            "wide_and_125_tap_calls": [
+                {k: e[k] for k in ("model", "path", "conv", "shape", "variant", "ms",
+                                   "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "max_err_over_tol")} for e in fs_wide]},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -4086,6 +4454,7 @@ def main():
     log(json.dumps({"depth_train": depth_summary}, default=str))
     log(json.dumps({"nuscenes": nusc_summary}, default=str))
     log(json.dumps({"two_stage": two_summary}, default=str))
+    log(json.dumps({"fully_sparse": fs_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -2,8 +2,10 @@
 
 The intersection area runs through `iou_kernel.overlap_bev`: the CUDA kernel
 for tensors on the card, its plain twin for tensors on the CPU. The z overlap
-and the divides stay plain PyTorch around it. Every function takes either
-(N, 7|5) × (M, 7|5) boxes or a batch of problems (G, N, 7|5) × (G, M, 7|5).
+and the divides stay plain PyTorch around it. Every pairwise function takes
+either (N, 7|5) × (M, 7|5) boxes or a batch of problems (G, N, 7|5) ×
+(G, M, 7|5). `aligned_iou3d` pairs box i with box i: plain PyTorch on any
+device, as the JAX package computes it in XLA and not in its kernel.
 """
 from __future__ import annotations
 
@@ -55,3 +57,21 @@ def pairwise_iou3d(boxes_a, boxes_b):
     vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
     vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
     return inter / torch.clamp(vol_a[..., :, None] + vol_b[..., None, :] - inter, min=1e-6)
+
+
+def aligned_iou3d(boxes_a, boxes_b):
+    """Element-wise 3D IoU of two equal-length box sets, (N, 7) × (N, 7) →
+    (N,), in the JAX package's order of operations (iou.py:154-170;
+    reference paired_boxes_iou3d_gpu): the BEV intersection of each pair
+    from `iou_kernel._quad_intersection_area`, the plain twin's clip, times
+    the z overlap."""
+    inter_bev = iou_kernel._quad_intersection_area(boxes_to_corners_bev(boxes_a),
+                                                   boxes_to_corners_bev(boxes_b))
+    overlap_h = torch.clamp(
+        torch.minimum(boxes_a[:, 2] + boxes_a[:, 5] / 2, boxes_b[:, 2] + boxes_b[:, 5] / 2)
+        - torch.maximum(boxes_a[:, 2] - boxes_a[:, 5] / 2, boxes_b[:, 2] - boxes_b[:, 5] / 2),
+        min=0.0)
+    inter = inter_bev * overlap_h
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)

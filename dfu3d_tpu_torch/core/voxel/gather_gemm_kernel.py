@@ -11,25 +11,30 @@ dfu3d_tpu/core/voxel/pallas_sparse.py::_fused_kernel (`fused_gather_gemm`)
 and compute what dfu3d_tpu/models/sparse_backbone.py::_gather_gemm computes.
 Two variants, chosen by dtype and widths (`variant`):
 
-* ``tensor_core``, bf16 at Cin % 4 == 0, Cin <= 128, Cout in {16, 32, 48,
-  64, 96, 128}, K <= 32 (every conv of the served paths and every dX of the
-  train paths, PartA2's decoder's 48 and 96 included; `gather_gemm` first pads a
-  bf16 Cin that is not a multiple of 4 with zero channels, in feats and
-  in the kernel, as the nuScenes configs' 5 point features need, which
-  leaves every product unchanged): one block per (sample,
-  64 queries) builds the tile's live-tap list once, gathers the rows of
-  the live taps with cp.async into a ring of shared-memory stages (dead rows
-  zero-filled, never read) and runs mma.sync m16n8k16 bf16 products into
-  fp32 registers. feats must be aligned to the copy size (16 bytes, 8 when
+* ``tensor_core``, bf16 at Cin % 4 == 0 up to 128 or Cin % 16 == 0 up to
+  256, Cout in {16, 32, 48, 64, 96, 128, 256}, K <= 32 (every conv of the
+  served paths and every dX of the train paths at K <= 32: PartA2's
+  decoder's 48 and 96, PillarNet's and VoxelNeXt's 256 included;
+  `gather_gemm` first pads a bf16 Cin that is not a multiple of 4 with zero
+  channels, in feats and in the kernel, as the nuScenes configs' 5 point
+  features need, which leaves every product unchanged): one block per
+  (sample, 64 queries, 128 Cout columns) builds the tile's live-tap list
+  once, gathers the rows of the live taps with cp.async into a ring of
+  shared-memory stages (dead rows zero-filled, never read), a Cin above 128
+  in two chunks, and runs mma.sync m16n8k16 bf16 products into fp32
+  registers. feats must be aligned to the copy size (16 bytes, 8 when
   Cin % 8 != 0) and the weight to 16 bytes; a misaligned view raises.
-* ``cuda_core``, fp32 and the other bf16 widths: the first design, fp32
-  products on the CUDA cores, one block per (sample, 64 queries), taps that
-  no row of the tile reads skipped. fp32 stays here because the tensor cores
-  would compute it in TF32.
+* ``cuda_core``, fp32, K > 32 (the 125 taps of a 5x5x5 conv) and the other
+  bf16 widths, Cout up to 256: the first design, fp32 products on the CUDA
+  cores, one block per (sample, 64 queries), taps that no row of the tile
+  reads skipped, one tap at a time in order (no tap mask, so any K). Above
+  Cout 128 it stages Cin in chunks of 64, in order, so its fp32 sums add
+  the same products in the same order as at the narrower widths. fp32 stays
+  here because the tensor cores would compute it in TF32.
 
 What bounds the work on the card depends on the widths: the int32 table's
-bytes at the sparse first stages, the operations at Cin = Cout = 128 (see the
-source).
+bytes at the sparse first stages, the operations at Cin = Cout = 128 and
+wider (see the source).
 
 `gather_gemm` takes CPU tensors to the plain twin and CUDA tensors to a
 kernel; on the card it launches or raises, with no fallback from one variant
@@ -47,8 +52,9 @@ from ... import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_gemm.cu"
 NVCC_FLAGS = ()
-MAX_COUT = 128
-TC_COUTS = (16, 32, 48, 64, 96, 128)
+MAX_COUT = 256
+TC_COUTS = (16, 32, 48, 64, 96, 128, 256)
+TC_CHUNK = 128   # the tensor-core kernel's Cin per stage; a wider Cin takes two
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, in all and per variant; read by chip_smoke.py
@@ -102,8 +108,9 @@ def variant(dtype, k, cin, cout):
     """The kernel that takes inputs of these widths on the card:
     "tensor_core" or "cuda_core" (`gather_gemm` asks it after padding Cin;
     `padded_cin`)."""
-    if (dtype == torch.bfloat16 and k <= 32 and 4 <= cin <= 128 and cin % 4 == 0
-            and cout in TC_COUTS):
+    cin_ok = (4 <= cin <= TC_CHUNK and cin % 4 == 0) or \
+        (TC_CHUNK < cin <= 2 * TC_CHUNK and cin % 16 == 0)
+    if dtype == torch.bfloat16 and k <= 32 and cin_ok and cout in TC_COUTS:
         return "tensor_core"
     return "cuda_core"
 

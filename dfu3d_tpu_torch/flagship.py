@@ -5,6 +5,7 @@ config's 256 × 512 BEV grid, or on a 64 × 128 grid with `tiny=True`."""
 from __future__ import annotations
 
 import math
+import re
 from pathlib import Path
 
 import torch
@@ -22,6 +23,14 @@ GAINS = {"vfe.pfn_0.Dense_0.weight": 1 / math.sqrt(170.0),
          "dense_head.fused_heads.out.weight": 0.4,
          "backbone_3d.conv_input.SubMConv3d_0.kernel": 4.0,
          "dense_head.conv_box.weight": 0.1}
+# and by pattern: VoxelNeXt's output layers, in every class group, the heat
+# map's and the box regressions' (not the IoU branch's)
+PATTERN_GAINS = ((re.compile(r"head_\d+\.hm_out\.weight$"), 0.1),
+                 (re.compile(r"head_\d+\.(center|center_z|dim|rot|vel)_out\.weight$"), 0.01))
+
+
+def _gain(key):
+    return GAINS.get(key) or next((g for pat, g in PATTERN_GAINS if pat.search(key)), 1.0)
 
 
 def flagship(tiny: bool = False, device="cuda", train: bool = False):
@@ -49,18 +58,53 @@ def seeded_weights_(model, seed: int):
     box conv (the KITTI anchor RPNs) is scaled by 0.1, as the CPU parity tests
     set it: at full scale its codes decode to boxes e^10 times an anchor's
     size, tens of metres off, and gt made of such proposals
-    (`zoo.proposal_gt`) put the RPN's box loss at 1e7 and beyond."""
+    (`zoo.proposal_gt`) put the RPN's box loss at 1e7 and beyond.
+    VoxelNeXt's output layers are scaled too, its box regressions' by 0.01
+    and its heat map's by 0.1: at full scale the exp of their dims decodes
+    boxes kilometres wide, whose overlaps fp32 cannot hold (the kernel and
+    its twin then differ by 1e6 m²), and at 0.1 to 0.03 the boxes from 31
+    sparse convs still carry 1e-4 of fp32 rounding between two summation
+    orders; the heat-map logits stay below saturation. The IoU branch keeps
+    its He scale: its tanh near 0 would rectify every score below
+    SCORE_THRESH."""
     gen = torch.Generator().manual_seed(seed)
     state = model.state_dict()
     for key, v in state.items():
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "kernel" and v.dim() == 3:
-            std = math.sqrt(2.0 / (v.shape[0] * v.shape[1])) * GAINS.get(key, 1.0)
+            std = math.sqrt(2.0 / (v.shape[0] * v.shape[1])) * _gain(key)
             state[key] = torch.randn(v.shape, generator=gen) * std
         elif leaf == "weight" and v.dim() >= 2:
             fan_in = v.shape[0] if "ConvTranspose" in key else v[0].numel()
-            std = math.sqrt(2.0 / fan_in) * GAINS.get(key, 1.0)
+            std = math.sqrt(2.0 / fan_in) * _gain(key)
             state[key] = torch.randn(v.shape, generator=gen) * std
         elif leaf == "bias":
             state[key] = torch.zeros_like(v)
     model.load_state_dict(state)
+
+
+@torch.no_grad()
+def calibrate_bn_(model, batch):
+    """Every BN layer's running mean set to its batch mean on `batch` and
+    its running variance to the batch variance floored at 1 (one train-mode
+    pass of `model.features`, each layer seeing the normalised output of
+    the layers before it), then eval mode. Seeded weights leave BN at
+    identity, which in eval mode normalises nothing: on nuScenes points
+    (intensities up to 255) VoxelNeXt's regressions then reach 1e3 and
+    their exp overflows. The floor keeps a near-constant channel from
+    scaling up what lies within rounding: with its own variance (down to
+    eps) every such layer multiplies the fp32 difference of two summation
+    orders by up to eps^-1/2, and PillarNet's dense stages chain a dozen.
+    The weights are not changed."""
+    bns = [m for m in model.modules() if hasattr(m, "keep") and hasattr(m, "running_mean")]
+    keeps = [m.keep for m in bns]
+    for m in bns:
+        m.keep = 0.0
+    try:
+        model.train()
+        model.features(batch.to(next(model.parameters()).device))
+    finally:
+        for m, k in zip(bns, keeps):
+            m.keep = k
+            m.running_var.clamp_(min=1.0)
+        model.eval()

@@ -1,4 +1,5 @@
-"""2D BEV backbone (port of dfu3d_tpu/models/backbone_2d.py BaseBEVBackbone).
+"""2D BEV backbones (port of dfu3d_tpu/models/backbone_2d.py BaseBEVBackbone
+and BaseBEVBackboneV1).
 
 Public layout is the JAX one, (B, H, W, C). Inside, the NHWC tensor is viewed
 as NCHW without a copy, which is PyTorch's channels_last memory format, so
@@ -118,3 +119,48 @@ class BaseBEVBackbone(nn.Module):
         elif ups:
             x = ups[0]
         return x.permute(0, 2, 3, 1)
+
+
+class BaseBEVBackboneV1(nn.Module):
+    """The PillarNet neck (port of dfu3d_tpu/models/backbone_2d.py
+    BaseBEVBackboneV1, reference base_bev_backbone.py:182-204): the stride-8
+    map x4 is deblocked as it comes (deblock0), the stride-16 map x5 runs
+    block1 and then deblock1, and block0 refines their concatenation. A
+    block is a stride-1 conv (block{i}_in) and LAYER_NUMS[i] more
+    (block{i}_conv{j}), each conv-BN-ReLU. Maps are (B, H, W, C) in and
+    out."""
+
+    def __init__(self, in_channels: Sequence[int], layer_nums: Sequence[int],
+                 num_filters: Sequence[int], upsample_strides: Sequence[float],
+                 num_upsample_filters: Sequence[int]):
+        super().__init__()
+        if not len(in_channels) == len(layer_nums) == 2:
+            raise ValueError("BaseBEVBackboneV1 takes two maps and two LAYER_NUMS")
+        self.layer_nums = tuple(layer_nums)
+        block_in = (sum(num_upsample_filters[:2]), in_channels[1])
+        deblock_in = (in_channels[0], num_filters[1])
+        for i in range(2):
+            self.add_module(f"block{i}_in", ConvBNReLU(block_in[i], num_filters[i]))
+            for j in range(self.layer_nums[i]):
+                self.add_module(f"block{i}_conv{j}", ConvBNReLU(num_filters[i], num_filters[i]))
+            stride = upsample_strides[i]
+            if stride >= 1:
+                up = ConvBNReLU(deblock_in[i], num_upsample_filters[i], kernel=int(stride),
+                                stride=int(stride), transpose=True)
+            else:
+                k = int(round(1 / stride))
+                up = ConvBNReLU(deblock_in[i], num_upsample_filters[i], kernel=k, stride=k,
+                                padding=0)
+            self.add_module(f"deblock{i}", up)
+        self.out_channels = num_filters[0]
+
+    def _block(self, i, x):
+        x = getattr(self, f"block{i}_in")(x)
+        for j in range(self.layer_nums[i]):
+            x = getattr(self, f"block{i}_conv{j}")(x)
+        return x
+
+    def forward(self, feature_maps):
+        x4, x5 = (m.permute(0, 3, 1, 2) for m in feature_maps)
+        x = torch.cat([self.deblock0(x4), self.deblock1(self._block(1, x5))], dim=1)
+        return self._block(0, x).permute(0, 2, 3, 1)

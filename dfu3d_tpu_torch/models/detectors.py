@@ -9,7 +9,8 @@ then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 `build_network` also builds PointRCNN (models/pointrcnn.py), PointPillar
 and SECONDNet (models/pointpillar.py), SECONDNetIoU (models/second_iou.py),
 VoxelRCNN (models/voxelrcnn.py), PVRCNN and PVRCNNPlusPlus
-(models/pvrcnn.py) and PartA2Net (models/parta2.py).
+(models/pvrcnn.py), PartA2Net (models/parta2.py), VoxelNeXt
+(models/voxelnext.py) and PillarNet (models/pillarnet.py).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -48,6 +49,28 @@ def backbone_8x(bb3d_cfg):
     if form != "gather":
         raise ValueError(f"FORMULATION must be 'column' or 'gather', got {form!r}")
     return VoxelBackBone8x
+
+
+def center_head(dh, class_names, grid: VoxelGrid, in_channels: int) -> CenterHead:
+    """The CenterHead of a DENSE_HEAD config on a 2D map of `in_channels`."""
+    if dh.NAME != "CenterHead":
+        raise NotImplementedError(f"DENSE_HEAD {dh.NAME} is not ported")
+    ta = dh.TARGET_ASSIGNER_CONFIG
+    return CenterHead(
+        in_channels=in_channels,
+        class_names=tuple(class_names),
+        class_names_each_head=tuple(tuple(x) for x in dh.CLASS_NAMES_EACH_HEAD),
+        shared_conv_channel=dh.SHARED_CONV_CHANNEL,
+        num_hm_conv=dh.NUM_HM_CONV,
+        head_dict=dict(dh.SEPARATE_HEAD_CFG.HEAD_DICT),
+        point_cloud_range=grid.point_cloud_range,
+        voxel_size=grid.voxel_size,
+        feature_map_stride=ta.FEATURE_MAP_STRIDE,
+        use_bias_before_norm=dh.get("USE_BIAS_BEFORE_NORM", False),
+        head_order=tuple(dh.SEPARATE_HEAD_CFG.HEAD_ORDER),
+        gaussian_overlap=ta.GAUSSIAN_OVERLAP,
+        min_radius=ta.MIN_RADIUS,
+    )
 
 
 class CenterPoint(nn.Module):
@@ -96,24 +119,8 @@ class CenterPoint(nn.Module):
             num_filters=tuple(bb.NUM_FILTERS), upsample_strides=tuple(bb.UPSAMPLE_STRIDES),
             num_upsample_filters=tuple(bb.NUM_UPSAMPLE_FILTERS),
         )
-        dh = cfg.DENSE_HEAD
-        if dh.NAME != "CenterHead":
-            raise NotImplementedError(f"DENSE_HEAD {dh.NAME} is not ported")
-        self.dense_head = CenterHead(
-            in_channels=self.backbone_2d.out_channels,
-            class_names=tuple(class_names),
-            class_names_each_head=tuple(tuple(x) for x in dh.CLASS_NAMES_EACH_HEAD),
-            shared_conv_channel=dh.SHARED_CONV_CHANNEL,
-            num_hm_conv=dh.NUM_HM_CONV,
-            head_dict=dict(dh.SEPARATE_HEAD_CFG.HEAD_DICT),
-            point_cloud_range=grid.point_cloud_range,
-            voxel_size=grid.voxel_size,
-            feature_map_stride=dh.TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE,
-            use_bias_before_norm=dh.get("USE_BIAS_BEFORE_NORM", False),
-            head_order=tuple(dh.SEPARATE_HEAD_CFG.HEAD_ORDER),
-            gaussian_overlap=dh.TARGET_ASSIGNER_CONFIG.GAUSSIAN_OVERLAP,
-            min_radius=dh.TARGET_ASSIGNER_CONFIG.MIN_RADIUS,
-        )
+        self.dense_head = center_head(cfg.DENSE_HEAD, class_names, grid,
+                                      self.backbone_2d.out_channels)
 
     def features(self, batch):
         """PointBatch → list over heads of {branch: (B, H, W, c)}."""
@@ -157,17 +164,19 @@ class CenterPoint(nn.Module):
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,
                   **overrides):
     """Build a detector by MODEL.NAME (CenterPoint, PointRCNN, PointPillar,
-    SECONDNet, SECONDNetIoU, VoxelRCNN, PVRCNN, PVRCNNPlusPlus or
-    PartA2Net) on `device` (the card
+    SECONDNet, SECONDNetIoU, VoxelRCNN, PVRCNN, PVRCNNPlusPlus, PartA2Net,
+    VoxelNeXt or PillarNet) on `device` (the card
     unless the caller asks for the CPU), in eval mode, or in train mode with
     `train`. `overrides` are constructor keywords (num_point_features,
     max_pillars, max_voxels); PointRCNN reads no grid and takes
     num_point_features only, PointPillar takes no max_voxels and the voxel
     detectors no max_pillars."""
     from .parta2 import PartA2Net
+    from .pillarnet import PillarNet
     from .pointpillar import PointPillar, SECONDNet
     from .pvrcnn import PVRCNN, PVRCNNPlusPlus
     from .second_iou import SECONDNetIoU
+    from .voxelnext import VoxelNeXt
     from .voxelrcnn import VoxelRCNN
 
     dev = resolve_device(device)
@@ -175,7 +184,7 @@ def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train:
         return PointRCNN(model_cfg, class_names, **overrides).to(dev).train(train)
     gridded = {"PointPillar": PointPillar, "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
                "VoxelRCNN": VoxelRCNN, "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus,
-               "PartA2Net": PartA2Net}
+               "PartA2Net": PartA2Net, "VoxelNeXt": VoxelNeXt, "PillarNet": PillarNet}
     if model_cfg.NAME in gridded:
         return gridded[model_cfg.NAME](model_cfg, class_names, grid, **overrides).to(dev).train(
             train)

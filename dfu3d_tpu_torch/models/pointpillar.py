@@ -40,8 +40,10 @@ SECOND_CHANNELS = (16, 16, 32, 64, 64)  # the JAX SECONDNet's VoxelBackBone8x de
 
 
 class AnchorDetectorBase(nn.Module):
-    """The anchor-head assembly shared by PointPillar and SECONDNet; a
-    subclass builds its trunk, then calls `_setup_head(bev_channels)`, and
+    """The anchor-head assembly shared by PointPillar, SECONDNet and
+    PillarNetAnchor; a subclass builds its trunk, then calls
+    `_setup_head(bev_channels)` (BaseBEVBackbone and the head) or, with a
+    2D backbone of its own, `_setup_anchor_head(its out_channels)`, and
     defines `features(batch)` → the head's predictions."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid):
@@ -60,7 +62,12 @@ class AnchorDetectorBase(nn.Module):
             layer_nums=tuple(bb.LAYER_NUMS), layer_strides=tuple(bb.LAYER_STRIDES),
             num_filters=tuple(bb.NUM_FILTERS), upsample_strides=tuple(bb.UPSAMPLE_STRIDES),
             num_upsample_filters=tuple(bb.NUM_UPSAMPLE_FILTERS))
-        dh = cfg.DENSE_HEAD
+        self._setup_anchor_head(self.backbone_2d.out_channels)
+
+    def _setup_anchor_head(self, in_channels: int):
+        """The anchors (non-persistent buffers) and the anchor head on a 2D
+        map of `in_channels`."""
+        dh = self.model_cfg.DENSE_HEAD
         if dh.get("TARGET_ASSIGNER_CONFIG", {}).get("MATCH_HEIGHT", False):
             raise NotImplementedError("MATCH_HEIGHT (3D IoU target assignment) is not ported")
         self.anchor_cfgs = [dict(c) for c in dh.ANCHOR_GENERATOR_CONFIG]
@@ -89,14 +96,14 @@ class AnchorDetectorBase(nn.Module):
             else:
                 groups = [[i] for i in range(num_class)]
             self.dense_head = AnchorHeadMulti(
-                self.backbone_2d.out_channels, num_class, groups, counts,
+                in_channels, num_class, groups, counts,
                 shared_conv_channels=dh.get("SHARED_CONV_NUM_FILTER", 64),
                 use_direction_classifier=use_dir, num_dir_bins=num_dir_bins)
         elif name == "AnchorHeadSingle":
             if dh.get("USE_IOU_HEAD", False):
                 raise NotImplementedError("USE_IOU_HEAD (SECONDNetIoU) is not ported yet")
             self.dense_head = AnchorHeadSingle(
-                self.backbone_2d.out_channels, num_class, sum(counts),
+                in_channels, num_class, sum(counts),
                 use_direction_classifier=use_dir, num_dir_bins=num_dir_bins)
         else:
             raise NotImplementedError(f"DENSE_HEAD {name} is not ported")
@@ -174,6 +181,12 @@ class AnchorDetectorBase(nn.Module):
         VFE's too (PointPillar). The JAX package maps neither the sparse
         backbone nor AnchorHeadMulti: those stay unmapped."""
         m = torch_convert.bev_backbone_mapping(self.backbone_2d.layer_nums)
+        return {**m, **self.anchor_head_mapping()}
+
+    def anchor_head_mapping(self):
+        """The head's reference keys: AnchorHeadSingle's convs, none for
+        AnchorHeadMulti."""
+        m = {}
         if isinstance(self.dense_head, AnchorHeadSingle):
             m.update(torch_convert.anchor_head_mapping(
                 use_dir=self.dense_head.use_direction_classifier))

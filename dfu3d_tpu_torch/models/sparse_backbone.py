@@ -1,7 +1,7 @@
 """Sparse 3D backbones: VoxelResBackBone8x, VoxelBackBone8x, SparseEncoder,
-height_compression and voxel_centers_of (port of
-dfu3d_tpu/models/sparse_backbone.py:58-93, :244-328, :446-473, :530-821,
-:890-972).
+VoxelResBackBone8xVoxelNeXt, height_compression and voxel_centers_of (port
+of dfu3d_tpu/models/sparse_backbone.py:58-93, :244-328, :446-473,
+:530-972).
 
 Every sparse conv is one call of the gather-GEMM kernel B2
 (`core/voxel/gather_gemm_kernel.gather_gemm`) over an element neighbour table
@@ -217,11 +217,13 @@ class SparseConv3dDown(nn.Module):
 
 
 class SparseConvBlock(nn.Module):
-    """SubM → BN → ReLU, re-masked."""
+    """SubM → BN → ReLU, re-masked; the table passed to `forward` holds the
+    taps of `kernel_size` (kernel_offsets order)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3)):
         super().__init__()
-        self.SubMConv3d_0 = SubMConv3d(in_channels, out_channels)
+        self.SubMConv3d_0 = SubMConv3d(in_channels, out_channels, kernel_size)
         self.SparseBatchNorm_0 = SparseBatchNorm(out_channels)
 
     def forward(self, st: SparseTensor, nbr) -> SparseTensor:
@@ -395,6 +397,83 @@ class SparseEncoder(_Backbone8x):
             st = getattr(self, f"down{s}_refine")(st, levels[s - 1].subm_nbr)
             stages.append(st)
         return self.conv_out(st, levels[4]), stages
+
+
+class VoxelResBackBone8xVoxelNeXt(nn.Module):
+    """The VoxelNeXt residual encoder (port of dfu3d_tpu/models/
+    sparse_backbone.py VoxelResBackBone8xVoxelNeXt, reference
+    spconv_backbone_voxelnext.py:69-200): conv_input and two residual
+    blocks at stride 1, then five stages at strides 2, 4, 8, 16, 32, each a
+    strided (k, k, k) conv (k from SPCONV_KERNEL_SIZES, the last size
+    repeated), its BN and ReLU (down{s}, down{s}_bn) and two residual
+    blocks (res{s}a, res{s}b). Stage i takes channels[min(i + 1, 4)] and caps
+    its set at voxel_cap / 2 ... / 32 (at least 16). 31 sparse convs;
+    `forward` returns the stride-8, 16 and 32 tensors."""
+
+    def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
+                 channels: Sequence[int] = (16, 32, 64, 128, 128),
+                 kernel_sizes: Sequence[int] = (3, 3, 3, 3)):
+        super().__init__()
+        self.grid = grid
+        self.voxel_cap = voxel_cap
+        self.caps = [max(voxel_cap // d, 16) for d in (2, 4, 8, 16, 32)]
+        ch, ks = tuple(channels), tuple(kernel_sizes)
+        self.conv_input = SparseConvBlock(in_channels, ch[0])
+        self.res1a = SparseResBlock(ch[0])
+        self.res1b = SparseResBlock(ch[0])
+        cin = ch[0]
+        for i in range(5):
+            c, k = ch[min(i + 1, len(ch) - 1)], ks[min(i, len(ks) - 1)]
+            self.add_module(f"down{i + 2}", SparseConv3dDown(cin, c, self.caps[i], (k, k, k)))
+            self.add_module(f"down{i + 2}_bn", SparseBatchNorm(c))
+            self.add_module(f"res{i + 2}a", SparseResBlock(c))
+            self.add_module(f"res{i + 2}b", SparseResBlock(c))
+            cin = c
+        self.out_channels = cin
+
+    @property
+    def out_grid(self) -> SparseGrid:
+        """The stride-8 grid, onto which the detector maps all three outputs."""
+        return self.grid.down().down().down()
+
+    def plan(self, coords, valid, num_unique, transpose: bool = False) -> Tuple[Level, ...]:
+        """The six coordinate sets (input, strides 2 ... 32), each with its
+        3 × 3 × 3 submanifold table and, but the input, the table of the
+        strided conv that makes it; with `transpose` (training) also that
+        conv's transpose table."""
+        offsets = kernel_offsets(3, 3, 3)
+        grid = self.grid
+        lookup = build_lookup(grid, coords, valid)
+        levels = [Level(grid, coords, valid, num_unique, None,
+                        find_neighbors(grid, coords, valid, *lookup, offsets))]
+        for i in range(5):
+            conv = getattr(self, f"down{i + 2}")
+            nxt = conv.plan(grid, coords, valid, lookup)
+            out_lookup = build_lookup(nxt.grid, nxt.coords, nxt.valid)
+            nxt = nxt._replace(subm_nbr=find_neighbors(nxt.grid, nxt.coords, nxt.valid,
+                                                       *out_lookup, offsets))
+            if transpose:
+                nxt = nxt._replace(down_tnbr=conv.transpose_table(coords, valid, nxt, out_lookup))
+            levels.append(nxt)
+            grid, coords, valid, lookup = nxt.grid, nxt.coords, nxt.valid, out_lookup
+        return tuple(levels)
+
+    def forward(self, features, levels):
+        lv = levels[0]
+        st = SparseTensor(features, lv.coords, lv.valid, lv.grid)
+        st = self.conv_input(st, lv.subm_nbr)
+        st = self.res1b(self.res1a(st, lv.subm_nbr), lv.subm_nbr)
+        outs = []
+        for i in range(5):
+            name, level = f"down{i + 2}", levels[i + 1]
+            st = getattr(self, name)(st, level)
+            x = F.relu(getattr(self, f"{name}_bn")(st.features, st.valid))
+            st = st._replace(features=torch.where(st.valid[..., None], x, 0))
+            nbr = level.subm_nbr
+            st = getattr(self, f"res{i + 2}b")(getattr(self, f"res{i + 2}a")(st, nbr), nbr)
+            if i >= 2:
+                outs.append(st)
+        return tuple(outs)
 
 
 def voxel_centers_of(st: SparseTensor, point_cloud_range, base_voxel_size, stride: int):

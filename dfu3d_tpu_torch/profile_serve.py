@@ -2,7 +2,9 @@
 
     python -m dfu3d_tpu_torch.profile_serve [--model pillar|voxel|pointrcnn|second|pp|
                                                      second_iou|voxel_rcnn|pv_rcnn|
-                                                     parta2|pv_rcnn_plusplus]
+                                                     parta2|pv_rcnn_plusplus|voxelnext|
+                                                     voxelnext_tta|voxelnext_iou_large|
+                                                     pillarnet|pillarnet_waymo]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -12,7 +14,10 @@ CenterPoint-pillar (256 x 512 BEV), voxel CenterPoint
 1024 x 1024 x 40 grid, max_voxels 60,000) or PointPillar multi-head
 (cbgs_pp_multihead, 512 x 512 pillars), or one of the two-stage KITTI
 detectors (second_iou.yaml, voxel_rcnn_car.yaml, pv_rcnn.yaml, PartA2.yaml,
-pv_rcnn_plusplus.yaml, 1408 x 1600 x 40 grid, max_voxels 40,000). CenterPoint: B=4, 60,000 uniform
+pv_rcnn_plusplus.yaml, 1408 x 1600 x 40 grid, max_voxels 40,000), or one of the
+fully sparse detectors (`zoo.voxelnext`, `voxelnext_tta`,
+`voxelnext_iou_large`, `pillarnet`, `pillarnet_waymo`: nuScenes, Waymo and
+KITTI configs, built as the CLIs build them). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -23,7 +28,9 @@ ten classes) read through NuScenesDataset in test mode, at most 65,536
 points each. The two-stage detectors: B=4 frames of a synthetic KITTI
 root (40,000-60,000 points in the frustum, 20-40 boxes of the config's
 classes) read through KittiDataset in test mode, at most 32,768 points
-each. bf16 autocast, weights from `seeded_weights_`. It reports,
+each. bf16 autocast, weights from `seeded_weights_` (the fully sparse
+detectors but PillarNet Waymo with the BN statistics of the first batch,
+`calibrate_bn_`, as chip_smoke.py serves them). It reports,
 as one JSON object (printed, and written to --out):
 
 * step_ms: host clock per step, no instrumentation (median over batches);
@@ -45,7 +52,11 @@ as one JSON object (printed, and written to --out):
   detectors: the spans of `two_stage_phase_times`: the trunk (PartA2's
   decoder apart), the RPN, the proposals, PV-RCNN's and PV-RCNN++'s VSA
   and FPS (fps_share), PartA2's part head, the RoI pooling and head, the
-  final NMS, the recall IoU);
+  final NMS, the recall IoU; the fully sparse detectors: the spans of
+  `fully_sparse_phase_times`: voxelize, tables, the trunk's convs with
+  their B2 launches, VoxelNeXt's BEV collapse, conv_out + shared conv,
+  heads and double-flip merge, PillarNet's height compression, conv5 and
+  neck, the decode, the NMS with B1 and the keep-scan, the recall IoU);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -69,7 +80,7 @@ from .core import pointnet2
 from .core.geometry import iou_kernel
 from .core.geometry import nms as nms_mod
 from .data.batch import synthetic_batch
-from .flagship import flagship, seeded_weights_
+from .flagship import calibrate_bn_, flagship, seeded_weights_
 from .core.voxel import gather_gemm_kernel
 from .models import pointpillar as pointpillar_mod
 from .models import pointrcnn as pointrcnn_mod
@@ -78,9 +89,10 @@ from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
 from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, kitti_batches, nuscenes_batches,
-                  parta2, pointrcnn, pointrcnn_batches, pp_multihead, pv_rcnn, pv_rcnn_plusplus,
-                  second_iou, second_multihead, voxel_centerpoint, voxel_rcnn,
-                  write_pointrcnn_root)
+                  parta2, pillarnet, pillarnet_waymo, pointrcnn, pointrcnn_batches,
+                  pp_multihead, pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead,
+                  voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large, voxelnext_tta,
+                  waymo_batches, write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -335,6 +347,91 @@ TWO_STAGE = {"second_iou": second_iou, "voxel_rcnn": voxel_rcnn, "pv_rcnn": pv_r
              "parta2": parta2, "pv_rcnn_plusplus": pv_rcnn_plusplus}
 
 
+def fully_sparse_phase_times(model, run, batch, optimizer=None):
+    """One step of VoxelNeXt or PillarNet, `run(batch)` (an eval step, or
+    with its `optimizer` a train step), with every span of `Spans` timed:
+    the voxelize (MeanVFE, or PillarNet's pillar VFE), the neighbour tables
+    (the trunk's `plan`; VoxelNeXt's BEV tables), the trunk's sparse convs
+    with their B2 launches; VoxelNeXt: the BEV collapse, conv_out + the
+    shared conv, the heads, the double-flip merge; PillarNet: the height
+    compression, the dense conv5 stage, the V1 neck, the head; then the
+    decode with the NMS (B1 and the keep-scan) and the recall IoU (B1). A
+    train step adds the targets, the loss, the backward (with B2's dX
+    launches) and the clip + optimizer update."""
+    from .models import losses as losses_mod
+    from .models import pillarnet as pillarnet_mod
+    from .models import voxelnext as voxelnext_mod
+
+    wraps = [(model.vfe, "forward", "voxelize"), (model.backbone_3d, "plan", "tables"),
+             (model.backbone_3d, "forward", "backbone_convs"),
+             (gather_gemm_kernel, "gather_gemm", "b2"), (iou_kernel, "overlap_bev", "b1"),
+             (nms_mod, "_suppression_scan", "keep_scan"),
+             (train_state, "pairwise_iou3d", "recall_iou")]
+    if isinstance(model, voxelnext_mod.VoxelNeXt):
+        wraps += [(model, "bev_tables", "tables"),
+                  (voxelnext_mod, "sparse_bev_collapse", "bev_collapse"),
+                  (model.conv_out, "forward", "conv_out_shared"),
+                  (model.shared_conv, "forward", "conv_out_shared"),
+                  (model, "merge_double_flip", "tta_merge"), (model, "decode", "decode"),
+                  (voxelnext_mod, "nms_bev", "nms")]
+        wraps += [(getattr(model, f"head_{g}"), "forward", "head")
+                  for g in range(len(model.class_groups))]
+        loss_fns = [(losses_mod, "focal_loss_centernet"), (losses_mod, "reg_loss_centernet"),
+                    (voxelnext_mod, "aligned_iou3d")]
+    else:
+        wraps += [(pillarnet_mod, "height_compression", "height_compression"),
+                  (model.conv5_down, "forward", "conv5"), (model.conv5_a, "forward", "conv5"),
+                  (model.conv5_b, "forward", "conv5"), (model.backbone_2d, "forward", "neck"),
+                  (model.dense_head, "forward", "head")]
+        if hasattr(model, "anchors_flat"):
+            wraps += [(pointpillar_mod, "decode_anchor_predictions", "decode"),
+                      (pointpillar_mod, "nms_bev", "nms")]
+            loss_fns = [(pointpillar_mod, "anchor_head_loss")]
+        else:
+            wraps += [(model.dense_head, "generate_predicted_boxes", "decode")]
+            loss_fns = [(model.dense_head, "get_loss")]
+    if optimizer is not None:
+        wraps += [(torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer"),
+                  (model.dense_head, "assign_targets", "targets") if hasattr(model, "dense_head")
+                  and not hasattr(model, "anchors_flat") else (model, "assign_targets", "targets")]
+        wraps += [(obj, attr, "loss") for obj, attr in loss_fns]
+    return timed_spans(wraps, run, batch)
+
+
+def fully_sparse_profile(model, run, batches, optimizer=None):
+    """Where a VoxelNeXt or PillarNet step goes, `run(batch)` running an eval
+    step or (given its `optimizer`) a train step through to its result on
+    the host: phase_ms, the median over the batches of each span's
+    exclusive ms (`fully_sparse_phase_times`), and keep_scan
+    (`keep_scans`)."""
+    phases = [fully_sparse_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
+            "keep_scan": keep_scans(run, batches)}
+
+
+FULLY_SPARSE = {"voxelnext": voxelnext, "voxelnext_tta": voxelnext_tta,
+                "voxelnext_iou_large": voxelnext_iou_large, "pillarnet": pillarnet,
+                "pillarnet_waymo": pillarnet_waymo}
+
+
+def fully_sparse_workload(name, cfg, work, num_batches: int, training: bool = False):
+    """The batches of a fully sparse model's cell: a synthetic nuScenes root
+    (VoxelNeXt's nuScenes configs), a synthetic KITTI root (PillarNet's
+    KITTI config) or `waymo_batches` (the Waymo configs, from memory), and
+    its description."""
+    if name in ("voxelnext", "voxelnext_tta"):
+        return (nuscenes_workload(cfg, work, num_batches, training),
+                "B=4 synthetic nuScenes key frames with 9 sweeps (34000 points each, at most "
+                "65536 per frame, 20-40 boxes)")
+    if name == "pillarnet":
+        return (kitti_workload(cfg, work, num_batches, 4, training),
+                "B=4 synthetic KITTI frames (40000-60000 points in the frustum, 20-40 boxes)")
+    return (waymo_batches(cfg, num_batches, seed=1 if training else 0),
+            "B=4 Waymo-range frames made in memory (zoo.waymo_batches: 150000 points, 20-40 "
+            "boxes of Vehicle, Pedestrian, Cyclist)")
+
+
 def kitti_workload(cfg, work, num_batches: int, batch_size: int, training: bool = False):
     """`num_batches` batches of `batch_size` frames of a synthetic KITTI root
     written under `work` (`zoo.write_pointrcnn_root`: 40,000-60,000 points
@@ -355,6 +452,11 @@ def nuscenes_workload(cfg, work, num_batches: int, training: bool = False):
                                             n_val=0 if training else n)
     info = nuscenes_synthetic.write_infos(work, written)["train" if training else "val"]
     return nuscenes_batches(cfg, work, info, num_batches, training=training)
+
+
+def cfg_max_voxels(model):
+    """The voxel (or pillar) cap a model was built with."""
+    return getattr(model.vfe, "max_voxels", None) or model.vfe.max_pillars
 
 
 def keep_scans(run, batches):
@@ -447,7 +549,7 @@ def _profile(step, batches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
-                                         *TWO_STAGE), default="pillar")
+                                         *TWO_STAGE, *FULLY_SPARSE), default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -457,7 +559,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
-             "second": second_multihead, "pp": pp_multihead, **TWO_STAGE}[args.model]
+             "second": second_multihead, "pp": pp_multihead, **TWO_STAGE,
+             **FULLY_SPARSE}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -474,6 +577,11 @@ def main(argv=None):
         workload = (f"{cfg.MODEL.NAME} {args.model} 1408x1600x40 grid, max_voxels 40000, B=4 "
                     "synthetic KITTI frames (40000-60000 points in the frustum, at most 32768 "
                     "per frame, 20-40 boxes)")
+    elif args.model in FULLY_SPARSE:
+        with tempfile.TemporaryDirectory() as work:
+            batches, data = fully_sparse_workload(args.model, cfg, Path(work), args.batches)
+        workload = (f"{cfg.MODEL.NAME} {args.model} {'x'.join(map(str, grid.grid_size))} grid, "
+                    f"max_voxels {cfg_max_voxels(model)}, {data}")
     elif args.model in ("second", "pp"):
         with tempfile.TemporaryDirectory() as work:
             batches = nuscenes_workload(cfg, Path(work), args.batches)
@@ -486,6 +594,8 @@ def main(argv=None):
         workload = ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000") + \
             ", B=4, 60000 points, 256 gt slots"
+    if args.model in FULLY_SPARSE and args.model != "pillarnet_waymo":
+        calibrate_bn_(model, batches[0])   # as chip_smoke.py's phase 15 serves them
     for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
         step(batch)
     torch.cuda.synchronize()
@@ -504,6 +614,9 @@ def main(argv=None):
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     elif args.model in TWO_STAGE:
         extra = two_stage_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    elif args.model in FULLY_SPARSE:
+        extra = fully_sparse_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     else:
         phases = [_phase_times(model, step, b) for b in batches]

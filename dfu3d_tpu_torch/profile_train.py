@@ -2,7 +2,9 @@
 
     python -m dfu3d_tpu_torch.profile_train [--model pillar|voxel|pointrcnn|second|
                                                      second_iou|voxel_rcnn|pv_rcnn|
-                                                     parta2|pv_rcnn_plusplus]
+                                                     parta2|pv_rcnn_plusplus|voxelnext|
+                                                     voxelnext_iou_large|pillarnet|
+                                                     pillarnet_waymo]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -45,7 +47,11 @@ as one JSON object (printed, and written to --out):
   voxel_rcnn, pv_rcnn (KITTI configs, B = BATCH_SIZE_PER_GPU frames of a
   synthetic KITTI root read in train mode with gt sampling, 16 gt per
   frame made of proposals as for PointRCNN): the spans of
-  `profile_serve.two_stage_phase_times` with the optimizer;
+  `profile_serve.two_stage_phase_times` with the optimizer. voxelnext,
+  voxelnext_iou_large, pillarnet, pillarnet_waymo (B=4 frames of
+  `profile_serve.fully_sparse_workload`, train mode, with the peak
+  memory): the spans of `profile_serve.fully_sparse_phase_times` with the
+  optimizer;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -70,8 +76,10 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import (TWO_STAGE, anchor_profile, device_profile, kitti_workload,
-                            nuscenes_workload, pointrcnn_profile, two_stage_profile)
+from .profile_serve import (FULLY_SPARSE, TWO_STAGE, anchor_profile, cfg_max_voxels,
+                            device_profile, fully_sparse_profile, fully_sparse_workload,
+                            kitti_workload, nuscenes_workload, pointrcnn_profile,
+                            two_stage_profile)
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
                   second_multihead, voxel_centerpoint, write_pointrcnn_root)
@@ -341,9 +349,64 @@ def two_stage_train(name: str, steps: int, device_name: str) -> dict:
     }
 
 
+def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
+    """profile_train --model voxelnext|voxelnext_iou_large|pillarnet|
+    pillarnet_waymo: step times at B=4, the spans of
+    `profile_serve.fully_sparse_profile` over the steps with the optimizer,
+    and the device profile with the sparse convs' split."""
+    import tempfile
+
+    cfg, grid, model = FULLY_SPARSE[name](device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as work:
+        batches, data = fully_sparse_workload(name, cfg, Path(work), steps, training=True)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        run(batch)
+    gather_gemm_kernel.launches = 0
+    step_ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    per_step = gather_gemm_kernel.launches // len(batches)
+    median = statistics.median(step_ms)
+    torch.cuda.reset_peak_memory_stats()
+    spans = fully_sparse_profile(model, run, batches, state.optimizer)
+    peak = torch.cuda.max_memory_allocated()
+    # the forward's B2 launches: one per sparse conv; the dX ones follow
+    forward_b2 = per_step // 2 + per_step % 2
+    profile = _profile(step, batches, forward_b2)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    scans = spans.pop("keep_scan")
+    return {
+        "device": device_name,
+        "workload": f"{cfg.MODEL.NAME} {name} {'x'.join(map(str, grid.grid_size))} grid, "
+                    f"max_voxels {cfg_max_voxels(model)}, {data} read in train mode, bf16 "
+                    "autocast, seeded random weights, adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": 4 / (median / 1e3),
+        "b2_launches_per_step": per_step,
+        "peak_memory_gib": peak / 2 ** 30,
+        "losses": losses,
+        **spans,
+        "nms_scan": {"calls_per_step": len(scans) / len(batches)},
+        "profile": profile,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE),
+    ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE,
+                                         *(n for n in FULLY_SPARSE if n != "voxelnext_tta")),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -355,6 +418,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     if args.model in TWO_STAGE:
         _write(two_stage_train(args.model, args.steps, smi.stdout.strip()), args.out)
+        return
+    if args.model in FULLY_SPARSE:
+        _write(fully_sparse_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
     if args.model in ("pointrcnn", "second"):
         run = pointrcnn_train if args.model == "pointrcnn" else second_train

@@ -160,18 +160,24 @@ def centerpoint_pillar_mapping() -> Mapping:
     """Port state_dict key → (reference key, or a tuple of them, transform)
     for the flagship CenterPoint-pillar (DynamicPillarVFE + BaseBEVBackbone +
     CenterHead), in the JAX package's entry order."""
-    m: Mapping = {**pfn_mapping(NUM_PFN), **bev_backbone_mapping(LAYER_NUMS)}
+    branch_specs = tuple((h, name, oc) for h, hm in enumerate(HM_COUNTS)
+                         for name, oc in BRANCHES + (("hm", hm),))
+    return {**pfn_mapping(NUM_PFN), **bev_backbone_mapping(LAYER_NUMS),
+            **center_head_mapping(branch_specs)}
+
+
+def center_head_mapping(branch_specs) -> Mapping:
+    """CenterHead (center_head.py) with towers of one hidden conv: the shared
+    conv and, in the port's fused layout (models/center_head.
+    FusedSeparateHeads, `branch_specs` its (head, branch, out channels) in
+    param order), the towers' tensors concatenated along output channels,
+    the out convs padded to the widest branch."""
+    m: Mapping = {}
     _conv(m, "dense_head.shared_conv.layers_0", "dense_head.shared_conv.0", bias=True)
     _bn(m, "dense_head.shared_bn", "dense_head.shared_conv.1")
     # the JAX package also maps its per-tower SeparateHead fallback; the
-    # port has the fused layout only (center_head.FusedSeparateHeads)
-    # fused layout (models/center_head.FusedSeparateHeads): the towers'
-    # tensors concatenate along output channels in branch-spec order, out
-    # convs padded to the widest branch
-    specs = []
-    for h, hm in enumerate(HM_COUNTS):
-        for name, oc in BRANCHES + (("hm", hm),):
-            specs.append((f"dense_head.heads_list.{h}.{name}", oc))
+    # port has the fused layout only
+    specs = [(f"dense_head.heads_list.{h}.{name}", oc) for h, name, oc in branch_specs]
     out_chs = [oc for _, oc in specs]
     out_max = max(out_chs)
     fh = "dense_head.fused_heads"
@@ -184,6 +190,27 @@ def centerpoint_pillar_mapping() -> Mapping:
                              _t_fused_out(out_chs, out_max))
     m[f"{fh}.out.bias"] = (tuple(f"{p}.1.bias" for p, _ in specs),
                            _t_fused_out(out_chs, out_max))
+    return m
+
+
+def bev_v1_backbone_mapping(layer_nums) -> Mapping:
+    """BaseBEVBackboneV1 (base_bev_backbone.py:115-204, the JAX package's
+    bev_v1_backbone_mapping): blocks.{i} = [ZeroPad, Conv, BN, ReLU,
+    (Conv, BN, ReLU) × layer_nums[i]]; deblocks.{i} = [ConvT|Conv, BN,
+    ReLU]."""
+    m: Mapping = {}
+    for i, n in enumerate(layer_nums):
+        _conv(m, f"backbone_2d.block{i}_in.Conv_0", f"backbone_2d.blocks.{i}.1")
+        _bn(m, f"backbone_2d.block{i}_in.BatchNorm_0", f"backbone_2d.blocks.{i}.2")
+        for j in range(n):
+            _conv(m, f"backbone_2d.block{i}_conv{j}.Conv_0", f"backbone_2d.blocks.{i}.{4 + 3 * j}")
+            _bn(m, f"backbone_2d.block{i}_conv{j}.BatchNorm_0",
+                f"backbone_2d.blocks.{i}.{5 + 3 * j}")
+        m[f"backbone_2d.deblock{i}.ConvTranspose_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        m[f"backbone_2d.deblock{i}.Conv_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        _bn(m, f"backbone_2d.deblock{i}.BatchNorm_0", f"backbone_2d.deblocks.{i}.1")
     return m
 
 

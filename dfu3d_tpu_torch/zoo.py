@@ -1,7 +1,10 @@
 """Builders for the port's other supported models: voxel CenterPoint,
 PointRCNN, the nuScenes anchor detectors (SECOND and PointPillar
-multi-head) and the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
-R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++).
+multi-head), the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
+R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++) and the fully sparse and
+pillar-sparse detectors (VoxelNeXt on its nuScenes, double-flip and large
+Waymo configs; PillarNet on its KITTI and Waymo configs), with
+`waymo_batches` for the Waymo configs.
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from .core.voxel import VoxelGrid
+from .data.batch import PointBatch
 from .models import build_network
 from .utils.config import CfgDict, cfg_from_yaml_file
 
@@ -290,3 +294,125 @@ def kitti_batches(cfg, root, info_file, num_batches: int, batch_size: int,
     frames = [dataset[i % len(dataset)] for i in range(num_batches * batch_size)]
     return [dataset.collate_batch(frames[i:i + batch_size])[0]
             for i in range(0, len(frames), batch_size)]
+
+
+CFGS = Path(__file__).resolve().parents[1] / "tools/cfgs"
+FULLY_SPARSE_CFGS = {
+    "voxelnext": "nuscenes_models/cbgs_voxel0075_voxelnext.yaml",
+    "voxelnext_tta": "nuscenes_models/cbgs_voxel0075_voxelnext_doubleflip.yaml",
+    "voxelnext_iou_large": "waymo_models/voxelnext_ioubranch_large.yaml",
+    "pillarnet": "kitti_models/pillarnet.yaml",
+    "pillarnet_waymo": "waymo_models/pillarnet.yaml",
+}
+
+
+def _fully_sparse(name, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = cfg_from_yaml_file(CFGS / FULLY_SPARSE_CFGS[name], CfgDict())
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def voxelnext(train: bool = False, device="cuda"):
+    """VoxelNeXt on tools/cfgs/nuscenes_models/cbgs_voxel0075_voxelnext.yaml
+    at its published widths, built as the CLIs build it (tools.common.
+    build_model): MeanVFE over the 5 point features, the 1440 x 1440 x 40
+    grid with MAX_NUMBER_OF_VOXELS (120,000 train, 160,000 test), six class
+    groups with a vel branch. Returns (cfg, grid, model), in eval mode or in
+    train mode with `train`; the weights are PyTorch's defaults."""
+    return _fully_sparse("voxelnext", device, train)
+
+
+def voxelnext_tta(train: bool = False, device="cuda"):
+    """VoxelNeXt on cbgs_voxel0075_voxelnext_doubleflip.yaml (the double-flip
+    test-time augmentation); as `voxelnext`."""
+    return _fully_sparse("voxelnext_tta", device, train)
+
+
+def voxelnext_iou_large(train: bool = False, device="cuda"):
+    """VoxelNeXt on tools/cfgs/waymo_models/voxelnext_ioubranch_large.yaml:
+    the 1504 x 1504 x 40 Waymo grid, 150,000 voxels, channels up to 256,
+    5 x 5 x 5 strided convs at strides 2 and 4, the IoU branch; as
+    `voxelnext`. The Waymo configs run on `waymo_batches` (no Waymo
+    dataset in the port)."""
+    return _fully_sparse("voxelnext_iou_large", device, train)
+
+
+def pillarnet(train: bool = False, device="cuda"):
+    """PillarNetAnchor on tools/cfgs/kitti_models/pillarnet.yaml: the
+    704 x 800 x 1 pillar grid with MAX_NUMBER_OF_VOXELS (16,000 train, 40,000
+    test), DynamicPillarVFESimple2D, PillarBackBone8x 32-256, the conv5
+    stage, BaseBEVBackboneV1 [5, 5], AnchorHeadSingle; as `voxelnext`."""
+    return _fully_sparse("pillarnet", device, train)
+
+
+def pillarnet_waymo(train: bool = False, device="cuda"):
+    """PillarNetCenter on tools/cfgs/waymo_models/pillarnet.yaml: the
+    1504 x 1504 x 1 pillar grid, 150,000 pillars, PillarRes18BackBone8x,
+    CenterHead over Vehicle, Pedestrian, Cyclist; as `voxelnext_iou_large`."""
+    return _fully_sparse("pillarnet_waymo", device, train)
+
+
+WAYMO_BATCH_SIZE = 4   # the Waymo configs' BATCH_SIZE_PER_GPU
+# (length, width, height) in metres of the Waymo classes' boxes
+WAYMO_CLASS_DIMS = {"Vehicle": (4.7, 2.1, 1.7), "Pedestrian": (0.9, 0.9, 1.8),
+                    "Cyclist": (1.8, 0.8, 1.8)}
+
+
+def waymo_batches(cfg, num_batches: int, num_points: int = 150_000, num_boxes=(20, 40),
+                  seed: int = 0, batch_size: int = WAYMO_BATCH_SIZE):
+    """`num_batches` PointBatches of `batch_size` frames made in memory for a
+    Waymo config (the port has no Waymo dataset): per frame `num_points`
+    points in POINT_CLOUD_RANGE with its five features (x, y, z, intensity,
+    elongation): 15 % on the surfaces of 20-40 boxes of the config's classes
+    (standing on the ground at z = 0, random headings, the box sizes of
+    WAYMO_CLASS_DIMS within ±10 %), 70 % on the ground with a density
+    falling as 1 / range, 15 % clutter uniform in the range; gt (B,
+    num_boxes[1], 8) with the class id last, the unused slots invalid. From
+    a numpy generator seeded with `seed`."""
+    rng = np.random.RandomState(seed)
+    lo = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[:3], np.float32)
+    hi = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[3:], np.float32)
+    names = list(cfg.CLASS_NAMES)
+    out = []
+    for _ in range(num_batches):
+        pts = np.zeros((batch_size, num_points, 5), np.float32)
+        gt = np.zeros((batch_size, num_boxes[1], 8), np.float32)
+        gt_valid = np.zeros((batch_size, num_boxes[1]), bool)
+        for i in range(batch_size):
+            m = rng.randint(num_boxes[0], num_boxes[1] + 1)
+            cls = rng.randint(0, len(names), m)
+            dims = np.array([WAYMO_CLASS_DIMS[names[c]] for c in cls], np.float32)
+            dims *= rng.uniform(0.9, 1.1, dims.shape).astype(np.float32)
+            ctr = rng.uniform(lo[:2] * 0.9, hi[:2] * 0.9, (m, 2)).astype(np.float32)
+            yaw = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+            gt[i, :m] = np.concatenate([ctr, dims[:, 2:3] / 2, dims, yaw[:, None],
+                                        cls[:, None] + 1.0], axis=1)
+            gt_valid[i, :m] = True
+            n_box, n_ground = int(0.15 * num_points), int(0.7 * num_points)
+            n_clutter = num_points - n_box - n_ground
+            # box surfaces: a random face point per sample, rotated by the heading
+            owner = rng.randint(0, m, n_box)
+            u = rng.uniform(-0.5, 0.5, (n_box, 3)).astype(np.float32)
+            face = rng.randint(0, 3, n_box)
+            u[np.arange(n_box), face] = np.sign(u[np.arange(n_box), face]) * 0.5
+            local = u * dims[owner]
+            c, s = np.cos(yaw[owner]), np.sin(yaw[owner])
+            box_xyz = np.stack([local[:, 0] * c - local[:, 1] * s + ctr[owner, 0],
+                                local[:, 0] * s + local[:, 1] * c + ctr[owner, 1],
+                                local[:, 2] + dims[owner, 2] / 2], axis=1)
+            reach = float(np.abs(np.concatenate([lo[:2], hi[:2]])).max())
+            r = reach * rng.uniform(0.02, 1.0, n_ground)
+            phi = rng.uniform(-np.pi, np.pi, n_ground)
+            ground = np.stack([r * np.cos(phi), r * np.sin(phi),
+                               rng.normal(0.0, 0.03, n_ground)], axis=1)
+            ground = ground[(np.abs(ground[:, :2]) < hi[:2]).all(axis=1)]
+            clutter = rng.uniform(lo, hi, (n_clutter + n_ground - len(ground), 3))
+            xyz = np.concatenate([box_xyz, ground, clutter]).astype(np.float32)
+            pts[i, :, :3] = xyz[rng.permutation(num_points)]
+            pts[i, :, 3] = rng.uniform(0, 1, num_points)
+            pts[i, :, 4] = rng.uniform(0, 1, num_points)
+        out.append(PointBatch.from_numpy(pts, np.ones((batch_size, num_points), bool), gt,
+                                         gt_valid))
+    return out

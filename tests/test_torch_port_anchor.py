@@ -51,6 +51,7 @@ from test_model import make_batch, tiny_grid
 from test_pointpillar import CLASSES, pp_model_cfg, second_grid, second_model_cfg
 from test_torch_port_models import numpy_variables
 from test_torch_port_train_slice import _shift_bn_biases, recording
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 TOTAL_STEPS = 100
 

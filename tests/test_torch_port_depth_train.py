@@ -57,6 +57,7 @@ from dfu3d_tpu_torch.tools import complete_depth as tcd
 from dfu3d_tpu_torch.tools import train_depth as ttd
 
 from test_torch_port_models import numpy_variables
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 H, W = 32, 64
 WIDTHS = (8, 16)

@@ -54,6 +54,7 @@ from dfu3d_tpu_torch.train.train_state import create_train_state
 from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_list, cfg_from_yaml_file
 
 from test_torch_port_models import numpy_variables
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CLASSES = ["Car", "Pedestrian", "Cyclist"]
@@ -63,17 +64,6 @@ SMALL_RANGE = [0.0, -12.8, -5.0, 25.6, 12.8, 3.0]
 TEST_THREADS = 2
 LABEL_TOL = 1e-3     # printed KITTI numbers (4 decimals; fp32 on both sides)
 CPU = ["--device", "cpu", "--dtype", "float32"]
-
-
-@pytest.fixture
-def few_threads():
-    """Two intra-op threads for the small CLI-driven models: with several test
-    workers on the machine, each process's default thread pool makes these
-    runs tens of times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(TEST_THREADS)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_tool(name):

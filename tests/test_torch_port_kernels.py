@@ -190,6 +190,9 @@ def _bf16_ulp(x):
     (2, 500, 333, 27, 16, 32),    # ragged Q (not a multiple of the 64-row tile)
     (1, 300, 130, 27, 4, 16),     # conv_input's Cin = 4
     (2, 200, 100, 3, 128, 128),   # conv_out's K = 3 at full width
+    (1, 400, 200, 125, 32, 64),   # a 5x5x5 down conv (voxelnext_ioubranch_large)
+    (1, 300, 150, 27, 256, 256),  # PillarNet's and VoxelNeXt's 256-wide stages
+    (2, 200, 100, 27, 128, 256),  # their widening down conv
 ])
 def test_gather_gemm_matches_plain_on_card(cuda_device, dtype, b, v, q, k, cin, cout):
     """B2 against its plain twin on the card: fp32 within 1e-4; bf16 within
@@ -240,13 +243,16 @@ def _launch_tc(feats, valid, nbr, w):
     (4, 16, 27), (5, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
     (64, 64, 27), (64, 128, 27), (128, 128, 27), (128, 128, 3),
     (128, 64, 27), (96, 32, 27), (48, 16, 27), (16, 48, 27), (32, 96, 27),
+    (128, 256, 27), (256, 256, 27), (256, 128, 27), (256, 256, 9), (256, 256, 3),
+    (128, 128, 1), (256, 64, 9),
 ])
 def test_gather_gemm_tensor_core_widths(cuda_device, cin, cout, k):
     """The bf16 tensor-core kernel at every (Cin, Cout, K) of the voxel
     paths (Cin 5: the nuScenes configs' first conv, padded to 8 by the
     wrapper; PartA2's SparseUNet decoder, Cin 128, 96, 48, and its dX, Cout
-    48 and 96), on a random table with ~20 % masked rows and a ragged Q (not
-    a multiple of the 64-row tile)."""
+    48 and 96; PillarNet's and VoxelNeXt's 256-wide stages, their dX and
+    VoxelNeXt's (3, 3, 1) and (1, 1, 1) head convs), on a random table with
+    ~20 % masked rows and a ragged Q (not a multiple of the 64-row tile)."""
     rng = np.random.default_rng(cin * 1000 + cout + k)
     args = _gather_gemm_case(rng, 2, 700, 333, k, cin, cout, torch.bfloat16, cuda_device)
     got = _launch_tc(*args)
@@ -312,6 +318,23 @@ def test_gather_gemm_fp32_repeats_bit_for_bit(cuda_device):
     assert torch.equal(first, second)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cin", [(27, 256), (125, 64)])
+def test_gather_gemm_cuda_core_wide_columns_bit_for_bit(cuda_device, k, cin):
+    """fp32 at Cout 256 stages Cin in chunks of 64 and adds the products of
+    each sum in the order of the unchunked kernel: its first 128 columns equal
+    a Cout-128 call on those columns bit for bit (which stages all of Cin)."""
+    rng = np.random.default_rng(k + cin)
+    feats, valid, nbr, w = _gather_gemm_case(rng, 2, 300, 200, k, cin, 256, torch.float32,
+                                             cuda_device)
+    before = dict(gather_gemm_kernel.launches_by_variant)
+    wide = gather_gemm_kernel.gather_gemm(feats, valid, nbr, w)
+    narrow = gather_gemm_kernel.gather_gemm(feats, valid, nbr, w[..., :128].contiguous())
+    torch.cuda.synchronize()
+    assert gather_gemm_kernel.launches_by_variant["cuda_core"] == before["cuda_core"] + 2
+    assert torch.equal(wide[..., :128], narrow)
+
+
 @pytest.mark.parametrize("dtype,k,cin,cout,want", [
     (torch.bfloat16, 27, 4, 16, "tensor_core"),
     (torch.bfloat16, 27, 128, 128, "tensor_core"),
@@ -322,6 +345,14 @@ def test_gather_gemm_fp32_repeats_bit_for_bit(cuda_device):
     (torch.bfloat16, 27, 8, 8, "cuda_core"),       # Cout not in 16, 32, 48, 64, 96, 128
     (torch.bfloat16, 27, 6, 16, "cuda_core"),      # Cin % 4 != 0
     (torch.bfloat16, 33, 16, 16, "cuda_core"),     # more taps than a 32-bit mask holds
+    (torch.bfloat16, 125, 32, 64, "cuda_core"),    # a 5x5x5 down conv
+    (torch.bfloat16, 27, 256, 256, "tensor_core"),  # two Cin chunks, two column blocks
+    (torch.bfloat16, 27, 128, 256, "tensor_core"),
+    (torch.bfloat16, 9, 256, 128, "tensor_core"),
+    (torch.bfloat16, 27, 132, 16, "cuda_core"),    # above 128, Cin % 16 != 0
+    (torch.bfloat16, 27, 272, 16, "cuda_core"),    # above two chunks
+    (torch.bfloat16, 27, 64, 192, "cuda_core"),    # Cout not a tensor-core width
+    (torch.float32, 27, 256, 256, "cuda_core"),
 ])
 def test_gather_gemm_variant(dtype, k, cin, cout, want):
     assert gather_gemm_kernel.variant(dtype, k, cin, cout) == want

@@ -41,7 +41,7 @@ from test_torch_port_models import flax_variables_like, numpy_variables
 from test_torch_port_sparse import PCR, VS, ground_points
 from test_torch_port_two_stage import (BN_SHIFT, CHANS, GRID, MAX_VOXELS, OUT_CH, VOXEL_CAP,
                                        DropoutMasks, build_pair, random_rois, t)
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,7 @@ from dfu3d_tpu_torch.train import torch_convert
 from test_model import make_batch
 from test_parta2 import pa2_cfg, pa2_grid
 from test_torch_port_two_stage import build_pair, port_batch
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 from test_torch_port_two_stage_ckpt import check_reference_mapping
 from test_torch_port_two_stage_cli import check_tools_train_and_test, check_two_stage_spans
 from test_torch_port_two_stage_train import check_model_train_step

@@ -46,6 +46,7 @@ from dfu3d_tpu_torch.zoo import POINTRCNN_CFG, pointrcnn
 from test_model import CLASS_NAMES, make_batch, tiny_grid
 from test_pointrcnn import prcnn_cfg
 from test_torch_port_models import numpy_variables
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 GEOM_TOL = dict(rtol=1e-5, atol=1e-5)
 NET_TOL = dict(rtol=1e-4, atol=1e-4)

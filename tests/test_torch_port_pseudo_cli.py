@@ -39,6 +39,8 @@ from dfu3d_tpu_torch.pseudo import ops as tops
 from dfu3d_tpu_torch.pseudo import synthetic as tsynth
 from dfu3d_tpu_torch.tools import complete_depth, create_infos, generate_pseudo_boxes
 
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 LABEL_TOL = 1e-4
 DEPTH_TOL = 1e-4

@@ -36,7 +36,7 @@ from test_model import make_batch
 from test_pvrcnn import pv_cfg, pv_grid
 from test_torch_port_models import numpy_variables
 from test_torch_port_two_stage import build_pair, port_batch, sa_scene, t
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 from test_torch_port_two_stage_cli import check_two_stage_spans
 from test_torch_port_two_stage_train import check_model_train_step
 

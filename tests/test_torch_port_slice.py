@@ -28,6 +28,7 @@ from dfu3d_tpu_torch.train.trainer import train_model
 from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
 
 from test_torch_port_models import numpy_variables
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 THRESH = (0.3, 0.5, 0.7)

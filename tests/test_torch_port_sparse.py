@@ -25,6 +25,7 @@ from dfu3d_tpu_torch.core.voxel.gather_gemm_kernel import gather_gemm, gather_ge
 from dfu3d_tpu_torch.models import sparse_backbone as sb
 
 from test_torch_port_models import numpy_variables
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 PCR = [-6.4, -6.4, -5.0, 6.4, 6.4, 3.0]   # 128 x 128 x 40 at 0.1 x 0.1 x 0.2 m
 VS = [0.1, 0.1, 0.2]
@@ -154,6 +155,8 @@ def test_neighbor_tables_match_jax_column_map(voxels, case):
     (2, 100, 96, 27, 8, 16, 32, 0),   # several query blocks
     (1, 64, 50, 27, 8, 8, 32, 1),     # a remainder query block
     (2, 40, 33, 3, 4, 16, 16, 2),     # conv_out's K=3 and conv_input's Cin=4
+    (1, 40, 30, 125, 8, 16, 16, 5),   # a 5x5x5 down conv's 125 taps
+    (1, 24, 20, 9, 256, 256, 16, 6),  # the 256-wide stages and heads
 ])
 def test_gather_gemm_plain_matches_jax_and_pallas(b, v, q, k, cin, cout, tq, seed):
     """The plain twin against JAX's loop form and the Pallas kernel in

@@ -47,6 +47,7 @@ from dfu3d_tpu_torch.zoo import VOXEL_CFG, VOXEL_TINY_RANGE, voxel_centerpoint
 
 from test_torch_port_models import numpy_variables
 from test_torch_port_sparse import ground_points
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 TOTAL_STEPS = 100
 

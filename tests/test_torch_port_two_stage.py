@@ -56,25 +56,13 @@ from test_pvrcnn import pv_cfg, pv_grid
 from test_pvrcnn_pp import _pool_layer
 from test_torch_port_models import flax_variables_like, numpy_variables
 from test_torch_port_sparse import PCR, VS, ground_points
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 GRID = sparse_ops.SparseGrid(128, 128, 40)
 MAX_VOXELS = 4096
 VOXEL_CAP = 1200
 CHANS, OUT_CH = (4, 8, 8, 16, 16), 8
 BN_SHIFT = 3.0
-TEST_THREADS = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def few_threads():
-    """TEST_THREADS intra-op threads for each module that imports this
-    fixture: with several test workers on the machine, each process's
-    default thread pool makes the many small ops of these test-scale models
-    tens of times slower (a loop of FPS steps, the keep-scans)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(TEST_THREADS)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

@@ -24,7 +24,7 @@ from test_model import CLASS_NAMES, make_batch
 from test_parta2 import pa2_cfg, pa2_grid
 from test_pvrcnn import pv_cfg, pv_grid
 from test_torch_port_two_stage import MODELS, pair, port_batch, voxel_rcnn_cfg
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 
 def jax_head_mapping(name):

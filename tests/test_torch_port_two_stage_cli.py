@@ -21,7 +21,7 @@ from dfu3d_tpu_torch.utils.config import CfgDict
 
 from test_model import make_batch
 from test_torch_port_two_stage import pair, port_batch
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 from test_torch_port_two_stage_train import KITTI_OPTIM, check_train_step
 
 

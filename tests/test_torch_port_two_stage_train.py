@@ -38,7 +38,7 @@ from test_model import make_batch
 from test_torch_port_pointrcnn_train import CaptureTargets, capture_port_targets, jax_draws
 from test_torch_port_train_slice import recording
 from test_torch_port_two_stage import DropoutMasks, pair, port_batch
-from test_torch_port_two_stage import few_threads  # noqa: F401 (autouse)
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 TOTAL_STEPS = 100
 LOSS_TOL = 1e-5

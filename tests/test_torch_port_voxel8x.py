@@ -35,6 +35,7 @@ from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
 
 from test_torch_port_models import numpy_variables
 from test_torch_port_sparse import PCR, VS, ground_points
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 GRID = sparse_ops.SparseGrid(128, 128, 40)
 MAX_VOXELS = 4096         # the voxelizer's cap

@@ -25,6 +25,7 @@ from dfu3d_tpu_torch.zoo import VOXEL_CFG, VOXEL_TINY_RANGE, voxel_centerpoint
 
 from test_torch_port_models import numpy_variables
 from test_torch_port_sparse import ground_points
+from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 
 THRESH = (0.3, 0.5, 0.7)
 MAX_VOXELS = 2048
