@@ -240,10 +240,37 @@ Phases, each fatal on failure:
               point-cloud range. Last, Voxel R-CNN and PartA2 through
               tools.train (1 epoch) and tools.test on the root, with their
               launch counts.
+ 15. fully_sparse  VoxelNeXt (cbgs_voxel0075_voxelnext, its double flip,
+              voxelnext_ioubranch_large) and PillarNet (KITTI, Waymo) at full
+              width with seeded weights on phase 13's nuScenes root, phase
+              14's KITTI root or frames made in memory: requests and bf16
+              train steps with their B1 and B2 launches (FULLY_SPARSE_B2),
+              every served and dX B2 call held and timed, the fp32 request
+              and step through the kernels against the twins, VoxelNeXt and
+              PillarNet KITTI through tools.train and tools.test.
+ 16. transfusion  TransFusion-L (transfusion_lidar: VoxelResBackBone8x,
+              BaseBEVBackbone to 512 channels at 180 x 180, TransFusionHead
+              with 200 queries) at full width with seeded weights on phase
+              13's nuScenes root written anew: 4 requests of B=4 (bf16, the
+              first request's BN statistics), fatal unless each launches B1
+              once (the recall; predict runs no NMS) and the tensor-core B2
+              21 times; spans, peak memory; the served B1 and B2 calls held
+              and timed; one fp32 request through the kernels and through
+              the twins on a batch whose points cover the whole range
+              (query classes and cells, keep masks and labels equal, boxes
+              within 1e-4); one bf16 step's 21 forward and 20 dX B2 calls
+              held and timed; the fp32 step through the kernels against the
+              twins (the regression branches' gradients nonzero); 4 bf16
+              steps through trainer.train_model, fatal unless each
+              launches the tensor-core B2 41 times and B1 never; the host
+              Hungarian's ms; tools.train (1 epoch, 4 steps) and tools.test
+              on the root. Device busy and idle of a request and of a step
+              with the deferred profiles.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
-{"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}} and
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+{"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
+{"fully_sparse": {...}}, {"transfusion": {...}} and {"kernels": [...]};
+the last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -3108,18 +3135,19 @@ def count_positive_anchors():
     return seen, lambda: setattr(pointpillar.AnchorDetectorBase, "assign_targets", orig)
 
 
-def nuscenes_cli(root, cfg_file, b2_train, b2_eval, device):
+def nuscenes_cli(root, cfg_file, b2_train, b2_eval, device, b1_eval=2, extra_sets=()):
     """tools.train (1 epoch, bf16) and tools.test of its checkpoint on a
     nuScenes config from `root`, gt sampling disabled (no nuScenes gt
     database exists); fatal unless every train step launched the
     tensor-core B2 `b2_train` times and no B1, the eval launched B2
-    `b2_eval` and B1 twice per batch, results came back for every val frame
-    and the AP_DICT holds the ten classes. Returns the summary and the
-    launches of training and evaluation."""
+    `b2_eval` and B1 `b1_eval` times per batch, results came back for every
+    val frame and the AP_DICT holds the ten classes; `extra_sets` adds
+    --set pairs. Returns the summary and the launches of training and
+    evaluation."""
     from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
 
     sets = ["--set", "DATA_CONFIG.DATA_PATH", str(root),
-            "DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST", "gt_sampling"]
+            "DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST", "gt_sampling", *extra_sets]
     common = ["--cfg_file", cfg_file, "--device", device.type, "--workers", str(LOADER_WORKERS)]
     tag = Path(cfg_file).stem
     reset_launches()
@@ -3145,7 +3173,7 @@ def nuscenes_cli(root, cfg_file, b2_train, b2_eval, device):
     classes = {k.split("/")[0].rsplit("_", 1)[0] for k in result if "_3d/" in k}
     if result["num_frames"] != NUSC_VAL_FRAMES or classes != set(NUSC_CLASSES) or \
             eval_launches["gather_gemm_tensor_core"] != b2_eval * batches or \
-            eval_launches["iou_bev_overlap"] != 2 * batches:
+            eval_launches["iou_bev_overlap"] != b1_eval * batches:
         fail(f"tools.test {tag}: {result['num_frames']} frames of {NUSC_VAL_FRAMES}, classes "
              f"{sorted(classes)}, {batches} batches, kernel launches {eval_launches}")
     summary = {"train_steps": steps, "train_s": train_s, "train_loss": out["epochs"][0]["loss"],
@@ -3154,8 +3182,9 @@ def nuscenes_cli(root, cfg_file, b2_train, b2_eval, device):
                "gt_num": result["gt_num"],
                "car_3d_moderate_R40": result["Car_3d/moderate_R40"],
                "time_split_s": {k: result[k] for k in result if k.startswith("time/")}}
-    log(f"[nuscenes] {tag} from disk: tools.train {steps} steps (class-balanced resampling of "
-        f"{NUSC_TRAIN_FRAMES} frames) in {train_s:.2f} s, loss {out['epochs'][0]['loss']:.4f}, "
+    log(f"[nuscenes] {tag} from disk: tools.train {steps} steps ({NUSC_TRAIN_FRAMES} frames"
+        f"{'' if extra_sets else ', class-balanced resampling'}) in {train_s:.2f} s, "
+        f"loss {out['epochs'][0]['loss']:.4f}, "
         f"launches {json.dumps(train_launches)}; tools.test {result['num_frames']} frames in "
         f"{eval_s:.2f} s, AP_DICT with {len(classes)} classes, launches "
         f"{json.dumps(eval_launches)}")
@@ -4106,6 +4135,305 @@ def fully_sparse_phase(device, card):
     return summary, launches, served_b1, b2
 
 
+
+# phase 16: TransFusion-L, served requests and bf16 train steps of B=4
+TRANSFUSION_DEPTH = (4, 4)     # served requests, bf16 train steps
+# B2 per request and per train step: VoxelResBackBone8x's 21 convs, and a
+# dX for each but conv_input's (the voxel means need no gradient)
+TRANSFUSION_B2 = (21, 41)
+TRANSFUSION_B1 = (1, 0)        # per request (the recall: predict runs no NMS) and per step
+TRANSFUSION_CFG = "cfgs/nuscenes_models/transfusion_lidar.yaml"   # from phase 16's work dir
+# the regression branches, whose out weights the fp32 train check requires a gradient on
+TRANSFUSION_REG = tuple(f"dense_head.{b}_out.weight" for b in ("center", "height", "dim", "rot",
+                                                                "vel"))
+
+
+def transfusion_serve(model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts and the peak read.
+    Fatal unless every request launched B1 once and the tensor-core B2 21
+    times, or on a non-finite or misshapen output or a frame that kept no
+    query. Returns (EvalResult, launches, summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    q = model.dense_head.num_proposals
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if tuple(boxes.shape) != (4, q, 9) or not torch.isfinite(boxes).all() or \
+                not torch.isfinite(scores).all() or not valid.any(dim=1).all():
+            fail(f"transfusion request {k}: boxes {tuple(boxes.shape)} (want (4, {q}, 9)), "
+                 f"finite {bool(torch.isfinite(boxes).all())}, kept per frame "
+                 f"{valid.sum(1).tolist()}")
+    if launches["iou_bev_overlap"] != TRANSFUSION_B1[0] * n or \
+            launches["gather_gemm_tensor_core"] != TRANSFUSION_B2[0] * n or \
+            launches["gather_gemm_cuda_core"]:
+        fail(f"transfusion serving: kernel launches {launches} for {n} requests, not "
+             f"{TRANSFUSION_B1[0]} B1 and {TRANSFUSION_B2[0]} tensor-core B2 per request")
+    ms = [s * 1e3 for s in res.batch_seconds]
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
+               "recall": res.metric, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    log(f"[transfusion] serving, {n} requests of B=4 (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
+        f"{summary['kept_per_frame']}; recall {json.dumps(res.metric)}; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}")
+    return res, launches, summary
+
+
+def covering_batch(batch, grid, seed=0):
+    """`batch` with its points replaced by as many drawn uniformly over the
+    whole point-cloud range (x, y, z; intensity 0-255, time lag 0-0.45 s),
+    so that every BEV cell's receptive field holds points. Phase 16's fp32
+    request runs on it, with its own BN statistics (`calibrate_bn_`): on
+    the synthetic frames, whose points end 55 m from the sensor, the
+    seeded model calibrated on them compresses its heat map, and on an
+    H100 the kernels and the twins picked 58 and 131 of the 800 queries
+    otherwise in two runs: top-K's 200th place falls among near-ties. On
+    this batch the scores spread and both pick the same queries."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b, n, c = batch.points.shape
+    lo = torch.tensor(grid.point_cloud_range[:3], dtype=torch.float32)
+    hi = torch.tensor(grid.point_cloud_range[3:], dtype=torch.float32)
+    pts = torch.zeros((b, n, c))
+    pts[..., :3] = lo + (hi - lo) * torch.rand((b, n, 3), generator=gen)
+    pts[..., 3] = 255.0 * torch.rand((b, n), generator=gen)
+    pts[..., 4] = NUSC_LAG_MAX * torch.rand((b, n), generator=gen)
+    return batch._replace(points=pts, points_valid=torch.ones((b, n), dtype=torch.bool))
+
+
+def check_transfusion_paths(model, batch, swaps, device):
+    """One fp32 request through the kernels and through their plain twins
+    (`swaps`), the BN statistics set from `batch` (the model's running
+    statistics change), its gt made from queries the kernel path keeps, shifted along
+    x by 0 .. 0.75 of their length: the queries' classes and cells equal,
+    keep masks and labels equal, boxes and scores within PATH_TOL, recall
+    counters equal and above 0."""
+    import torch
+
+    from dfu3d_tpu_torch.flagship import calibrate_bn_
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    calibrate_bn_(model, batch)
+    pred_boxes, _, _, pred_valid = make_eval_step(model, device=device)(batch)
+    gt = batch.gt_boxes.clone()
+    for i in range(gt.shape[0]):
+        kept = pred_boxes[i][pred_valid[i]]
+        for j in range(min(16, gt.shape[1])):
+            gt[i, j, :7] = kept[(7 * j) % len(kept), :7]
+            gt[i, j, 0] += 0.05 * j * gt[i, j, 3]
+    check_batch = batch._replace(gt_boxes=gt)
+    head = model.dense_head
+    queries = []
+    forward = head.forward
+
+    def recording(bev):
+        out = forward(bev)
+        queries.append((out["q_cls"], out["q_cell"], out["query_heatmap_score"]))
+        return out
+
+    step = make_eval_step(model, RECALL_THRESH, device=device)
+    head.forward = recording
+    try:
+        kb, ks, kl, kv, krec = step(check_batch)
+        with plain_twins(swaps):
+            pb, ps, pl, pv, prec = step(check_batch)
+    finally:
+        del head.forward
+    (kc, kcell, kscore), (pc, pcell, pscore) = queries
+    if not (torch.equal(kc, pc) and torch.equal(kcell, pcell)):
+        diff = (kc != pc) | (kcell != pcell)
+        fail(f"transfusion fp32 path: {int(diff.sum())} queries' class or cell differ between "
+             f"kernel and plain; their heat-map scores {kscore.amax(-1)[diff][:8].tolist()}; "
+             f"the last query's per frame {kscore.amax(-1)[:, -1].tolist()}")
+    krec, prec = ({k: int(v) for k, v in r.items()} for r in (krec, prec))
+    box_err = (kb - pb).abs()[kv].max().item()
+    score_err = (ks - ps).abs().max().item()
+    if not torch.equal(kv, pv) or not torch.equal(kl, pl) or not box_err <= PATH_TOL or \
+            not score_err <= PATH_TOL or krec != prec or \
+            not krec[f"recall_rcnn_{RECALL_THRESH[0]}"]:
+        fail(f"transfusion fp32 path: keep masks equal {torch.equal(kv, pv)}, labels equal "
+             f"{torch.equal(kl, pl)}, max |box diff| {box_err:.3g}, max |score diff| "
+             f"{score_err:.3g} (tol {PATH_TOL}), recall {krec} vs {prec}")
+    log(f"[check] transfusion fp32 whole path, kernels vs plain: {kc.numel()} queries' classes "
+        f"and cells equal, keep masks and labels equal ({int(kv.sum())} kept), max |box diff| "
+        f"{box_err:.3g}, max |score diff| {score_err:.3g}; recall {krec}")
+    return {"queries": kc.numel(), "kept": int(kv.sum()), "max_box_diff": box_err,
+            "max_score_diff": score_err, "recall": krec}
+
+
+def transfusion_phase(device, card):
+    """Phase 16: TransFusion-L on transfusion_lidar.yaml at its published
+    widths with seeded weights, in a temporary working directory whose
+    cfgs/ links to tools/cfgs/, on phase 13's synthetic nuScenes root
+    (written anew): 4 bf16 requests (the first request's BN statistics,
+    `calibrate_bn_`), their launches, ms, peak memory and spans, the
+    served B1 and B2 calls held and timed, the fp32 request through the
+    kernels and through the twins (on `covering_batch`); one bf16 step's
+    B2 calls (forward and dX) held and timed, the fp32 step through the
+    kernels and through the twins; 4 bf16 steps through train_model (launches, ms, peak memory,
+    spans); tools.train and tools.test on the root. Returns (summary,
+    launches by path, served B1 entries, B2 (totals, entries) by path)."""
+    import os
+
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.profile_serve import _run
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    requests, train_steps = TRANSFUSION_DEPTH
+    seconds, launches, b2 = {}, {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            root = work / "data" / "nuscenes"
+            infos, _ = nuscenes_data(root)
+            cfg, grid, model = zoo.transfusion(device=device)
+            seeded_weights_(model, seed=0)
+            batches = zoo.nuscenes_batches(cfg, root, infos["val"], requests)
+            calibrate_bn_(model, batches[0])
+            seconds["setup_serve"] = time.perf_counter() - t0
+            log(f"[transfusion] {cfg.MODEL.NAME} {'x'.join(map(str, grid.grid_size))} grid, "
+                f"max_voxels {model.vfe.max_voxels}, {sum(p.numel() for p in model.parameters())} "
+                f"parameters; points per request "
+                f"{[b.points_valid.sum(1).tolist() for b in batches]}")
+
+            t0 = time.perf_counter()
+            res, launches["transfusion"], serve = transfusion_serve(model, batches, device)
+            step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+            serve["profile"] = profile_serve.transfusion_profile(model, lambda b: _run(step, b),
+                                                                 batches[:2])
+            serve["profile"]["device_time"] = defer_device_profile(
+                "transfusion serving", lambda: _run(step, batches[0]))
+            served_b1 = time_served_overlaps("transfusion", model, batches[0], device,
+                                             names=("recall",))
+            calls = record_gemm_calls(lambda: step(batches[0]))
+            if len(calls) != TRANSFUSION_B2[0]:
+                fail(f"one transfusion eval step made {len(calls)} gather-GEMM calls, not "
+                     f"{TRANSFUSION_B2[0]}")
+            b2["served"] = hold_gemm_calls("transfusion, one served request",
+                                           zip(GEMM_CONVS, calls))
+            del calls
+            serve["fp32_check"] = check_transfusion_paths(
+                model, covering_batch(batches[0], grid), swaps, device)
+            seconds["serve"] = time.perf_counter() - t0
+            ph = serve["profile"]["phase_ms"]
+            log(f"[transfusion] ({card}) instrumented request {ph['step']:.2f} ms; spans (ms) "
+                + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(),
+                                                               key=lambda kv: -kv[1])[1:16]))
+            del res, model
+
+            t0 = time.perf_counter()
+            tbatches = zoo.nuscenes_batches(cfg, root, infos["train"], train_steps,
+                                            training=True)
+            _, _, model = zoo.transfusion(device=device, train=True)
+            seeded_weights_(model, seed=0)
+            weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            loss = []
+
+            def bf16_forward():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    loss.append(model(tbatches[0].to(device))[0])
+
+            fwd = record_gemm_calls(bf16_forward)
+            dx = record_gemm_calls(lambda: loss[0].backward())
+            model.zero_grad(set_to_none=True)
+            model.load_state_dict(weights)
+            check_dx_mirrors(GEMM_CONVS, fwd, dx)
+            b2["dx"] = hold_gemm_calls("dX of one transfusion train step",
+                                       zip(GEMM_CONVS[::-1], dx))
+            del fwd, dx, loss
+            check = check_train_paths("transfusion", model, tbatches[0], swaps, device,
+                                      scales=True)
+            reg = {k: v for k, v in check.pop("leaf_scales").items() if k in TRANSFUSION_REG}
+            if len(reg) != len(TRANSFUSION_REG) or not all(v > 0 for v in reg.values()):
+                fail(f"transfusion fp32 train step: a regression branch has no gradient {reg}")
+            check["reg_branch_grad_max"] = reg
+            del model
+            torch.cuda.reset_peak_memory_stats()
+            model, launches["transfusion_train"], steps, state = train(
+                "transfusion", zoo.transfusion, tbatches, device)
+            peak = torch.cuda.max_memory_allocated()
+            bad = [s["it"] for s in steps if s["iou_bev_overlap"] != TRANSFUSION_B1[1]
+                   or s["gather_gemm_tensor_core"] != TRANSFUSION_B2[1]
+                   or s["gather_gemm_cuda_core"]]
+            if bad:
+                fail(f"transfusion train steps {bad} did not launch B1 {TRANSFUSION_B1[1]} times "
+                     f"and the tensor-core B2 {TRANSFUSION_B2[1]} times: {steps}")
+            tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+
+            def run_train(bt):
+                return float(tstep(bt)["loss"])
+
+            profile = profile_serve.transfusion_profile(model, run_train, tbatches[:2],
+                                                        state.optimizer)
+            profile["device_time"] = defer_device_profile("transfusion training",
+                                                          lambda: run_train(tbatches[0]))
+            seconds["train"] = time.perf_counter() - t0
+            ms = [s["host_ms"] for s in steps]
+            summary = {
+                "config": TRANSFUSION_CFG[5:], "card": card,
+                "serve": {**serve, "b1_served": [{k: e[k] for k in (
+                    "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                    for e in served_b1],
+                    "b2_served": {**b2["served"][0], "per_conv": compact_gemm(b2["served"][1])}},
+                "train": {"batch": 4, "steps": steps,
+                          "ms_per_step": {"median": statistics.median(ms), "all": ms},
+                          "samples_per_s": 4 / (statistics.median(ms) / 1e3),
+                          "peak_memory_gib": peak / 2 ** 30,
+                          "launches": launches["transfusion_train"],
+                          "b2_launches_per_step": {"forward": TRANSFUSION_B2[0],
+                                                   "dx": TRANSFUSION_B2[1] - TRANSFUSION_B2[0]},
+                          "b2_dx": {**b2["dx"][0], "per_conv": compact_gemm(b2["dx"][1])},
+                          "fp32_check": check, "profile": profile}}
+            ph = profile["phase_ms"]
+            log(f"[transfusion] ({card}) training: B=4, median {statistics.median(ms):.2f} ms per "
+                f"step ({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+                f"{peak / 2 ** 30:.2f} GiB; host Hungarian {profile['hungarian_host_ms']:.2f} ms, "
+                f"{profile['hungarian_calls_per_step']:g} per step; instrumented step "
+                f"{ph['step']:.2f} ms, spans (ms) "
+                + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(),
+                                                               key=lambda kv: -kv[1])[1:14]))
+            # the train model stays for the deferred profile of its step
+
+            t0 = time.perf_counter()
+            summary["cli"], launches["transfusion_cli_train"], \
+                launches["transfusion_cli_eval"] = nuscenes_cli(
+                    root, TRANSFUSION_CFG, TRANSFUSION_B2[1], TRANSFUSION_B2[0], device,
+                    b1_eval=TRANSFUSION_B1[0],
+                    # one pass over the 16 frames: class-balanced resampling
+                    # would make the epoch ~40 steps
+                    extra_sets=("DATA_CONFIG.BALANCED_RESAMPLING", "False"))
+            seconds["cli"] = time.perf_counter() - t0
+            summary["phase_seconds"] = seconds
+        finally:
+            os.chdir(cwd)
+    return summary, launches, served_b1, b2
+
+
 def main():
     import torch
 
@@ -4271,8 +4599,25 @@ def main():
                for path, (_, entries) in by.items() for e in entries
                if max(e["shape"][2][1:]) == 256 or e["shape"][2][0] == 125]
 
-    # the device profiles of phases 10-15, after every host-clock reading
+    # 16. TransFusion-L on nuScenes (the recall through B1, the trunk through B2)
+    tf_summary, tf_launches, tf_b1_served, tf_b2 = transfusion_phase(device, card)
+    served_iou += tf_b1_served
+    tf_b1 = sum(v["iou_bev_overlap"] for v in tf_launches.values())
+    tf_b2_n = sum(v["gather_gemm"] for v in tf_launches.values())
+
+    # the device profiles of phases 10-16, after every host-clock reading
     run_deferred_profiles()
+    for key in ("serve", "train"):
+        prof = tf_summary[key]["profile"]
+        busy = prof["device_time"].get("device_busy_ms_per_step")
+        host = (tf_summary["serve"]["request_ms"]["median"] if key == "serve"
+                else tf_summary["train"]["ms_per_step"]["median"])
+        log(f"[transfusion] ({card}) {key}: host {host:.2f} ms per "
+            f"{'request' if key == 'serve' else 'step'}, device busy "
+            f"{busy if busy is not None else float('nan'):.2f} ms, idle share of the profiled "
+            f"window {prof['device_time'].get('device_idle_share', float('nan')):.3f}, of the "
+            f"host time {1 - busy / host if busy is not None else float('nan'):.3f}; peak memory "
+            f"{tf_summary[key]['peak_memory_gib']:.2f} GiB")
     cspn = depth_summary["cspn_fwd_bwd_device_ms"]
     for tag, prof in depth_summary["device"].items():
         busy = prof.get("device_busy_ms_per_step")
@@ -4296,7 +4641,8 @@ def main():
                      + prcnn_cli_launches["iou_bev_overlap"] + prcnn_train["iou_bev_overlap"]
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
-                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1),
+                     + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
+                     + tf_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -4319,13 +4665,16 @@ def main():
                              **{f"two_stage_{k}": v["iou_bev_overlap"]
                                 for k, v in two_launches.items()},
                              **{f"fully_sparse_{k}": v["iou_bev_overlap"]
-                                for k, v in fs_launches.items()}},
+                                for k, v in fs_launches.items()},
+                             **{k: v["iou_bev_overlap"] for k, v in tf_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
                               for st in nusc_summary["second_train"]["steps"]}),
             **{name: sorted({st["iou_bev_overlap"] for st in two_summary[name]["train"]["steps"]})
-               for name in TWO_STAGE_CONVS}},
+               for name in TWO_STAGE_CONVS},
+            "transfusion": sorted({st["iou_bev_overlap"]
+                                   for st in tf_summary["train"]["steps"]})},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train]),
         "ms": nms_entry["ms"],
@@ -4354,7 +4703,8 @@ def main():
         "replaces": "dfu3d_tpu/core/voxel/pallas_sparse.py:77",
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
-                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n),
+                     + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
+                     + tf_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -4374,13 +4724,15 @@ def main():
                              **{f"two_stage_{k}": v["gather_gemm"]
                                 for k, v in two_launches.items()},
                              **{f"fully_sparse_{k}": v["gather_gemm"]
-                                for k, v in fs_launches.items()}},
+                                for k, v in fs_launches.items()},
+                             **{k: v["gather_gemm"] for k, v in tf_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in nusc_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in two_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in fs_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in tf_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -4442,6 +4794,15 @@ def main():
                 {k: e[k] for k in ("model", "path", "conv", "shape", "variant", "ms",
                                    "plain_ms", "library_ms", "bound_ms", "bound_by",
                                    "max_err_over_tol")} for e in fs_wide]},
+        "transfusion": {
+            "model": "nuscenes_models/transfusion_lidar.yaml at full width (VoxelResBackBone8x "
+                     "16-32-64-128, 160,000 / 120,000 voxels), bf16",
+            "train_launches_per_step": {"forward": TRANSFUSION_B2[0],
+                                        "dx": TRANSFUSION_B2[1] - TRANSFUSION_B2[0]},
+            "served_request": {"unit": "one served bf16 request: its 21 launches, summed",
+                               **tf_b2["served"][0]},
+            "train_dx": {"unit": "one bf16 train step: its 20 dX launches, summed",
+                         **tf_b2["dx"][0]}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -4455,6 +4816,7 @@ def main():
     log(json.dumps({"nuscenes": nusc_summary}, default=str))
     log(json.dumps({"two_stage": two_summary}, default=str))
     log(json.dumps({"fully_sparse": fs_summary}, default=str))
+    log(json.dumps({"transfusion": tf_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -19,8 +19,16 @@ path maps to a state_dict key one to one and only the leaf is transformed:
                                       conv is the gradient of a conv; flax's
                                       is a dilated conv with the kernel as is)
     BN scale / bias / mean / var    → weight / bias / running_mean / running_var
+    LayerNorm scale / bias          → weight / bias
+    attention query / key / value   → weight (H·D, C), bias (H·D,)
+      DenseGeneral kernel (C, H, D),
+      bias (H, D)
+    attention out DenseGeneral      → weight (C, H·D)
+      kernel (H, D, C)
 
-A 4-D kernel is a transposed conv's where the port model's module at that path
+A 3-D kernel is a sparse conv's unless its flax module is named query,
+key, value or out (flax MultiHeadDotProductAttention's projections). A 4-D
+kernel is a transposed conv's where the port model's module at that path
 is an nn.ConvTranspose2d (with `model`), else where its flax module name
 starts with "ConvTranspose" (ENetRef names its transposed convs "conv").
 
@@ -37,6 +45,7 @@ import torch
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var"}
+_ATTENTION_PROJECTIONS = ("query", "key", "value", "out")
 
 
 def _walk(tree, path=()):
@@ -63,7 +72,11 @@ def params_from_jax(variables, model=None):
         for path, leaf in _walk(variables.get(collection, {})):
             *mods, name = path
             arr = np.asarray(leaf, dtype=np.float32)
+            attention = mods and mods[-1] in _ATTENTION_PROJECTIONS
             if name == "kernel":
+                if attention and arr.ndim == 3:   # as a Dense kernel (in, out)
+                    arr = (arr.reshape(-1, arr.shape[-1]) if mods[-1] == "out"
+                           else arr.reshape(arr.shape[0], -1))
                 if arr.ndim == 2:
                     arr = arr.T
                 elif arr.ndim == 4 and transposed(mods):
@@ -76,6 +89,8 @@ def params_from_jax(variables, model=None):
                     name = "weight"
             else:
                 name = _LEAF_NAMES[name]
+                if attention and arr.ndim == 2:   # a projection's (H, D) bias
+                    arr = arr.reshape(-1)
             state[".".join([*mods, name])] = torch.from_numpy(arr.copy(order="C"))
     if model is None:
         return state

@@ -24,9 +24,11 @@ GAINS = {"vfe.pfn_0.Dense_0.weight": 1 / math.sqrt(170.0),
          "backbone_3d.conv_input.SubMConv3d_0.kernel": 4.0,
          "dense_head.conv_box.weight": 0.1}
 # and by pattern: VoxelNeXt's output layers, in every class group, the heat
-# map's and the box regressions' (not the IoU branch's)
+# map's and the box regressions' (not the IoU branch's); TransFusion's box
+# regressions
 PATTERN_GAINS = ((re.compile(r"head_\d+\.hm_out\.weight$"), 0.1),
-                 (re.compile(r"head_\d+\.(center|center_z|dim|rot|vel)_out\.weight$"), 0.01))
+                 (re.compile(r"head_\d+\.(center|center_z|dim|rot|vel)_out\.weight$"), 0.01),
+                 (re.compile(r"dense_head\.(center|height|dim|rot|vel)_out\.weight$"), 0.1))
 
 
 def _gain(key):
@@ -66,7 +68,10 @@ def seeded_weights_(model, seed: int):
     sparse convs still carry 1e-4 of fp32 rounding between two summation
     orders; the heat-map logits stay below saturation. The IoU branch keeps
     its He scale: its tanh near 0 would rectify every score below
-    SCORE_THRESH."""
+    SCORE_THRESH. TransFusion's box regressions are scaled by 0.1: at full
+    scale their dims run up to the clip, exp(5) ≈ 148 m, where the
+    relative rounding of two summation orders, times the exp, nears the
+    1e-4 m to which the fp32 checks hold the boxes."""
     gen = torch.Generator().manual_seed(seed)
     state = model.state_dict()
     for key, v in state.items():

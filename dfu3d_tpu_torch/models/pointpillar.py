@@ -194,8 +194,15 @@ class AnchorDetectorBase(nn.Module):
 
 
 class PointPillar(AnchorDetectorBase):
+    """DynPillarVFE → BEV backbone → anchor head. `max_voxels` (the CLIs
+    pass MAX_NUMBER_OF_VOXELS) is accepted and not read: the JAX package's
+    PointPillar keeps its VFE's pillar cap, `max_pillars` per frame summed
+    over the batch, whatever the config sets (the reference's cap is per
+    frame, so no mapping of one onto the other computes what either
+    computes)."""
+
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
-                 max_pillars: int = 32768):
+                 max_pillars: int = 32768, max_voxels: int | None = None):
         super().__init__(model_cfg, class_names, grid)
         vfe_cfg = model_cfg.VFE
         if vfe_cfg.NAME not in ("DynPillarVFE", "PillarVFE", "DynamicPillarVFE"):

@@ -4,7 +4,7 @@
                                                      second_iou|voxel_rcnn|pv_rcnn|
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_tta|voxelnext_iou_large|
-                                                     pillarnet|pillarnet_waymo]
+                                                     pillarnet|pillarnet_waymo|transfusion]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -17,12 +17,14 @@ detectors (second_iou.yaml, voxel_rcnn_car.yaml, pv_rcnn.yaml, PartA2.yaml,
 pv_rcnn_plusplus.yaml, 1408 x 1600 x 40 grid, max_voxels 40,000), or one of the
 fully sparse detectors (`zoo.voxelnext`, `voxelnext_tta`,
 `voxelnext_iou_large`, `pillarnet`, `pillarnet_waymo`: nuScenes, Waymo and
-KITTI configs, built as the CLIs build them). CenterPoint: B=4, 60,000 uniform
+KITTI configs, built as the CLIs build them), or TransFusion-L
+(`zoo.transfusion`, transfusion_lidar, 1440 x 1440 x 40 grid, max_voxels
+160,000). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
 read through KittiDataset in test mode, so 16,384 sampled points each.
-SECOND and PointPillar: B=4 key frames of a synthetic nuScenes root
+SECOND, PointPillar, VoxelNeXt and TransFusion: B=4 key frames of a synthetic nuScenes root
 (`data.nuscenes_synthetic`: 10 sweeps of 34,000 points, 20-40 boxes of the
 ten classes) read through NuScenesDataset in test mode, at most 65,536
 points each. The two-stage detectors: B=4 frames of a synthetic KITTI
@@ -56,7 +58,11 @@ as one JSON object (printed, and written to --out):
   `fully_sparse_phase_times`: voxelize, tables, the trunk's convs with
   their B2 launches, VoxelNeXt's BEV collapse, conv_out + shared conv,
   heads and double-flip merge, PillarNet's height compression, conv5 and
-  neck, the decode, the NMS with B1 and the keep-scan, the recall IoU);
+  neck, the decode, the NMS with B1 and the keep-scan, the recall IoU;
+  transfusion: the spans of `transfusion_phase_times`: voxelize, tables,
+  the trunk with B2, height compression, 2D backbone, shared conv + heat
+  map, query init (local max, top-K), position embeddings, self- and
+  cross-attention, FFN, branches, decode, the recall IoU with B1);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -91,8 +97,8 @@ from .train.train_state import make_eval_step
 from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, kitti_batches, nuscenes_batches,
                   parta2, pillarnet, pillarnet_waymo, pointrcnn, pointrcnn_batches,
                   pp_multihead, pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead,
-                  voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large, voxelnext_tta,
-                  waymo_batches, write_pointrcnn_root)
+                  transfusion, voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large,
+                  voxelnext_tta, waymo_batches, write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -410,6 +416,74 @@ def fully_sparse_profile(model, run, batches, optimizer=None):
             "keep_scan": keep_scans(run, batches)}
 
 
+def transfusion_phase_times(model, run, batch, optimizer=None):
+    """One TransFusion step, `run(batch)` (an eval step, or with its
+    `optimizer` a train step), with every span of `Spans` timed: voxelize
+    (MeanVFE), the neighbour tables, the trunk's sparse convs with their B2
+    launches, the height compression, the 2D backbone, the shared conv and
+    the dense heat map, the query init (its local max and top-K apart),
+    the position embeddings, the self-attention, the cross-attention, the
+    FFN, the branches, the decode and the recall IoU with its B1 launch. A
+    train step adds the heat-map targets, the assignment cost, the host
+    Hungarian, the losses, the backward (with B2's dX launches) and the
+    clip + optimizer update."""
+    from .models import transfusion as transfusion_mod
+    from .models import transfusion_head as head_mod
+
+    head = model.dense_head
+    wraps = [(model.vfe, "forward", "voxelize"), (model.backbone_3d, "plan", "tables"),
+             (model.backbone_3d, "forward", "trunk"), (gather_gemm_kernel, "gather_gemm", "b2"),
+             (transfusion_mod, "height_compression", "height_compression"),
+             (model.backbone_2d, "forward", "backbone_2d"),
+             (head, "heatmap", "shared_conv_heatmap"), (head, "init_queries", "query_init"),
+             (head, "local_max", "local_max"), (head_mod, "top_k", "top_k"),
+             (head.self_posembed, "forward", "position_embedding"),
+             (head.cross_posembed, "forward", "position_embedding"),
+             (head.self_attn, "forward", "self_attention"),
+             (head.cross_attn, "forward", "cross_attention"),
+             (head.linear1, "forward", "ffn"), (head.linear2, "forward", "ffn"),
+             (head, "branch", "branches"), (head, "decode", "decode"),
+             (iou_kernel, "overlap_bev", "b1"), (train_state, "pairwise_iou3d", "recall")]
+    if optimizer is not None:
+        wraps += [(head, "heatmap_targets", "heatmap_targets"), (head, "match_cost", "cost"),
+                  (head_mod, "hungarian_match", "hungarian"),
+                  (head_mod, "greedy_match", "greedy"), (head, "loss", "losses"),
+                  (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
+    return timed_spans(wraps, run, batch)
+
+
+def transfusion_profile(model, run, batches, optimizer=None):
+    """Where a TransFusion step goes, `run(batch)` running an eval step or
+    (given its `optimizer`) a train step through to its result on the host:
+    phase_ms, the median over the batches of each span's exclusive ms
+    (`transfusion_phase_times`); in training also the host Hungarian's
+    calls per step (each copies its cost to the host once: one sync) and
+    their host ms."""
+    from .models import transfusion_head as head_mod
+
+    calls = []
+    solve = head_mod.hungarian_match
+
+    def counted(cost, gt_valid):
+        t0 = time.perf_counter()
+        try:
+            return solve(cost, gt_valid)
+        finally:
+            calls.append((time.perf_counter() - t0) * 1e3)
+
+    head_mod.hungarian_match = counted
+    try:
+        phases = [transfusion_phase_times(model, run, b, optimizer) for b in batches]
+    finally:
+        head_mod.hungarian_match = solve
+    keys = sorted({k for p in phases for k in p})
+    out = {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys}}
+    if optimizer is not None:
+        out["hungarian_calls_per_step"] = len(calls) / len(batches)
+        out["hungarian_host_ms"] = statistics.median(calls) if calls else 0.0
+    return out
+
+
 FULLY_SPARSE = {"voxelnext": voxelnext, "voxelnext_tta": voxelnext_tta,
                 "voxelnext_iou_large": voxelnext_iou_large, "pillarnet": pillarnet,
                 "pillarnet_waymo": pillarnet_waymo}
@@ -549,7 +623,8 @@ def _profile(step, batches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
-                                         *TWO_STAGE, *FULLY_SPARSE), default="pillar")
+                                         *TWO_STAGE, *FULLY_SPARSE, "transfusion"),
+                    default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -560,7 +635,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
              "second": second_multihead, "pp": pp_multihead, **TWO_STAGE,
-             **FULLY_SPARSE}[args.model]
+             **FULLY_SPARSE, "transfusion": transfusion}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -582,6 +657,12 @@ def main(argv=None):
             batches, data = fully_sparse_workload(args.model, cfg, Path(work), args.batches)
         workload = (f"{cfg.MODEL.NAME} {args.model} {'x'.join(map(str, grid.grid_size))} grid, "
                     f"max_voxels {cfg_max_voxels(model)}, {data}")
+    elif args.model == "transfusion":
+        with tempfile.TemporaryDirectory() as work:
+            batches = nuscenes_workload(cfg, Path(work), args.batches)
+        workload = ("TransFusion-L transfusion_lidar 1440x1440x40 grid, max_voxels 160000, B=4 "
+                    "synthetic nuScenes key frames with 9 sweeps (34000 points each, at most "
+                    "65536 per frame, 20-40 boxes)")
     elif args.model in ("second", "pp"):
         with tempfile.TemporaryDirectory() as work:
             batches = nuscenes_workload(cfg, Path(work), args.batches)
@@ -594,8 +675,8 @@ def main(argv=None):
         workload = ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000") + \
             ", B=4, 60000 points, 256 gt slots"
-    if args.model in FULLY_SPARSE and args.model != "pillarnet_waymo":
-        calibrate_bn_(model, batches[0])   # as chip_smoke.py's phase 15 serves them
+    if args.model in (*FULLY_SPARSE, "transfusion") and args.model != "pillarnet_waymo":
+        calibrate_bn_(model, batches[0])   # as chip_smoke.py's phases 15 and 16 serve them
     for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
         step(batch)
     torch.cuda.synchronize()
@@ -618,6 +699,12 @@ def main(argv=None):
     elif args.model in FULLY_SPARSE:
         extra = fully_sparse_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    elif args.model == "transfusion":   # no NMS, so no keep-scan
+        extra = transfusion_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), []
+        torch.cuda.reset_peak_memory_stats()
+        _run(step, batches[0])
+        extra["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     else:
         phases = [_phase_times(model, step, b) for b in batches]
         phase_ms = {k: statistics.median(p[k] for p in phases) for k in phases[0]}

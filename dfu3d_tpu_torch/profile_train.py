@@ -4,7 +4,7 @@
                                                      second_iou|voxel_rcnn|pv_rcnn|
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_iou_large|pillarnet|
-                                                     pillarnet_waymo]
+                                                     pillarnet_waymo|transfusion]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -51,7 +51,11 @@ as one JSON object (printed, and written to --out):
   voxelnext_iou_large, pillarnet, pillarnet_waymo (B=4 frames of
   `profile_serve.fully_sparse_workload`, train mode, with the peak
   memory): the spans of `profile_serve.fully_sparse_phase_times` with the
-  optimizer;
+  optimizer; transfusion (transfusion_lidar, B=4 key frames of a synthetic
+  nuScenes root read in train mode, with the peak memory): the spans of
+  `profile_serve.transfusion_phase_times` with the optimizer (heat-map
+  targets, cost, the host Hungarian with its host ms and calls per step,
+  losses, backward, clip + optimizer);
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -79,10 +83,10 @@ from .models import sparse_backbone
 from .profile_serve import (FULLY_SPARSE, TWO_STAGE, anchor_profile, cfg_max_voxels,
                             device_profile, fully_sparse_profile, fully_sparse_workload,
                             kitti_workload, nuscenes_workload, pointrcnn_profile,
-                            two_stage_profile)
+                            transfusion_profile, two_stage_profile)
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
-                  second_multihead, voxel_centerpoint, write_pointrcnn_root)
+                  second_multihead, transfusion, voxel_centerpoint, write_pointrcnn_root)
 
 TOTAL_STEPS = 1000
 B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
@@ -351,17 +355,24 @@ def two_stage_train(name: str, steps: int, device_name: str) -> dict:
 
 def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     """profile_train --model voxelnext|voxelnext_iou_large|pillarnet|
-    pillarnet_waymo: step times at B=4, the spans of
-    `profile_serve.fully_sparse_profile` over the steps with the optimizer,
-    and the device profile with the sparse convs' split."""
+    pillarnet_waymo|transfusion: step times at B=4, the spans of
+    `profile_serve.fully_sparse_profile` (TransFusion's:
+    `transfusion_profile`) over the steps with the optimizer, and the
+    device profile with the sparse convs' split."""
     import tempfile
 
-    cfg, grid, model = FULLY_SPARSE[name](device="cuda", train=True)
+    tf = name == "transfusion"
+    cfg, grid, model = (transfusion if tf else FULLY_SPARSE[name])(device="cuda", train=True)
     seeded_weights_(model, seed=0)
+    with tempfile.TemporaryDirectory() as work:
+        if tf:
+            batches = nuscenes_workload(cfg, Path(work), steps, training=True)
+            data = ("B=4 synthetic nuScenes key frames with 9 sweeps (34000 points each, at "
+                    "most 65536 per frame, 20-40 boxes)")
+        else:
+            batches, data = fully_sparse_workload(name, cfg, Path(work), steps, training=True)
     state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
     step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
-    with tempfile.TemporaryDirectory() as work:
-        batches, data = fully_sparse_workload(name, cfg, Path(work), steps, training=True)
 
     def run(batch):
         return {k: float(v) for k, v in step(batch).items()}
@@ -378,14 +389,15 @@ def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     per_step = gather_gemm_kernel.launches // len(batches)
     median = statistics.median(step_ms)
     torch.cuda.reset_peak_memory_stats()
-    spans = fully_sparse_profile(model, run, batches, state.optimizer)
+    spans = (transfusion_profile if tf else fully_sparse_profile)(model, run, batches,
+                                                                  state.optimizer)
     peak = torch.cuda.max_memory_allocated()
     # the forward's B2 launches: one per sparse conv; the dX ones follow
     forward_b2 = per_step // 2 + per_step % 2
     profile = _profile(step, batches, forward_b2)
     if "device_busy_ms_per_step" in profile:
         profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
-    scans = spans.pop("keep_scan")
+    scans = spans.pop("keep_scan", [])
     return {
         "device": device_name,
         "workload": f"{cfg.MODEL.NAME} {name} {'x'.join(map(str, grid.grid_size))} grid, "
@@ -406,7 +418,8 @@ def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE,
-                                         *(n for n in FULLY_SPARSE if n != "voxelnext_tta")),
+                                         *(n for n in FULLY_SPARSE if n != "voxelnext_tta"),
+                                         "transfusion"),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -419,7 +432,7 @@ def main(argv=None):
     if args.model in TWO_STAGE:
         _write(two_stage_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
-    if args.model in FULLY_SPARSE:
+    if args.model in (*FULLY_SPARSE, "transfusion"):
         _write(fully_sparse_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
     if args.model in ("pointrcnn", "second"):

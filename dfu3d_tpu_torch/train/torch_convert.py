@@ -3,8 +3,9 @@ PointRCNN and the anchor detectors (own copy of the JAX package's
 train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
 `anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
 `second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`,
-`parta2_head_mapping` with `t_spconv_dense` and `apply_mapping`'s partial
-overlay, :50-166, :300-394, :397-451, :424-505, :513-604, :959-1029).
+`parta2_head_mapping` with `t_spconv_dense`, `transfusion_head_mapping`
+with `_mha` and `_ln`, and `apply_mapping`'s partial overlay, :50-166,
+:300-394, :397-451, :424-505, :513-604, :639-735, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -28,6 +29,9 @@ into the port's state_dict names, so every transform is reference → port:
     Conv1d / Conv2d k=1 (out, in, 1[, 1]) reshaped to the Linear's (out, in)
     SubMConv3d (PartA2   spconv's layout → Conv3d (out, in, kx, ky, kz)
     RoI head)            (`t_spconv_dense`)
+    MultiheadAttention  the packed in_proj_weight (3C, C) and in_proj_bias
+                        (3C,) split in three: query, key, value Linears
+    LayerNorm           identity: weight, bias
 
 The overlay is partial, as the reference's load_params_from_file is
 (strict=False): keys of the mapping that the model lacks are skipped (the
@@ -40,7 +44,8 @@ default) for CenterPoint, the point head's and the RoI head's for PointRCNN,
 the pillar VFE's, the 2D backbone's and AnchorHeadSingle's for PointPillar
 and SECONDNet, and those two with the RoI head's for SECONDNetIoU,
 VoxelRCNN, PVRCNN and PartA2Net (PVRCNNPlusPlus has the RPN's only: the
-JAX package maps no PV-RCNN++ head). The JAX package has no PointNet2MSG, sparse-backbone or
+JAX package maps no PV-RCNN++ head), the 2D backbone's and
+TransFusionHead's for TransFusion. The JAX package has no PointNet2MSG, sparse-backbone or
 AnchorHeadMulti mapping, so neither has the port: those modules keep their
 values and are reported unmatched.
 """
@@ -55,14 +60,15 @@ import torch
 __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
            "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
-           "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense", "apply_mapping",
-           "load_reference_state"]
+           "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense",
+           "transfusion_head_mapping", "apply_mapping", "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
 _REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
                             r"|reg_layers|xyz_up_layer|merge_down_layer|SA_modules|FP_modules"
                             r"|iou_layers|shared_fc_layer|cls_fc_layers|reg_fc_layers"
-                            r"|roi_grid_pool_layers|conv_part|conv_rpn)"
+                            r"|roi_grid_pool_layers|conv_part|conv_rpn|heatmap_head"
+                            r"|position_embedding_head)"
                             r"\.\d")
 
 Mapping = Dict[str, Tuple[object, Callable]]
@@ -369,6 +375,69 @@ def parta2_head_mapping(shared_fc: int = 3, cls_fc: int = 2, reg_fc: int = 2,
     _fc_between(m, f"{ours_prefix}.shared_fc", f"{ref_prefix}.shared_fc_layer", shared_fc)
     _fc_make(m, f"{ours_prefix}.cls_fc", f"{ref_prefix}.cls_layers", cls_fc)
     _fc_make(m, f"{ours_prefix}.reg_fc", f"{ref_prefix}.reg_layers", reg_fc)
+    return m
+
+
+def _t_in_proj(part):
+    def f(w):
+        c = w.shape[0] // 3
+        return w[part * c:(part + 1) * c]
+    return f
+
+
+def _mha(m, ours, ref):
+    """torch nn.MultiheadAttention (packed in_proj) → the port's query, key,
+    value and out Linears."""
+    for part, name in enumerate(("query", "key", "value")):
+        m[f"{ours}.{name}.weight"] = (f"{ref}.in_proj_weight", _t_in_proj(part))
+        m[f"{ours}.{name}.bias"] = (f"{ref}.in_proj_bias", _t_in_proj(part))
+    _conv(m, f"{ours}.out", f"{ref}.out_proj", bias=True)
+
+
+def _ln(m, ours, ref):
+    _conv(m, ours, ref, bias=True)
+
+
+def _fc(m, ours, ref):
+    """A Conv1d(k=1) with bias → the port's Linear."""
+    m[f"{ours}.weight"] = (f"{ref}.weight", t_fc)
+    m[f"{ours}.bias"] = (f"{ref}.bias", t_identity)
+
+
+def transfusion_head_mapping(num_conv: int = 2, num_hm_conv: int = 2, use_vel: bool = False,
+                             prefix: str = "dense_head") -> Mapping:
+    """TransFusionHead (reference transfusion_head.py:53-123,
+    transfusion_utils.py:10-101): shared_conv, heatmap_head (BasicBlock2D +
+    conv), class_encoding, the decoder layer (position embeddings, the two
+    attentions, norm1-3, linear1-2) and the SeparateHead_Transfusion stacks
+    of Conv1d(k=1)."""
+    m: Mapping = {}
+    p = prefix
+    _conv(m, f"{p}.shared_conv", f"{p}.shared_conv", bias=True)
+    _conv(m, f"{p}.hm_conv", f"{p}.heatmap_head.0.conv", bias=True)
+    _bn(m, f"{p}.hm_bn", f"{p}.heatmap_head.0.bn")
+    _conv(m, f"{p}.hm_out", f"{p}.heatmap_head.1", bias=True)
+    _fc(m, f"{p}.class_encoding", f"{p}.class_encoding")
+    for pe in ("self_posembed", "cross_posembed"):
+        base = f"{p}.decoder.{pe}.position_embedding_head"
+        _fc(m, f"{p}.{pe}.dense_0", f"{base}.0")
+        _bn(m, f"{p}.{pe}.bn", f"{base}.1")
+        _fc(m, f"{p}.{pe}.dense_1", f"{base}.3")
+    _mha(m, f"{p}.self_attn", f"{p}.decoder.self_attn")
+    _mha(m, f"{p}.cross_attn", f"{p}.decoder.multihead_attn")
+    for i in (1, 2, 3):
+        _ln(m, f"{p}.norm{i}", f"{p}.decoder.norm{i}")
+    for name in ("linear1", "linear2"):
+        _conv(m, f"{p}.{name}", f"{p}.decoder.{name}", bias=True)
+    branches = [(n, num_conv) for n in ("center", "height", "dim", "rot")]
+    if use_vel:
+        branches.append(("vel", num_conv))
+    for name, nc in branches + [("heatmap", num_hm_conv)]:
+        base = f"{p}.prediction_head.{name}"
+        for i in range(nc - 1):
+            _fc(m, f"{p}.{name}_conv{i}", f"{base}.{i}.0")
+            _bn(m, f"{p}.{name}_bn{i}", f"{base}.{i}.1")
+        _fc(m, f"{p}.{name}_out", f"{base}.{nc - 1}")
     return m
 
 

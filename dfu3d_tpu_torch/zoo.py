@@ -1,10 +1,10 @@
 """Builders for the port's other supported models: voxel CenterPoint,
 PointRCNN, the nuScenes anchor detectors (SECOND and PointPillar
 multi-head), the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
-R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++) and the fully sparse and
+R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++), the fully sparse and
 pillar-sparse detectors (VoxelNeXt on its nuScenes, double-flip and large
 Waymo configs; PillarNet on its KITTI and Waymo configs), with
-`waymo_batches` for the Waymo configs.
+`waymo_batches` for the Waymo configs, and TransFusion-L on nuScenes.
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -158,6 +158,8 @@ SECOND_MULTIHEAD_CFG = (Path(__file__).resolve().parents[1]
                         / "tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml")
 PP_MULTIHEAD_CFG = (Path(__file__).resolve().parents[1]
                     / "tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml")
+TRANSFUSION_CFG = (Path(__file__).resolve().parents[1]
+                   / "tools/cfgs/nuscenes_models/transfusion_lidar.yaml")
 NUSCENES_BATCH_SIZE = 4  # the configs' BATCH_SIZE_PER_GPU
 
 
@@ -185,6 +187,18 @@ def pp_multihead(train: bool = False, device="cuda"):
     its published widths (DynPillarVFE 64 on the 512 x 512 grid,
     BaseBEVBackbone [3, 5, 5], AnchorHeadMulti); as `second_multihead`."""
     return _nuscenes_detector(PP_MULTIHEAD_CFG, device, train)
+
+
+def transfusion(train: bool = False, device="cuda"):
+    """TransFusion-L on tools/cfgs/nuscenes_models/transfusion_lidar.yaml at
+    its published widths, built as the CLIs build it (tools.common.
+    build_model): MeanVFE over the 5 point features, VoxelResBackBone8x
+    16-32-64-128 on the 1440 x 1440 x 40 grid with MAX_NUMBER_OF_VOXELS
+    (120,000 train, 160,000 test), BaseBEVBackbone [5, 5] to 512 channels at
+    180 x 180, TransFusionHead (hidden 128, 200 proposals, 8 heads, the vel
+    branch, the Hungarian matcher). Returns (cfg, grid, model), in eval mode
+    or in train mode with `train`; the weights are PyTorch's defaults."""
+    return _nuscenes_detector(TRANSFUSION_CFG, device, train)
 
 
 def nuscenes_batches(cfg, root, info_file, num_batches: int, training: bool = False, seed=0):

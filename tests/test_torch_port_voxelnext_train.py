@@ -72,10 +72,12 @@ def exact_wide_down_backward(monkeypatch):
     monkeypatch.setattr(jsb, "down_gather_gemm", exact)
 
 
-def compare_train_step(jmodel, variables, model, jbatch, optim_cfg):
+def compare_train_step(jmodel, variables, model, jbatch, optim_cfg, zero_biases=BIAS_BEFORE_BN):
     """One JAX train step and one port train step from the same weights;
-    asserts the loss terms, every gradient leaf and the BN statistics.
-    Returns (port metrics, port raw gradients by state_dict key)."""
+    asserts the loss terms, every gradient leaf and the BN statistics; a
+    bias that `zero_biases` matches has a gradient of 0 in exact arithmetic
+    and is held to its weight's largest entry. Returns (port metrics, port
+    raw gradients by state_dict key)."""
     tx, _ = j_build_optimizer(optim_cfg, TOTAL_STEPS)
     tx = recording(tx)
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
@@ -104,7 +106,7 @@ def compare_train_step(jmodel, variables, model, jbatch, optim_cfg):
     for k, want in jgrads.items():
         want = want.numpy()
         scale = max(np.abs(want).max(), GRAD_FLOOR * whole)
-        if BIAS_BEFORE_BN.search(k):
+        if zero_biases.search(k):
             # rounding noise only: held to its conv weight's largest entry,
             # as tests/test_torch_port_train_slice.py holds it
             scale = max(scale, np.abs(jgrads[k[:-len("bias")] + "weight"].numpy()).max())
