@@ -266,10 +266,25 @@ Phases, each fatal on failure:
               Hungarian's ms; tools.train (1 epoch, 4 steps) and tools.test
               on the root. Device busy and idle of a request and of a step
               with the deferred profiles.
+ 17. dsvt     DSVT-Pillar and DSVT-Voxel (waymo_models/dsvt_pillar.yaml,
+              dsvt_voxel.yaml: DynamicVoxelVFE, the DSVT trunk at d_model
+              192, 8 heads, MAX_SETS 1024, the 468 x 468 (x 32) grid,
+              BaseBEVBackbone to 384 channels, CenterHead at stride 1) at
+              full width with seeded weights on zoo.waymo_batches (150,000
+              points per frame): 3 requests of B=4 (bf16), fatal unless
+              each launches B1 twice (NMS, recall) and B2 never; spans,
+              peak memory and the share of each frame's voxels that reach a
+              set in each layer; the served B1 calls held and timed; one
+              fp32 request through the kernels and through the twins; the
+              fp32 step through the kernels against the twins; 3 bf16 steps
+              through trainer.train_model, fatal unless each launches
+              neither kernel. Device busy and idle of a request and of a
+              step with the deferred profiles.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
-{"fully_sparse": {...}}, {"transfusion": {...}} and {"kernels": [...]};
+{"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}} and
+{"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -3844,13 +3859,13 @@ FULLY_SPARSE_REG = {"voxelnext": ("head_0.center_out.", "head_0.vel_out."),
                     "pillarnet_waymo": ("dense_head.fused_heads.out.",)}
 
 
-def fully_sparse_serve(name, model, batches, device):
+def fully_sparse_serve(name, model, batches, device, tag="fully_sparse"):
     """A warm-up request, the peak memory and every kernel count set to 0,
     the requests through eval_batches (bf16), the counts and the peak read.
     Fatal unless every request launched B1 twice and B2 as FULLY_SPARSE_B2
-    and FULLY_SPARSE_CUDA_CORE say, or on a non-finite, misshapen or empty
-    output (the double-flip's kept boxes included). Returns (EvalResult,
-    launches, summary)."""
+    (DSVT_B2) and FULLY_SPARSE_CUDA_CORE say, or on a non-finite, misshapen
+    or empty output (the double-flip's kept boxes included). Returns
+    (EvalResult, launches, summary)."""
     import torch
 
     from dfu3d_tpu_torch.train.eval_utils import eval_batches
@@ -3863,7 +3878,8 @@ def fully_sparse_serve(name, model, batches, device):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     n = len(batches)
-    b2, cuda_core = FULLY_SPARSE_B2[name][0], FULLY_SPARSE_CUDA_CORE.get(name, (0, 0))[0]
+    b2 = {**FULLY_SPARSE_B2, **DSVT_B2}[name][0]
+    cuda_core = FULLY_SPARSE_CUDA_CORE.get(name, (0, 0))[0]
     post_max = int(model.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     for k, (boxes, scores, labels, valid) in enumerate(res.preds):
         if boxes.shape[:2] != (4, post_max) or not torch.isfinite(boxes[valid]).all() or \
@@ -3881,7 +3897,7 @@ def fully_sparse_serve(name, model, batches, device):
                "recall": res.metric, "launches": launches,
                "launches_per_request": {k: v / n for k, v in launches.items()},
                "peak_memory_gib": peak / 2 ** 30}
-    log(f"[fully_sparse] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+    log(f"[{tag}] {name} serving, {n} requests of B=4 (bf16): ms per request median "
         f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
         f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
         f"{summary['kept_per_frame']}; launches per request "
@@ -4434,6 +4450,128 @@ def transfusion_phase(device, card):
     return summary, launches, served_b1, b2
 
 
+# phase 17: DSVT-Pillar and DSVT-Voxel, served requests and bf16 train steps
+# of B=4 on Waymo-range frames made in memory
+DSVT_DEPTH = {"dsvt_pillar": (3, 3), "dsvt_voxel": (3, 3)}
+DSVT_B1 = (2, 0)   # per request (NMS, recall) and per train step
+DSVT_B2 = {"dsvt_pillar": (0, 0), "dsvt_voxel": (0, 0)}   # no sparse conv on the path
+# the branch whose out weights the fp32 train check requires a gradient on
+DSVT_REG = ("dense_head.fused_heads.out.weight", "backbone_3d.")
+
+
+def dsvt_model(name, device, card):
+    """Phase 17 for one model: serving at seeded weights (launches, ms, peak
+    memory, spans, set shares, the served B1 calls held and timed, the fp32
+    request through the kernels and through the twins), then the fp32 step
+    through the kernels and through the twins and DSVT_DEPTH's bf16 steps
+    through train_model (launches, ms, peak memory, spans, set shares).
+    Returns (summary, launches by path, served B1 entries)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.profile_serve import _run
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    build = getattr(zoo, name)
+    requests, train_steps = DSVT_DEPTH[name]
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    seconds, launches = {}, {}
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    batches = zoo.waymo_batches(cfg, requests, seed=0)
+    seconds["setup_serve"] = time.perf_counter() - t0
+    log(f"[dsvt] {name}: {type(model.backbone_3d).__name__} "
+        f"{'x'.join(map(str, grid.grid_size))} grid, {model.vfe.max_voxels} voxels per frame, "
+        f"MAX_SETS {model.backbone_3d.max_sets}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters; points per request {[b.points_valid.sum(1).tolist() for b in batches]}")
+
+    t0 = time.perf_counter()
+    res, launches[name], serve = fully_sparse_serve(name, model, batches, device, tag="dsvt")
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    serve["profile"] = profile_serve.dsvt_profile(model, lambda b: _run(step, b), batches[:2])
+    serve["profile"]["device_time"] = defer_device_profile(f"dsvt {name} serving",
+                                                           lambda: _run(step, batches[0]))
+    served_b1 = time_served_overlaps(name, model, batches[0], device)
+    serve["fp32_check"] = check_paths(name, model, cfg, batches[0], res.preds[0], swaps, device)
+    seconds["serve"] = time.perf_counter() - t0
+    prof = serve["profile"]
+    log(f"[dsvt] ({card}) {name} instrumented request {prof['phase_ms']['step']:.2f} ms; spans "
+        "(ms) " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof["phase_ms"].items(), key=lambda kv: -kv[1])[1:16]))
+    log(f"[dsvt] {name} request 0: occupied cells per frame {prof['occupied_cells_per_frame']}, "
+        f"voxels kept {prof['voxels_per_frame']}; share of each frame's voxels in a set, by "
+        "layer: " + "; ".join(f"{i} {[round(v, 4) for v in row]}"
+                              for i, row in enumerate(prof["set_shares"])))
+    del res
+
+    t0 = time.perf_counter()
+    tbatches = zoo.waymo_batches(cfg, train_steps, seed=1)
+    _, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    check = check_train_paths(name, model, tbatches[0], swaps, device, scales=True)
+    scales = check.pop("leaf_scales")
+    reg = {k: scales[k] for k in scales if k == DSVT_REG[0]}
+    trunk = max(v for k, v in scales.items() if k.startswith(DSVT_REG[1]))
+    if not reg or not all(v > 0 for v in reg.values()) or not trunk > 0:
+        fail(f"{name} fp32 train step: the head's out conv or the trunk has no gradient "
+             f"({reg}, trunk {trunk})")
+    check["reg_branch_grad_max"] = reg
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    model, launches[f"{name}_train"], steps, state = train(name, build, tbatches, device)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != DSVT_B1[1]
+           or s["gather_gemm"] != DSVT_B2[name][1]]
+    if bad:
+        fail(f"{name} train steps {bad} did not launch B1 {DSVT_B1[1]} times and B2 "
+             f"{DSVT_B2[name][1]} times: {steps}")
+    tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+
+    def run_train(bt):
+        return float(tstep(bt)["loss"])
+
+    profile = profile_serve.dsvt_profile(model, run_train, tbatches[:2], state.optimizer)
+    profile["device_time"] = defer_device_profile(f"dsvt {name} training",
+                                                  lambda: run_train(tbatches[0]))
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary = {
+        "config": f"tools/cfgs/{zoo.DSVT_CFGS[name]}", "card": card,
+        "serve": {**serve, "b1_served": [{k: e[k] for k in (
+            "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by")} for e in served_b1]},
+        "train": {"batch": 4, "steps": steps,
+                  "ms_per_step": {"median": statistics.median(ms), "all": ms},
+                  "samples_per_s": 4 / (statistics.median(ms) / 1e3),
+                  "peak_memory_gib": peak / 2 ** 30, "launches": launches[f"{name}_train"],
+                  "fp32_check": check, "profile": profile},
+        "phase_seconds": seconds}
+    ph = profile["phase_ms"]
+    log(f"[dsvt] ({card}) {name} training: B=4, median {statistics.median(ms):.2f} ms per step "
+        f"({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; instrumented step {ph['step']:.2f} ms, spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:16]))
+    # the train model stays for the deferred profile of its step
+    return summary, launches, served_b1
+
+
+def dsvt_phase(device, card):
+    """Phase 17: DSVT-Pillar and DSVT-Voxel at full width with seeded
+    weights on `zoo.waymo_batches` (the port has no Waymo dataset).
+    Returns (summary, launches by path, served B1 entries)."""
+    summary, launches, served_b1 = {"card": card}, {}, []
+    for name in DSVT_DEPTH:
+        out = dsvt_model(name, device, card)
+        summary[name] = out[0]
+        launches.update(out[1])
+        served_b1 += out[2]
+    return summary, launches, served_b1
+
+
 def main():
     import torch
 
@@ -4605,8 +4743,30 @@ def main():
     tf_b1 = sum(v["iou_bev_overlap"] for v in tf_launches.values())
     tf_b2_n = sum(v["gather_gemm"] for v in tf_launches.values())
 
-    # the device profiles of phases 10-16, after every host-clock reading
+    # 17. DSVT-Pillar and DSVT-Voxel on the Waymo DSVT configs (B1 only)
+    ds_summary, ds_launches, ds_b1_served = dsvt_phase(device, card)
+    served_iou += ds_b1_served
+    ds_b1 = sum(v["iou_bev_overlap"] for v in ds_launches.values())
+    ds_b2 = sum(v["gather_gemm"] for v in ds_launches.values())
+    if ds_b2:
+        fail(f"the DSVT paths launched B2 {ds_b2} times: {ds_launches}")
+
+    # the device profiles of phases 10-17, after every host-clock reading
     run_deferred_profiles()
+    for name in DSVT_DEPTH:
+        for key in ("serve", "train"):
+            part = ds_summary[name][key]
+            prof = part["profile"]
+            busy = prof["device_time"].get("device_busy_ms_per_step")
+            host = (part["request_ms"]["median"] if key == "serve"
+                    else part["ms_per_step"]["median"])
+            log(f"[dsvt] ({card}) {name} {key}: host {host:.2f} ms per "
+                f"{'request' if key == 'serve' else 'step'}, device busy "
+                f"{busy if busy is not None else float('nan'):.2f} ms, idle share of the "
+                f"profiled window {prof['device_time'].get('device_idle_share', float('nan')):.3f}"
+                f", of the host time {1 - busy / host if busy is not None else float('nan'):.3f}; "
+                f"peak memory {part['peak_memory_gib']:.2f} GiB; share of each frame's voxels in "
+                f"a set by layer {[[round(v, 4) for v in row] for row in prof['set_shares']]}")
     for key in ("serve", "train"):
         prof = tf_summary[key]["profile"]
         busy = prof["device_time"].get("device_busy_ms_per_step")
@@ -4642,7 +4802,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1),
+                     + tf_b1 + ds_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -4666,7 +4826,8 @@ def main():
                                 for k, v in two_launches.items()},
                              **{f"fully_sparse_{k}": v["iou_bev_overlap"]
                                 for k, v in fs_launches.items()},
-                             **{k: v["iou_bev_overlap"] for k, v in tf_launches.items()}},
+                             **{k: v["iou_bev_overlap"] for k, v in tf_launches.items()},
+                             **{k: v["iou_bev_overlap"] for k, v in ds_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -4674,7 +4835,9 @@ def main():
             **{name: sorted({st["iou_bev_overlap"] for st in two_summary[name]["train"]["steps"]})
                for name in TWO_STAGE_CONVS},
             "transfusion": sorted({st["iou_bev_overlap"]
-                                   for st in tf_summary["train"]["steps"]})},
+                                   for st in tf_summary["train"]["steps"]}),
+            **{name: sorted({st["iou_bev_overlap"] for st in ds_summary[name]["train"]["steps"]})
+               for name in DSVT_DEPTH}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train]),
         "ms": nms_entry["ms"],
@@ -4704,7 +4867,7 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n),
+                     + tf_b2_n + ds_b2),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -4725,7 +4888,8 @@ def main():
                                 for k, v in two_launches.items()},
                              **{f"fully_sparse_{k}": v["gather_gemm"]
                                 for k, v in fs_launches.items()},
-                             **{k: v["gather_gemm"] for k, v in tf_launches.items()}},
+                             **{k: v["gather_gemm"] for k, v in tf_launches.items()},
+                             **{k: v["gather_gemm"] for k, v in ds_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -4733,6 +4897,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in two_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in fs_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in tf_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in ds_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -4803,6 +4968,9 @@ def main():
                                **tf_b2["served"][0]},
             "train_dx": {"unit": "one bf16 train step: its 20 dX launches, summed",
                          **tf_b2["dx"][0]}},
+        "dsvt": {name: {"model": f"{ds_summary[name]['config'][6:]} at full width, bf16",
+                        "launches_per_request": DSVT_B2[name][0],
+                        "launches_per_train_step": DSVT_B2[name][1]} for name in DSVT_DEPTH},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -4817,6 +4985,7 @@ def main():
     log(json.dumps({"two_stage": two_summary}, default=str))
     log(json.dumps({"fully_sparse": fs_summary}, default=str))
     log(json.dumps({"transfusion": tf_summary}, default=str))
+    log(json.dumps({"dsvt": ds_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

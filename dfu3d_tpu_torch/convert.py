@@ -21,13 +21,17 @@ path maps to a state_dict key one to one and only the leaf is transformed:
     BN scale / bias / mean / var    → weight / bias / running_mean / running_var
     LayerNorm scale / bias          → weight / bias
     attention query / key / value   → weight (H·D, C), bias (H·D,)
+      (DSVT's q / k / v)
       DenseGeneral kernel (C, H, D),
       bias (H, D)
     attention out DenseGeneral      → weight (C, H·D)
       kernel (H, D, C)
 
+    DSVT's raw pos_embedding        → as is
+
 A 3-D kernel is a sparse conv's unless its flax module is named query,
-key, value or out (flax MultiHeadDotProductAttention's projections). A 4-D
+key, value or out (flax MultiHeadDotProductAttention's projections) or q,
+k or v (DSVT's; no sparse conv of the port is named so). A 4-D
 kernel is a transposed conv's where the port model's module at that path
 is an nn.ConvTranspose2d (with `model`), else where its flax module name
 starts with "ConvTranspose" (ENetRef names its transposed convs "conv").
@@ -44,8 +48,8 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-               "var": "running_var"}
-_ATTENTION_PROJECTIONS = ("query", "key", "value", "out")
+               "var": "running_var", "pos_embedding": "pos_embedding"}
+_ATTENTION_PROJECTIONS = ("query", "key", "value", "out", "q", "k", "v")
 
 
 def _walk(tree, path=()):

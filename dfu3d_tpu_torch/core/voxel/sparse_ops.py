@@ -2,7 +2,8 @@
 
 Port of dfu3d_tpu/core/voxel/sparse_ops.py (`SparseGrid`, `linearize`,
 `column_major_index`, `kernel_offsets`, `build_lookup`, `find_neighbors`,
-`transpose_down_neighbors`, `downsample_coords`), batched over a leading B.
+`transpose_down_neighbors`, `downsample_coords`, `ingroup_inds`), batched
+over a leading B.
 Active voxels live in fixed-capacity buffers, coords (B, V, 3) + valid (B, V). A neighbour table
 (B, Q, K) int32 holds, for each query and kernel tap, the slot of the voxel
 at query + offset in its own sample, or the sentinel V.
@@ -149,3 +150,31 @@ def downsample_coords(down_grid: SparseGrid, coords, valid, out_cap: int, z_only
     num_out = torch.clamp(num_unique, max=out_cap)
     out_valid = torch.arange(out_cap, device=coords.device) < num_out[:, None]
     return gather_slots(parent.to(torch.int32), source, 0), out_valid, slot, num_unique
+
+
+def ranks_in_sorted_groups(sorted_keys):
+    """(N,) ascending group keys → (N,) int64 position of each element within
+    its run of equal keys (0, 1, ... from the run's first element): the
+    positions minus a running max of the run starts."""
+    n = sorted_keys.shape[0]
+    pos = torch.arange(n, device=sorted_keys.device)
+    is_start = torch.ones_like(sorted_keys, dtype=torch.bool)
+    is_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return pos - torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+
+
+def ingroup_inds(group_ids, valid=None):
+    """Index of each element within its group, stable by original order
+    (the ingroup_inds op of DSVT's set partition; JAX sparse_ops.py:706-734):
+    one stable sort, the invalid elements last, then
+    `ranks_in_sorted_groups`. group_ids (N,) int, valid (N,) bool or None →
+    (N,) int64, -1 at the invalid elements."""
+    keys = group_ids.long()
+    if valid is not None:
+        keys = torch.where(valid, keys, torch.iinfo(torch.int64).max)
+    order = torch.argsort(keys, stable=True)
+    out = torch.empty_like(keys)
+    out[order] = ranks_in_sorted_groups(keys[order])
+    if valid is not None:
+        out = torch.where(valid, out, -1)
+    return out

@@ -4,6 +4,8 @@ and voxel branches):
     pillar: DynPillarVFE → BaseBEVBackbone → CenterHead
     voxel:  MeanVFE → VoxelResBackBone8x or VoxelBackBone8x →
             height_compression → BaseBEVBackbone → CenterHead
+    DSVT:   DynVoxelVFE → DSVTBackbone or DSVTVoxelBackbone → BEV scatter →
+            BaseBEVBackbone → CenterHead (models/dsvt.py)
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 `build_network` also builds PointRCNN (models/pointrcnn.py), PointPillar
@@ -22,6 +24,7 @@ from ..core.voxel import VoxelGrid
 from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
 from ..train import torch_convert
+from . import dsvt
 from .backbone_2d import BaseBEVBackbone
 from .center_head import CenterHead
 from .pointrcnn import PointRCNN
@@ -77,7 +80,9 @@ def center_head(dh, class_names, grid: VoxelGrid, in_channels: int) -> CenterHea
 class CenterPoint(nn.Module):
     """CenterPoint-pillar (tools/cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml)
     or, with a BACKBONE_3D, voxel CenterPoint
-    (tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml)."""
+    (tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml), or,
+    with BACKBONE_3D DSVT, DSVT-Pillar / DSVT-Voxel
+    (tools/cfgs/waymo_models/dsvt_pillar.yaml, dsvt_voxel.yaml)."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_pillars: int = 32768, max_voxels: int = 60000):
@@ -87,7 +92,12 @@ class CenterPoint(nn.Module):
         vfe_cfg = cfg.VFE
         # a null BACKBONE_3D NAME counts as absent, as in the JAX package
         self.use_voxel_backbone = bool(cfg.get("BACKBONE_3D") and cfg.BACKBONE_3D.get("NAME"))
-        if self.use_voxel_backbone:
+        self.use_dsvt = self.use_voxel_backbone and cfg.BACKBONE_3D.NAME == "DSVT"
+        if self.use_dsvt:
+            self.vfe, self.backbone_3d = dsvt.build_dsvt(cfg, grid, num_point_features,
+                                                         max_voxels)
+            bev_channels = self.backbone_3d.dim
+        elif self.use_voxel_backbone:
             bb3d = cfg.BACKBONE_3D
             if vfe_cfg.NAME != "MeanVFE":
                 raise NotImplementedError(f"VFE {vfe_cfg.NAME} with a 3D backbone is not ported")
@@ -125,7 +135,10 @@ class CenterPoint(nn.Module):
 
     def features(self, batch):
         """PointBatch → list over heads of {branch: (B, H, W, c)}."""
-        if self.use_voxel_backbone:
+        if self.use_dsvt:
+            bev = dsvt.dsvt_bev(self.vfe, self.backbone_3d, self.vfe.grid, batch.points,
+                                batch.points_valid)
+        elif self.use_voxel_backbone:
             feats, vox = self.vfe(batch.points, batch.points_valid)
             # the strided convs' transpose tables serve the backward only
             levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique,
@@ -158,8 +171,15 @@ class CenterPoint(nn.Module):
 
     def reference_mapping(self):
         """The reference-key mapping of a checkpoint (train/torch_convert):
-        the flagship's, the JAX package's convert_state_dict default."""
-        return torch_convert.centerpoint_pillar_mapping()
+        the flagship's, the JAX package's convert_state_dict default; with
+        DSVT the VFE's PFN layers, the DSVT trunk's, the 2D backbone's and
+        the CenterHead's."""
+        if not self.use_dsvt:
+            return torch_convert.centerpoint_pillar_mapping()
+        return {**torch_convert.pfn_mapping(len(self.vfe.num_filters)),
+                **self.backbone_3d.reference_mapping(),
+                **torch_convert.bev_backbone_mapping(self.backbone_2d.layer_nums),
+                **torch_convert.center_head_mapping(self.dense_head.fused_heads.branch_specs)}
 
 
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,

@@ -1,5 +1,6 @@
-"""VFEs: DynPillarVFE (port of dfu3d_tpu/models/vfe.py) and MeanVFE (the
-voxel branch of dfu3d_tpu/models/detectors.py:265-280, no parameters).
+"""VFEs: DynPillarVFE and DynVoxelVFE (port of dfu3d_tpu/models/vfe.py) and
+MeanVFE (the voxel branch of dfu3d_tpu/models/detectors.py:265-280, no
+parameters).
 
 DynPillarVFE: points are sorted by their batch-offset BEV cell id; segment
 ids are the ranks of the distinct cells, so the pillar reductions land in a
@@ -182,6 +183,71 @@ class DynPillarVFE(nn.Module):
         dense = x_max.new_zeros((sentinel + 1, cout))
         dense[pillar_cell] = x_max
         return dense[:sentinel].reshape(b, ny, nx, cout)
+
+
+class DynVoxelVFE(nn.Module):
+    """DynamicVoxelVFE (dynamic_voxel_vfe.py:15-106, the DSVT configs' VFE;
+    JAX vfe.py:210-298): per point [its channels (or those after xyz),
+    f_cluster (xyz minus its voxel's point mean), f_center (xyz minus its
+    voxel's centre, z included)] (, its range), through the PFNLayer stack
+    over batch-global voxel ids, so that BN sees every point of the batch,
+    then the max over each voxel's points. Returns ((B, V, C) features,
+    (B, V, 3) int32 coords (ix, iy, iz), (B, V) valid) in the voxelizer's
+    slot order. config keys: NUM_FILTERS, USE_NORM, USE_ABSLOTE_XYZ,
+    WITH_DISTANCE."""
+
+    def __init__(self, num_filters: Sequence[int], grid: VoxelGrid, num_point_features: int = 4,
+                 use_norm: bool = True, use_absolute_xyz: bool = True,
+                 with_distance: bool = False, max_voxels: int = 60000):
+        super().__init__()
+        self.num_filters = tuple(num_filters)
+        self.grid = grid
+        self.use_absolute_xyz = use_absolute_xyz
+        self.with_distance = with_distance
+        self.max_voxels = max_voxels
+        cin = (num_point_features if use_absolute_xyz else num_point_features - 3) + 6
+        cin += int(with_distance)
+        for i, nf in enumerate(self.num_filters):
+            self.add_module(f"pfn_{i}", PFNLayer(cin, nf, use_norm,
+                                                 i >= len(self.num_filters) - 1))
+            cin = nf
+
+    def forward(self, points, points_valid):
+        b, n, c = points.shape
+        cap = self.max_voxels
+        dev = points.device
+        vox = dynamic_voxelize(self.grid, points, points_valid, cap)
+        base = torch.arange(b, device=dev)[:, None] * cap
+        seg = torch.where(vox.point_to_voxel < cap, vox.point_to_voxel + base,
+                          b * cap).reshape(b * n)
+        # points sorted by voxel (the PFN's segment ops take ascending ids,
+        # the sentinel last); invalid points carry the sentinel
+        order = torch.argsort(seg, stable=True)
+        flat, seg = points.reshape(b * n, c)[order], seg[order]
+        num_segments = b * cap
+        ok = seg < num_segments
+
+        pcr = torch.tensor(self.grid.point_cloud_range[:3], dtype=torch.float32, device=dev)
+        vs = torch.tensor(self.grid.voxel_size, dtype=torch.float32, device=dev)
+        xyz = flat[:, 0:3].float()
+        ones = torch.where(ok, 1.0, 0.0)
+        sums = segment_sum_sorted(torch.cat([xyz * ones[:, None], ones[:, None]], dim=-1),
+                                  seg, num_segments)
+        means = sums[:, 0:3] / torch.clamp(sums[:, 3:4], min=1.0)
+        f_cluster = xyz - means[torch.clamp(seg, max=num_segments - 1)]
+        coords = torch.floor((xyz - pcr) / vs)
+        f_center = xyz - (coords * vs + (vs / 2 + pcr))
+        feats = [flat.float() if self.use_absolute_xyz else flat[:, 3:].float(), f_cluster,
+                 f_center]
+        if self.with_distance:
+            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+        x = torch.where(ok[:, None], torch.cat(feats, dim=-1), 0.0)
+        x_max = None
+        for i in range(len(self.num_filters)):
+            x, x_max = getattr(self, f"pfn_{i}")(x, ok, seg, num_segments)
+        voxel_feats = x_max.view(b, cap, -1)
+        voxel_feats = torch.where(vox.voxel_valid[..., None], voxel_feats, 0.0)
+        return voxel_feats, vox.voxel_coords, vox.voxel_valid
 
 
 class MeanVFE(nn.Module):

@@ -4,7 +4,8 @@
                                                      second_iou|voxel_rcnn|pv_rcnn|
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_tta|voxelnext_iou_large|
-                                                     pillarnet|pillarnet_waymo|transfusion]
+                                                     pillarnet|pillarnet_waymo|transfusion|
+                                                     dsvt_pillar|dsvt_voxel]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -19,7 +20,9 @@ fully sparse detectors (`zoo.voxelnext`, `voxelnext_tta`,
 `voxelnext_iou_large`, `pillarnet`, `pillarnet_waymo`: nuScenes, Waymo and
 KITTI configs, built as the CLIs build them), or TransFusion-L
 (`zoo.transfusion`, transfusion_lidar, 1440 x 1440 x 40 grid, max_voxels
-160,000). CenterPoint: B=4, 60,000 uniform
+160,000), or DSVT-Pillar / DSVT-Voxel (`zoo.dsvt_pillar`, `zoo.dsvt_voxel`,
+the Waymo DSVT configs, 468 x 468 (x 32) grid, 60,000 voxels per frame, on
+`waymo_batches`). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -62,7 +65,13 @@ as one JSON object (printed, and written to --out):
   transfusion: the spans of `transfusion_phase_times`: voxelize, tables,
   the trunk with B2, height compression, 2D backbone, shared conv + heat
   map, query init (local max, top-K), position embeddings, self- and
-  cross-attention, FFN, branches, decode, the recall IoU with B1);
+  cross-attention, FFN, branches, decode, the recall IoU with B1; dsvt:
+  the spans of `dsvt_phase_times`: voxelize + VFE, the partition (sorts,
+  ranks, set ids, the voxel model's pool indices), position embeddings,
+  set attention (with the set buffers' scatter and gather), FFN + norms,
+  the voxel model's pools, the BEV scatter, 2D backbone, head, decode, the
+  NMS with B1 and its keep-scan, the recall IoU with B1; and set_shares,
+  the share of each frame's voxels that reach a set in each layer);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -94,9 +103,9 @@ from .models import roi_head
 from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
-from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, kitti_batches, nuscenes_batches,
-                  parta2, pillarnet, pillarnet_waymo, pointrcnn, pointrcnn_batches,
-                  pp_multihead, pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead,
+from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, dsvt_pillar, dsvt_voxel,
+                  kitti_batches, nuscenes_batches, parta2, pillarnet, pillarnet_waymo, pointrcnn,
+                  pointrcnn_batches, pp_multihead, pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead,
                   transfusion, voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large,
                   voxelnext_tta, waymo_batches, write_pointrcnn_root)
 
@@ -484,6 +493,72 @@ def transfusion_profile(model, run, batches, optimizer=None):
     return out
 
 
+def dsvt_phase_times(model, run, batch, optimizer=None):
+    """One step of a DSVT CenterPoint, `run(batch)` (an eval step, or with
+    its `optimizer` a train step), with every span of `Spans` timed:
+    voxelize + VFE, the partition (the backbone's `plan`: sorts, ranks, set
+    ids, the voxel model's pool indices), the position embeddings, the set
+    attention (the set buffers' scatter and gather with it), the FFN and the
+    norms, the voxel model's pools, the BEV scatter, the 2D backbone, the
+    head, the decode with the NMS (B1 and the keep-scan) and the recall IoU
+    (B1). A train step adds the targets, the loss, the backward and the
+    clip + optimizer update."""
+    from .models import dsvt as dsvt_mod
+
+    wraps = [(model.vfe, "forward", "voxelize_vfe"), (model.backbone_3d, "plan", "partition"),
+             (dsvt_mod, "position_embedding", "position_embeddings"),
+             (dsvt_mod, "to_sets", "set_attention"), (dsvt_mod, "from_sets", "set_attention"),
+             (dsvt_mod, "set_attention", "set_attention"), (dsvt_mod, "ffn_norms", "ffn_norms"),
+             (dsvt_mod, "block_norm", "ffn_norms"), (dsvt_mod, "pool", "pools"),
+             (dsvt_mod, "scatter_bev", "bev_scatter"),
+             (model.backbone_2d, "forward", "backbone_2d"), (model.dense_head, "forward", "head"),
+             (model.dense_head, "generate_predicted_boxes", "decode"),
+             (iou_kernel, "overlap_bev", "b1"), (nms_mod, "_suppression_scan", "keep_scan"),
+             (train_state, "pairwise_iou3d", "recall_iou")]
+    if optimizer is not None:
+        wraps += [(model.dense_head, "assign_targets", "targets"),
+                  (model.dense_head, "get_loss", "loss"), (torch.Tensor, "backward", "backward"),
+                  (optimizer, "step", "clip_optimizer")]
+    return timed_spans(wraps, run, batch)
+
+
+@torch.no_grad()
+def dsvt_set_shares(model, batch):
+    """The share of each frame's valid voxels that reach a set, per layer
+    ([layer][frame]), with the frame's occupied cells before and after the
+    voxel cap: the pooled B · MAX_SETS cap hands the sets out first-come
+    over the batch."""
+    from .core.voxel import dynamic_voxelize
+    from .models import dsvt as dsvt_mod
+
+    dev = next(model.parameters()).device
+    batch = batch.to(dev)
+    b = batch.points.shape[0]
+    vox = dynamic_voxelize(model.vfe.grid, batch.points, batch.points_valid,
+                           model.vfe.max_voxels)
+    plans = dsvt_mod.dsvt_plan(model.vfe, model.backbone_3d, batch.points, batch.points_valid)
+    return {"set_shares": dsvt_mod.set_shares(plans, b),
+            "occupied_cells_per_frame": vox.num_unique.tolist(),
+            "voxels_per_frame": vox.num_voxels.tolist(),
+            "max_sets_per_frame": model.backbone_3d.max_sets}
+
+
+def dsvt_profile(model, run, batches, optimizer=None):
+    """Where a DSVT step goes, `run(batch)` running an eval step or (given
+    its `optimizer`) a train step through to its result on the host:
+    phase_ms, the median over the batches of each span's exclusive ms
+    (`dsvt_phase_times`), keep_scan (`keep_scans`, serving only) and the
+    first batch's `dsvt_set_shares`."""
+    phases = [dsvt_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    return {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
+            "keep_scan": keep_scans(run, batches) if optimizer is None else [],
+            **dsvt_set_shares(model, batches[0])}
+
+
+DSVT = {"dsvt_pillar": dsvt_pillar, "dsvt_voxel": dsvt_voxel}
+
+
 FULLY_SPARSE = {"voxelnext": voxelnext, "voxelnext_tta": voxelnext_tta,
                 "voxelnext_iou_large": voxelnext_iou_large, "pillarnet": pillarnet,
                 "pillarnet_waymo": pillarnet_waymo}
@@ -623,7 +698,7 @@ def _profile(step, batches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
-                                         *TWO_STAGE, *FULLY_SPARSE, "transfusion"),
+                                         *TWO_STAGE, *FULLY_SPARSE, "transfusion", *DSVT),
                     default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -635,7 +710,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
              "second": second_multihead, "pp": pp_multihead, **TWO_STAGE,
-             **FULLY_SPARSE, "transfusion": transfusion}[args.model]
+             **FULLY_SPARSE, "transfusion": transfusion, **DSVT}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -657,6 +732,12 @@ def main(argv=None):
             batches, data = fully_sparse_workload(args.model, cfg, Path(work), args.batches)
         workload = (f"{cfg.MODEL.NAME} {args.model} {'x'.join(map(str, grid.grid_size))} grid, "
                     f"max_voxels {cfg_max_voxels(model)}, {data}")
+    elif args.model in DSVT:
+        batches = waymo_batches(cfg, args.batches)
+        workload = (f"CenterPoint {args.model} {'x'.join(map(str, grid.grid_size))} grid, "
+                    f"{cfg_max_voxels(model)} voxels per frame, B=4 Waymo-range frames made in "
+                    "memory (zoo.waymo_batches: 150000 points, 20-40 boxes of Vehicle, "
+                    "Pedestrian, Cyclist)")
     elif args.model == "transfusion":
         with tempfile.TemporaryDirectory() as work:
             batches = nuscenes_workload(cfg, Path(work), args.batches)
@@ -699,6 +780,12 @@ def main(argv=None):
     elif args.model in FULLY_SPARSE:
         extra = fully_sparse_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+    elif args.model in DSVT:
+        extra = dsvt_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+        torch.cuda.reset_peak_memory_stats()
+        _run(step, batches[0])
+        extra["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     elif args.model == "transfusion":   # no NMS, so no keep-scan
         extra = transfusion_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), []

@@ -4,7 +4,8 @@
                                                      second_iou|voxel_rcnn|pv_rcnn|
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_iou_large|pillarnet|
-                                                     pillarnet_waymo|transfusion]
+                                                     pillarnet_waymo|transfusion|
+                                                     dsvt_pillar|dsvt_voxel]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -55,7 +56,10 @@ as one JSON object (printed, and written to --out):
   nuScenes root read in train mode, with the peak memory): the spans of
   `profile_serve.transfusion_phase_times` with the optimizer (heat-map
   targets, cost, the host Hungarian with its host ms and calls per step,
-  losses, backward, clip + optimizer);
+  losses, backward, clip + optimizer); dsvt_pillar, dsvt_voxel (the Waymo
+  DSVT configs, B=4 frames of `zoo.waymo_batches` made in memory, with the
+  peak memory): the spans of `profile_serve.dsvt_phase_times` with the
+  optimizer and the share of each frame's voxels that reach a set per layer;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -80,13 +84,15 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import (FULLY_SPARSE, TWO_STAGE, anchor_profile, cfg_max_voxels,
-                            device_profile, fully_sparse_profile, fully_sparse_workload,
+from .profile_serve import (DSVT, FULLY_SPARSE, TWO_STAGE, anchor_profile, cfg_max_voxels,
+                            device_profile, dsvt_profile, fully_sparse_profile,
+                            fully_sparse_workload,
                             kitti_workload, nuscenes_workload, pointrcnn_profile,
                             transfusion_profile, two_stage_profile)
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
-                  second_multihead, transfusion, voxel_centerpoint, write_pointrcnn_root)
+                  second_multihead, transfusion, voxel_centerpoint, waymo_batches,
+                  write_pointrcnn_root)
 
 TOTAL_STEPS = 1000
 B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
@@ -355,17 +361,22 @@ def two_stage_train(name: str, steps: int, device_name: str) -> dict:
 
 def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     """profile_train --model voxelnext|voxelnext_iou_large|pillarnet|
-    pillarnet_waymo|transfusion: step times at B=4, the spans of
-    `profile_serve.fully_sparse_profile` (TransFusion's:
-    `transfusion_profile`) over the steps with the optimizer, and the
-    device profile with the sparse convs' split."""
+    pillarnet_waymo|transfusion|dsvt_pillar|dsvt_voxel: step times at B=4,
+    the spans of `profile_serve.fully_sparse_profile` (TransFusion's:
+    `transfusion_profile`; DSVT's: `dsvt_profile`) over the steps with the
+    optimizer, and the device profile with the sparse convs' split."""
     import tempfile
 
     tf = name == "transfusion"
-    cfg, grid, model = (transfusion if tf else FULLY_SPARSE[name])(device="cuda", train=True)
+    build = transfusion if tf else {**FULLY_SPARSE, **DSVT}[name]
+    cfg, grid, model = build(device="cuda", train=True)
     seeded_weights_(model, seed=0)
     with tempfile.TemporaryDirectory() as work:
-        if tf:
+        if name in DSVT:
+            batches = waymo_batches(cfg, steps, seed=1)
+            data = ("B=4 Waymo-range frames made in memory (zoo.waymo_batches: 150000 points, "
+                    "20-40 boxes of Vehicle, Pedestrian, Cyclist)")
+        elif tf:
             batches = nuscenes_workload(cfg, Path(work), steps, training=True)
             data = ("B=4 synthetic nuScenes key frames with 9 sweeps (34000 points each, at "
                     "most 65536 per frame, 20-40 boxes)")
@@ -389,8 +400,9 @@ def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     per_step = gather_gemm_kernel.launches // len(batches)
     median = statistics.median(step_ms)
     torch.cuda.reset_peak_memory_stats()
-    spans = (transfusion_profile if tf else fully_sparse_profile)(model, run, batches,
-                                                                  state.optimizer)
+    profile_fn = (transfusion_profile if tf else dsvt_profile if name in DSVT
+                  else fully_sparse_profile)
+    spans = profile_fn(model, run, batches, state.optimizer)
     peak = torch.cuda.max_memory_allocated()
     # the forward's B2 launches: one per sparse conv; the dX ones follow
     forward_b2 = per_step // 2 + per_step % 2
@@ -419,7 +431,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE,
                                          *(n for n in FULLY_SPARSE if n != "voxelnext_tta"),
-                                         "transfusion"),
+                                         "transfusion", *DSVT),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -432,7 +444,7 @@ def main(argv=None):
     if args.model in TWO_STAGE:
         _write(two_stage_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
-    if args.model in (*FULLY_SPARSE, "transfusion"):
+    if args.model in (*FULLY_SPARSE, "transfusion", *DSVT):
         _write(fully_sparse_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
     if args.model in ("pointrcnn", "second"):

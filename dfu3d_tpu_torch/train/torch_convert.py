@@ -4,8 +4,9 @@ train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
 `anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
 `second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`,
 `parta2_head_mapping` with `t_spconv_dense`, `transfusion_head_mapping`
-with `_mha` and `_ln`, and `apply_mapping`'s partial overlay, :50-166,
-:300-394, :397-451, :424-505, :513-604, :639-735, :959-1029).
+with `_mha` and `_ln`, `dsvt_mapping` and `dsvt_voxel_mapping`, and
+`apply_mapping`'s partial overlay, :50-166, :167-297, :300-394, :397-451,
+:424-505, :513-604, :639-735, :959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -31,6 +32,7 @@ into the port's state_dict names, so every transform is reference → port:
     RoI head)            (`t_spconv_dense`)
     MultiheadAttention  the packed in_proj_weight (3C, C) and in_proj_bias
                         (3C,) split in three: query, key, value Linears
+                        (DSVT's q, k, v)
     LayerNorm           identity: weight, bias
 
 The overlay is partial, as the reference's load_params_from_file is
@@ -45,9 +47,11 @@ the pillar VFE's, the 2D backbone's and AnchorHeadSingle's for PointPillar
 and SECONDNet, and those two with the RoI head's for SECONDNetIoU,
 VoxelRCNN, PVRCNN and PartA2Net (PVRCNNPlusPlus has the RPN's only: the
 JAX package maps no PV-RCNN++ head), the 2D backbone's and
-TransFusionHead's for TransFusion. The JAX package has no PointNet2MSG, sparse-backbone or
-AnchorHeadMulti mapping, so neither has the port: those modules keep their
-values and are reported unmatched.
+TransFusionHead's for TransFusion, and for a DSVT CenterPoint the VFE's PFN
+layers, the DSVT trunk's, the 2D backbone's and the CenterHead's. The JAX
+package has no PointNet2MSG, sparse-backbone or AnchorHeadMulti mapping, so
+neither has the port: those modules keep their values and are reported
+unmatched.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
            "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
            "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense",
-           "transfusion_head_mapping", "apply_mapping", "load_reference_state"]
+           "transfusion_head_mapping", "dsvt_mapping", "dsvt_voxel_mapping", "apply_mapping",
+           "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
 _REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
@@ -438,6 +443,67 @@ def transfusion_head_mapping(num_conv: int = 2, num_hm_conv: int = 2, use_vel: b
             _fc(m, f"{p}.{name}_conv{i}", f"{base}.{i}.0")
             _bn(m, f"{p}.{name}_bn{i}", f"{base}.{i}.1")
         _fc(m, f"{p}.{name}_out", f"{base}.{nc - 1}")
+    return m
+
+
+def _dsvt_layer(m, ours, base, pos_head):
+    """One DSVT encoder layer (the JAX package's _dsvt_layer_entries): the
+    window attention's packed in_proj split into q / k / v, out_proj,
+    linear1 / linear2, norm1 / norm2 and the encoder layer's outer norm,
+    and its PositionEmbeddingLearned (Linear, BN1d, ReLU, Linear)."""
+    attn = f"{base}.win_attn.self_attn"
+    for part, name in enumerate(("q", "k", "v")):
+        m[f"{ours}.{name}.weight"] = (f"{attn}.in_proj_weight", _t_in_proj(part))
+        m[f"{ours}.{name}.bias"] = (f"{attn}.in_proj_bias", _t_in_proj(part))
+    _conv(m, f"{ours}.proj", f"{attn}.out_proj", bias=True)
+    _conv(m, f"{ours}.ffn1", f"{base}.win_attn.linear1", bias=True)
+    _conv(m, f"{ours}.ffn2", f"{base}.win_attn.linear2", bias=True)
+    _ln(m, f"{ours}.ln1", f"{base}.win_attn.norm1")
+    _ln(m, f"{ours}.ln2", f"{base}.win_attn.norm2")
+    _ln(m, f"{ours}.ln3", f"{base}.norm")
+    _conv(m, f"{ours}_pos_fc1", f"{pos_head}.0", bias=True)
+    _bn(m, f"{ours}_pos_bn", f"{pos_head}.1")
+    _conv(m, f"{ours}_pos_fc2", f"{pos_head}.3", bias=True)
+
+
+def dsvt_mapping(num_blocks: int = 4, prefix: str = "backbone_3d") -> Mapping:
+    """The pillar DSVT (reference dsvt.py, one stage): per block its two
+    encoder layers (stage_0.{blk}.encoder_list.{li}), their position
+    embeddings (input_layer.posembed_layers.0.{blk}.{li}) and
+    residual_norm_stage_0.{blk}."""
+    m: Mapping = {}
+    p = prefix
+    for blk in range(num_blocks):
+        for li in range(2):
+            _dsvt_layer(m, f"{p}.block{blk}_{li}", f"{p}.stage_0.{blk}.encoder_list.{li}",
+                        f"{p}.input_layer.posembed_layers.0.{blk}.{li}.position_embedding_head")
+        _ln(m, f"{p}.res_norm{blk}", f"{p}.residual_norm_stage_0.{blk}")
+    return m
+
+
+def dsvt_voxel_mapping(set_info=((48, 1),) * 4, prefix: str = "backbone_3d") -> Mapping:
+    """The multi-stage DSVT (dsvt_voxel.yaml): per stage its blocks as in
+    `dsvt_mapping` and, between stages, Stage_ReductionAtt_Block
+    (stage_{s}_reduction: the packed in_proj, out_proj, norm and the raw
+    pos_embedding)."""
+    m: Mapping = {}
+    p = prefix
+    for s, (_, num_blocks) in enumerate(set_info):
+        for blk in range(num_blocks):
+            for li in range(2):
+                _dsvt_layer(m, f"{p}.stage{s}_block{blk}_{li}",
+                            f"{p}.stage_{s}.{blk}.encoder_list.{li}",
+                            f"{p}.input_layer.posembed_layers.{s}.{blk}.{li}"
+                            ".position_embedding_head")
+            _ln(m, f"{p}.stage{s}_res_norm{blk}", f"{p}.residual_norm_stage_{s}.{blk}")
+        if s < len(set_info) - 1:
+            ours, ref = f"{p}.stage{s}_reduction", f"{p}.stage_{s}_reduction"
+            for part, name in enumerate(("q", "k", "v")):
+                m[f"{ours}.{name}.weight"] = (f"{ref}.self_attn.in_proj_weight", _t_in_proj(part))
+                m[f"{ours}.{name}.bias"] = (f"{ref}.self_attn.in_proj_bias", _t_in_proj(part))
+            _conv(m, f"{ours}.proj", f"{ref}.self_attn.out_proj", bias=True)
+            _ln(m, f"{ours}.norm", f"{ref}.norm")
+            m[f"{ours}.pos_embedding"] = (f"{ref}.pos_embedding", t_identity)
     return m
 
 

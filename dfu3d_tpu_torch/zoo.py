@@ -3,8 +3,9 @@ PointRCNN, the nuScenes anchor detectors (SECOND and PointPillar
 multi-head), the two-stage KITTI voxel detectors (SECOND-IoU, Voxel
 R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++), the fully sparse and
 pillar-sparse detectors (VoxelNeXt on its nuScenes, double-flip and large
-Waymo configs; PillarNet on its KITTI and Waymo configs), with
-`waymo_batches` for the Waymo configs, and TransFusion-L on nuScenes.
+Waymo configs; PillarNet on its KITTI and Waymo configs; DSVT-Pillar and
+DSVT-Voxel on their Waymo configs), with `waymo_batches` for the Waymo
+configs, and TransFusion-L on nuScenes.
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -318,12 +319,14 @@ FULLY_SPARSE_CFGS = {
     "pillarnet": "kitti_models/pillarnet.yaml",
     "pillarnet_waymo": "waymo_models/pillarnet.yaml",
 }
+DSVT_CFGS = {"dsvt_pillar": "waymo_models/dsvt_pillar.yaml",
+             "dsvt_voxel": "waymo_models/dsvt_voxel.yaml"}
 
 
 def _fully_sparse(name, device, train):
     from .tools.common import build_model, model_grid
 
-    cfg = cfg_from_yaml_file(CFGS / FULLY_SPARSE_CFGS[name], CfgDict())
+    cfg = cfg_from_yaml_file(CFGS / {**FULLY_SPARSE_CFGS, **DSVT_CFGS}[name], CfgDict())
     model = build_model(cfg, "train" if train else "test", device, train=train)
     return cfg, model_grid(cfg), model
 
@@ -366,6 +369,27 @@ def pillarnet_waymo(train: bool = False, device="cuda"):
     1504 x 1504 x 1 pillar grid, 150,000 pillars, PillarRes18BackBone8x,
     CenterHead over Vehicle, Pedestrian, Cyclist; as `voxelnext_iou_large`."""
     return _fully_sparse("pillarnet_waymo", device, train)
+
+
+def dsvt_pillar(train: bool = False, device="cuda"):
+    """CenterPoint with DSVT-Pillar on tools/cfgs/waymo_models/dsvt_pillar.yaml
+    at its published widths, built as the CLIs build it: DynamicVoxelVFE
+    [192, 192] over the 5 point features on the 468 x 468 x 1 grid (0.32 m
+    pillars, 60,000 per frame: the placeholder processor sets no
+    MAX_NUMBER_OF_VOXELS), four blocks of two set-attention layers (d_model
+    192, 8 heads, FFN 384, sets of 36 in 12 x 12 windows, MAX_SETS 1024),
+    BaseBEVBackbone [1, 2, 2] to 384 channels, CenterHead at stride 1. As
+    `voxelnext_iou_large`; on `waymo_batches`."""
+    return _fully_sparse("dsvt_pillar", device, train)
+
+
+def dsvt_voxel(train: bool = False, device="cuda"):
+    """CenterPoint with DSVT-Voxel on tools/cfgs/waymo_models/dsvt_voxel.yaml:
+    as `dsvt_pillar` on the 468 x 468 x 32 grid (0.1875 m in z, 60,000
+    voxels per frame), four single-block stages of 3D set attention (sets
+    of 48; windows 12 x 12 x 32, 8, 2, 1) joined by attention pooling along
+    z (strides 4, 4, 2)."""
+    return _fully_sparse("dsvt_voxel", device, train)
 
 
 WAYMO_BATCH_SIZE = 4   # the Waymo configs' BATCH_SIZE_PER_GPU

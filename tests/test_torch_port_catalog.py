@@ -2,7 +2,9 @@
 `tools.common.build_model` (what tools.train and tools.test call) builds
 each tools/cfgs/*_models/*.yaml at its published widths in test mode, or
 raises NotImplementedError naming the piece the port lacks; nothing else
-may be raised. And the PointPillar configs' voxel cap: the CLIs pass
+may be raised; no sparse conv of a model built is named q, k or v (the
+names `params_from_jax` reads as DSVT's attention projections). And the
+PointPillar configs' voxel cap: the CLIs pass
 MAX_NUMBER_OF_VOXELS, which PointPillar accepts and does not read (the JAX
 package's PointPillar keeps its VFE's pillar cap, 32,768 per frame summed
 over the batch).
@@ -26,8 +28,6 @@ NOT_PORTED = {
     "cfgs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml": "VoxelBackBone8xFocal",
     "cfgs/kitti_models/voxel_rcnn_focal.yaml": "VoxelBackBone8xFocal",
     "cfgs/nuscenes_models/bevfusion.yaml": "detector BevFusion is not ported",
-    "cfgs/waymo_models/dsvt_pillar.yaml": "VFE DynamicVoxelVFE",
-    "cfgs/waymo_models/dsvt_voxel.yaml": "VFE DynamicVoxelVFE",
     "cfgs/waymo_models/mppnet_16frames.yaml": "detector MPPNet is not ported",
     "cfgs/waymo_models/mppnet_4frames.yaml": "detector MPPNet is not ported",
     "cfgs/waymo_models/mppnet_e2e_memorybank_inference.yaml": "detector MPPNetE2E is not ported",
@@ -58,6 +58,10 @@ def test_shipped_config_builds(cfg_file, monkeypatch):
         return
     model = build_model(cfg, "test", "cpu")
     assert not model.training and sum(p.numel() for p in model.parameters()) > 0
+    # params_from_jax reads a 3-D kernel of a module named q, k or v as an
+    # attention projection's (DSVT's): no sparse conv may carry such a name
+    assert not [k for k in model.state_dict() if k.endswith((".q.kernel", ".k.kernel",
+                                                             ".v.kernel"))]
 
 
 @pytest.mark.parametrize("cfg_file", POINTPILLAR)

@@ -72,12 +72,16 @@ def exact_wide_down_backward(monkeypatch):
     monkeypatch.setattr(jsb, "down_gather_gemm", exact)
 
 
-def compare_train_step(jmodel, variables, model, jbatch, optim_cfg, zero_biases=BIAS_BEFORE_BN):
+def compare_train_step(jmodel, variables, model, jbatch, optim_cfg, zero_biases=BIAS_BEFORE_BN,
+                       grad_norm_fp64=False):
     """One JAX train step and one port train step from the same weights;
     asserts the loss terms, every gradient leaf and the BN statistics; a
     bias that `zero_biases` matches has a gradient of 0 in exact arithmetic
-    and is held to its weight's largest entry. Returns (port metrics, port
-    raw gradients by state_dict key)."""
+    and is held to its weight's largest entry. With `grad_norm_fp64` the
+    port's grad_norm is held to the norm of JAX's gradient leaves taken in
+    float64 rather than to JAX's fp32 grad_norm (whose sum of squares over
+    a large gradient rounds by 1e-5 on its own). Returns (port metrics,
+    port raw gradients by state_dict key)."""
     tx, _ = j_build_optimizer(optim_cfg, TOTAL_STEPS)
     tx = recording(tx)
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
@@ -99,6 +103,9 @@ def compare_train_step(jmodel, variables, model, jbatch, optim_cfg, zero_biases=
     metrics = make_train_step(model, tstate.optimizer, device="cpu",
                               dtype=torch.float32)(port_batch(jbatch))
     assert set(metrics) == set(jmetrics)
+    if grad_norm_fp64:
+        jmetrics = dict(jmetrics, grad_norm=np.sqrt(sum(
+            float((w.double() ** 2).sum()) for w in jgrads.values())))
     for k, v in jmetrics.items():
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5, err_msg=k)
     assert set(raw) == set(jgrads)
