@@ -280,11 +280,39 @@ Phases, each fatal on failure:
               through trainer.train_model, fatal unless each launches
               neither kernel. Device busy and idle of a request and of a
               step with the deferred profiles.
+ 18. mppnet   MPPNet on mppnet_4frames.yaml and mppnet_16frames.yaml and
+              MPPNetE2E on mppnet_e2e_memorybank_inference.yaml (the Waymo
+              SECOND first stage over 1504 x 1504 x 40 with 150,000 voxels,
+              the trajectory head at HIDDEN 256, 3 layers, 64 proxies, 128
+              points per frame and RoI) at full width with seeded weights
+              on zoo.waymo_sequence_batches (B=2, 150,000 points per frame,
+              moving boxes; the E2E requests one sequence 0.1 s apart):
+              3 / 2 / 3 requests (bf16; the E2E model through its memory
+              bank), fatal unless each launches B1 T + 1 times (NMS, T - 1
+              trajectory matches, recall; the E2E model's bank match one
+              more) and the tensor-core B2 12 times, or on an E2E sequence
+              whose bank never matches; spans with the dead frames' share
+              of the head, peak memory, the bank's matched share per
+              request; the served B1 and B2 calls held and timed; one fp32
+              request (the E2E model: two requests through the bank)
+              through the kernels and through the twins, the twins' run
+              held on the kernel run's proposals once they agree within
+              1e-4 of their scale (the head's crop circles and balls make
+              it step with its boxes); at the seeded weights each train
+              batch's gt made once (zoo.proposal_gt), the train forward's
+              B1 calls and one bf16 step's 11 dX B2 calls held and timed,
+              the fp32 step through the kernels against the twins on the
+              same proposals (the joint regression's gradient nonzero);
+              3 / 2 / 2 bf16 steps through trainer.train_model, fatal
+              unless each launches B1 T + 1 times (NMS, trajectory, RoI
+              targets) and the tensor-core B2 23 times, or on a non-finite
+              loss or gradient. Device busy and idle of a request and of a
+              step with the deferred profiles.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
-{"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}} and
-{"kernels": [...]};
+{"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}},
+{"mppnet": {...}} and {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -516,10 +544,11 @@ def check_overlap_kernel(device):
     return per_shape, max_err
 
 
-def served_overlap_problems(model, batch, device, names=("nms", "recall")):
-    """The overlap calls of one served bf16 request, recorded in order and
-    named by `names`: [("nms", corners_a, corners_b), ("recall", ...)] for
-    CenterPoint; PointRCNN makes three (proposal NMS, final NMS, recall)."""
+def served_overlap_problems(model, batch, device, names=("nms", "recall"), step=None):
+    """The overlap calls of one served bf16 request (`step(batch)`, by
+    default the bf16 eval step), recorded in order and named by `names`:
+    [("nms", corners_a, corners_b), ("recall", ...)] for CenterPoint;
+    PointRCNN makes three (proposal NMS, final NMS, recall)."""
     import torch
 
     from dfu3d_tpu_torch.core.geometry import iou_kernel
@@ -527,6 +556,7 @@ def served_overlap_problems(model, batch, device, names=("nms", "recall")):
 
     calls = []
     kernel_fn = iou_kernel.overlap_bev
+    step = step or make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
 
     def recording(ca, cb):
         calls.append((ca, cb))
@@ -534,7 +564,7 @@ def served_overlap_problems(model, batch, device, names=("nms", "recall")):
 
     iou_kernel.overlap_bev = recording
     try:
-        make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)(batch)
+        step(batch)
     finally:
         iou_kernel.overlap_bev = kernel_fn
     torch.cuda.synchronize()
@@ -544,17 +574,17 @@ def served_overlap_problems(model, batch, device, names=("nms", "recall")):
     return [(name, ca, cb) for name, (ca, cb) in zip(names, calls)]
 
 
-def time_served_overlaps(path, model, batch, device, names=("nms", "recall")):
-    """Each overlap call of one served request, held against the plain twin
-    (fatal on a miss) and timed beside its bound. The plain twin computes a
-    large problem in blocks of about 2^20 pairs (rows of A against all of
-    B), so (4, 4096, 4096) fits."""
+def time_served_overlaps(path, model, batch, device, names=("nms", "recall"), step=None):
+    """Each overlap call of one served request (`served_overlap_problems`),
+    held against the plain twin (fatal on a miss) and timed beside its
+    bound. The plain twin computes a large problem in blocks of about 2^20
+    pairs (rows of A against all of B), so (4, 4096, 4096) fits."""
     import torch
 
     from dfu3d_tpu_torch.core.geometry import iou_kernel
 
     entries = []
-    for name, ca, cb in served_overlap_problems(model, batch, device, names):
+    for name, ca, cb in served_overlap_problems(model, batch, device, names, step):
         got = iou_kernel.overlap_bev(ca, cb)
         torch.cuda.synchronize()
         entry, culled = overlap_agreement(f"served {path} {name}", ca, cb, got)
@@ -874,15 +904,7 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
     # may come out of top-K in either order. Slot by slot is reported too.
     slot_diff = ((kb - pb).abs().amax(-1) > PATH_TOL) | ((ks - ps).abs() > PATH_TOL) | (kl != pl)
     slot_diff &= kv
-    match_err = 0.0
-    for i in range(kb.shape[0]):
-        rows_k = torch.cat([kb[i], ks[i, :, None], kl[i, :, None].float()], -1)[kv[i]]
-        rows_p = torch.cat([pb[i], ps[i, :, None], pl[i, :, None].float()], -1)[pv[i]]
-        dist = (rows_k[:, None, :] - rows_p[None, :, :]).abs().amax(-1)
-        match = dist.argmin(0)
-        if len(set(match.tolist())) != len(match):
-            fail(f"{name} fp32 path: the kept boxes of sample {i} do not match one to one")
-        match_err = max(match_err, dist[match, torch.arange(len(match))].max().item())
+    match_err = set_match_err(name, (kb, ks, kl, kv), (pb, ps, pl, pv))
     # for each slot that differs: its score's distance to the nearest other
     # kept score of its sample (the smallest is 0, the slot itself)
     gaps = [(ks[i][kv[i]] - ks[i, j]).abs().topk(2, largest=False).values[1].item()
@@ -908,6 +930,27 @@ def check_paths(name, model, cfg, batch, served, swaps, device):
     return {"kept_boxes": int(kv.sum()), "max_set_diff": match_err, "max_box_diff": box_err,
             "max_score_diff": score_err, "nms_decisions_flipped": flips,
             "nms_pairs_within_1e-5": near, "recall": krec}
+
+
+def set_match_err(name, kernel_out, plain_out):
+    """The largest difference of the kept (box, score, label) rows of two
+    outputs (boxes, scores, labels, valid) matched one to one per sample
+    (fatal if they do not match one to one)."""
+    import torch
+
+    (kb, ks, kl, kv), (pb, ps, pl, pv) = kernel_out, plain_out
+    match_err = 0.0
+    for i in range(kb.shape[0]):
+        rows_k = torch.cat([kb[i], ks[i, :, None], kl[i, :, None].float()], -1)[kv[i]]
+        rows_p = torch.cat([pb[i], ps[i, :, None], pl[i, :, None].float()], -1)[pv[i]]
+        if not len(rows_k) and not len(rows_p):
+            continue
+        dist = (rows_k[:, None, :] - rows_p[None, :, :]).abs().amax(-1)
+        match = dist.argmin(0)
+        if len(set(match.tolist())) != len(match):
+            fail(f"{name} fp32 path: the kept boxes of sample {i} do not match one to one")
+        match_err = max(match_err, dist[match, torch.arange(len(match))].max().item())
+    return match_err
 
 
 def voxel_stages(model, batch, device):
@@ -2322,13 +2365,15 @@ TRAIN_OVERLAPS = ("proposal_nms", "roi_target_iou")   # a two-stage train step's
 POINTRCNN_UNIFORMS_SEED = 0  # the fp32 check's RoI sampler draws
 
 
-def train_overlaps(path, model, batch, device, coord_tol=False):
+def train_overlaps(path, model, batch, device, coord_tol=False, names=TRAIN_OVERLAPS):
     """Each of one bf16 train step's B1 calls (the proposal NMS, over (4,
     4096, 4096) for PointRCNN and (B, 9000, 9000) for the two-stage voxel
     detectors; the RoI targets' 3D IoU over (B, R, G)), recorded from a
     forward in train mode, held against the plain twin on its own inputs
     (fatal on a miss) and timed beside its bound (the twin 3 times: at
-    (4, 9000, 9000) it takes seconds). With `coord_tol` each pair's
+    (4, 9000, 9000) it takes seconds); `names` names the calls in order
+    (MPPNet's trajectory matches come between the two). With `coord_tol`
+    each pair's
     tolerance is KERNEL_TOL or 4 ulps of the square of the pair's own
     largest |coordinate|, whichever is larger: the shoelace sums' fp32
     rounding grows with the squared coordinates, and some of the two-stage
@@ -2356,11 +2401,11 @@ def train_overlaps(path, model, batch, device, coord_tol=False):
         iou_kernel.overlap_bev = kernel_fn
         model.load_state_dict(weights)
     torch.cuda.synchronize()
-    if len(calls) != len(TRAIN_OVERLAPS):
-        fail(f"one {path} train forward made {len(calls)} B1 calls, not {len(TRAIN_OVERLAPS)} "
-             f"({', '.join(TRAIN_OVERLAPS)})")
+    if len(calls) != len(names):
+        fail(f"one {path} train forward made {len(calls)} B1 calls, not {len(names)} "
+             f"({', '.join(names)})")
     entries = []
-    for name, (ca, cb) in zip(TRAIN_OVERLAPS, calls):
+    for name, (ca, cb) in zip(names, calls):
         got = iou_kernel.overlap_bev(ca, cb)
         torch.cuda.synchronize()
         coord = max(ca.abs().max().item(), cb.abs().max().item())
@@ -3210,7 +3255,16 @@ def nuscenes_profiles(summary):
     """profile_serve --model second and profile_train --model second, each in
     a process of its own, run with the deferred profiles after every
     host-clock reading; their spans and device profiles go into
-    `summary`."""
+    `summary`. This process's cached, unused device memory is released
+    first: the allocator keeps the high-water mark of the phases before
+    (tens of GiB after phase 18's fp32 16-frame step), which the
+    processes need."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
     for tool, flag, key in (("profile_serve", "--batches", "profile_serve"),
                             ("profile_train", "--steps", "profile_train")):
         t0 = time.perf_counter()
@@ -3480,7 +3534,7 @@ def two_stage_profile(tag, model, run, batches, optimizer=None):
     return out
 
 
-def check_two_stage_train_paths(name, model, batch, device):
+def check_two_stage_train_paths(name, model, batch, device, reg_prefix=None):
     """One fp32 train step of the two-stage model through the kernels
     against the same through their plain twins, the batch with
     `zoo.proposal_gt`'s gt and the RoI sampler's uniforms from a generator
@@ -3492,7 +3546,8 @@ def check_two_stage_train_paths(name, model, batch, device):
     forward through B2's twin within TRAIN_LOSS_TOL relative, each gradient
     with B2's dX through the kernel or the twin within TRAIN_GRAD_TOL of its
     largest entry (or 4x the twin's reordering spread), and no leaf all
-    zero, the RoI head's regression branch among them. The twin's fp32 sums
+    zero, the RoI head's regression branch (`reg_prefix`, by default
+    TWO_STAGE_REG[name]) among them. The twin's fp32 sums
     reorder near-tied RPN scores, and the RoIs sampled from those differ:
     B2's runs go on with the RoIs of the first (kernel) run, and how many
     of them sampled the same on their own is reported."""
@@ -3552,7 +3607,7 @@ def check_two_stage_train_paths(name, model, batch, device):
              f"{b1_sampled[0].equal(b1_sampled[1])}, over REG_FG_THRESH {b1_fg}, loss "
              f"{b1_rel:.3g} relative")
     reg = {k: v for k, v in check.pop("leaf_scales").items()
-           if k.startswith(TWO_STAGE_REG[name])}
+           if k.startswith(reg_prefix or TWO_STAGE_REG[name])}
     b2_equal = sum(s.equal(sampled[0]) for s in sampled)
     check.update(b1_loss_rel_err=b1_rel, b1_sampled_rois_equal=True, fg_rois=b1_fg[0],
                  b2_runs_sampling_as_the_kernels=f"{b2_equal} of {len(sampled)}",
@@ -4572,6 +4627,359 @@ def dsvt_phase(device, card):
     return summary, launches, served_b1
 
 
+
+# phase 18: MPPNet (4 and 16 frames) and MPPNetE2E, served requests and bf16
+# train steps of B=2 on multi-frame Waymo-range scenes made in memory
+MPPNET_DEPTH = {"mppnet_4frames": (3, 3), "mppnet_16frames": (2, 2), "mppnet_e2e": (3, 2)}
+MPPNET_B2 = (12, 23)   # per request and per train step: VoxelBackBone8x, 12 forward + 11 dX
+MPPNET_REG = "roi_head.jointembed."   # the joint regression: the fp32 train check needs its gradient
+
+
+def mppnet_b1_names(model, bank=False, train=False):
+    """The B1 calls of a request or a train step in order: the proposal NMS,
+    one trajectory match per past frame, then the bank match (a request
+    through the bank) and the recall, or the RoI targets' IoU."""
+    traj = tuple(f"trajectory_{f}" for f in range(1, model.num_frames))
+    if train:
+        return ("proposal_nms", *traj, "roi_target_iou")
+    return ("proposal_nms", *traj, *(("bank_match",) if bank else ()), "recall")
+
+
+def mppnet_serve(name, model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests served in bf16 (the E2E model through its bank from an
+    empty one, with the share of its (past frame, RoI) slots that matched a
+    bank entry per request), the counts and the peak read. Fatal unless
+    every request launched B1 as `mppnet_b1_names` counts and the
+    tensor-core B2 12 times, on a non-finite or misshapen output, or on an
+    E2E sequence whose bank never matches. Returns (predictions on the host
+    per request, launches, summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.profile_serve import mppnet_step
+
+    bank = hasattr(model, "predict_with_bank")
+    run = mppnet_step(model, device, torch.bfloat16)
+    b = batches[0].points.shape[0]
+
+    def request(batch):   # through to its results on the host
+        *out, recall = run(batch)
+        return [o.cpu() for o in out] + [{k: int(v) for k, v in recall.items()}]
+
+    run.reset(b)
+    request(batches[0])
+    shares, match_fn = [], getattr(model, "match_bank", None)
+
+    def recording(traj, traj_valid, bk):
+        feats, ok = match_fn(traj, traj_valid, bk)
+        shares.append(ok.float().mean(dim=(0, 2)))   # per past frame
+        return feats, ok
+
+    run.reset(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    preds, ms = [], []
+    if bank:
+        model.match_bank = recording
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            preds.append(request(batch))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if bank:
+            del model.match_bank
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n, b1 = len(batches), len(mppnet_b1_names(model, bank))
+    for k, (boxes, scores, labels, valid, _) in enumerate(preds):
+        if boxes.shape[:2] != (b, model.num_rois) or not torch.isfinite(boxes).all() or \
+                not torch.isfinite(scores).all() or not valid.any(dim=1).all():
+            fail(f"{name} request {k}: boxes {tuple(boxes.shape)}, finite "
+                 f"{bool(torch.isfinite(boxes).all())}, kept per frame {valid.sum(1).tolist()}")
+    if launches["iou_bev_overlap"] != b1 * n or launches["gather_gemm_tensor_core"] != \
+            MPPNET_B2[0] * n or launches["gather_gemm_cuda_core"]:
+        fail(f"{name} serving: kernel launches {launches} for {n} requests, not {b1} B1 and "
+             f"{MPPNET_B2[0]} tensor-core B2 per request")
+    shares = [sh.tolist() for sh in shares]
+    if bank and not any(v > 0 for sh in shares[1:] for v in sh):
+        fail(f"{name}: the bank matched no entry over {n} requests of a sequence: {shares}")
+    recall = {k: sum(p[4][k] for p in preds) for k in preds[0][4]}
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in preds],
+               "recall": recall, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    if bank:
+        summary["bank_matched_share_per_request"] = shares
+    log(f"[mppnet] {name} serving, {n} requests of B={b} (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}; recall {json.dumps(recall)}"
+        + (f"; share of (past frame, RoI) slots matched in the bank per request "
+           f"{[[round(v, 4) for v in sh] for sh in shares]}" if bank else ""))
+    return preds, launches, summary
+
+
+class replayed_proposals:
+    """Within the block, the proposals (`model.proposals`) of the first run
+    of `per_run` calls are recorded; each later run's own are held against
+    them, call by call (valid masks equal, the kept (box, score, label)
+    rows equal as sets within PATH_TOL of the recorded boxes' largest
+    |entry|, at least 1; fatal otherwise), and replaced by them. MPPNet's
+    head reads the points inside crop circles and balls around its boxes,
+    and a box moved by the 1e-6 relative that a sum taken in another order
+    moves it (through the train-mode BNs too) can take a point across an
+    edge: the runs through the kernels and through the twins are held on
+    the same proposals from the proposal layer on. `max_err` is the largest
+    difference seen, `max_rel_err` the same over that scale."""
+
+    def __init__(self, name, model, per_run=1):
+        self.name, self.model, self.per_run = name, model, per_run
+        self.recorded, self.calls, self.max_err, self.max_rel_err = [], 0, 0.0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        orig = self.model.proposals
+
+        def replaying(*a, **k):
+            out = orig(*a, **k)
+            j, self.calls = self.calls, self.calls + 1
+            if j < self.per_run:
+                self.recorded.append(out)
+                return out
+            want = self.recorded[j % self.per_run]
+            if not torch.equal(out[3], want[3]):
+                fail(f"{self.name}: proposal valid masks differ between runs (call {j})")
+            err = set_match_err(f"{self.name} proposals", out[:4], want[:4])
+            scale = max(1.0, want[0][want[3]].abs().max().item() if want[3].any() else 0.0)
+            self.max_err = max(self.max_err, err)
+            self.max_rel_err = max(self.max_rel_err, err / scale)
+            if not err <= PATH_TOL * scale:
+                fail(f"{self.name}: proposals differ by {err} between runs (tol {PATH_TOL} of "
+                     f"their largest |entry| {scale:.1f}, matched as sets)")
+            return want
+
+        self.model.proposals = replaying
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.proposals
+
+
+def check_bank_paths(name, model, batches, swaps, device):
+    """Requests of an E2E sequence in fp32 through the bank (from an empty
+    one), through the kernels and through their plain twins (`swaps`): per
+    request the valid masks and the recall counters equal and the kept
+    boxes, scores and labels equal as sets within PATH_TOL; the rolled
+    banks' valid masks equal and their RoIs equal as sets within
+    PATH_TOL."""
+    import torch
+
+    from dfu3d_tpu_torch.profile_serve import mppnet_step
+
+    run = mppnet_step(model, device, torch.float32)
+    b = batches[0].points.shape[0]
+
+    def roll():
+        run.reset(b)
+        outs = [run(batch) for batch in batches]
+        torch.cuda.synchronize()
+        return outs, run.bank()
+
+    k_outs, k_bank = roll()
+    with plain_twins(swaps):
+        p_outs, p_bank = roll()
+    errs = []
+    for i, (k, p) in enumerate(zip(k_outs, p_outs)):
+        if not torch.equal(k[3], p[3]):
+            fail(f"{name} fp32 request {i} through the bank: valid masks differ between the "
+                 f"kernels and the twins ({int((k[3] != p[3]).sum())} slots)")
+        errs.append(set_match_err(f"{name} request {i}", k[:4], p[:4]))
+        if {kk: int(v) for kk, v in k[4].items()} != {kk: int(v) for kk, v in p[4].items()}:
+            fail(f"{name} fp32 request {i}: recall counters differ {k[4]} vs {p[4]}")
+    if not torch.equal(k_bank.valid, p_bank.valid):
+        fail(f"{name} fp32 bank: valid entries differ between the kernels and the twins")
+    flat = [(bk.rois.flatten(0, 1), torch.zeros_like(bk.valid.flatten(0, 1), dtype=torch.float32),
+             torch.zeros_like(bk.valid.flatten(0, 1), dtype=torch.int64), bk.valid.flatten(0, 1))
+            for bk in (k_bank, p_bank)]
+    bank_err = set_match_err(f"{name} bank", *flat)
+    if not max(errs + [bank_err]) <= PATH_TOL:
+        fail(f"{name} fp32 requests through the bank: kernels vs twins differ by "
+             f"{max(errs)} (boxes), {bank_err} (bank RoIs), tol {PATH_TOL}")
+    log(f"[check] {name} fp32 requests through the bank, kernels vs plain: valid masks equal "
+        f"({[int(o[3].sum()) for o in k_outs]} boxes), kept boxes, scores and labels equal as "
+        f"sets within {max(errs):.3g}; the rolled banks' valid entries equal "
+        f"({int(k_bank.valid.sum())}), RoIs within {bank_err:.3g}")
+    return {"requests": len(batches), "max_set_diff": max(errs), "bank_roi_diff": bank_err,
+            "bank_valid_entries": int(k_bank.valid.sum())}
+
+
+def mppnet_model(name, device, card):
+    """Phase 18 for one model: serving at seeded weights (launches, ms, peak
+    memory, spans with the dead frames' share of the head, the E2E bank's
+    matches, the served B1 and B2 calls held and timed, the fp32 request or
+    the E2E sequence through the kernels and through the twins), then at
+    the seeded weights the train batches' gt (`zoo.proposal_gt`, made once),
+    the train forward's B1 calls held and timed, the dX calls checked, held
+    and timed and the fp32 step through the kernels and through the twins,
+    then MPPNET_DEPTH's bf16 steps through train_model (launches, ms, peak
+    memory, spans). Returns (summary, launches by path, served B1 entries,
+    train B1 entries, {"served": (totals, entries), "dx": (totals, entries)})."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.train.train_state import make_train_step
+
+    build = getattr(zoo, name)
+    requests, train_steps = MPPNET_DEPTH[name]
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    seconds, launches = {}, {}
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    frames, bank = model.num_frames, hasattr(model, "predict_with_bank")
+    batches = zoo.waymo_sequence_batches(cfg, requests, frames, seed=0, sequence=bank)
+    seconds["setup_serve"] = time.perf_counter() - t0
+    log(f"[mppnet] {name}: {type(model).__name__} {'x'.join(map(str, grid.grid_size))} grid, "
+        f"{model.vfe.max_voxels} voxels per frame, {frames} frames in "
+        f"{model.roi_head.num_groups} groups {model.roi_head.frame_groups()}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters "
+        f"({sum(p.numel() for p in model.roi_head.parameters())} in the head); points per "
+        f"request {[b.points_valid.sum(1).tolist() for b in batches]}")
+
+    t0 = time.perf_counter()
+    preds, launches[name], serve = mppnet_serve(name, model, batches, device)
+    run = profile_serve.mppnet_step(model, device, torch.bfloat16)
+    run.reset(batches[0].points.shape[0])
+    prof = profile_serve.mppnet_profile(model, lambda bt: profile_serve._run(run, bt),
+                                        batches[:2], fresh_frames=1 if bank else None)
+    prof["device_time"] = defer_device_profile(f"mppnet {name} serving",
+                                               lambda: profile_serve._run(run, batches[0]))
+    serve["profile"] = prof
+    run.reset(batches[0].points.shape[0])
+    served_b1 = time_served_overlaps(name, model, batches[0], device,
+                                     mppnet_b1_names(model, bank), step=run)
+    calls = record_gemm_calls(lambda: run(batches[0]))
+    if len(calls) != len(VOXEL8X_CONVS):
+        fail(f"one {name} request made {len(calls)} gather-GEMM calls, not {len(VOXEL8X_CONVS)}")
+    served_b2 = hold_gemm_calls(f"{name}, one served request", zip(VOXEL8X_CONVS, calls))
+    del calls
+    with replayed_proposals(name, model, per_run=2 if bank else 1) as replay:
+        serve["fp32_check"] = (check_bank_paths(name, model, batches[:2], swaps, device) if bank
+                               else check_paths(name, model, cfg, batches[0], preds[0][:4],
+                                                swaps, device))
+    serve["fp32_check"].update(proposals_max_set_diff=replay.max_err,
+                               proposals_max_rel_diff=replay.max_rel_err)
+    seconds["serve"] = time.perf_counter() - t0
+    ph = prof["phase_ms"]
+    log(f"[mppnet] ({card}) {name} instrumented request {ph['step']:.2f} ms; spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:18])
+        + f"; head {prof['head_ms']:.2f} ms, frames feeding no group {prof['dead_frames']}, "
+          f"their share of the head {prof['dead_frame_share_of_head']:.3f}")
+
+    t0 = time.perf_counter()
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = zoo.waymo_sequence_batches(cfg, train_steps, frames, seed=1)
+    _, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    reset_launches()
+    gt_batches = [zoo.proposal_gt(model, bt, torch.bfloat16) for bt in tbatches]
+    launches[f"{name}_gt"] = read_launches()
+    train_b1 = train_overlaps(name, model, gt_batches[0], device, coord_tol=True,
+                              names=mppnet_b1_names(model, train=True))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = []
+
+    def bf16_forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss.append(model(gt_batches[0].to(device))[0])
+
+    fwd = record_gemm_calls(bf16_forward)
+    dx = record_gemm_calls(lambda: loss[0].backward())
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(weights)
+    check_dx_mirrors(VOXEL8X_CONVS, fwd, dx)
+    train_dx = hold_gemm_calls(f"dX of one {name} train step", zip(VOXEL8X_CONVS[::-1], dx))
+    del loss, fwd, dx
+    with replayed_proposals(name, model) as replay:
+        check = check_two_stage_train_paths(name, model, tbatches[0], device,
+                                            reg_prefix=MPPNET_REG)
+    check.update(proposals_max_set_diff=replay.max_err,
+                 proposals_max_rel_diff=replay.max_rel_err)
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    model, launches[f"{name}_train"], steps, state = train(name, build, gt_batches, device)
+    peak = torch.cuda.max_memory_allocated()
+    b1_step = len(mppnet_b1_names(model, train=True))
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != b1_step
+           or s["gather_gemm_tensor_core"] != MPPNET_B2[1] or s["gather_gemm_cuda_core"]]
+    fg_steps = [s["it"] for s in steps if s["rcnn_reg_loss"] > 0]
+    if bad or steps[0]["it"] not in fg_steps:
+        fail(f"{name} train steps {bad} did not launch B1 {b1_step} times and the tensor-core "
+             f"B2 {MPPNET_B2[1]} times, or the first step had no RoI over REG_FG_THRESH "
+             f"(steps with one: {fg_steps})")
+    tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+
+    def run_train(bt):
+        return float(tstep(bt)["loss"])
+
+    profile = profile_serve.mppnet_profile(model, run_train, gt_batches[:2], state.optimizer)
+    profile["device_time"] = defer_device_profile(f"mppnet {name} training",
+                                                  lambda: run_train(gt_batches[0]))
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary = {
+        "config": f"tools/cfgs/{zoo.MPPNET_CFGS[name]}", "card": card, "frames": frames,
+        "serve": {**serve, "b1_served": [{k: e[k] for k in (
+            "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "survivor_share",
+            "overlapping_share")} for e in served_b1],
+                  "b2_served": {**served_b2[0], "per_conv": compact_gemm(served_b2[1])}},
+        "train": {"batch": b, "steps": steps,
+                  "ms_per_step": {"median": statistics.median(ms), "all": ms},
+                  "samples_per_s": b / (statistics.median(ms) / 1e3),
+                  "peak_memory_gib": peak / 2 ** 30, "launches": launches[f"{name}_train"],
+                  "gt_launches": launches[f"{name}_gt"], "steps_with_fg_rois": fg_steps,
+                  "b1_train": train_b1,
+                  "b2_dx": {**train_dx[0], "per_conv": compact_gemm(train_dx[1])},
+                  "fp32_check": check, "profile": profile},
+        "phase_seconds": seconds}
+    ph = profile["phase_ms"]
+    log(f"[mppnet] ({card}) {name} training: B={b}, median {statistics.median(ms):.2f} ms per "
+        f"step ({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; instrumented step {ph['step']:.2f} ms, spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:18])
+        + f"; dead frames' share of the head {profile['dead_frame_share_of_head']:.3f}; seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    # the train model stays for the deferred profile of its step
+    return summary, launches, served_b1, train_b1, {"served": served_b2, "dx": train_dx}
+
+
+def mppnet_phase(device, card):
+    """Phase 18: MPPNet on mppnet_4frames.yaml and mppnet_16frames.yaml and
+    MPPNetE2E on mppnet_e2e_memorybank_inference.yaml at full width with
+    seeded weights on `zoo.waymo_sequence_batches` (the port has no Waymo
+    dataset). Returns (summary, launches by path, served B1 entries, train
+    B1 entries, B2 totals and entries by model)."""
+    summary, launches, served_b1, train_b1, b2 = {"card": card}, {}, [], [], {}
+    for name in MPPNET_DEPTH:
+        out = mppnet_model(name, device, card)
+        summary[name] = out[0]
+        launches.update(out[1])
+        served_b1 += out[2]
+        train_b1 += out[3]
+        b2[name] = out[4]
+    return summary, launches, served_b1, train_b1, b2
+
+
 def main():
     import torch
 
@@ -4751,8 +5159,27 @@ def main():
     if ds_b2:
         fail(f"the DSVT paths launched B2 {ds_b2} times: {ds_launches}")
 
-    # the device profiles of phases 10-17, after every host-clock reading
+    # 18. MPPNet (4 and 16 frames) and MPPNetE2E on the Waymo MPPNet configs
+    mp_summary, mp_launches, mp_b1_served, mp_b1_train, mp_b2 = mppnet_phase(device, card)
+    served_iou += mp_b1_served
+    mp_b1 = sum(v["iou_bev_overlap"] for v in mp_launches.values())
+    mp_b2_n = sum(v["gather_gemm"] for v in mp_launches.values())
+
+    # the device profiles of phases 10-18, after every host-clock reading
     run_deferred_profiles()
+    for name in MPPNET_DEPTH:
+        for key in ("serve", "train"):
+            part = mp_summary[name][key]
+            prof = part["profile"]
+            busy = prof["device_time"].get("device_busy_ms_per_step")
+            host = (part["request_ms"]["median"] if key == "serve"
+                    else part["ms_per_step"]["median"])
+            log(f"[mppnet] ({card}) {name} {key}: host {host:.2f} ms per "
+                f"{'request' if key == 'serve' else 'step'}, device busy "
+                f"{busy if busy is not None else float('nan'):.2f} ms, idle share of the "
+                f"profiled window {prof['device_time'].get('device_idle_share', float('nan')):.3f}"
+                f", of the host time {1 - busy / host if busy is not None else float('nan'):.3f}; "
+                f"peak memory {part['peak_memory_gib']:.2f} GiB")
     for name in DSVT_DEPTH:
         for key in ("serve", "train"):
             part = ds_summary[name][key]
@@ -4802,7 +5229,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1),
+                     + tf_b1 + ds_b1 + mp_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -4827,7 +5254,8 @@ def main():
                              **{f"fully_sparse_{k}": v["iou_bev_overlap"]
                                 for k, v in fs_launches.items()},
                              **{k: v["iou_bev_overlap"] for k, v in tf_launches.items()},
-                             **{k: v["iou_bev_overlap"] for k, v in ds_launches.items()}},
+                             **{k: v["iou_bev_overlap"] for k, v in ds_launches.items()},
+                             **{k: v["iou_bev_overlap"] for k, v in mp_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -4837,9 +5265,12 @@ def main():
             "transfusion": sorted({st["iou_bev_overlap"]
                                    for st in tf_summary["train"]["steps"]}),
             **{name: sorted({st["iou_bev_overlap"] for st in ds_summary[name]["train"]["steps"]})
-               for name in DSVT_DEPTH}},
+               for name in DSVT_DEPTH},
+            **{name: sorted({st["iou_bev_overlap"] for st in mp_summary[name]["train"]["steps"]})
+               for name in MPPNET_DEPTH}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
-                                        for e in served_iou + prcnn_train_b1 + two_b1_train]),
+                                        for e in served_iou + prcnn_train_b1 + two_b1_train
+                                        + mp_b1_train]),
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
@@ -4859,6 +5290,7 @@ def main():
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ops", "bytes",
             "survivor_share", "overlapping_share", "share_of_bound", "bound_all_pairs_ms")},
         "two_stage_train": two_b1_train,
+        "mppnet_train": mp_b1_train,
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -4867,7 +5299,7 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n + ds_b2),
+                     + tf_b2_n + ds_b2 + mp_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -4889,7 +5321,8 @@ def main():
                              **{f"fully_sparse_{k}": v["gather_gemm"]
                                 for k, v in fs_launches.items()},
                              **{k: v["gather_gemm"] for k, v in tf_launches.items()},
-                             **{k: v["gather_gemm"] for k, v in ds_launches.items()}},
+                             **{k: v["gather_gemm"] for k, v in ds_launches.items()},
+                             **{k: v["gather_gemm"] for k, v in mp_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -4898,6 +5331,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in fs_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in tf_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in ds_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in mp_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -4971,6 +5405,16 @@ def main():
         "dsvt": {name: {"model": f"{ds_summary[name]['config'][6:]} at full width, bf16",
                         "launches_per_request": DSVT_B2[name][0],
                         "launches_per_train_step": DSVT_B2[name][1]} for name in DSVT_DEPTH},
+        "mppnet": {
+            name: {"model": f"{mp_summary[name]['config'][6:]} at full width (VoxelBackBone8x "
+                            "over 1504 x 1504 x 40, 150,000 voxels per frame, Cin 6), bf16",
+                   "launches_per_request": MPPNET_B2[0],
+                   "launches_per_train_step": MPPNET_B2[1],
+                   "served_request": {"unit": "one served bf16 request: its 12 launches, summed",
+                                      **mp_b2[name]["served"][0]},
+                   "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
+                                **mp_b2[name]["dx"][0]}}
+            for name in MPPNET_DEPTH},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -4986,6 +5430,7 @@ def main():
     log(json.dumps({"fully_sparse": fs_summary}, default=str))
     log(json.dumps({"transfusion": tf_summary}, default=str))
     log(json.dumps({"dsvt": ds_summary}, default=str))
+    log(json.dumps({"mppnet": mp_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -3,6 +3,7 @@
 The port's submodules carry the flax module names (vfe.pfn_0.Dense_0,
 backbone_2d.block0_down.Conv_0, dense_head.fused_heads.out, PointRCNN's
 backbone.sa_0.mlp_0.dense_0, point_head.cls_out, roi_head.sa0_bn1,
+MPPNet's roi_head.Dense_0 and roi_head.layer0.token_attn.q,
 roi_head.cls_fc.fc0, the two-stage detectors' encoder.down2_refine,
 pool_x_conv2.in_dense, shared_fc.fc0, iou_fc.out, cls_pred, sa_stage0.
 SharedMLP_0.dense_0, vsa_fusion, kp_seg, grid_sa0, PV-RCNN++'s vp_raw and
@@ -27,7 +28,8 @@ path maps to a state_dict key one to one and only the leaf is transformed:
     attention out DenseGeneral      → weight (C, H·D)
       kernel (H, D, C)
 
-    DSVT's raw pos_embedding        → as is
+    DSVT's raw pos_embedding and    → as is
+    MPPNet's raw token (G, 1, H)
 
 A 3-D kernel is a sparse conv's unless its flax module is named query,
 key, value or out (flax MultiHeadDotProductAttention's projections) or q,
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-               "var": "running_var", "pos_embedding": "pos_embedding"}
+               "var": "running_var", "pos_embedding": "pos_embedding", "token": "token"}
 _ATTENTION_PROJECTIONS = ("query", "key", "value", "out", "q", "k", "v")
 
 

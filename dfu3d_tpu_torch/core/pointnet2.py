@@ -68,6 +68,15 @@ def ball_query(radius: float, nsample: int, xyz, xyz_valid, new_xyz, new_valid):
     thresh = torch.full((), radius * radius, dtype=torch.float32, device=d2.device)
     within = (d2 <= thresh) & xyz_valid[:, None, :] & new_valid[:, :, None]
     del d2
+    return first_hits(within, nsample)
+
+
+def first_hits(within, nsample: int):
+    """The first `nsample` hits of each row of `within` (..., N) bool, in
+    index order → idx (..., nsample) int64, has_hit (...): empty slots
+    repeat the first hit, a row with no hit gets index 0 (jax.lax.top_k of
+    the 0/1 mask takes the hits lowest index first, then the lowest misses,
+    which the callers replace by the first hit)."""
     rank = torch.cumsum(within, dim=-1, dtype=torch.int32)
     del within
     counts = rank[..., -1]

@@ -22,7 +22,8 @@ VOXEL_SIZE = [0.2, 0.2, 8.0]
 GAINS = {"vfe.pfn_0.Dense_0.weight": 1 / math.sqrt(170.0),
          "dense_head.fused_heads.out.weight": 0.4,
          "backbone_3d.conv_input.SubMConv3d_0.kernel": 4.0,
-         "dense_head.conv_box.weight": 0.1}
+         "dense_head.conv_box.weight": 0.1,
+         "roi_head.jointembed.fc3.weight": 0.1}
 # and by pattern: VoxelNeXt's output layers, in every class group, the heat
 # map's and the box regressions' (not the IoU branch's); TransFusion's box
 # regressions
@@ -71,7 +72,12 @@ def seeded_weights_(model, seed: int):
     SCORE_THRESH. TransFusion's box regressions are scaled by 0.1: at full
     scale their dims run up to the clip, exp(5) ≈ 148 m, where the
     relative rounding of two summation orders, times the exp, nears the
-    1e-4 m to which the fp32 checks hold the boxes."""
+    1e-4 m to which the fp32 checks hold the boxes. MPPNet's joint
+    regression's out layer is scaled by 0.1 for the same reason (its codes
+    decode to sizes e^code times the RoI's). MPPNet's group tokens,
+    zeros at init (as the JAX package and the reference make them), are
+    drawn N(0, 1): a zero token gives the first encoder layer's query
+    projection a gradient of exactly 0."""
     gen = torch.Generator().manual_seed(seed)
     state = model.state_dict()
     for key, v in state.items():
@@ -85,6 +91,8 @@ def seeded_weights_(model, seed: int):
             state[key] = torch.randn(v.shape, generator=gen) * std
         elif leaf == "bias":
             state[key] = torch.zeros_like(v)
+        elif leaf == "token":
+            state[key] = torch.randn(v.shape, generator=gen)
     model.load_state_dict(state)
 
 

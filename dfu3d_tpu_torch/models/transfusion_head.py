@@ -267,10 +267,10 @@ class LayerNorm(nn.Module):
 
 
 def _fp32_linear(linear, x):
-    """A Linear applied in fp32 to the fp32 input, also under autocast (a
-    flax Dense with dtype float32)."""
+    """A Linear applied in its weights' dtype (fp32) to the input cast to
+    it, also under autocast (a flax Dense with dtype float32)."""
     with torch.autocast(x.device.type, enabled=False):
-        return linear(x.float())
+        return linear(x.to(linear.weight.dtype))
 
 
 class TransFusionHead(nn.Module):

@@ -5,7 +5,8 @@
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_tta|voxelnext_iou_large|
                                                      pillarnet|pillarnet_waymo|transfusion|
-                                                     dsvt_pillar|dsvt_voxel]
+                                                     dsvt_pillar|dsvt_voxel|mppnet|
+                                                     mppnet_16|mppnet_e2e]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -22,7 +23,11 @@ KITTI configs, built as the CLIs build them), or TransFusion-L
 (`zoo.transfusion`, transfusion_lidar, 1440 x 1440 x 40 grid, max_voxels
 160,000), or DSVT-Pillar / DSVT-Voxel (`zoo.dsvt_pillar`, `zoo.dsvt_voxel`,
 the Waymo DSVT configs, 468 x 468 (x 32) grid, 60,000 voxels per frame, on
-`waymo_batches`). CenterPoint: B=4, 60,000 uniform
+`waymo_batches`), or MPPNet (`zoo.mppnet_4frames`, `mppnet_16frames`) or
+MPPNetE2E (`zoo.mppnet_e2e`, through its memory bank over one sequence of
+requests 0.1 s apart) on the Waymo MPPNet configs (1504 x 1504 x 40 grid,
+150,000 voxels per frame, B=2 on `waymo_sequence_batches`: 150,000 points
+per frame, 4 or 16 frames). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -71,7 +76,12 @@ as one JSON object (printed, and written to --out):
   set attention (with the set buffers' scatter and gather), FFN + norms,
   the voxel model's pools, the BEV scatter, 2D backbone, head, decode, the
   NMS with B1 and its keep-scan, the recall IoU with B1; and set_shares,
-  the share of each frame's voxels that reach a set in each layer);
+  the share of each frame's voxels that reach a set in each layer; mppnet:
+  the spans of `mppnet_phase_times`: voxelize + VFE, tables, the trunk
+  with B2, 2D backbone, anchor head, proposals with B1 and the keep-scan,
+  the trajectory with B1, crops, geometry MLP, proxy pooling, motion,
+  group fusion, encoder layers, heads, refine, the bank match with B1, the
+  recall IoU with B1; and the dead frames' share of the head);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -104,10 +114,11 @@ from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
 from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, dsvt_pillar, dsvt_voxel,
-                  kitti_batches, nuscenes_batches, parta2, pillarnet, pillarnet_waymo, pointrcnn,
-                  pointrcnn_batches, pp_multihead, pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead,
-                  transfusion, voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large,
-                  voxelnext_tta, waymo_batches, write_pointrcnn_root)
+                  kitti_batches, mppnet_16frames, mppnet_4frames, mppnet_e2e, nuscenes_batches,
+                  parta2, pillarnet, pillarnet_waymo, pointrcnn, pointrcnn_batches, pp_multihead,
+                  pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead, transfusion,
+                  voxel_centerpoint, voxel_rcnn, voxelnext, voxelnext_iou_large, voxelnext_tta,
+                  waymo_batches, waymo_sequence_batches, write_pointrcnn_root)
 
 RECALL_THRESH = (0.3, 0.5, 0.7)
 
@@ -556,7 +567,112 @@ def dsvt_profile(model, run, batches, optimizer=None):
             **dsvt_set_shares(model, batches[0])}
 
 
+# the head's spans whose work is per frame computed from points
+MPPNET_FRAME_SPANS = ("crops", "geometry_mlp", "proxy_pooling", "motion")
+MPPNET_HEAD_SPANS = MPPNET_FRAME_SPANS + ("group_fusion", "encoder", "heads")
+
+
+def mppnet_phase_times(model, run, batch, optimizer=None):
+    """One step of MPPNet or MPPNetE2E, `run(batch)` (an eval step, a bank
+    step, or with its `optimizer` a train step), with every span of `Spans`
+    timed: voxelize + VFE, the neighbour tables, the trunk with its B2
+    launches, the 2D backbone, the anchor head, the proposals with their B1
+    launch and keep-scan, the trajectory with its B1 launches, the crops,
+    the geometry MLP, the proxy pooling (its ball queries apart), the
+    motion stream, the group fusion, the encoder layers, the heads and the
+    trajectory branch, the refine, the bank match with its B1 launch, the
+    recall IoU with its B1 launch; a train step adds the anchor targets, the
+    anchor loss, the RoI targets with their B1 launch, the head losses, the
+    backward (B2's dX) and the clip + optimizer update."""
+    head = model.roi_head
+    wraps = [(model.vfe, "forward", "voxelize_vfe"), (model.backbone_3d, "plan", "tables"),
+             (model.backbone_3d, "forward", "trunk"), (gather_gemm_kernel, "gather_gemm", "b2"),
+             (model.backbone_2d, "forward", "backbone_2d"),
+             (model.dense_head, "forward", "anchor_head"), (model, "proposals", "proposals"),
+             (model, "trajectory", "trajectory"), (head, "crops", "crops"),
+             (head, "geometry_features", "geometry_mlp"),
+             (head, "pool_to_proxies", "proxy_pooling"), (pointnet2, "ball_query", "ball_query"),
+             (head, "motion_features", "motion"), (head, "group_frames", "group_fusion"),
+             (head, "encode", "encoder"), (head, "heads", "heads"), (model, "refine", "refine"),
+             (iou_kernel, "overlap_bev", "b1"), (nms_mod, "_suppression_scan", "keep_scan"),
+             (train_state, "pairwise_iou3d", "recall_iou")]
+    if hasattr(model, "match_bank"):
+        wraps.append((model, "match_bank", "bank_match"))
+    if optimizer is not None:
+        wraps += [(model, "assign_targets", "anchor_targets"), (model, "rpn_loss", "anchor_loss"),
+                  (roi_head, "assign_roi_targets", "roi_targets"),
+                  (model, "head_losses", "head_losses"),
+                  (torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
+    return timed_spans(wraps, run, batch)
+
+
+def mppnet_dead_frames(head):
+    """The frames no group reads (JAX's (gi + j · stride) % T arrangement)."""
+    read = {f for frames in head.frame_groups() for f in frames}
+    return [f for f in range(head.num_frames) if f not in read]
+
+
+def mppnet_profile(model, run, batches, optimizer=None, fresh_frames=None):
+    """Where an MPPNet step goes, `run(batch)` running an eval step, a bank
+    step or (given its `optimizer`) a train step through to its result on
+    the host: phase_ms, the median over the batches of each span's
+    exclusive ms (`mppnet_phase_times`); keep_scan (`keep_scans`, serving
+    only); dead_frames, the frames that feed no group, and
+    dead_frame_share_of_head, the share of the head's spans spent on them:
+    the per-frame spans (crops, geometry MLP, proxy pooling, motion) times
+    the dead frames' share of the frames computed (`fresh_frames`, default
+    all; a bank step computes frame 0's geometry only, its motion for all),
+    over the head's spans."""
+    phases = [mppnet_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    phase_ms = {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys}
+    head = model.roi_head
+    dead = mppnet_dead_frames(head)
+    t = head.num_frames
+    fresh = fresh_frames or t
+
+    def span(name):   # with its nested spans
+        return sum(v for k, v in phase_ms.items() if k == name or k.startswith(name + "."))
+
+    def dead_share(frames):   # of the first `frames` frames, those no group reads
+        return sum(f < frames for f in dead) / frames
+
+    per_frame = sum(span(k) * dead_share(t if k == "motion" else fresh)
+                    for k in MPPNET_FRAME_SPANS)
+    head_ms = sum(span(k) for k in MPPNET_HEAD_SPANS)
+    return {"phase_ms": phase_ms,
+            "keep_scan": keep_scans(run, batches) if optimizer is None else [],
+            "dead_frames": dead, "head_ms": head_ms,
+            "dead_frame_share_of_head": per_frame / head_ms if head_ms else 0.0}
+
+
+def mppnet_step(model, device="cuda", dtype=torch.bfloat16):
+    """run(batch) → (boxes, scores, labels, valid, recall): the eval step of
+    an MPPNet, or for MPPNetE2E one request of a sequence through its memory
+    bank, which the step carries from call to call (`run.reset(batch_size)`
+    starts a sequence with an empty bank; `run.bank()` is the bank)."""
+    from .models.mppnet import make_bank_eval_step
+
+    if not hasattr(model, "predict_with_bank"):
+        step = make_eval_step(model, RECALL_THRESH, device=device, dtype=dtype)
+        step.reset = lambda batch_size: None
+        return step
+    bank_step = make_bank_eval_step(model, RECALL_THRESH, device=device, dtype=dtype)
+    state = {}
+
+    def run(batch):
+        if "bank" not in state:
+            run.reset(batch.points.shape[0])
+        out, state["bank"] = bank_step(batch, state["bank"])
+        return out
+
+    run.reset = lambda batch_size: state.update(bank=model.empty_bank(batch_size))
+    run.bank = lambda: state["bank"]
+    return run
+
+
 DSVT = {"dsvt_pillar": dsvt_pillar, "dsvt_voxel": dsvt_voxel}
+MPPNET = {"mppnet": mppnet_4frames, "mppnet_16": mppnet_16frames, "mppnet_e2e": mppnet_e2e}
 
 
 FULLY_SPARSE = {"voxelnext": voxelnext, "voxelnext_tta": voxelnext_tta,
@@ -698,7 +814,8 @@ def _profile(step, batches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
-                                         *TWO_STAGE, *FULLY_SPARSE, "transfusion", *DSVT),
+                                         *TWO_STAGE, *FULLY_SPARSE, "transfusion", *DSVT,
+                                         *MPPNET),
                     default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -710,11 +827,21 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
              "second": second_multihead, "pp": pp_multihead, **TWO_STAGE,
-             **FULLY_SPARSE, "transfusion": transfusion, **DSVT}[args.model]
+             **FULLY_SPARSE, "transfusion": transfusion, **DSVT, **MPPNET}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
-    if args.model == "pointrcnn":
+    if args.model in MPPNET:
+        e2e = args.model == "mppnet_e2e"
+        step = mppnet_step(model)
+        batches = waymo_sequence_batches(cfg, args.batches, model.num_frames, sequence=e2e)
+        workload = (f"{cfg.MODEL.NAME} {args.model} {'x'.join(map(str, grid.grid_size))} grid, "
+                    f"{cfg_max_voxels(model)} voxels per frame, {model.num_frames} frames in "
+                    f"{model.roi_head.num_groups} groups, B=2 multi-frame Waymo-range scenes made "
+                    "in memory (zoo.waymo_sequence_batches: 150000 points per frame, 20-40 "
+                    "moving boxes of Vehicle, Pedestrian, Cyclist"
+                    + ("; one sequence 0.1 s apart, through the memory bank)" if e2e else ")"))
+    elif args.model == "pointrcnn":
         with tempfile.TemporaryDirectory() as work:
             info = write_pointrcnn_root(cfg, Path(work), POINTRCNN_BATCH_SIZE * args.batches)
             batches = pointrcnn_batches(cfg, Path(work), info, args.batches)
@@ -782,6 +909,14 @@ def main(argv=None):
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
     elif args.model in DSVT:
         extra = dsvt_profile(model, lambda b: _run(step, b), batches)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+        torch.cuda.reset_peak_memory_stats()
+        _run(step, batches[0])
+        extra["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    elif args.model in MPPNET:
+        step.reset(batches[0].points.shape[0])
+        extra = mppnet_profile(model, lambda b: _run(step, b), batches,
+                               fresh_frames=1 if args.model == "mppnet_e2e" else None)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
         torch.cuda.reset_peak_memory_stats()
         _run(step, batches[0])

@@ -5,7 +5,8 @@
                                                      parta2|pv_rcnn_plusplus|voxelnext|
                                                      voxelnext_iou_large|pillarnet|
                                                      pillarnet_waymo|transfusion|
-                                                     dsvt_pillar|dsvt_voxel]
+                                                     dsvt_pillar|dsvt_voxel|mppnet|
+                                                     mppnet_16|mppnet_e2e]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -60,6 +61,10 @@ as one JSON object (printed, and written to --out):
   DSVT configs, B=4 frames of `zoo.waymo_batches` made in memory, with the
   peak memory): the spans of `profile_serve.dsvt_phase_times` with the
   optimizer and the share of each frame's voxels that reach a set per layer;
+  mppnet, mppnet_16, mppnet_e2e (the Waymo MPPNet configs, B=2 frames of
+  `zoo.waymo_sequence_batches` made in memory, 16 gt per frame made once of
+  the seeded model's proposals, with the peak memory): the spans of
+  `profile_serve.mppnet_phase_times` with the optimizer;
 * profile: torch.profiler over the steps: the device's busy ms per step, its
   idle share of the profiled window and of step_ms (the profiler stretches
   its window), device time by kernel name, and the sparse
@@ -84,15 +89,15 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import (DSVT, FULLY_SPARSE, TWO_STAGE, anchor_profile, cfg_max_voxels,
-                            device_profile, dsvt_profile, fully_sparse_profile,
-                            fully_sparse_workload,
+from .profile_serve import (DSVT, FULLY_SPARSE, MPPNET, TWO_STAGE, anchor_profile,
+                            cfg_max_voxels, device_profile, dsvt_profile, fully_sparse_profile,
+                            fully_sparse_workload, mppnet_profile,
                             kitti_workload, nuscenes_workload, pointrcnn_profile,
                             transfusion_profile, two_stage_profile)
 from .train.train_state import create_train_state, make_train_step
 from .zoo import (POINTRCNN_BATCH_SIZE, pointrcnn, pointrcnn_batches, proposal_gt,
                   second_multihead, transfusion, voxel_centerpoint, waymo_batches,
-                  write_pointrcnn_root)
+                  waymo_sequence_batches, write_pointrcnn_root)
 
 TOTAL_STEPS = 1000
 B2_KERNELS = ("gather_gemm_tc_kernel", "gather_gemm_kernel")
@@ -427,11 +432,66 @@ def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     }
 
 
+def mppnet_train(name: str, steps: int, device_name: str) -> dict:
+    """profile_train --model mppnet|mppnet_16|mppnet_e2e: step times at the
+    config's BATCH_SIZE_PER_GPU (2) on `zoo.waymo_sequence_batches`
+    (150,000 points per frame, 4 or 16 frames), each batch with
+    `zoo.proposal_gt`'s 16 gt per frame made once from the seeded model
+    before training, outside the timed steps, so that the first steps have
+    RoIs over REG_FG_THRESH; the spans of `profile_serve.mppnet_profile`
+    over the steps with the optimizer (with the dead frames' share of the
+    head), the peak memory and the device profile with the sparse convs'
+    split."""
+    cfg, grid, model = MPPNET[name](device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batches = [proposal_gt(model, bt, torch.bfloat16)
+               for bt in waymo_sequence_batches(cfg, steps, model.num_frames, seed=1)]
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
+        run(batch)
+    step_ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(step_ms)
+    torch.cuda.reset_peak_memory_stats()
+    spans = mppnet_profile(model, run, batches, state.optimizer)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile(step, batches, VOXEL8X_FORWARD_B2)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    spans.pop("keep_scan")
+    return {
+        "device": device_name,
+        "workload": f"{cfg.MODEL.NAME} ({name}) {'x'.join(map(str, grid.grid_size))} grid, "
+                    f"max_voxels {cfg_max_voxels(model)}, {model.num_frames} frames in "
+                    f"{model.roi_head.num_groups} groups, B={b} multi-frame Waymo-range scenes "
+                    "made in memory (150000 points per frame, 20-40 moving boxes), 16 gt per "
+                    "frame made of the seeded model's proposals, bf16 autocast, seeded random "
+                    "weights, adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": b / (median / 1e3),
+        "peak_memory_gib": peak / 2 ** 30,
+        "losses": losses,
+        **spans,
+        "profile": profile,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE,
                                          *(n for n in FULLY_SPARSE if n != "voxelnext_tta"),
-                                         "transfusion", *DSVT),
+                                         "transfusion", *DSVT, *MPPNET),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -443,6 +503,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     if args.model in TWO_STAGE:
         _write(two_stage_train(args.model, args.steps, smi.stdout.strip()), args.out)
+        return
+    if args.model in MPPNET:
+        _write(mppnet_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
     if args.model in (*FULLY_SPARSE, "transfusion", *DSVT):
         _write(fully_sparse_train(args.model, args.steps, smi.stdout.strip()), args.out)

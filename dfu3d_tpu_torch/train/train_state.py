@@ -115,14 +115,20 @@ def make_eval_step(model, recall_thresh=None, device="cuda", dtype=torch.float32
             out = model.predict(batch)
         if recall_thresh is None:
             return out
-        boxes, scores, labels, valid = out
-        gv = batch.gt_valid
-        iou = pairwise_iou3d(boxes[..., :7], batch.gt_boxes[..., :7])  # (B, S, M)
-        iou = torch.where(valid[:, :, None] & gv[:, None, :], iou, 0.0)
-        max_iou = torch.clamp(iou.amax(dim=1), min=0.0)                  # (B, M)
-        recall = {"gt_num": gv.sum()}
-        for t in recall_thresh:
-            recall[f"recall_rcnn_{t}"] = ((max_iou > t) & gv).sum()
-        return boxes, scores, labels, valid, recall
+        return (*out, recall_record(out[0], out[3], batch, recall_thresh))
 
     return eval_step
+
+
+def recall_record(boxes, valid, batch, recall_thresh):
+    """The reference's recall counters of predicted boxes (B, S, 7+) with
+    their valid mask against the batch's gt: {"gt_num", "recall_rcnn_{t}"}
+    as 0-dim int64 tensors on the device (one B1 launch)."""
+    gv = batch.gt_valid
+    iou = pairwise_iou3d(boxes[..., :7], batch.gt_boxes[..., :7])  # (B, S, M)
+    iou = torch.where(valid[:, :, None] & gv[:, None, :], iou, 0.0)
+    max_iou = torch.clamp(iou.amax(dim=1), min=0.0)                  # (B, M)
+    recall = {"gt_num": gv.sum()}
+    for t in recall_thresh:
+        recall[f"recall_rcnn_{t}"] = ((max_iou > t) & gv).sum()
+    return recall

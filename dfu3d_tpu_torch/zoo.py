@@ -5,7 +5,8 @@ R-CNN, PV-RCNN, PartA2, PartA2-free, PV-RCNN++), the fully sparse and
 pillar-sparse detectors (VoxelNeXt on its nuScenes, double-flip and large
 Waymo configs; PillarNet on its KITTI and Waymo configs; DSVT-Pillar and
 DSVT-Voxel on their Waymo configs), with `waymo_batches` for the Waymo
-configs, and TransFusion-L on nuScenes.
+configs, TransFusion-L on nuScenes, and MPPNet (4 and 16 frames) and
+MPPNetE2E on their Waymo configs with `waymo_sequence_batches`.
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -410,47 +411,164 @@ def waymo_batches(cfg, num_batches: int, num_points: int = 150_000, num_boxes=(2
     num_boxes[1], 8) with the class id last, the unused slots invalid. From
     a numpy generator seeded with `seed`."""
     rng = np.random.RandomState(seed)
-    lo = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[:3], np.float32)
-    hi = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[3:], np.float32)
-    names = list(cfg.CLASS_NAMES)
+    lo, hi = _waymo_range(cfg)
     out = []
     for _ in range(num_batches):
         pts = np.zeros((batch_size, num_points, 5), np.float32)
         gt = np.zeros((batch_size, num_boxes[1], 8), np.float32)
         gt_valid = np.zeros((batch_size, num_boxes[1]), bool)
         for i in range(batch_size):
-            m = rng.randint(num_boxes[0], num_boxes[1] + 1)
-            cls = rng.randint(0, len(names), m)
-            dims = np.array([WAYMO_CLASS_DIMS[names[c]] for c in cls], np.float32)
-            dims *= rng.uniform(0.9, 1.1, dims.shape).astype(np.float32)
-            ctr = rng.uniform(lo[:2] * 0.9, hi[:2] * 0.9, (m, 2)).astype(np.float32)
-            yaw = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+            cls, dims, ctr, yaw = _waymo_boxes(rng, cfg, num_boxes, lo, hi)
+            m = len(cls)
             gt[i, :m] = np.concatenate([ctr, dims[:, 2:3] / 2, dims, yaw[:, None],
                                         cls[:, None] + 1.0], axis=1)
             gt_valid[i, :m] = True
-            n_box, n_ground = int(0.15 * num_points), int(0.7 * num_points)
-            n_clutter = num_points - n_box - n_ground
-            # box surfaces: a random face point per sample, rotated by the heading
-            owner = rng.randint(0, m, n_box)
-            u = rng.uniform(-0.5, 0.5, (n_box, 3)).astype(np.float32)
-            face = rng.randint(0, 3, n_box)
-            u[np.arange(n_box), face] = np.sign(u[np.arange(n_box), face]) * 0.5
-            local = u * dims[owner]
-            c, s = np.cos(yaw[owner]), np.sin(yaw[owner])
-            box_xyz = np.stack([local[:, 0] * c - local[:, 1] * s + ctr[owner, 0],
-                                local[:, 0] * s + local[:, 1] * c + ctr[owner, 1],
-                                local[:, 2] + dims[owner, 2] / 2], axis=1)
-            reach = float(np.abs(np.concatenate([lo[:2], hi[:2]])).max())
-            r = reach * rng.uniform(0.02, 1.0, n_ground)
-            phi = rng.uniform(-np.pi, np.pi, n_ground)
-            ground = np.stack([r * np.cos(phi), r * np.sin(phi),
-                               rng.normal(0.0, 0.03, n_ground)], axis=1)
-            ground = ground[(np.abs(ground[:, :2]) < hi[:2]).all(axis=1)]
-            clutter = rng.uniform(lo, hi, (n_clutter + n_ground - len(ground), 3))
-            xyz = np.concatenate([box_xyz, ground, clutter]).astype(np.float32)
-            pts[i, :, :3] = xyz[rng.permutation(num_points)]
-            pts[i, :, 3] = rng.uniform(0, 1, num_points)
-            pts[i, :, 4] = rng.uniform(0, 1, num_points)
+            pts[i] = _waymo_frame(rng, ctr, dims, yaw, num_points, lo, hi)
         out.append(PointBatch.from_numpy(pts, np.ones((batch_size, num_points), bool), gt,
                                          gt_valid))
     return out
+
+
+def _waymo_range(cfg):
+    return (np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[:3], np.float32),
+            np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[3:], np.float32))
+
+
+def _waymo_boxes(rng, cfg, num_boxes, lo, hi):
+    """20-40 boxes of the config's classes: (class index, dims, BEV centre,
+    heading)."""
+    names = list(cfg.CLASS_NAMES)
+    m = rng.randint(num_boxes[0], num_boxes[1] + 1)
+    cls = rng.randint(0, len(names), m)
+    dims = np.array([WAYMO_CLASS_DIMS[names[c]] for c in cls], np.float32)
+    dims *= rng.uniform(0.9, 1.1, dims.shape).astype(np.float32)
+    ctr = rng.uniform(lo[:2] * 0.9, hi[:2] * 0.9, (m, 2)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+    return cls, dims, ctr, yaw
+
+
+def _waymo_frame(rng, ctr, dims, yaw, num_points, lo, hi):
+    """One frame's (num_points, 5) points around the boxes (see
+    `waymo_batches`)."""
+    m = len(ctr)
+    n_box, n_ground = int(0.15 * num_points), int(0.7 * num_points)
+    n_clutter = num_points - n_box - n_ground
+    # box surfaces: a random face point per sample, rotated by the heading
+    owner = rng.randint(0, m, n_box)
+    u = rng.uniform(-0.5, 0.5, (n_box, 3)).astype(np.float32)
+    face = rng.randint(0, 3, n_box)
+    u[np.arange(n_box), face] = np.sign(u[np.arange(n_box), face]) * 0.5
+    local = u * dims[owner]
+    c, s = np.cos(yaw[owner]), np.sin(yaw[owner])
+    box_xyz = np.stack([local[:, 0] * c - local[:, 1] * s + ctr[owner, 0],
+                        local[:, 0] * s + local[:, 1] * c + ctr[owner, 1],
+                        local[:, 2] + dims[owner, 2] / 2], axis=1)
+    reach = float(np.abs(np.concatenate([lo[:2], hi[:2]])).max())
+    r = reach * rng.uniform(0.02, 1.0, n_ground)
+    phi = rng.uniform(-np.pi, np.pi, n_ground)
+    ground = np.stack([r * np.cos(phi), r * np.sin(phi),
+                       rng.normal(0.0, 0.03, n_ground)], axis=1)
+    ground = ground[(np.abs(ground[:, :2]) < hi[:2]).all(axis=1)]
+    clutter = rng.uniform(lo, hi, (n_clutter + n_ground - len(ground), 3))
+    xyz = np.concatenate([box_xyz, ground, clutter]).astype(np.float32)
+    pts = np.zeros((num_points, 5), np.float32)
+    pts[:, :3] = xyz[rng.permutation(num_points)]
+    pts[:, 3] = rng.uniform(0, 1, num_points)
+    pts[:, 4] = rng.uniform(0, 1, num_points)
+    return pts
+
+
+MPPNET_BATCH_SIZE = 2   # the MPPNet configs' BATCH_SIZE_PER_GPU
+FRAME_DT = 0.1          # s between Waymo frames, the head's frame_dt
+# the largest speed (m/s) of each class's boxes
+WAYMO_CLASS_SPEED = {"Vehicle": 15.0, "Pedestrian": 3.0, "Cyclist": 3.0}
+
+
+def waymo_sequence_batches(cfg, num_batches: int, frames: int, num_points: int = 150_000,
+                           num_boxes=(20, 40), seed: int = 0,
+                           batch_size: int = MPPNET_BATCH_SIZE, sequence: bool = False):
+    """`num_batches` multi-frame PointBatches of `batch_size` samples for the
+    MPPNet configs, made in memory: each sample is a scene of 20-40 boxes of
+    the config's classes (as `waymo_batches`), each box moving at a seeded
+    speed (Vehicles 0-15 m/s, Pedestrians and Cyclists 0-3 m/s) along a
+    random direction; its `frames` frames have the lags 0, 0.1, ..., 0.1 ·
+    (frames - 1) s, frame f `num_points` points (`waymo_batches`' recipe)
+    with the boxes where they were f · 0.1 s earlier, and the lag as a sixth
+    channel; the frames are concatenated, frame 0 first. The gt is frame
+    0's boxes. With `sequence` every batch holds the same scenes 0.1 s later
+    than the batch before (the requests of one E2E sequence), else each
+    batch draws new scenes. From a numpy generator seeded with `seed`."""
+    rng = np.random.RandomState(seed)
+    lo, hi = _waymo_range(cfg)
+    names = list(cfg.CLASS_NAMES)
+    n = frames * num_points
+    scenes, out = None, []
+    for k in range(num_batches):
+        if scenes is None or not sequence:
+            scenes = []
+            for _ in range(batch_size):
+                cls, dims, ctr, yaw = _waymo_boxes(rng, cfg, num_boxes, lo, hi)
+                speed = rng.uniform(0, 1, len(cls)) * np.array(
+                    [WAYMO_CLASS_SPEED[names[c]] for c in cls])
+                heading = rng.uniform(-np.pi, np.pi, len(cls))
+                vel = np.stack([speed * np.cos(heading), speed * np.sin(heading)], 1)
+                scenes.append((cls, dims, ctr, yaw, vel.astype(np.float32)))
+        now = FRAME_DT * k if sequence else 0.0
+        pts = np.zeros((batch_size, n, 6), np.float32)
+        gt = np.zeros((batch_size, num_boxes[1], 8), np.float32)
+        gt_valid = np.zeros((batch_size, num_boxes[1]), bool)
+        for i, (cls, dims, ctr, yaw, vel) in enumerate(scenes):
+            for f in range(frames):
+                at = (ctr + vel * np.float32(now - FRAME_DT * f)).astype(np.float32)
+                sl = slice(f * num_points, (f + 1) * num_points)
+                pts[i, sl, :5] = _waymo_frame(rng, at, dims, yaw, num_points, lo, hi)
+                pts[i, sl, 5] = np.float32(FRAME_DT * f)
+                if f == 0:
+                    m = len(cls)
+                    gt[i, :m] = np.concatenate([at, dims[:, 2:3] / 2, dims, yaw[:, None],
+                                                cls[:, None] + 1.0], axis=1)
+                    gt_valid[i, :m] = True
+        out.append(PointBatch.from_numpy(pts, np.ones((batch_size, n), bool), gt, gt_valid))
+    return out
+
+
+MPPNET_CFGS = {"mppnet_4frames": "waymo_models/mppnet_4frames.yaml",
+               "mppnet_16frames": "waymo_models/mppnet_16frames.yaml",
+               "mppnet_e2e": "waymo_models/mppnet_e2e_memorybank_inference.yaml"}
+
+
+def _mppnet(name, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = cfg_from_yaml_file(CFGS / MPPNET_CFGS[name], CfgDict())
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def mppnet_4frames(train: bool = False, device="cuda"):
+    """MPPNet on tools/cfgs/waymo_models/mppnet_4frames.yaml at its published
+    widths, built as the CLIs build it (tools.common.build_model): the
+    Waymo SECOND first stage (MeanVFE over the 6 point features x, y, z,
+    intensity, elongation, time lag; VoxelBackBone8x on the 1504 x 1504 x 40
+    grid with 150,000 voxels; BaseBEVBackbone [5, 5]; AnchorHeadSingle over
+    Vehicle, Pedestrian, Cyclist), the proposal NMS 1024 → 100, and the
+    trajectory head over 4 frames in 4 groups (HIDDEN 256, 3 layers, 4
+    heads, FFN 1024, 64 proxies, 128 points per frame and RoI, balls of
+    0.8 and 1.6 m with 32 samples). Returns (cfg, grid, model), in eval mode
+    or in train mode with `train`; the weights are PyTorch's defaults. On
+    `waymo_sequence_batches` (no Waymo dataset in the port)."""
+    return _mppnet("mppnet_4frames", device, train)
+
+
+def mppnet_16frames(train: bool = False, device="cuda"):
+    """MPPNet on tools/cfgs/waymo_models/mppnet_16frames.yaml: as
+    `mppnet_4frames` over 16 frames in 4 groups (stride 1)."""
+    return _mppnet("mppnet_16frames", device, train)
+
+
+def mppnet_e2e(train: bool = False, device="cuda"):
+    """MPPNetE2E on tools/cfgs/waymo_models/mppnet_e2e_memorybank_inference.yaml:
+    as `mppnet_4frames`, the first stage on the current frame's points and
+    the memory bank of the 3 past frames' geometry features
+    (`predict_with_bank`, `models.mppnet.make_bank_eval_step`)."""
+    return _mppnet("mppnet_e2e", device, train)

@@ -28,9 +28,6 @@ NOT_PORTED = {
     "cfgs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml": "VoxelBackBone8xFocal",
     "cfgs/kitti_models/voxel_rcnn_focal.yaml": "VoxelBackBone8xFocal",
     "cfgs/nuscenes_models/bevfusion.yaml": "detector BevFusion is not ported",
-    "cfgs/waymo_models/mppnet_16frames.yaml": "detector MPPNet is not ported",
-    "cfgs/waymo_models/mppnet_4frames.yaml": "detector MPPNet is not ported",
-    "cfgs/waymo_models/mppnet_e2e_memorybank_inference.yaml": "detector MPPNetE2E is not ported",
     "cfgs/waymo_models/pv_rcnn_plusplus_resnet.yaml":
         "BACKBONE_3D VoxelResBackBone8x with PVRCNNPlusPlus",
     "cfgs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml":
