@@ -315,6 +315,7 @@ The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"mppnet": {...}} and {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -333,7 +334,7 @@ KERNEL_TOL = 1e-3      # m², overlap kernel vs plain
 GEMM_TOL = 1e-4        # gather-GEMM kernel vs plain in fp32
 PATH_TOL = 1e-4        # boxes and scores, kernel path vs plain path in fp32
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock ahead of each timed call
-TRAIN_STEPS = 5           # train steps per model in phase 6
+TRAIN_STEPS = 2           # train steps per model in phase 6
 TRAIN_TOTAL_STEPS = 1000  # the one-cycle schedule's length, as bench.py's train leg
 TRAIN_LOSS_TOL = 1e-5     # relative, fp32 train step through kernels vs plain twins
 TRAIN_GRAD_TOL = 1e-4     # of each gradient leaf's largest |entry|
@@ -2161,7 +2162,7 @@ def evolve_phase(device):
 
 
 POINTRCNN_CLI_CFG = "cfgs/kitti_models/pointrcnn_nuscenes2kitti.yaml"  # from phase 10's work dir
-POINTRCNN_REQUESTS = 4
+POINTRCNN_REQUESTS = 1
 POINTRCNN_B1_PER_BATCH = 3   # proposal NMS, final NMS, recall
 POINTRCNN_OVERLAPS = ("proposal_nms", "final_nms", "recall")
 
@@ -2202,6 +2203,11 @@ def pointrcnn_serve(model, batches, device):
 
 
 DEFERRED_PROFILES = []
+# the paths whose steps the script profiles on the device: each profile costs
+# ~4.7 s of host time (CUPTI and the event lists; 183 s over phases 10-19's
+# 39 steps on an H100 host); profile_serve / profile_train measure the other
+# paths' busy and idle shares
+DEVICE_PROFILED = ("camera",)
 
 
 def defer_device_profile(tag, run):
@@ -2209,8 +2215,13 @@ def defer_device_profile(tag, run):
     (`run_deferred_profiles`), and return the dict it then fills: the card's
     busy and idle share and its top kernels. A step run after torch.profiler
     in the same process is slower on the host (`profile_train`'s
-    step_ms_after_profiler), so it runs after every host-clock reading."""
+    step_ms_after_profiler), so it runs after every host-clock reading.
+    Only tags of DEVICE_PROFILED paths are profiled."""
     device = {}
+    if not tag.startswith(DEVICE_PROFILED):
+        device["not_measured"] = ("chip_smoke.py profiles only DEVICE_PROFILED paths on the "
+                                  "device; profile_serve / profile_train measure this one")
+        return device
 
     def profile():
         from dfu3d_tpu_torch import profile_serve
@@ -2359,7 +2370,7 @@ def pointrcnn_phase(device, card):
     return summary, launches, cli_eval["launches"], served
 
 
-POINTRCNN_TRAIN_STEPS = 5
+POINTRCNN_TRAIN_STEPS = 2
 POINTRCNN_TRAIN_B1 = 2       # proposal NMS, RoI target IoU
 TRAIN_OVERLAPS = ("proposal_nms", "roi_target_iou")   # a two-stage train step's B1 calls
 POINTRCNN_UNIFORMS_SEED = 0  # the fp32 check's RoI sampler draws
@@ -3077,9 +3088,9 @@ def depth_train_phase(device, card):
 
 NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES = 16, 8   # phase 13's synthetic nuScenes key frames
 NUSC_SWEEPS = 10                             # MAX_SWEEPS of the nuScenes configs
-NUSC_REQUESTS = 4                            # SECOND serving, B=4 each
+NUSC_REQUESTS = 1                            # SECOND serving, B=4 each
 NUSC_PP_REQUESTS = 2                         # PointPillar multi-head serving
-NUSC_TRAIN_STEPS = 5
+NUSC_TRAIN_STEPS = 2
 NUSC_LAG_MAX = 0.45                          # s, the ninth sweep's time lag
 NUSC_PROFILE_DEPTH = "2"                     # profile_serve batches, profile_train steps
 SECOND_CFG = "cfgs/nuscenes_models/cbgs_second_multihead.yaml"  # from phase 13's work dir
@@ -3411,8 +3422,8 @@ def nuscenes_phase(device, card):
 # per model: served requests of B=4, bf16 train steps; all cut to 2 and 3
 # to keep the whole script within its time limit (with PartA2 and
 # PV-RCNN++ at 4 and 5, and phase 15 added, it took 1,027 s)
-TWO_STAGE_DEPTH = {"second_iou": (2, 3), "voxel_rcnn": (2, 3), "pv_rcnn": (2, 3),
-                   "parta2": (2, 3), "pv_rcnn_plusplus": (2, 3)}
+TWO_STAGE_DEPTH = {"second_iou": (1, 2), "voxel_rcnn": (1, 2), "pv_rcnn": (1, 2),
+                   "parta2": (1, 2), "pv_rcnn_plusplus": (1, 2)}
 TWO_STAGE_FRAMES = (16, 8)                 # phase 14's synthetic KITTI root: train, val
 TWO_STAGE_CLASSES = ("Car", "Pedestrian", "Cyclist")
 TWO_STAGE_B1_PER_BATCH = 3                 # proposal NMS, final NMS, recall
@@ -3876,9 +3887,9 @@ def two_stage_phase(device, card):
 
 
 # phase 15: per model, served requests of B=4 and bf16 train steps of B=4
-FULLY_SPARSE_DEPTH = {"voxelnext": (4, 5), "voxelnext_tta": (2, 0),
-                      "voxelnext_iou_large": (2, 3), "pillarnet": (4, 5),
-                      "pillarnet_waymo": (2, 3)}
+FULLY_SPARSE_DEPTH = {"voxelnext": (1, 2), "voxelnext_tta": (1, 0),
+                      "voxelnext_iou_large": (1, 2), "pillarnet": (1, 2),
+                      "pillarnet_waymo": (1, 2)}
 # B2 launches per request and per train step, worked out from the JAX
 # modules: VoxelNeXt runs 30 trunk convs (conv_input, two residual blocks of
 # two, five stages of a strided conv and two residual blocks), conv_out,
@@ -4208,7 +4219,7 @@ def fully_sparse_phase(device, card):
 
 
 # phase 16: TransFusion-L, served requests and bf16 train steps of B=4
-TRANSFUSION_DEPTH = (4, 4)     # served requests, bf16 train steps
+TRANSFUSION_DEPTH = (1, 2)     # served requests, bf16 train steps
 # B2 per request and per train step: VoxelResBackBone8x's 21 convs, and a
 # dX for each but conv_input's (the voxel means need no gradient)
 TRANSFUSION_B2 = (21, 41)
@@ -4286,13 +4297,14 @@ def covering_batch(batch, grid, seed=0):
     return batch._replace(points=pts, points_valid=torch.ones((b, n), dtype=torch.bool))
 
 
-def check_transfusion_paths(model, batch, swaps, device):
+def check_transfusion_paths(model, batch, swaps, device, replay=None):
     """One fp32 request through the kernels and through their plain twins
     (`swaps`), the BN statistics set from `batch` (the model's running
     statistics change), its gt made from queries the kernel path keeps, shifted along
     x by 0 .. 0.75 of their length: the queries' classes and cells equal,
     keep masks and labels equal, boxes and scores within PATH_TOL, recall
-    counters equal and above 0."""
+    counters equal and above 0. `replay` (`replayed_queries`), if given,
+    holds the plain run on the kernel run's queries."""
     import torch
 
     from dfu3d_tpu_torch.flagship import calibrate_bn_
@@ -4319,9 +4331,10 @@ def check_transfusion_paths(model, batch, swaps, device):
     step = make_eval_step(model, RECALL_THRESH, device=device)
     head.forward = recording
     try:
-        kb, ks, kl, kv, krec = step(check_batch)
-        with plain_twins(swaps):
-            pb, ps, pl, pv, prec = step(check_batch)
+        with replay or contextlib.nullcontext():
+            kb, ks, kl, kv, krec = step(check_batch)
+            with plain_twins(swaps):
+                pb, ps, pl, pv, prec = step(check_batch)
     finally:
         del head.forward
     (kc, kcell, kscore), (pc, pcell, pscore) = queries
@@ -4507,7 +4520,7 @@ def transfusion_phase(device, card):
 
 # phase 17: DSVT-Pillar and DSVT-Voxel, served requests and bf16 train steps
 # of B=4 on Waymo-range frames made in memory
-DSVT_DEPTH = {"dsvt_pillar": (3, 3), "dsvt_voxel": (3, 3)}
+DSVT_DEPTH = {"dsvt_pillar": (1, 2), "dsvt_voxel": (1, 2)}
 DSVT_B1 = (2, 0)   # per request (NMS, recall) and per train step
 DSVT_B2 = {"dsvt_pillar": (0, 0), "dsvt_voxel": (0, 0)}   # no sparse conv on the path
 # the branch whose out weights the fp32 train check requires a gradient on
@@ -4630,7 +4643,7 @@ def dsvt_phase(device, card):
 
 # phase 18: MPPNet (4 and 16 frames) and MPPNetE2E, served requests and bf16
 # train steps of B=2 on multi-frame Waymo-range scenes made in memory
-MPPNET_DEPTH = {"mppnet_4frames": (3, 3), "mppnet_16frames": (2, 2), "mppnet_e2e": (3, 2)}
+MPPNET_DEPTH = {"mppnet_4frames": (1, 2), "mppnet_16frames": (1, 2), "mppnet_e2e": (2, 2)}
 MPPNET_B2 = (12, 23)   # per request and per train step: VoxelBackBone8x, 12 forward + 11 dX
 MPPNET_REG = "roi_head.jointembed."   # the joint regression: the fp32 train check needs its gradient
 
@@ -4980,6 +4993,329 @@ def mppnet_phase(device, card):
     return summary, launches, served_b1, train_b1, b2
 
 
+# phase 19: the camera detectors (BEVFusion, CaDDN, the focal multimodal Voxel
+# R-CNN), served requests and bf16 train steps of B=4 on `zoo.camera_batches`
+CAMERA_DEPTH = (2, 2)   # served requests, bf16 train steps, per model
+CAMERA_MODELS = ("bevfusion", "caddn", "voxel_rcnn_focal")
+# B1 per request (NMS, recall; BEVFusion runs no NMS) and per train step
+CAMERA_B1 = {"bevfusion": (1, 0), "caddn": (2, 0), "voxel_rcnn_focal": (3, 2)}
+# B2 per request and per train step: BEVFusion's VoxelResBackBone8x as
+# TransFusion's; the focal trunk's 18 convs (focal1-3 each an importance and
+# a main conv) and a dX for each but conv_input's
+CAMERA_B2 = {"bevfusion": (21, 41), "caddn": (0, 0), "voxel_rcnn_focal": (18, 35)}
+CAMERA_B1_NAMES = {"bevfusion": ("recall",), "caddn": ("nms", "recall"),
+                   "voxel_rcnn_focal": POINTRCNN_OVERLAPS}
+FOCAL_CONVS = ["conv_input", "conv1", "focal1.conv_imp", "focal1.conv", "down2", "conv2a",
+               "conv2b", "focal2.conv_imp", "focal2.conv", "down3", "conv3a", "conv3b",
+               "focal3.conv_imp", "focal3.conv", "down4", "conv4a", "conv4b", "conv_out"]
+CAMERA_CONVS = {"bevfusion": GEMM_CONVS, "voxel_rcnn_focal": FOCAL_CONVS}
+CAMERA_REG = {"bevfusion": TRANSFUSION_REG, "caddn": ("dense_head.conv_box.",),
+              "voxel_rcnn_focal": ("reg_fc.", "reg_pred.")}
+
+
+def camera_serve(name, model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts and the peak read.
+    Fatal unless every request launched B1 and B2 as CAMERA_B1 / CAMERA_B2
+    count, or on a non-finite output. Returns (EvalResult, launches,
+    summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if not torch.isfinite(boxes).all() or not torch.isfinite(scores).all():
+            fail(f"{name} request {k}: boxes or scores not finite")
+    b1, b2 = CAMERA_B1[name][0], CAMERA_B2[name][0]
+    if launches["iou_bev_overlap"] != b1 * n or launches["gather_gemm"] != b2 * n:
+        fail(f"{name} serving: kernel launches {launches} for {n} requests, not {b1} B1 and "
+             f"{b2} B2 per request")
+    ms = [s * 1e3 for s in res.batch_seconds]
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
+               "recall": res.metric, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    log(f"[camera] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
+        f"{summary['kept_per_frame']}; recall {json.dumps(res.metric)}; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}")
+    return res, launches, summary
+
+
+class deterministic:
+    """Within the block, PyTorch's deterministic algorithms (warnings only
+    where an op has none), cuDNN's, and scaled_dot_product_attention on its
+    math backend (the memory-efficient backward is not deterministic):
+    BEVFusion's fp32 checks compare gradients of the camera branch, which no
+    kernel touches, and the ones of its first dtransform conv (1 channel of
+    mostly empty depth maps, then a train-mode BN) moved by 0.1-0.5 of their
+    largest entry between two runs of the same step with the default
+    algorithms and bev_pool's atomic adds."""
+
+    def __enter__(self):
+        import torch
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled(),
+                      torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        self.sdpa = sdpa_kernel([SDPBackend.MATH])
+        self.sdpa.__enter__()
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.sdpa.__exit__(*exc)
+        mode, warn, det, bench = self.saved
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+
+
+QUERY_TIE_TOL = 1e-5   # heat-map score, of a query the two runs may pick apart
+
+
+class replayed_queries:
+    """Within the block, the TransFusion head's top-Q query selection
+    (`transfusion_head.top_k`) of the first run is recorded and each later
+    run's is held against it and replaced by it: the queries a later run
+    picks apart must score within QUERY_TIE_TOL of the recorded run's Q-th
+    (fatal otherwise). BEVFusion's calibrated heat map crowds its top 800
+    scores within 2e-3 (0.7486-0.7507 on the first card run), and the twin's
+    other summation order swapped two queries 3e-7 apart at the cut; the
+    fp32 request check then compares the same queries' boxes and scores.
+    `swapped` counts the queries replaced."""
+
+    def __init__(self):
+        self.recorded, self.swapped = None, 0
+
+    def __enter__(self):
+        import torch
+
+        from dfu3d_tpu_torch.models import transfusion_head as th
+
+        self.orig = th.top_k
+
+        def replaying(x, k):
+            vals, idx = self.orig(x, k)
+            if self.recorded is None:
+                self.recorded = (vals[:, -1:].clone(), idx.clone())
+                return vals, idx
+            cut, want = self.recorded
+            apart = ~(idx[:, :, None] == want[:, None, :]).any(-1)
+            near = (vals - cut).abs() <= QUERY_TIE_TOL
+            if not near[apart].all():
+                fail(f"replayed queries: a query picked apart scores "
+                     f"{vals[apart & ~near][:4].tolist()} against the cut {cut.flatten().tolist()}")
+            self.swapped += int(apart.sum())
+            return torch.gather(x, 1, want), want
+
+        th.top_k = replaying
+        return self
+
+    def __exit__(self, *exc):
+        from dfu3d_tpu_torch.models import transfusion_head as th
+
+        th.top_k = self.orig
+
+
+def camera_model(name, device, card):
+    """Phase 19 for one model at full width with seeded weights and the BN
+    statistics of the first request (`calibrate_bn_`): CAMERA_DEPTH's bf16
+    requests (launches, ms, peak memory, spans), the served B1 and B2 calls
+    held against their twins and timed, the fp32 request through the
+    kernels and through the twins; one bf16 step's B2 calls (forward and
+    dX) held and timed, the fp32 step through the kernels and through the
+    twins; CAMERA_DEPTH's bf16 steps through train_model (launches, ms,
+    peak memory, spans). The focal model's train batches carry
+    `zoo.proposal_gt`'s gt (made once, from the seeded model) and its fp32
+    checks hold both runs on the same proposals. Returns (summary,
+    launches by path, served B1 entries, B2 (totals, entries) by path)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.profile_serve import _run
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    build = getattr(zoo, name)
+    requests, train_steps = CAMERA_DEPTH
+    seconds, launches, b2 = {}, {}, {}
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    batches, data = profile_serve.camera_workload(name, cfg, requests)
+    calibrate_bn_(model, batches[0])
+    seconds["setup_serve"] = time.perf_counter() - t0
+    log(f"[camera] {name}: {cfg.MODEL.NAME} {'x'.join(map(str, grid.grid_size))} grid, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; {data}")
+
+    t0 = time.perf_counter()
+    res, launches[name], serve = camera_serve(name, model, batches, device)
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    serve["profile"] = profile_serve.camera_profile(model, lambda b: _run(step, b), batches[:1])
+    serve["profile"]["device_time"] = defer_device_profile(f"camera {name} serving",
+                                                           lambda: _run(step, batches[0]))
+    served_b1 = time_served_overlaps(name, model, batches[0], device, CAMERA_B1_NAMES[name])
+    if name in CAMERA_CONVS:
+        calls = record_gemm_calls(lambda: step(batches[0]))
+        if len(calls) != CAMERA_B2[name][0]:
+            fail(f"one {name} request made {len(calls)} gather-GEMM calls, not "
+                 f"{CAMERA_B2[name][0]}")
+        b2["served"] = hold_gemm_calls(f"{name}, one served request",
+                                       zip(CAMERA_CONVS[name], calls))
+        del calls
+    if name == "bevfusion":
+        replay = replayed_queries()
+        with deterministic():
+            serve["fp32_check"] = check_transfusion_paths(
+                model, covering_batch(batches[0], grid), swaps, device, replay)
+        serve["fp32_check"]["queries_replayed"] = replay.swapped
+    else:
+        with replayed_proposals(name, model) if name == "voxel_rcnn_focal" else \
+                contextlib.nullcontext() as replay:
+            serve["fp32_check"] = check_paths(name, model, cfg, batches[0], res.preds[0][:4],
+                                              swaps, device)
+        if replay is not None:
+            serve["fp32_check"].update(proposals_max_set_diff=replay.max_err,
+                                       proposals_max_rel_diff=replay.max_rel_err)
+    seconds["serve"] = time.perf_counter() - t0
+    ph = serve["profile"]["phase_ms"]
+    log(f"[camera] ({card}) {name} instrumented request {ph['step']:.2f} ms; spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:18])
+        + (f"; focal dilation {json.dumps(serve['profile']['focal_dilation'])}"
+           if "focal_dilation" in serve["profile"] else ""))
+    del res
+
+    t0 = time.perf_counter()
+    tbatches, _ = profile_serve.camera_workload(name, cfg, train_steps, training=True)
+    _, _, model = build(device=device, train=True)
+    seeded_weights_(model, seed=0)
+    if name == "voxel_rcnn_focal":
+        tbatches = [zoo.proposal_gt(model, bt, torch.bfloat16) for bt in tbatches]
+    if name in CAMERA_CONVS:
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        loss = []
+
+        def bf16_forward():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss.append(model(tbatches[0].to(device))[0])
+
+        fwd = record_gemm_calls(bf16_forward)
+        dx = record_gemm_calls(lambda: loss[0].backward())
+        model.zero_grad(set_to_none=True)
+        model.load_state_dict(weights)
+        check_dx_mirrors(CAMERA_CONVS[name], fwd, dx)
+        b2["dx"] = hold_gemm_calls(f"dX of one {name} train step",
+                                   zip(CAMERA_CONVS[name][::-1], dx))
+        del fwd, dx, loss
+    if name == "voxel_rcnn_focal":
+        with replayed_proposals(name, model) as replay:
+            check = check_two_stage_train_paths(name, model, tbatches[0], device,
+                                                reg_prefix=CAMERA_REG[name])
+        check.update(proposals_max_set_diff=replay.max_err,
+                     proposals_max_rel_diff=replay.max_rel_err)
+    else:
+        with deterministic():
+            check = check_train_paths(name, model, tbatches[0], swaps, device, scales=True)
+        reg = {k: v for k, v in check.pop("leaf_scales").items()
+               if k.startswith(CAMERA_REG[name])}
+        if not reg or not all(v > 0 for v in reg.values()):
+            fail(f"{name} fp32 train step: a regression leaf has no gradient {reg}")
+        check["reg_branch_grad_max"] = reg
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    model, launches[f"{name}_train"], steps, state = train(name, build, tbatches, device)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != CAMERA_B1[name][1]
+           or s["gather_gemm"] != CAMERA_B2[name][1]]
+    if bad:
+        fail(f"{name} train steps {bad} did not launch B1 {CAMERA_B1[name][1]} times and B2 "
+             f"{CAMERA_B2[name][1]} times: {steps}")
+    tstep = make_train_step(model, state.optimizer, device=device, dtype=torch.bfloat16)
+
+    def run_train(bt):
+        return float(tstep(bt)["loss"])
+
+    profile = profile_serve.camera_profile(model, run_train, tbatches[:1], state.optimizer)
+    profile["device_time"] = defer_device_profile(f"camera {name} training",
+                                                  lambda: run_train(tbatches[0]))
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary = {
+        "config": f"tools/cfgs/{zoo.CAMERA_CFGS[name]}", "card": card,
+        "serve": {**serve, "b1_served": [{k: e[k] for k in (
+            "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by")} for e in served_b1]},
+        "train": {"batch": 4, "steps": steps,
+                  "ms_per_step": {"median": statistics.median(ms), "all": ms},
+                  "samples_per_s": 4 / (statistics.median(ms) / 1e3),
+                  "peak_memory_gib": peak / 2 ** 30, "launches": launches[f"{name}_train"],
+                  "fp32_check": check, "profile": profile},
+        "phase_seconds": seconds}
+    for path, (totals, entries) in b2.items():
+        summary["serve" if path == "served" else "train"][f"b2_{path}"] = {
+            **totals, "per_conv": compact_gemm(entries)}
+    ph = profile["phase_ms"]
+    log(f"[camera] ({card}) {name} training: B=4, median {statistics.median(ms):.2f} ms per "
+        f"step ({summary['train']['samples_per_s']:.2f} samples/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; instrumented step {ph['step']:.2f} ms, spans (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])[1:16])
+        + f"; seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    # the train model stays for the deferred profile of its step
+    return summary, launches, served_b1, b2
+
+
+def camera_phase(device, card):
+    """Phase 19: BEVFusion on bevfusion.yaml, CaDDN on CaDDN.yaml and the
+    focal Voxel R-CNN on voxel_rcnn_focal.yaml at their published widths
+    (`camera_model`), then one bf16 request of
+    voxel_rcnn_car_focal_multimodal.yaml (B1 3 and B2 18 launches). The
+    camera models run from memory only (`zoo.camera_batches`): neither
+    package loads images from disk. Returns (summary, launches by path,
+    served B1 entries, B2 (totals, entries) by model and path)."""
+    import torch
+
+    from dfu3d_tpu_torch import profile_serve, zoo
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+
+    t0 = time.perf_counter()
+    summary, launches, served_b1, b2 = {"card": card}, {}, [], {}
+    for name in CAMERA_MODELS:
+        out = camera_model(name, device, card)
+        summary[name] = out[0]
+        launches.update(out[1])
+        served_b1 += out[2]
+        b2[name] = out[3]
+    cfg, _, model = zoo.voxel_rcnn_focal_car(device=device)
+    seeded_weights_(model, seed=0)
+    batches, _ = profile_serve.camera_workload("voxel_rcnn_focal", cfg, 1)
+    calibrate_bn_(model, batches[0])
+    res, launches["voxel_rcnn_focal_car"], serve = camera_serve("voxel_rcnn_focal", model,
+                                                                batches, device)
+    summary["voxel_rcnn_focal_car"] = {"config": f"tools/cfgs/{zoo.CAMERA_CFGS['voxel_rcnn_focal_car']}",
+                                       "serve": serve}
+    del model, res
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t0
+    log(f"[camera] ({card}) phase 19 in {summary['phase_seconds']:.1f} s")
+    return summary, launches, served_b1, b2
+
+
 def main():
     import torch
 
@@ -4997,6 +5333,13 @@ def main():
         from dfu3d_tpu_torch.zoo import voxel_centerpoint
     except ImportError as e:
         fail(f"the dfu3d_tpu_torch package is not next to chip_smoke.py ({e})")
+
+    clock = {"t": time.perf_counter()}
+
+    def lap(name):   # host seconds of each phase, logged as it ends
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - clock['t']:.1f} s")
+        clock["t"] = now
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5095,38 +5438,46 @@ def main():
     train_checks["voxel"] = check_train_paths("voxel", model, train_batches[0], swaps, device)
     del model
 
+    lap("phases 1-6")
     # 7. the flagship from disk through the CLIs
     pillar_step_ms = statistics.median(s["host_ms"] for s in pillar_steps)
     cli_summary, cli_train, cli_eval = cli(device, pillar_step_ms)
 
+    lap("phase 7")
     # 8. pipeline 2: depth completion and the pseudo-box factory through their CLIs
     pseudo_summary, pseudo_launches = pseudo(device)
 
+    lap("phase 8")
     # 9. pipelines 1 and 4: nuScenes -> KITTI, self-evolution, the synthetic run
     evolve_summary, evolve_launches, v8_served, v8_dx = evolve_phase(device)
     ev_iou = sum(v["iou_bev_overlap"] for v in evolve_launches.values())
 
+    lap("phase 9")
     # 10. PointRCNN serving, in memory and through tools.test
     prcnn_summary, prcnn_launches, prcnn_cli_launches, prcnn_served = pointrcnn_phase(device,
                                                                                       card)
     served_iou += prcnn_served
     prcnn_nms = prcnn_served[0]
 
+    lap("phase 10")
     # 11. PointRCNN training, in memory and through tools.train / tools.test
     (prcnn_train_summary, prcnn_train, prcnn_cli_train, prcnn_cli_train_eval, prcnn_train_b1,
      prcnn_evolve) = pointrcnn_train_phase(device, card)
 
+    lap("phase 11")
     # 12. depth-completion training, then pipeline 2 from the trained weights
     depth_summary, depth_launches = depth_train_phase(device, card)
     depth_b1 = sum(v["iou_bev_overlap"] for v in depth_launches.values())
     depth_b2 = sum(v["gather_gemm"] for v in depth_launches.values())
 
+    lap("phase 12")
     # 13. nuScenes from disk and the anchor detectors (SECOND, PointPillar multi-head)
     nusc_summary, nusc_launches, nusc_iou, nusc_served_b2, nusc_dx = nuscenes_phase(device, card)
     served_iou += nusc_iou
     nusc_b1 = sum(v["iou_bev_overlap"] for v in nusc_launches.values())
     nusc_b2 = sum(v["gather_gemm"] for v in nusc_launches.values())
 
+    lap("phase 13")
     # 14. the two-stage voxel detectors (SECOND-IoU, Voxel R-CNN, PV-RCNN, PartA2,
     # PV-RCNN++) on KITTI
     two_summary, two_launches, two_b1_served, two_b1_train, two_b2 = two_stage_phase(device,
@@ -5135,6 +5486,7 @@ def main():
     two_b1 = sum(v["iou_bev_overlap"] for v in two_launches.values())
     two_b2_n = sum(v["gather_gemm"] for v in two_launches.values())
 
+    lap("phase 14")
     # 15. the fully sparse and pillar-sparse detectors (VoxelNeXt on nuScenes, its
     # double flip and the large Waymo config; PillarNet on KITTI and Waymo)
     fs_summary, fs_launches, fs_b1_served, fs_b2 = fully_sparse_phase(device, card)
@@ -5145,12 +5497,14 @@ def main():
                for path, (_, entries) in by.items() for e in entries
                if max(e["shape"][2][1:]) == 256 or e["shape"][2][0] == 125]
 
+    lap("phase 15")
     # 16. TransFusion-L on nuScenes (the recall through B1, the trunk through B2)
     tf_summary, tf_launches, tf_b1_served, tf_b2 = transfusion_phase(device, card)
     served_iou += tf_b1_served
     tf_b1 = sum(v["iou_bev_overlap"] for v in tf_launches.values())
     tf_b2_n = sum(v["gather_gemm"] for v in tf_launches.values())
 
+    lap("phase 16")
     # 17. DSVT-Pillar and DSVT-Voxel on the Waymo DSVT configs (B1 only)
     ds_summary, ds_launches, ds_b1_served = dsvt_phase(device, card)
     served_iou += ds_b1_served
@@ -5159,14 +5513,38 @@ def main():
     if ds_b2:
         fail(f"the DSVT paths launched B2 {ds_b2} times: {ds_launches}")
 
+    lap("phase 17")
     # 18. MPPNet (4 and 16 frames) and MPPNetE2E on the Waymo MPPNet configs
     mp_summary, mp_launches, mp_b1_served, mp_b1_train, mp_b2 = mppnet_phase(device, card)
     served_iou += mp_b1_served
     mp_b1 = sum(v["iou_bev_overlap"] for v in mp_launches.values())
     mp_b2_n = sum(v["gather_gemm"] for v in mp_launches.values())
 
-    # the device profiles of phases 10-18, after every host-clock reading
+    lap("phase 18")
+    # 19. the camera detectors (BEVFusion, CaDDN, the focal multimodal Voxel R-CNN)
+    cam_summary, cam_launches, cam_b1_served, cam_b2 = camera_phase(device, card)
+    served_iou += cam_b1_served
+    cam_b1 = sum(v["iou_bev_overlap"] for v in cam_launches.values())
+    cam_b2_n = sum(v["gather_gemm"] for v in cam_launches.values())
+
+    lap("phase 19")
+    # the device profiles of phase 19 (DEVICE_PROFILED) and phase 13's
+    # profile_* subprocesses, after every host-clock reading
     run_deferred_profiles()
+    for name in CAMERA_MODELS:
+        for key in ("serve", "train"):
+            part = cam_summary[name][key]
+            prof = part["profile"]
+            busy = prof["device_time"].get("device_busy_ms_per_step")
+            host = (part["request_ms"]["median"] if key == "serve"
+                    else part["ms_per_step"]["median"])
+            part["device_busy_ms"] = busy
+            log(f"[camera] ({card}) {name} {key}: host {host:.2f} ms per "
+                f"{'request' if key == 'serve' else 'step'}, device busy "
+                f"{busy if busy is not None else float('nan'):.2f} ms, idle share of the "
+                f"profiled window {prof['device_time'].get('device_idle_share', float('nan')):.3f}"
+                f", of the host time {1 - busy / host if busy is not None else float('nan'):.3f}; "
+                f"peak memory {part['peak_memory_gib']:.2f} GiB")
     for name in MPPNET_DEPTH:
         for key in ("serve", "train"):
             part = mp_summary[name][key]
@@ -5205,6 +5583,7 @@ def main():
             f"window {prof['device_time'].get('device_idle_share', float('nan')):.3f}, of the "
             f"host time {1 - busy / host if busy is not None else float('nan'):.3f}; peak memory "
             f"{tf_summary[key]['peak_memory_gib']:.2f} GiB")
+    lap("deferred device profiles")
     cspn = depth_summary["cspn_fwd_bwd_device_ms"]
     for tag, prof in depth_summary["device"].items():
         busy = prof.get("device_busy_ms_per_step")
@@ -5229,7 +5608,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1 + mp_b1),
+                     + tf_b1 + ds_b1 + mp_b1 + cam_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -5255,7 +5634,9 @@ def main():
                                 for k, v in fs_launches.items()},
                              **{k: v["iou_bev_overlap"] for k, v in tf_launches.items()},
                              **{k: v["iou_bev_overlap"] for k, v in ds_launches.items()},
-                             **{k: v["iou_bev_overlap"] for k, v in mp_launches.items()}},
+                             **{k: v["iou_bev_overlap"] for k, v in mp_launches.items()},
+                             **{f"camera_{k}": v["iou_bev_overlap"]
+                                for k, v in cam_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -5267,7 +5648,9 @@ def main():
             **{name: sorted({st["iou_bev_overlap"] for st in ds_summary[name]["train"]["steps"]})
                for name in DSVT_DEPTH},
             **{name: sorted({st["iou_bev_overlap"] for st in mp_summary[name]["train"]["steps"]})
-               for name in MPPNET_DEPTH}},
+               for name in MPPNET_DEPTH},
+            **{name: sorted({st["iou_bev_overlap"] for st in cam_summary[name]["train"]["steps"]})
+               for name in CAMERA_MODELS}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train
                                         + mp_b1_train]),
@@ -5291,6 +5674,9 @@ def main():
             "survivor_share", "overlapping_share", "share_of_bound", "bound_all_pairs_ms")},
         "two_stage_train": two_b1_train,
         "mppnet_train": mp_b1_train,
+        "camera_served": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms", "bound_by")}
+                          for e in cam_b1_served],
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -5299,7 +5685,7 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n + ds_b2 + mp_b2_n),
+                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -5322,7 +5708,8 @@ def main():
                                 for k, v in fs_launches.items()},
                              **{k: v["gather_gemm"] for k, v in tf_launches.items()},
                              **{k: v["gather_gemm"] for k, v in ds_launches.items()},
-                             **{k: v["gather_gemm"] for k, v in mp_launches.items()}},
+                             **{k: v["gather_gemm"] for k, v in mp_launches.items()},
+                             **{f"camera_{k}": v["gather_gemm"] for k, v in cam_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -5332,6 +5719,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in tf_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in ds_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in mp_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in cam_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -5415,6 +5803,14 @@ def main():
                    "train_dx": {"unit": "one bf16 train step: its 11 dX launches, summed",
                                 **mp_b2[name]["dx"][0]}}
             for name in MPPNET_DEPTH},
+        "camera": {
+            name: {"model": f"{cam_summary[name]['config'][11:]} at full width, bf16",
+                   "launches_per_request": CAMERA_B2[name][0],
+                   "launches_per_train_step": CAMERA_B2[name][1],
+                   **{f"{path}": {"unit": "one served bf16 request, summed" if path == "served"
+                                  else "one bf16 train step's dX launches, summed", **totals}
+                      for path, (totals, _) in cam_b2[name].items()}}
+            for name in CAMERA_MODELS if name in CAMERA_CONVS},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -5431,6 +5827,7 @@ def main():
     log(json.dumps({"transfusion": tf_summary}, default=str))
     log(json.dumps({"dsvt": ds_summary}, default=str))
     log(json.dumps({"mppnet": mp_summary}, default=str))
+    log(json.dumps({"camera": cam_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -28,8 +28,10 @@ path maps to a state_dict key one to one and only the leaf is transformed:
     attention out DenseGeneral      → weight (C, H·D)
       kernel (H, D, C)
 
-    DSVT's raw pos_embedding and    → as is
+    DSVT's raw pos_embedding,       → as is
     MPPNet's raw token (G, 1, H)
+    and Swin's relative_position_
+    bias_table ((2w - 1)², H)
 
 A 3-D kernel is a sparse conv's unless its flax module is named query,
 key, value or out (flax MultiHeadDotProductAttention's projections) or q,
@@ -50,7 +52,8 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-               "var": "running_var", "pos_embedding": "pos_embedding", "token": "token"}
+               "var": "running_var", "pos_embedding": "pos_embedding", "token": "token",
+               "relative_position_bias_table": "relative_position_bias_table"}
 _ATTENTION_PROJECTIONS = ("query", "key", "value", "out", "q", "k", "v")
 
 

@@ -1,5 +1,5 @@
-"""Fixed-shape, mask-padded point batch (dfu3d_tpu/data/dataset.py PointBatch)
-and the synthetic workload the benchmarks use."""
+"""Fixed-shape, mask-padded batches (dfu3d_tpu/data/dataset.py PointBatch and
+MultimodalBatch) and the synthetic workload the benchmarks use."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -21,6 +21,31 @@ class PointBatch(NamedTuple):
     def from_numpy(cls, points, points_valid, gt_boxes, gt_valid) -> "PointBatch":
         return cls(*(torch.from_numpy(np.ascontiguousarray(a))
                      for a in (points, points_valid, gt_boxes, gt_valid)))
+
+
+class MultimodalBatch(NamedTuple):
+    """Camera (+ LiDAR) batch of the camera detectors (BevFusion, CaDDN, the
+    focal Voxel R-CNN with USE_IMG): a PointBatch's four fields, then the
+    cameras'. N_cam is 1 for KITTI's front camera, 6 for nuScenes' ring."""
+
+    points: torch.Tensor           # (B, N_max, C) fp32
+    points_valid: torch.Tensor     # (B, N_max) bool
+    gt_boxes: torch.Tensor         # (B, M_max, 8 or 10) fp32; 1-based class id last
+    gt_valid: torch.Tensor         # (B, M_max) bool
+    images: torch.Tensor           # (B, N_cam, H, W, 3) fp32, normalised
+    cam_intrinsics: torch.Tensor   # (B, N_cam, 3, 3)
+    cam2lidar_rots: torch.Tensor   # (B, N_cam, 3, 3)
+    cam2lidar_trans: torch.Tensor  # (B, N_cam, 3)
+    lidar_to_cam: torch.Tensor     # (B, N_cam, 4, 4)
+    cam_to_img: torch.Tensor       # (B, N_cam, 3, 4)
+    depth_maps: torch.Tensor       # (B, N_cam, H, W) projected LiDAR depth, 0 where none
+
+    def to(self, device) -> "MultimodalBatch":
+        return MultimodalBatch(*(t.to(device, non_blocking=True) for t in self))
+
+    @classmethod
+    def from_numpy(cls, *arrays) -> "MultimodalBatch":
+        return cls(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays))
 
 
 def synthetic_batch(b: int, n: int, m: int, extent: float, seed: int = 0,

@@ -13,7 +13,8 @@ and SECONDNet (models/pointpillar.py), SECONDNetIoU (models/second_iou.py),
 VoxelRCNN (models/voxelrcnn.py), PVRCNN and PVRCNNPlusPlus
 (models/pvrcnn.py), PartA2Net (models/parta2.py), VoxelNeXt
 (models/voxelnext.py), PillarNet (models/pillarnet.py), TransFusion
-(models/transfusion.py), and MPPNet and MPPNetE2E (models/mppnet.py).
+(models/transfusion.py), MPPNet and MPPNetE2E (models/mppnet.py), and the
+camera detectors BevFusion (models/bevfusion.py) and CaDDN (models/caddn.py).
 Submodule names follow the flax module tree (vfe, backbone_3d, backbone_2d,
 dense_head)."""
 from __future__ import annotations
@@ -186,12 +187,15 @@ def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train:
                   **overrides):
     """Build a detector by MODEL.NAME (CenterPoint, PointRCNN, PointPillar,
     SECONDNet, SECONDNetIoU, VoxelRCNN, PVRCNN, PVRCNNPlusPlus, PartA2Net,
-    VoxelNeXt, PillarNet, TransFusion, MPPNet or MPPNetE2E) on `device` (the card
-    unless the caller asks for the CPU), in eval mode, or in train mode with
-    `train`. `overrides` are constructor keywords (num_point_features,
-    max_pillars, max_voxels); PointRCNN reads no grid and takes
-    num_point_features only, PointPillar takes max_voxels and leaves its
-    pillar cap alone, and the voxel detectors take no max_pillars."""
+    VoxelNeXt, PillarNet, TransFusion, MPPNet, MPPNetE2E, BevFusion or CaDDN)
+    on `device` (the card unless the caller asks for the CPU), in eval mode,
+    or in train mode with `train`. `overrides` are constructor keywords
+    (num_point_features, max_pillars, max_voxels); PointRCNN reads no grid
+    and takes num_point_features only, PointPillar takes max_voxels and
+    leaves its pillar cap alone, CaDDN reads neither, and the voxel
+    detectors take no max_pillars."""
+    from .bevfusion import BevFusion
+    from .caddn import CaDDN
     from .mppnet import MPPNet, MPPNetE2E
     from .parta2 import PartA2Net
     from .pillarnet import PillarNet
@@ -208,7 +212,8 @@ def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train:
     gridded = {"PointPillar": PointPillar, "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
                "VoxelRCNN": VoxelRCNN, "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNNPlusPlus,
                "PartA2Net": PartA2Net, "VoxelNeXt": VoxelNeXt, "PillarNet": PillarNet,
-               "TransFusion": TransFusion, "MPPNet": MPPNet, "MPPNetE2E": MPPNetE2E}
+               "TransFusion": TransFusion, "MPPNet": MPPNet, "MPPNetE2E": MPPNetE2E,
+               "BevFusion": BevFusion, "CaDDN": CaDDN}
     if model_cfg.NAME in gridded:
         return gridded[model_cfg.NAME](model_cfg, class_names, grid, **overrides).to(dev).train(
             train)

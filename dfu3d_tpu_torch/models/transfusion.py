@@ -29,7 +29,9 @@ from .vfe import MeanVFE
 
 class TransFusion(nn.Module):
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
-                 max_voxels: int = 16000):
+                 max_voxels: int = 16000, bev_channels=None):
+        """`bev_channels`: the 2D backbone's input width where it is not the
+        trunk's height-compressed width (BevFusion's fuser)."""
         super().__init__()
         from .detectors import DEFAULT_CHANNELS, backbone_8x
 
@@ -45,11 +47,12 @@ class TransFusion(nn.Module):
             SparseGrid(*grid.grid_size), voxel_cap=max_voxels, in_channels=num_point_features,
             channels=tuple(bb3d.get("CHANNELS", DEFAULT_CHANNELS[bb3d.NAME])),
             out_channels=bb3d.get("OUT_CHANNELS", 128))
+        self.lidar_channels = self.backbone_3d.out_grid.nz * bb3d.get("OUT_CHANNELS", 128)
         bb = cfg.BACKBONE_2D
         if bb.get("NAME", "BaseBEVBackbone") != "BaseBEVBackbone":
             raise NotImplementedError(f"BACKBONE_2D {bb.NAME} with TransFusion is not ported")
         self.backbone_2d = BaseBEVBackbone(
-            in_channels=self.backbone_3d.out_grid.nz * bb3d.get("OUT_CHANNELS", 128),
+            in_channels=bev_channels or self.lidar_channels,
             layer_nums=tuple(bb.LAYER_NUMS), layer_strides=tuple(bb.LAYER_STRIDES),
             num_filters=tuple(bb.NUM_FILTERS), upsample_strides=tuple(bb.UPSAMPLE_STRIDES),
             num_upsample_filters=tuple(bb.NUM_UPSAMPLE_FILTERS))
@@ -72,14 +75,18 @@ class TransFusion(nn.Module):
             feature_map_stride=int(tac.get("FEATURE_MAP_STRIDE", 8)),
             matcher=str(dh.get("MATCHER", "auto")))
 
-    def bev(self, batch):
-        """The 2D backbone's map (B, H, W, C) of a PointBatch."""
+    def lidar_bev(self, batch):
+        """The trunk's height-compressed map (B, ny, nx, nz · C) of a batch's points."""
         feats, vox = self.vfe(batch.points, batch.points_valid)
         # the strided convs' transpose tables serve the backward only
         levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique,
                                        transpose=self.training)
         st = self.backbone_3d(feats, levels)
-        return self.backbone_2d(height_compression(st).to(st.features.dtype))
+        return height_compression(st).to(st.features.dtype)
+
+    def bev(self, batch):
+        """The 2D backbone's map (B, H, W, C) of a PointBatch."""
+        return self.backbone_2d(self.lidar_bev(batch))
 
     def features(self, batch):
         return self.dense_head(self.bev(batch))

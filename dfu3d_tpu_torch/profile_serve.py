@@ -6,7 +6,8 @@
                                                      voxelnext_tta|voxelnext_iou_large|
                                                      pillarnet|pillarnet_waymo|transfusion|
                                                      dsvt_pillar|dsvt_voxel|mppnet|
-                                                     mppnet_16|mppnet_e2e]
+                                                     mppnet_16|mppnet_e2e|bevfusion|
+                                                     caddn|voxel_rcnn_focal]
                                             [--batches 8] [--out FILE.json]
 
 Runs an eval step (`make_eval_step`) at full width: the flagship
@@ -27,7 +28,10 @@ the Waymo DSVT configs, 468 x 468 (x 32) grid, 60,000 voxels per frame, on
 MPPNetE2E (`zoo.mppnet_e2e`, through its memory bank over one sequence of
 requests 0.1 s apart) on the Waymo MPPNet configs (1504 x 1504 x 40 grid,
 150,000 voxels per frame, B=2 on `waymo_sequence_batches`: 150,000 points
-per frame, 4 or 16 frames). CenterPoint: B=4, 60,000 uniform
+per frame, 4 or 16 frames), or a camera detector (`zoo.bevfusion`,
+`zoo.caddn`, `zoo.voxel_rcnn_focal` on bevfusion.yaml, CaDDN.yaml,
+voxel_rcnn_focal.yaml, B=4 on `zoo.camera_batches`, with the BN
+statistics of the first batch). CenterPoint: B=4, 60,000 uniform
 points in a 50 m extent, 256 gt slots. PointRCNN: B=4 frames of a
 synthetic KITTI root (40,000-60,000 points in the camera frustum, 20-40
 boxes; uniform points would give PointNet++'s 0.1 m balls no neighbours)
@@ -81,7 +85,9 @@ as one JSON object (printed, and written to --out):
   with B2, 2D backbone, anchor head, proposals with B1 and the keep-scan,
   the trajectory with B1, crops, geometry MLP, proxy pooling, motion,
   group fusion, encoder layers, heads, refine, the bank match with B1, the
-  recall IoU with B1; and the dead frames' share of the head);
+  recall IoU with B1; and the dead frames' share of the head; the camera
+  detectors: the spans of `camera_phase_times`, and for the focal Voxel
+  R-CNN the dilated voxels each focal layer kept against its cap);
 * nms_scan: fixed-point iterations of the keep-scan per call and its time;
 * profile: torch.profiler over the batches (PointRCNN: the first two),
   device time by kernel name and the device's busy share of the window.
@@ -113,7 +119,8 @@ from .models import roi_head
 from .models import second_iou as second_iou_mod
 from .train import train_state
 from .train.train_state import make_eval_step
-from .zoo import (NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, dsvt_pillar, dsvt_voxel,
+from .zoo import (CAMERA_RIGS, NUSCENES_BATCH_SIZE, POINTRCNN_BATCH_SIZE, bevfusion,
+                  camera_batches, caddn, dsvt_pillar, dsvt_voxel, voxel_rcnn_focal,
                   kitti_batches, mppnet_16frames, mppnet_4frames, mppnet_e2e, nuscenes_batches,
                   parta2, pillarnet, pillarnet_waymo, pointrcnn, pointrcnn_batches, pp_multihead,
                   pv_rcnn, pv_rcnn_plusplus, second_iou, second_multihead, transfusion,
@@ -646,6 +653,127 @@ def mppnet_profile(model, run, batches, optimizer=None, fresh_frames=None):
             "dead_frame_share_of_head": per_frame / head_ms if head_ms else 0.0}
 
 
+def camera_phase_times(model, run, batch, optimizer=None):
+    """One step of a camera detector, `run(batch)` (an eval step, or with
+    its `optimizer` a train step), with every span of `Spans` timed.
+    BevFusion: the Swin stages, the FPN, the depth net, the geometry,
+    bev_pool, the rest of the view transform (its downsample convs), the
+    lidar trunk (voxelize, tables, the sparse convs with B2), the fuser,
+    the 2D backbone, the head, the decode, the recall IoU with B1. CaDDN:
+    the ResNet layers (or the compact DDN), ASPP, the frustum features,
+    frustum_to_voxel, the collapse, the 2D backbone, the head, the decode,
+    the NMS with B1 and its keep-scan, the recall IoU. The focal Voxel
+    R-CNN: the image convs with the projection, the focal layers (their
+    importance and main convs with B2), the rest of the trunk (VFE, tables,
+    the other sparse convs), the 2D backbone, the RPN, the proposals, the
+    RoI pooling and head, the final NMS, the recall IoU. A train step adds
+    its targets and losses (CaDDN's depth loss apart), the backward and the
+    clip + optimizer update."""
+    from .models import caddn as caddn_mod
+    from .models.image import depth_lss as lss_mod
+
+    wraps = [(iou_kernel, "overlap_bev", "b1"), (gather_gemm_kernel, "gather_gemm", "b2"),
+             (nms_mod, "_suppression_scan", "keep_scan"),
+             (train_state, "pairwise_iou3d", "recall_iou"),
+             (model.backbone_2d, "forward", "backbone_2d")]
+    name = type(model).__name__
+    if name == "BevFusion":
+        vt = model.vtransform
+        wraps += [(model.image_backbone, "run_stage", "swin_stages"),
+                  (model.image_neck, "forward", "fpn"), (vt, "depth_net", "depth_net"),
+                  (vt, "get_geometry", "geometry"), (lss_mod, "bev_pool", "bev_pool"),
+                  (vt, "forward", "view_transform"), (model, "lidar_bev", "trunk"),
+                  (model.fuser, "forward", "fuser"), (model.dense_head, "forward", "head"),
+                  (model.dense_head, "decode", "decode")]
+        if optimizer is not None:
+            wraps.append((model.dense_head, "loss", "loss"))
+    elif name == "CaDDN":
+        ddn = model.ddn
+        wraps += ([(ddn, "resnet_layer", "resnet"), (ddn.aspp, "forward", "aspp")]
+                  if hasattr(ddn, "aspp") else [(ddn, "forward", "ddn")])
+        wraps += [(model, "frustum_features", "frustum_features"),
+                  (caddn_mod, "frustum_to_voxel", "frustum_to_voxel"),
+                  (model, "collapse", "collapse"), (model.dense_head, "forward", "head"),
+                  (model, "decode", "decode")]
+        if optimizer is not None:
+            wraps += [(model, "assign_targets", "anchor_targets"),
+                      (pointpillar_mod, "anchor_head_loss", "rpn_loss"),
+                      (model, "depth_loss", "depth_loss")]
+    else:   # the focal Voxel R-CNN
+        enc = model.encoder
+        wraps += [(model.vfe, "forward", "vfe"), (enc, "forward", "trunk"),
+                  *[(getattr(enc, f"focal{s}"), "forward", "focal_layers") for s in (1, 2, 3)],
+                  (model.dense_head, "forward", "dense_head"), (model, "proposals", "proposals"),
+                  (roi_head, "final_nms", "final_nms")]
+        if model.use_img:
+            wraps.append((model, "voxel_image_feats", "image_convs"))
+        heads = [n for n in ("shared_fc", "cls_fc", "reg_fc", "cls_pred", "reg_pred")]
+        wraps += [(getattr(model, n), "forward", "roi_head") for n in heads]
+        wraps += [(m, "forward", "roi_pool") for n, m in model.named_children()
+                  if n.startswith("pool_")]
+        if optimizer is not None:
+            wraps += [(model, "assign_targets", "anchor_targets"),
+                      (pointpillar_mod, "anchor_head_loss", "rpn_loss"),
+                      (roi_head, "assign_roi_targets", "roi_targets"),
+                      (roi_head, "roi_head_loss", "rcnn_loss")]
+    if optimizer is not None:
+        wraps += [(torch.Tensor, "backward", "backward"), (optimizer, "step", "clip_optimizer")]
+    return timed_spans(wraps, run, batch)
+
+
+def focal_dilation(model, run, batch):
+    """Per focal layer of one step: its dilate_cap and the dilated voxels it
+    kept per frame (the cap binds where they reach it)."""
+    kept = {}
+    layers = [(s, getattr(model.encoder, f"focal{s}")) for s in (1, 2, 3)]
+    for s, layer in layers:
+        def counted(*a, layer=layer, s=s):
+            coords, valid = type(layer).dilate(layer, *a)
+            kept[f"focal{s}"] = {"dilate_cap": layer.dilate_cap,
+                                 "kept_per_frame": valid.sum(1).tolist()}
+            return coords, valid
+        layer.dilate = counted
+    try:
+        run(batch)
+    finally:
+        for _, layer in layers:
+            del layer.dilate
+    return kept
+
+
+def camera_profile(model, run, batches, optimizer=None):
+    """Where a camera detector's step goes, `run(batch)` running an eval
+    step or (given its `optimizer`) a train step through to its result on
+    the host: phase_ms, the median over the batches of each span's
+    exclusive ms (`camera_phase_times`); keep_scan (`keep_scans`, serving);
+    for the focal Voxel R-CNN focal_dilation (`focal_dilation`, first
+    batch)."""
+    phases = [camera_phase_times(model, run, b, optimizer) for b in batches]
+    keys = sorted({k for p in phases for k in p})
+    out = {"phase_ms": {k: statistics.median(p.get(k, 0.0) for p in phases) for k in keys},
+           "keep_scan": keep_scans(run, batches) if optimizer is None else []}
+    if hasattr(model, "encoder") and hasattr(model.encoder, "focal1"):
+        out["focal_dilation"] = focal_dilation(model, run, batches[0])
+    return out
+
+
+CAMERA = {"bevfusion": bevfusion, "caddn": caddn, "voxel_rcnn_focal": voxel_rcnn_focal}
+CAMERA_RIG = {"bevfusion": "nuscenes", "caddn": "kitti", "voxel_rcnn_focal": "kitti"}
+
+
+def camera_workload(name, cfg, num_batches: int, training: bool = False):
+    """The batches of a camera model's cell, `zoo.camera_batches` on its rig
+    (B=4: nuScenes' six cameras at 256 x 704 or KITTI's front camera at
+    375 x 1242), and their description."""
+    rig = CAMERA_RIG[name]
+    size = CAMERA_RIGS[rig]
+    return (camera_batches(cfg, num_batches, rig, size, seed=1 if training else 0),
+            f"B=4 frames made in memory (zoo.camera_batches: {rig} rig, "
+            f"{'6 cameras' if rig == 'nuscenes' else '1 camera'} at {size[0]}x{size[1]}, "
+            f"{'65536 points with 9-sweep time lags' if rig == 'nuscenes' else '32768 points'}, "
+            "depth maps projected from the points, 20-40 boxes)")
+
+
 def mppnet_step(model, device="cuda", dtype=torch.bfloat16):
     """run(batch) → (boxes, scores, labels, valid, recall): the eval step of
     an MPPNet, or for MPPNetE2E one request of a sequence through its memory
@@ -815,7 +943,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", "pp",
                                          *TWO_STAGE, *FULLY_SPARSE, "transfusion", *DSVT,
-                                         *MPPNET),
+                                         *MPPNET, *CAMERA),
                     default="pillar")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -827,7 +955,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     build = {"pillar": flagship, "voxel": voxel_centerpoint, "pointrcnn": pointrcnn,
              "second": second_multihead, "pp": pp_multihead, **TWO_STAGE,
-             **FULLY_SPARSE, "transfusion": transfusion, **DSVT, **MPPNET}[args.model]
+             **FULLY_SPARSE, "transfusion": transfusion, **DSVT, **MPPNET, **CAMERA}[args.model]
     cfg, grid, model = build(device="cuda")
     seeded_weights_(model, seed=0)
     step = make_eval_step(model, RECALL_THRESH, device="cuda", dtype=torch.bfloat16)
@@ -841,6 +969,9 @@ def main(argv=None):
                     "in memory (zoo.waymo_sequence_batches: 150000 points per frame, 20-40 "
                     "moving boxes of Vehicle, Pedestrian, Cyclist"
                     + ("; one sequence 0.1 s apart, through the memory bank)" if e2e else ")"))
+    elif args.model in CAMERA:
+        batches, data = camera_workload(args.model, cfg, args.batches)
+        workload = f"{cfg.MODEL.NAME} {args.model} at full width, {data}"
     elif args.model == "pointrcnn":
         with tempfile.TemporaryDirectory() as work:
             info = write_pointrcnn_root(cfg, Path(work), POINTRCNN_BATCH_SIZE * args.batches)
@@ -883,8 +1014,8 @@ def main(argv=None):
         workload = ("flagship CenterPoint-pillar 256x512 BEV" if args.model == "pillar" else
                     "voxel CenterPoint 1024x1024x40 grid, max_voxels 60000") + \
             ", B=4, 60000 points, 256 gt slots"
-    if args.model in (*FULLY_SPARSE, "transfusion") and args.model != "pillarnet_waymo":
-        calibrate_bn_(model, batches[0])   # as chip_smoke.py's phases 15 and 16 serve them
+    if args.model in (*FULLY_SPARSE, "transfusion", *CAMERA) and args.model != "pillarnet_waymo":
+        calibrate_bn_(model, batches[0])   # as chip_smoke.py's phases 15, 16 and 19 serve them
     for batch in batches[:2]:  # warm-up: kernel build and load, cuDNN plans
         step(batch)
     torch.cuda.synchronize()
@@ -917,6 +1048,12 @@ def main(argv=None):
         step.reset(batches[0].points.shape[0])
         extra = mppnet_profile(model, lambda b: _run(step, b), batches,
                                fresh_frames=1 if args.model == "mppnet_e2e" else None)
+        phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
+        torch.cuda.reset_peak_memory_stats()
+        _run(step, batches[0])
+        extra["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    elif args.model in CAMERA:
+        extra = camera_profile(model, lambda b: _run(step, b), batches)
         phase_ms, scans = extra.pop("phase_ms"), extra.pop("keep_scan")
         torch.cuda.reset_peak_memory_stats()
         _run(step, batches[0])

@@ -6,7 +6,8 @@
                                                      voxelnext_iou_large|pillarnet|
                                                      pillarnet_waymo|transfusion|
                                                      dsvt_pillar|dsvt_voxel|mppnet|
-                                                     mppnet_16|mppnet_e2e]
+                                                     mppnet_16|mppnet_e2e|bevfusion|
+                                                     caddn|voxel_rcnn_focal]
                                             [--steps 8] [--out FILE.json]
 
 Runs train steps (`make_train_step`) at full width: the flagship
@@ -89,7 +90,8 @@ from .core.voxel import gather_gemm_kernel
 from .data.batch import synthetic_batch
 from .flagship import flagship, seeded_weights_
 from .models import sparse_backbone
-from .profile_serve import (DSVT, FULLY_SPARSE, MPPNET, TWO_STAGE, anchor_profile,
+from .profile_serve import (CAMERA, DSVT, FULLY_SPARSE, MPPNET, TWO_STAGE, anchor_profile,
+                            camera_profile, camera_workload,
                             cfg_max_voxels, device_profile, dsvt_profile, fully_sparse_profile,
                             fully_sparse_workload, mppnet_profile,
                             kitti_workload, nuscenes_workload, pointrcnn_profile,
@@ -432,6 +434,56 @@ def fully_sparse_train(name: str, steps: int, device_name: str) -> dict:
     }
 
 
+def camera_train(name: str, steps: int, device_name: str) -> dict:
+    """profile_train --model bevfusion|caddn|voxel_rcnn_focal: step times at
+    B=4 on `profile_serve.camera_workload`'s frames (the focal Voxel R-CNN's
+    with `zoo.proposal_gt`'s 16 gt per frame made before each step, outside
+    the timed step), the spans of `profile_serve.camera_profile` with the
+    optimizer, the peak memory and the device profile."""
+    cfg, grid, model = CAMERA[name](device="cuda", train=True)
+    seeded_weights_(model, seed=0)
+    batches, data = camera_workload(name, cfg, steps, training=True)
+    if name == "voxel_rcnn_focal":
+        batches = [proposal_gt(model, b, torch.bfloat16) for b in batches]
+    state = create_train_state(model, cfg.OPTIMIZATION, TOTAL_STEPS)
+    step = make_train_step(model, state.optimizer, device="cuda", dtype=torch.bfloat16)
+
+    def run(batch):
+        return {k: float(v) for k, v in step(batch).items()}
+
+    for batch in batches[:2]:  # warm-up: cuDNN plans, the kernels' first loads
+        run(batch)
+    gather_gemm_kernel.launches = 0
+    step_ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = gather_gemm_kernel.launches // len(batches)
+    median = statistics.median(step_ms)
+    spans = camera_profile(model, run, batches, state.optimizer)
+    profile = _profile(step, batches, per_step // 2 + per_step % 2)
+    if "device_busy_ms_per_step" in profile:
+        profile["device_idle_share_of_step_ms"] = 1 - profile["device_busy_ms_per_step"] / median
+    spans.pop("keep_scan", None)
+    return {
+        "device": device_name,
+        "workload": f"{cfg.MODEL.NAME} {name} at full width, {data} in train mode, bf16 "
+                    "autocast, seeded random weights, adam_onecycle over 1000 steps",
+        "steps": steps,
+        "step_ms": {"median": median, "all": step_ms},
+        "samples_per_s": 4 / (median / 1e3),
+        "b2_launches_per_step": per_step,
+        "peak_memory_gib": peak / 2 ** 30,
+        "losses": losses,
+        **spans,
+        "profile": profile,
+    }
+
+
 def mppnet_train(name: str, steps: int, device_name: str) -> dict:
     """profile_train --model mppnet|mppnet_16|mppnet_e2e: step times at the
     config's BATCH_SIZE_PER_GPU (2) on `zoo.waymo_sequence_batches`
@@ -491,7 +543,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("pillar", "voxel", "pointrcnn", "second", *TWO_STAGE,
                                          *(n for n in FULLY_SPARSE if n != "voxelnext_tta"),
-                                         "transfusion", *DSVT, *MPPNET),
+                                         "transfusion", *DSVT, *MPPNET, *CAMERA),
                     default="pillar")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None)
@@ -506,6 +558,9 @@ def main(argv=None):
         return
     if args.model in MPPNET:
         _write(mppnet_train(args.model, args.steps, smi.stdout.strip()), args.out)
+        return
+    if args.model in CAMERA:
+        _write(camera_train(args.model, args.steps, smi.stdout.strip()), args.out)
         return
     if args.model in (*FULLY_SPARSE, "transfusion", *DSVT):
         _write(fully_sparse_train(args.model, args.steps, smi.stdout.strip()), args.out)

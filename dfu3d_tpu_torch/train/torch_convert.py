@@ -4,9 +4,11 @@ train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
 `anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
 `second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`,
 `parta2_head_mapping` with `t_spconv_dense`, `transfusion_head_mapping`
-with `_mha` and `_ln`, `dsvt_mapping` and `dsvt_voxel_mapping`, and
-`apply_mapping`'s partial overlay, :50-166, :167-297, :300-394, :397-451,
-:424-505, :513-604, :639-735, :959-1029).
+with `_mha` and `_ln`, `dsvt_mapping` and `dsvt_voxel_mapping`, the camera
+branch's `swin_mapping` (with `_patchmerge_perm`), `lss_fpn_mapping` and
+`deeplab_ddn_mapping`, and `apply_mapping`'s partial overlay, :50-166,
+:167-297, :300-394, :397-451, :424-505, :513-604, :639-789, :900-957,
+:959-1029).
 
 A reference checkpoint is a `torch.save` of {'model_state', 'optimizer_state',
 'epoch', 'it', 'version'} whose model_state keys are the reference's module
@@ -34,6 +36,9 @@ into the port's state_dict names, so every transform is reference → port:
                         (3C,) split in three: query, key, value Linears
                         (DSVT's q, k, v)
     LayerNorm           identity: weight, bias
+    Swin PatchMerging   norm and reduction: the input channels permuted
+                        from the reference's Unfold order to the port's
+                        [x00, x10, x01, x11] blocks
 
 The overlay is partial, as the reference's load_params_from_file is
 (strict=False): keys of the mapping that the model lacks are skipped (the
@@ -65,8 +70,8 @@ __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
            "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
            "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense",
-           "transfusion_head_mapping", "dsvt_mapping", "dsvt_voxel_mapping", "apply_mapping",
-           "load_reference_state"]
+           "transfusion_head_mapping", "dsvt_mapping", "dsvt_voxel_mapping", "swin_mapping",
+           "lss_fpn_mapping", "deeplab_ddn_mapping", "apply_mapping", "load_reference_state"]
 
 # reference module paths that no port state_dict key contains
 _REFERENCE_KEY = re.compile(r"(^|\.)(pfn_layers|blocks|deblocks|heads_list|cls_layers|box_layers"
@@ -504,6 +509,103 @@ def dsvt_voxel_mapping(set_info=((48, 1),) * 4, prefix: str = "backbone_3d") -> 
             _conv(m, f"{ours}.proj", f"{ref}.self_attn.out_proj", bias=True)
             _ln(m, f"{ours}.norm", f"{ref}.norm")
             m[f"{ours}.pos_embedding"] = (f"{ref}.pos_embedding", t_identity)
+    return m
+
+
+def _patchmerge_perm(c4: int) -> torch.Tensor:
+    """The reference PatchMerging's input order (nn.Unfold: channel-major,
+    index c · 4 + kh · 2 + kw) read in the port's ([x00, x10, x01, x11]
+    blocks of C): port[o] = reference[perm[o]]."""
+    c = c4 // 4
+    kidx = (0, 2, 1, 3)   # block g → kh · 2 + kw
+    return torch.tensor([ci * 4 + kidx[g] for g in range(4) for ci in range(c)])
+
+
+def t_merge_norm(w):
+    return w[_patchmerge_perm(w.shape[0])]
+
+
+def t_merge_reduction(w):
+    """Reference Linear (2C, 4C) → the port's, its input columns permuted."""
+    return w[:, _patchmerge_perm(w.shape[1])]
+
+
+def swin_mapping(depths=(2, 2, 6, 2), out_indices=(1, 2, 3),
+                 prefix: str = "image_backbone") -> Mapping:
+    """SwinTransformer (the reference's mmdet layout, backbones_image/
+    swin.py): patch_embed.projection / norm, per block norm1 / norm2, the
+    window attention's relative_position_bias_table, qkv and proj
+    (attn.w_msa), the FFN (ffn.layers.0.0, ffn.layers.1), the stages'
+    norm{i}, and PatchMerging (downsample.norm / reduction) with its input
+    order permuted (`_patchmerge_perm`)."""
+    m: Mapping = {}
+    p = prefix
+    _conv(m, f"{p}.patch_embed", f"{p}.patch_embed.projection", bias=True)
+    _ln(m, f"{p}.patch_norm", f"{p}.patch_embed.norm")
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            blk, ref = f"{p}.stage{i}_block{j}", f"{p}.stages.{i}.blocks.{j}"
+            _ln(m, f"{blk}.norm1", f"{ref}.norm1")
+            _ln(m, f"{blk}.norm2", f"{ref}.norm2")
+            m[f"{blk}.attn.relative_position_bias_table"] = (
+                f"{ref}.attn.w_msa.relative_position_bias_table", t_identity)
+            _conv(m, f"{blk}.attn.qkv", f"{ref}.attn.w_msa.qkv", bias=True)
+            _conv(m, f"{blk}.attn.proj", f"{ref}.attn.w_msa.proj", bias=True)
+            _conv(m, f"{blk}.mlp_fc1", f"{ref}.ffn.layers.0.0", bias=True)
+            _conv(m, f"{blk}.mlp_fc2", f"{ref}.ffn.layers.1", bias=True)
+        if i in out_indices:
+            _ln(m, f"{p}.out_norm{i}", f"{p}.norm{i}")
+        if i < len(depths) - 1:
+            ref = f"{p}.stages.{i}.downsample"
+            m[f"{p}.merge{i}.norm.weight"] = (f"{ref}.norm.weight", t_merge_norm)
+            m[f"{p}.merge{i}.norm.bias"] = (f"{ref}.norm.bias", t_merge_norm)
+            m[f"{p}.merge{i}.reduction.weight"] = (f"{ref}.reduction.weight", t_merge_reduction)
+    return m
+
+
+def lss_fpn_mapping(num_levels: int = 3, prefix: str = "image_neck") -> Mapping:
+    """GeneralizedLSSFPN (generalized_lss.py): lateral_convs / fpn_convs,
+    each a conv + BN, for the num_levels - 1 processed levels."""
+    m: Mapping = {}
+    for i in range(num_levels - 1):
+        _conv(m, f"{prefix}.lateral{i}", f"{prefix}.lateral_convs.{i}.conv")
+        _bn(m, f"{prefix}.lateral_bn{i}", f"{prefix}.lateral_convs.{i}.bn")
+        _conv(m, f"{prefix}.fpn{i}", f"{prefix}.fpn_convs.{i}.conv")
+        _bn(m, f"{prefix}.fpn_bn{i}", f"{prefix}.fpn_convs.{i}.bn")
+    return m
+
+
+def deeplab_ddn_mapping(layers=(3, 4, 23, 3), prefix: str = "", torch_prefix: str = "") -> Mapping:
+    """DDNDeepLabV3 from torchvision's deeplabv3_resnet50 / 101 layout
+    (backbone.conv1 / bn1 / layer{L}.{i}, classifier.0 the ASPP,
+    classifier.1 / 2 the head's conv and BN, classifier.4 the logits);
+    `prefix` the port's module path ("ddn." in CaDDN), `torch_prefix` the
+    reference's ("vfe.ffn.ddn.model." in a CaDDN checkpoint)."""
+    m: Mapping = {}
+    op, tp = prefix, torch_prefix
+    _conv(m, f"{op}conv1", f"{tp}backbone.conv1")
+    _bn(m, f"{op}bn1", f"{tp}backbone.bn1")
+    for li, n in enumerate(layers, start=1):
+        for i in range(n):
+            blk, ref = f"{op}layer{li}_{i}", f"{tp}backbone.layer{li}.{i}"
+            for c in ("conv1", "conv2", "conv3"):
+                _conv(m, f"{blk}.{c}", f"{ref}.{c}")
+            for b in ("bn1", "bn2", "bn3"):
+                _bn(m, f"{blk}.{b}", f"{ref}.{b}")
+            if i == 0:   # every torchvision layer's first block downsamples
+                _conv(m, f"{blk}.down_conv", f"{ref}.downsample.0")
+                _bn(m, f"{blk}.down_bn", f"{ref}.downsample.1")
+    aspp, ref = f"{op}aspp", f"{tp}classifier.0"
+    for j in range(4):
+        _conv(m, f"{aspp}.aspp_conv{j}", f"{ref}.convs.{j}.0")
+        _bn(m, f"{aspp}.aspp_bn{j}", f"{ref}.convs.{j}.1")
+    _conv(m, f"{aspp}.aspp_pool_conv", f"{ref}.convs.4.1")
+    _bn(m, f"{aspp}.aspp_pool_bn", f"{ref}.convs.4.2")
+    _conv(m, f"{aspp}.aspp_project", f"{ref}.project.0")
+    _bn(m, f"{aspp}.aspp_project_bn", f"{ref}.project.1")
+    _conv(m, f"{op}head_conv", f"{tp}classifier.1")
+    _bn(m, f"{op}head_bn", f"{tp}classifier.2")
+    _conv(m, f"{op}head_out", f"{tp}classifier.4", bias=True)
     return m
 
 

@@ -1,7 +1,8 @@
 """Training loop (port of dfu3d_tpu/train/trainer.py, itself the reference's
 train_utils.train_model / train_one_epoch), over a re-iterable of batches: a
-list of `PointBatch`, or a loader (`data.loader.DataLoader`) that yields
-(PointBatch, BatchMeta) pairs each time it is iterated.
+list of `PointBatch` (or of `MultimodalBatch`, the camera detectors'), or a
+loader (`data.loader.DataLoader`) that yields (PointBatch, BatchMeta) pairs
+each time it is iterated.
 
 Per epoch: the loader's hooks (`set_epoch`, the disable-augmentation hook for
 the last epochs from cfg.HOOK), the train step over every batch, sparse
@@ -20,7 +21,7 @@ import time
 
 import torch
 
-from ..data.batch import PointBatch
+from ..data.batch import MultimodalBatch, PointBatch
 from .checkpoint import save_checkpoint
 from .train_state import TrainState, make_train_step
 
@@ -79,7 +80,7 @@ def train_model(state: TrainState, batches, epochs: int, ckpt_dir, device="cuda"
         losses = []
         end = time.time()
         for item in batches:
-            batch = item if isinstance(item, PointBatch) else item[0]
+            batch = item if isinstance(item, (PointBatch, MultimodalBatch)) else item[0]
             data_time += time.time() - end
             metrics = step_fn(batch)
             losses.append(metrics["loss"])

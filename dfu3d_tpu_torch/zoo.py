@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .core.voxel import VoxelGrid
-from .data.batch import PointBatch
+from .data.batch import MultimodalBatch, PointBatch
 from .models import build_network
 from .utils.config import CfgDict, cfg_from_yaml_file
 
@@ -572,3 +572,203 @@ def mppnet_e2e(train: bool = False, device="cuda"):
     the memory bank of the 3 past frames' geometry features
     (`predict_with_bank`, `models.mppnet.make_bank_eval_step`)."""
     return _mppnet("mppnet_e2e", device, train)
+
+
+CAMERA_CFGS = {"bevfusion": "nuscenes_models/bevfusion.yaml", "caddn": "kitti_models/CaDDN.yaml",
+               "voxel_rcnn_focal": "kitti_models/voxel_rcnn_focal.yaml",
+               "voxel_rcnn_focal_car": "kitti_models/voxel_rcnn_car_focal_multimodal.yaml"}
+CAMERA_BATCH_SIZE = 4   # the camera configs' BATCH_SIZE_PER_GPU
+CAMERA_RIGS = {"nuscenes": (256, 704), "kitti": (375, 1242)}   # the rigs' image sizes
+
+
+# OpenPCDet's CaDDN.yaml range: CaDDN.yaml here keeps kitti_dataset.yaml's
+# [0, -40, -3, 70.4, 40, 1], whose 500 BEV rows (0.16 m) do not divide by
+# the BEV backbone's 8, so that its upsampled levels (250, 250 and 252 rows)
+# do not concatenate, in either package
+CADDN_RANGE = [2.0, -30.08, -3.0, 46.8, 30.08, 1.0]
+
+
+def _camera_detector(name, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = cfg_from_yaml_file(CFGS / CAMERA_CFGS[name], CfgDict())
+    if name == "caddn":
+        cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(CADDN_RANGE)
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def bevfusion(train: bool = False, device="cuda"):
+    """BevFusion on tools/cfgs/nuscenes_models/bevfusion.yaml at its
+    published widths, built as the CLIs build it (tools.common.build_model):
+    the transfusion_lidar.yaml trunk (MeanVFE over 5 point features,
+    VoxelResBackBone8x 16-32-64-128 on the 1440 x 1440 x 40 grid), Swin-T
+    (96, [2, 2, 6, 2], window 7) on 256 x 704 images, the LSS FPN at 256,
+    DepthLSS (118 depth bins, 80 channels, DOWNSAMPLE 2), ConvFuser 336 →
+    256, BaseBEVBackbone, TransFusionHead. Returns (cfg, grid, model); the
+    weights are PyTorch's defaults. It reads `camera_batches(cfg, n,
+    "nuscenes", (256, 704))`."""
+    return _camera_detector("bevfusion", device, train)
+
+
+def caddn(train: bool = False, device="cuda"):
+    """CaDDN on tools/cfgs/kitti_models/CaDDN.yaml at its published widths:
+    DDNDeepLabV3 over ResNet-101 on 375 x 1242 images, CHANNEL_REDUCE 256 →
+    64, 80 LID bins over 2-46.8 m, frustum-to-voxel on the 280 x 376 x 1
+    grid of OpenPCDet's CaDDN range (CADDN_RANGE: the shipped range's grid
+    does not run), Conv2DCollapse 64, BaseBEVBackbone [10, 10, 10],
+    AnchorHeadSingle; as `bevfusion`. It reads `camera_batches(cfg, n, "kitti", (375,
+    1242))`."""
+    return _camera_detector("caddn", device, train)
+
+
+def voxel_rcnn_focal(train: bool = False, device="cuda"):
+    """VoxelRCNN on tools/cfgs/kitti_models/voxel_rcnn_focal.yaml at its
+    published widths: VoxelBackBone8xFocal on the 1408 x 1600 x 40 grid with
+    MAX_NUMBER_OF_VOXELS (16,000 train, 40,000 test), USE_IMG (the first
+    camera's image features in focal1), the Voxel R-CNN head; as
+    `bevfusion`. It reads `camera_batches(cfg, n, "kitti", (375, 1242))`."""
+    return _camera_detector("voxel_rcnn_focal", device, train)
+
+
+def voxel_rcnn_focal_car(train: bool = False, device="cuda"):
+    """VoxelRCNN on tools/cfgs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml
+    (voxel_rcnn_focal.yaml with Car only); as `voxel_rcnn_focal`."""
+    return _camera_detector("voxel_rcnn_focal_car", device, train)
+
+
+# (length, width, height) in metres of the camera configs' classes
+CAMERA_CLASS_DIMS = {
+    "car": (4.6, 1.9, 1.7), "truck": (6.9, 2.5, 2.8), "construction_vehicle": (6.4, 2.8, 3.2),
+    "bus": (11.0, 2.9, 3.5), "trailer": (12.0, 2.9, 3.9), "barrier": (0.5, 2.5, 1.0),
+    "motorcycle": (2.1, 0.8, 1.5), "bicycle": (1.7, 0.6, 1.3), "pedestrian": (0.7, 0.7, 1.8),
+    "traffic_cone": (0.4, 0.4, 1.1), "Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+    "Cyclist": (1.76, 0.6, 1.73)}
+# KITTI's calibration of a typical drive (P2, R0_rect, Tr_velo_to_cam)
+KITTI_P2 = np.array([[721.5377, 0.0, 609.5593, 44.85728], [0.0, 721.5377, 172.854, 0.2163791],
+                     [0.0, 0.0, 1.0, 0.002745884]], np.float32)
+KITTI_R0 = np.array([[0.9999239, 0.00983776, -0.007445048], [-0.009869795, 0.9999421, -0.004278459],
+                     [0.007402527, 0.004351614, 0.9999631]], np.float32)
+KITTI_TR = np.array([[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+                     [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+                     [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01]], np.float32)
+NUSC_CAMERA_YAWS = (0.0, 55.0, -55.0, 110.0, -110.0, 180.0)   # degrees, left of the x axis
+GROUND_Z = {"nuscenes": -1.8, "kitti": -1.73}   # the road under the lidar
+
+
+def camera_rig(cameras: str, image_size):
+    """(cam_intrinsics (N, 3, 3), cam2lidar_rots (N, 3, 3), cam2lidar_trans
+    (N, 3), lidar_to_cam (N, 4, 4), cam_to_img (N, 3, 4)) fp32 of a rig:
+    "nuscenes", six cameras on a ring (yaws NUSC_CAMERA_YAWS, 0.5 m from the
+    lidar, 0.3 m below it) with nuScenes' 1266-pixel focal length scaled by
+    the test resize 0.48 and the principal point at the centre of the
+    `image_size` crop; "kitti", the front camera with KITTI's P2 (scaled to
+    `image_size` from its 375 x 1242), R0_rect and Tr_velo_to_cam."""
+    h, w = image_size
+    if cameras == "kitti":
+        l2c = np.eye(4, dtype=np.float32)
+        l2c[:3, :4] = KITTI_R0 @ KITTI_TR
+        c2i = KITTI_P2[None].copy()
+        c2i[:, 0] *= w / 1242.0   # P2 is KITTI's for 375 x 1242 images
+        c2i[:, 1] *= h / 375.0
+        l2c = l2c[None]
+    elif cameras == "nuscenes":
+        f = 1266.0 * 0.48
+        k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]], np.float32)
+        l2c, c2i = [], []
+        for yaw in np.deg2rad(NUSC_CAMERA_YAWS):
+            fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+            right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+            rot = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)    # camera axes in the lidar frame
+            t = 0.5 * fwd + np.array([0.0, 0.0, -0.3])
+            m = np.eye(4)
+            m[:3, :3], m[:3, 3] = rot.T, -rot.T @ t
+            l2c.append(m)
+            c2i.append(np.concatenate([k, np.zeros((3, 1), np.float32)], axis=1))
+        l2c, c2i = np.asarray(l2c, np.float32), np.asarray(c2i, np.float32)
+    else:
+        raise ValueError(f"cameras must be 'nuscenes' or 'kitti', got {cameras!r}")
+    c2l = np.linalg.inv(l2c.astype(np.float64)).astype(np.float32)
+    return c2i[:, :, :3].copy(), c2l[:, :3, :3].copy(), c2l[:, :3, 3].copy(), l2c, c2i
+
+
+def project_depth(points, lidar_to_cam, cam_to_img, image_size):
+    """(N, H, W) depth maps of one frame's points (P, 3+) in each camera:
+    the nearest point's camera depth at the pixel it falls in (floor of u,
+    v), 0 where no point falls."""
+    h, w = image_size
+    out = np.zeros((len(lidar_to_cam), h, w), np.float32)
+    hom = np.concatenate([points[:, :3], np.ones((len(points), 1), np.float32)], axis=1)
+    for c, (l2c, c2i) in enumerate(zip(lidar_to_cam, cam_to_img)):
+        img = (hom @ l2c.T) @ c2i.T
+        depth = img[:, 2]
+        ok = depth > 0.1
+        u = np.floor(img[ok, 0] / depth[ok]).astype(np.int64)
+        v = np.floor(img[ok, 1] / depth[ok]).astype(np.int64)
+        d = depth[ok]
+        inside = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        u, v, d = u[inside], v[inside], d[inside]
+        order = np.argsort(-d, kind="stable")        # the nearest written last
+        out[c, v[order], u[order]] = d[order]
+    return out
+
+
+def camera_batches(cfg, num_batches: int, cameras: str, image_size, seed: int = 0,
+                   num_points=None, num_boxes=(20, 40), batch_size: int = CAMERA_BATCH_SIZE):
+    """`num_batches` MultimodalBatches of `batch_size` frames made in memory
+    for a camera config (neither package loads images from disk): per
+    frame the points of `waymo_batches`' scene (15 % on the surfaces of
+    20-40 boxes of the config's classes standing on the road, 70 % on the
+    road, 15 % clutter in POINT_CLOUD_RANGE; num_points by default 65,536 on
+    "nuscenes" with the time lag 0-0.45 s as fifth feature, 32,768 on
+    "kitti" with 4 features), gt with (vx, vy) before the class id on
+    "nuscenes"; the rig of `camera_rig`; depth maps made by projecting the
+    frame's points into each camera (`project_depth`), sparse as real ones
+    are; images drawn uniform in [0, 1). From a numpy generator seeded with
+    `seed`."""
+    rng = np.random.RandomState(seed)
+    rig = camera_rig(cameras, image_size)
+    n_cam = len(rig[0])
+    nusc = cameras == "nuscenes"
+    num_points = num_points or (65_536 if nusc else 32_768)
+    lo = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[:3], np.float32)
+    hi = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[3:], np.float32)
+    names = list(cfg.CLASS_NAMES)
+    ground = GROUND_Z[cameras]
+    width = 10 if nusc else 8
+    h, w = image_size
+    out = []
+    for _ in range(num_batches):
+        pts = np.zeros((batch_size, num_points, 5 if nusc else 4), np.float32)
+        gt = np.zeros((batch_size, num_boxes[1], width), np.float32)
+        gt_valid = np.zeros((batch_size, num_boxes[1]), bool)
+        depth = np.zeros((batch_size, n_cam, h, w), np.float32)
+        for i in range(batch_size):
+            m = rng.randint(num_boxes[0], num_boxes[1] + 1)
+            cls = rng.randint(0, len(names), m)
+            dims = np.array([CAMERA_CLASS_DIMS[names[c]] for c in cls], np.float32)
+            dims *= rng.uniform(0.9, 1.1, dims.shape).astype(np.float32)
+            ctr = rng.uniform(lo[:2] * 0.9 + hi[:2] * 0.1, hi[:2] * 0.9 + lo[:2] * 0.1,
+                              (m, 2)).astype(np.float32)
+            yaw = rng.uniform(-np.pi, np.pi, m).astype(np.float32)
+            up = np.array([0.0, 0.0, ground], np.float32)   # the scene on the road
+            frame = _waymo_frame(rng, ctr, dims, yaw, num_points, lo - up, hi - up)
+            frame[:, 2] += ground
+            gt[i, :m, :2] = ctr
+            gt[i, :m, 2] = ground + dims[:, 2] / 2
+            gt[i, :m, 3:6] = dims
+            gt[i, :m, 6] = yaw
+            if nusc:
+                gt[i, :m, 7:9] = rng.uniform(-5, 5, (m, 2))
+            gt[i, :m, -1] = cls + 1.0
+            gt_valid[i, :m] = True
+            pts[i, :, :3] = frame[:, :3]
+            pts[i, :, 3] = frame[:, 3] if not nusc else frame[:, 3] * 255.0
+            if nusc:
+                pts[i, :, 4] = 0.45 * frame[:, 4]
+            depth[i] = project_depth(pts[i], rig[3], rig[4], image_size)
+        images = rng.uniform(0, 1, (batch_size, n_cam, h, w, 3)).astype(np.float32)
+        per_frame = [np.broadcast_to(a, (batch_size,) + a.shape) for a in rig]
+        out.append(MultimodalBatch.from_numpy(pts, np.ones((batch_size, num_points), bool), gt,
+                                              gt_valid, images, *per_frame, depth))
+    return out

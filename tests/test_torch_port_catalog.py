@@ -24,10 +24,6 @@ TOOLS = Path(__file__).resolve().parents[1] / "tools"
 CONFIGS = sorted(str(p.relative_to(TOOLS)) for p in TOOLS.glob("cfgs/*_models/*.yaml"))
 # the configs the port cannot build yet, and the words of what it raises
 NOT_PORTED = {
-    "cfgs/kitti_models/CaDDN.yaml": "detector CaDDN is not ported",
-    "cfgs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml": "VoxelBackBone8xFocal",
-    "cfgs/kitti_models/voxel_rcnn_focal.yaml": "VoxelBackBone8xFocal",
-    "cfgs/nuscenes_models/bevfusion.yaml": "detector BevFusion is not ported",
     "cfgs/waymo_models/pv_rcnn_plusplus_resnet.yaml":
         "BACKBONE_3D VoxelResBackBone8x with PVRCNNPlusPlus",
     "cfgs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml":

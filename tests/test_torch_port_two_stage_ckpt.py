@@ -15,6 +15,7 @@ from dfu3d_tpu.train import torch_convert as jtc
 from dfu3d_tpu_torch import zoo
 from dfu3d_tpu_torch.convert import params_from_jax
 from dfu3d_tpu_torch.core import voxel
+from dfu3d_tpu_torch.data.batch import PointBatch
 from dfu3d_tpu_torch.models import build_network
 from dfu3d_tpu_torch.tools.common import build_model
 from dfu3d_tpu_torch.train import torch_convert
@@ -146,9 +147,11 @@ def test_shipped_config_builds_at_full_width(name):
 @pytest.mark.parametrize("cfg_name", ["voxel_rcnn_focal", "pv_rcnn_plusplus_legacy",
                                       "voxel_rcnn_legacy", "pv_rcnn_legacy", "parta2_legacy"])
 def test_out_of_scope_raises(cfg_name):
-    """The focal Voxel R-CNN and the legacy compact RoI schemas (Voxel
-    R-CNN's, PV-RCNN's, PV-RCNN++'s and PartA2's) are not ported: building
-    them raises NotImplementedError."""
+    """The legacy compact RoI schemas (Voxel R-CNN's, PV-RCNN's, PV-RCNN++'s
+    and PartA2's) are not ported: building them raises
+    NotImplementedError. The focal Voxel R-CNN is ported since the camera
+    slice; what stays out of its scope is a batch without images, which
+    raises (its USE_IMG conv reads image features)."""
     if cfg_name.endswith("_legacy"):
         pool = "ROI_AWARE_POOL" if cfg_name.startswith("parta2") else "ROI_GRID_POOL"
         cfg = {"voxel": voxel_rcnn_cfg, "parta2": pa2_cfg}.get(cfg_name.split("_")[0], pv_cfg)()
@@ -162,5 +165,10 @@ def test_out_of_scope_raises(cfg_name):
             build_network(cfg, CLASS_NAMES, grid, device="cpu")
         return
     cfg = cfg_from_yaml_file(zoo.KITTI_CFGS / f"{cfg_name}.yaml", CfgDict())
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, "test", "cpu")
+    model = build_model(cfg, "test", "cpu")
+    points = np.zeros((1, 64, 4), np.float32)
+    points[..., 0] = np.linspace(1.0, 60.0, 64)
+    batch = PointBatch.from_numpy(points, np.ones((1, 64), bool), np.zeros((1, 1, 8), np.float32),
+                                  np.zeros((1, 1), bool))
+    with pytest.raises(TypeError, match="MultimodalBatch"):
+        model.predict(batch)
