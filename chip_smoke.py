@@ -178,7 +178,7 @@ Phases, each fatal on failure:
               frame, no kernel launch); device busy, idle and the
               propagations' share of a step from torch.profiler, last.
  13. nuscenes  nuScenes from disk and the anchor detectors, in a temporary
-              working directory: data.nuscenes_synthetic writes 16 train + 8
+              working directory: data.nuscenes_synthetic writes 8 train + 4
               val key frames, each with 9 sweeps of 34,000 points, 20-40 boxes
               of the ten classes; create_nuscenes_infos(max_sweeps=10) (fatal
               unless every info has 9 sweeps and the gt count is what was
@@ -212,7 +212,7 @@ Phases, each fatal on failure:
               their KITTI configs (second_iou, voxel_rcnn_car, pv_rcnn,
               PartA2, pv_rcnn_plusplus) at full width with seeded weights,
               in a temporary working directory: kitti_synthetic
-              writes 16 train + 8 val frames of Car, Pedestrian and Cyclist,
+              writes 8 train + 4 val frames of Car, Pedestrian and Cyclist,
               tools.create_infos their infos and gt database. Per model: 4
               requests of B=4 (SECOND-IoU, Voxel R-CNN and PV-RCNN: 2)
               through eval_batches (bf16), fatal unless each
@@ -263,7 +263,7 @@ Phases, each fatal on failure:
               twins (the regression branches' gradients nonzero); 4 bf16
               steps through trainer.train_model, fatal unless each
               launches the tensor-core B2 41 times and B1 never; the host
-              Hungarian's ms; tools.train (1 epoch, 4 steps) and tools.test
+              Hungarian's ms; tools.train (1 epoch, 2 steps) and tools.test
               on the root. Device busy and idle of a request and of a step
               with the deferred profiles.
  17. dsvt     DSVT-Pillar and DSVT-Voxel (waymo_models/dsvt_pillar.yaml,
@@ -308,11 +308,37 @@ Phases, each fatal on failure:
               targets) and the tensor-core B2 23 times, or on a non-finite
               loss or gradient. Device busy and idle of a request and of a
               step with the deferred profiles.
+ 19. camera   BEVFusion, CaDDN and the focal multimodal Voxel R-CNN at full
+              width with seeded weights on zoo.camera_batches: requests and
+              bf16 steps with their B1 and B2 launches, the fp32 checks, the
+              device profiles (DEVICE_PROFILED).
+ 20. datasets the other lidar datasets from disk through the CLIs, in a
+              temporary working directory whose cfgs/ links to tools/cfgs/:
+              a synthetic Waymo root in the extracted layout (2 train
+              sequences of 20 frames, 8 read at SAMPLED_INTERVAL 5, and 4
+              val frames; 150,000 points in 6 columns, 5 % NLZ), tools.train
+              of waymo_models/centerpoint.yaml for 1 epoch (B=4, bf16; fatal
+              unless each step launches the tensor-core B2 41 times and B1
+              never) and tools.test of its checkpoint (B1 2 and B2 21 per
+              batch; the KITTI-protocol AP through WAYMO_TO_KITTI), then one
+              bf16 request of the disk batch at seeded weights (its BN
+              statistics) with its B1 and B2 calls held and timed and the
+              fp32 request through the kernels against the twins on the
+              same top-500 peaks; a synthetic ONCE root (8 + 4 frames
+              of 60,000 points), create_once_infos, the gt database,
+              tools.train of once_models/centerpoint.yaml with gt sampling
+              and tools.test (once_eval); tools.test of seeded checkpoints of
+              lyft_models/cbgs_second_multihead.yaml (the Lyft mAP),
+              custom_models/second.yaml and argo2_models/
+              cbgs_voxel01_voxelnext.yaml (the KITTI fallback) on 4 frames
+              each. Per dataset host seconds, ms per request and step,
+              points kept per frame, peak memory.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
 {"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}},
-{"mppnet": {...}} and {"kernels": [...]};
+{"mppnet": {...}}, {"camera": {...}}, {"datasets": {...}} and
+{"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -3086,7 +3112,10 @@ def depth_train_phase(device, card):
     return summary, launches
 
 
-NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES = 16, 8   # phase 13's synthetic nuScenes key frames
+# phase 13's synthetic nuScenes key frames (also phases 15 and 16's): 8 train
+# frames for the 2 bf16 steps of B=4, 4 val frames for one request; cut from
+# 16 + 8 to keep the whole script within its time limit with phase 20
+NUSC_TRAIN_FRAMES, NUSC_VAL_FRAMES = 8, 4
 NUSC_SWEEPS = 10                             # MAX_SWEEPS of the nuScenes configs
 NUSC_REQUESTS = 1                            # SECOND serving, B=4 each
 NUSC_PP_REQUESTS = 2                         # PointPillar multi-head serving
@@ -3424,7 +3453,7 @@ def nuscenes_phase(device, card):
 # PV-RCNN++ at 4 and 5, and phase 15 added, it took 1,027 s)
 TWO_STAGE_DEPTH = {"second_iou": (1, 2), "voxel_rcnn": (1, 2), "pv_rcnn": (1, 2),
                    "parta2": (1, 2), "pv_rcnn_plusplus": (1, 2)}
-TWO_STAGE_FRAMES = (16, 8)                 # phase 14's synthetic KITTI root: train, val
+TWO_STAGE_FRAMES = (8, 4)   # phase 14's (and 15's) synthetic KITTI root: train, val (from 16, 8)
 TWO_STAGE_CLASSES = ("Car", "Pedestrian", "Cyclist")
 TWO_STAGE_B1_PER_BATCH = 3                 # proposal NMS, final NMS, recall
 TWO_STAGE_B1_PER_STEP = 2                  # proposal NMS, the RoI targets' 3D IoU
@@ -4123,7 +4152,7 @@ def fully_sparse_model(name, data, device, card):
 
 def pillarnet_cli(root, device):
     """PillarNet's KITTI config from disk: tools.train for 1 epoch (phase
-    15's 16 train frames, B=4, gt sampling and the world augmentations,
+    15's 8 train frames, B=4, gt sampling and the world augmentations,
     bf16) and tools.test --ckpt of its checkpoint on the val split; fatal
     on a non-finite loss, no checkpoint, a train step that does not launch
     the tensor-core B2 24 times and no B1, an eval batch that does not
@@ -4508,8 +4537,8 @@ def transfusion_phase(device, card):
                 launches["transfusion_cli_eval"] = nuscenes_cli(
                     root, TRANSFUSION_CFG, TRANSFUSION_B2[1], TRANSFUSION_B2[0], device,
                     b1_eval=TRANSFUSION_B1[0],
-                    # one pass over the 16 frames: class-balanced resampling
-                    # would make the epoch ~40 steps
+                    # one pass over the 8 train frames: class-balanced
+                    # resampling would make the epoch ~20 steps
                     extra_sets=("DATA_CONFIG.BALANCED_RESAMPLING", "False"))
             seconds["cli"] = time.perf_counter() - t0
             summary["phase_seconds"] = seconds
@@ -5087,24 +5116,27 @@ QUERY_TIE_TOL = 1e-5   # heat-map score, of a query the two runs may pick apart
 
 
 class replayed_queries:
-    """Within the block, the TransFusion head's top-Q query selection
-    (`transfusion_head.top_k`) of the first run is recorded and each later
-    run's is held against it and replaced by it: the queries a later run
-    picks apart must score within QUERY_TIE_TOL of the recorded run's Q-th
-    (fatal otherwise). BEVFusion's calibrated heat map crowds its top 800
-    scores within 2e-3 (0.7486-0.7507 on the first card run), and the twin's
-    other summation order swapped two queries 3e-7 apart at the cut; the
-    fp32 request check then compares the same queries' boxes and scores.
-    `swapped` counts the queries replaced."""
+    """Within the block, the top-K selection of a head that makes one per
+    run (`head_module.top_k`: by default the TransFusion head's top-Q
+    queries, or a single CenterHead's top-K peaks) of the first run is
+    recorded and each later run's is held against it and replaced by it:
+    the picks a later run makes apart must score within QUERY_TIE_TOL of
+    the recorded run's K-th (fatal otherwise). BEVFusion's calibrated heat
+    map crowds its top 800 scores within 2e-3 (0.7486-0.7507 on the first
+    card run), and the twin's other summation order swapped two queries
+    3e-7 apart at the cut; the fp32 request check then compares the same
+    queries' boxes and scores. `swapped` counts the picks replaced."""
 
-    def __init__(self):
+    def __init__(self, head_module=None):
         self.recorded, self.swapped = None, 0
+        self.head_module = head_module
 
     def __enter__(self):
         import torch
 
-        from dfu3d_tpu_torch.models import transfusion_head as th
+        from dfu3d_tpu_torch.models import transfusion_head
 
+        th = self.head_module = self.head_module or transfusion_head
         self.orig = th.top_k
 
         def replaying(x, k):
@@ -5125,9 +5157,7 @@ class replayed_queries:
         return self
 
     def __exit__(self, *exc):
-        from dfu3d_tpu_torch.models import transfusion_head as th
-
-        th.top_k = self.orig
+        self.head_module.top_k = self.orig
 
 
 def camera_model(name, device, card):
@@ -5314,6 +5344,389 @@ def camera_phase(device, card):
     summary["phase_seconds"] = time.perf_counter() - t0
     log(f"[camera] ({card}) phase 19 in {summary['phase_seconds']:.1f} s")
     return summary, launches, served_b1, b2
+
+
+# phase 20: the other lidar datasets from disk through the CLIs, at full width
+WAYMO_CLI_CFG = "cfgs/waymo_models/centerpoint.yaml"   # from phase 20's work dir
+ONCE_CLI_CFG = "cfgs/once_models/centerpoint.yaml"
+DATASET_TEST_CFGS = {"lyft": "cfgs/lyft_models/cbgs_second_multihead.yaml",
+                     "custom": "cfgs/custom_models/second.yaml",
+                     "argo2": "cfgs/argo2_models/cbgs_voxel01_voxelnext.yaml"}
+# frames per train and val sequence: 2 x 20 give 8 train frames at the
+# shipped SAMPLED_INTERVAL of 5 (two steps of B=4), 4 val frames one request
+WAYMO_SEQS = ([20, 20], [4])
+WAYMO_POINTS = 150_000          # a full-width Waymo frame, 5 % of it in no-label zones
+ONCE_FRAMES, ONCE_POINTS = (8, 4), 60_000
+DATASET_TEST_FRAMES = 4         # Lyft, Custom, Argo2: one request of B=4
+DATASET_POINTS = {"custom": 60_000, "argo2": 100_000}   # Lyft: 5 sweeps of 34,000
+# B2 launches per request and per bf16 train step: VoxelResBackBone8x 21 and
+# 41 (Waymo and ONCE CenterPoint), VoxelBackBone8x 12 (Lyft's and Custom's
+# SECOND), VoxelNeXt's trunk, conv_out, shared conv and its 5 heads x 6
+# branches on Argo2 (62: six fewer than nuScenes' 6 heads)
+DATASETS_B2 = {"waymo": (21, 41), "once": (21, 41), "lyft": (12, None),
+               "custom": (12, None), "argo2": (62, None)}
+DATASETS_B1 = 2                 # per eval step (NMS, recall); none in a train step
+ONCE_TEST_INFOS = "once_infos_val.pkl"   # the test mode reads INFO_PATH['test'] (ROADMAP Queue C)
+
+
+def datasets_cli(tag, cfg_file, root, device, ckpt=None, sets=(), frames=DATASET_TEST_FRAMES):
+    """tools.train for 1 epoch (bf16, the config's batch) unless `ckpt` is
+    given, then tools.test of the checkpoint on the val split; the kernel
+    counts set to 0 before each and read after. Fatal on a non-finite loss,
+    no checkpoint, a train step that does not launch the tensor-core B2
+    DATASETS_B2 times and no B1, an eval batch that does not launch B1
+    DATASETS_B1 and B2 DATASETS_B2 times, or results for other than
+    `frames` frames. Returns (summary, result, train launches, eval
+    launches)."""
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    b2_request, b2_step = DATASETS_B2[tag]
+    common = ["--cfg_file", cfg_file, "--device", device.type, "--workers", str(LOADER_WORKERS),
+              "--extra_tag", "chip_smoke"]
+    sets = ["--set", "DATA_CONFIG.DATA_PATH", str(root), *sets]
+    summary, train_launches = {}, None
+    if ckpt is None:
+        reset_launches()
+        t0 = time.perf_counter()
+        trained = train_cli.main([*common, "--epochs", "1", *sets])
+        summary["train_s"] = time.perf_counter() - t0
+        train_launches = read_launches()
+        (epoch,) = trained["epochs"]
+        ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+        steps = epoch["steps"]
+        if not steps or not all(math.isfinite(v) for v in epoch["losses"]) or \
+                not ckpt.exists() or train_launches["iou_bev_overlap"] or \
+                train_launches["gather_gemm_tensor_core"] != b2_step * steps or \
+                train_launches["gather_gemm_cuda_core"]:
+            fail(f"tools.train {cfg_file}: {epoch}, checkpoint {ckpt.exists()}, kernel "
+                 f"launches {train_launches} (want {b2_step} tensor-core B2 per step, no B1)")
+        summary.update(train_steps=steps, train_losses=epoch["losses"],
+                       train_launches=train_launches,
+                       train_ms_per_step=(epoch["batch_time"] - epoch["data_time"]) * 1e3 / steps,
+                       train_data_s=epoch["data_time"])
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, _, result),) = test_cli.main([*common, "--ckpt", str(ckpt), *sets])
+    summary["test_s"] = time.perf_counter() - t0
+    eval_launches = read_launches()
+    batches = result["eval_batches"]
+    if result["num_frames"] != frames or \
+            eval_launches["iou_bev_overlap"] != DATASETS_B1 * batches or \
+            eval_launches["gather_gemm"] != b2_request * batches or \
+            eval_launches["gather_gemm_cuda_core"]:
+        fail(f"tools.test {cfg_file}: {result['num_frames']} frames of {frames}, {batches} "
+             f"batches, kernel launches {eval_launches} (want {DATASETS_B1} B1 and "
+             f"{b2_request} tensor-core B2 per batch)")
+    summary.update(eval_batches=batches, eval_frames=result["num_frames"],
+                   eval_launches=eval_launches, gt_num=result["gt_num"],
+                   eval_ms_per_request=result["time/eval_steps"] * 1e3 / batches,
+                   time_split_s={k: result[k] for k in result if k.startswith("time/")})
+    return summary, result, train_launches, eval_launches
+
+
+def dataset_model(cfg_file, root, device):
+    """The model of a phase 20 config as the CLIs build it (`tools.common.
+    build_model`, test mode) at seeded weights, with the BN statistics of
+    the first test batch read from `root` (`flagship.calibrate_bn_`);
+    returns (cfg, model, that batch, the test dataset)."""
+    from dfu3d_tpu_torch.data.loader import build_dataloader
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.tools.common import build_model
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(cfg_file, CfgDict())
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                       batch_size=cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+                                       workers=LOADER_WORKERS, training=False)
+    batch, _ = next(iter(loader))
+    model = build_model(cfg, "test", device)
+    seeded_weights_(model, seed=0)
+    calibrate_bn_(model, batch)
+    return cfg, model, batch, dataset
+
+
+def frame_points(ds, cap):
+    """Points of the first test-mode frame of `ds` (NLZ and range filters
+    applied) and what the collate's cap keeps of them."""
+    import numpy as np
+
+    np.random.seed(0)
+    n = len(ds[0]["points"])
+    return n, min(n, cap)
+
+
+def waymo_data(work):
+    """Phase 20's Waymo root (`lidar_synthetic.write_waymo_root`, the config's
+    PROCESSED_DATA_TAG) and the dataset's view of it; fatal unless the train
+    mode reads 8 frames at SAMPLED_INTERVAL 5 and a test frame keeps its 5
+    columns (elongation)."""
+    from dfu3d_tpu_torch.data import lidar_synthetic
+    from dfu3d_tpu_torch.data.waymo_dataset import WaymoDataset
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(WAYMO_CLI_CFG, CfgDict())
+    root = work / "data" / "waymo"
+    t0 = time.perf_counter()
+    seqs = lidar_synthetic.write_waymo_root(root, *WAYMO_SEQS, cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                            num_points=WAYMO_POINTS, seed=20,
+                                            tag=cfg.DATA_CONFIG.PROCESSED_DATA_TAG)
+    write_s = time.perf_counter() - t0
+    train = WaymoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True, root_path=root)
+    test = WaymoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root)
+    t0 = time.perf_counter()
+    n, kept = frame_points(test, test.max_points_per_frame)
+    get_ms = (time.perf_counter() - t0) * 1e3
+    width = test[0]["points"].shape[1]
+    want_train = sum(len(range(0, f, cfg.DATA_CONFIG.SAMPLED_INTERVAL["train"]))
+                     for f in WAYMO_SEQS[0])
+    if len(train) != want_train or len(test) != sum(WAYMO_SEQS[1]) or width != 5:
+        fail(f"Waymo root: {len(train)} train frames (want {want_train}), {len(test)} val, "
+             f"{width} point columns (want 5, with elongation)")
+    out = {"sequences": seqs, "write_s": write_s, "train_frames": len(train),
+           "val_frames": len(test), "points_per_frame": WAYMO_POINTS,
+           "points_after_nlz_and_range": n, "points_kept_by_cap": kept,
+           "cap": test.max_points_per_frame, "getitem_ms": get_ms}
+    log(f"[datasets] Waymo root: {sum(WAYMO_SEQS[0])} train frames in {len(WAYMO_SEQS[0])} "
+        f"sequences ({len(train)} at SAMPLED_INTERVAL {cfg.DATA_CONFIG.SAMPLED_INTERVAL['train']}"
+        f") + {len(test)} val, {WAYMO_POINTS} points x 6 columns each, written in "
+        f"{write_s:.2f} s; one test-mode frame {get_ms:.1f} ms: {n} points after the NLZ and "
+        f"range filters, {kept} kept by MAX_POINTS_PER_FRAME {test.max_points_per_frame}")
+    return root, out
+
+
+def waymo_request_check(root, device, card):
+    """One bf16 request of Waymo CenterPoint on the first val batch from disk
+    at seeded weights with that batch's BN statistics: its launches (B1 2,
+    the tensor-core B2 21) and ms; its 21 B2 calls and 2 B1 calls held
+    against the plain twins and timed; the fp32 request through the kernels
+    and through the twins (`check_paths`) on the same top-500 heat-map
+    peaks (`replayed_queries`). At identity BN the seeded trunk's
+    activations grow through its 16 residual blocks and the two summation
+    orders put boxes 0.8-1.1e-4 m apart at Waymo's 75 m range; with the
+    statistics they agree to the rounding, but the compressed heat map
+    puts near-ties at the 500th peak, which the two orders break apart."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.models import center_head
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    cfg, model, batch, _ = dataset_model(WAYMO_CLI_CFG, root, device)
+    eval_batches(model, [batch], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = eval_batches(model, [batch], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    if launches["iou_bev_overlap"] != DATASETS_B1 or launches["gather_gemm_tensor_core"] != 21 \
+            or launches["gather_gemm_cuda_core"]:
+        fail(f"Waymo CenterPoint request from disk: launches {launches}, not 2 B1 and 21 "
+             f"tensor-core B2")
+    boxes, scores, _, valid = res.preds[0]
+    if not torch.isfinite(boxes[valid]).all() or not valid.any(dim=1).all():
+        fail(f"Waymo CenterPoint request from disk: kept per frame {valid.sum(1).tolist()}")
+    served_b1 = time_served_overlaps("waymo_centerpoint", model, batch, device)
+    served_b2 = time_served_gemms(model, batch, device)
+    with replayed_queries(center_head) as replay:
+        check = check_paths("waymo_centerpoint", model, cfg, batch, res.preds[0],
+                            [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+                             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")], device)
+    check["peaks_replayed"] = replay.swapped
+    ms = res.batch_seconds[0] * 1e3
+    log(f"[datasets] ({card}) Waymo CenterPoint, one bf16 request of B=4 from disk at seeded "
+        f"weights: {ms:.2f} ms, kept per frame {valid.sum(1).tolist()}, launches "
+        f"{json.dumps(launches)}")
+    return {"request_ms": ms, "launches": launches, "kept_per_frame": valid.sum(1).tolist(),
+            "fp32_check": check, "b1_served": [{k: e[k] for k in (
+                "problem", "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for e in served_b1],
+            "b2_served": {**served_b2[0], "per_conv": compact_gemm(served_b2[1])}}, \
+        launches, served_b1, served_b2
+
+
+def once_data(work):
+    """Phase 20's ONCE root (`lidar_synthetic.write_once_root`), its infos
+    (`create_once_infos`) and the train split's gt database
+    (`create_groundtruth_database`), read back by ONCEDataset."""
+    import pickle
+
+    from dfu3d_tpu_torch.data import lidar_synthetic
+    from dfu3d_tpu_torch.data.once_dataset import ONCEDataset, create_once_infos
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(ONCE_CLI_CFG, CfgDict())
+    root = work / "data" / "once"
+    t0 = time.perf_counter()
+    lidar_synthetic.write_once_root(root, *ONCE_FRAMES, cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                    num_points=ONCE_POINTS, seed=21)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    create_once_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
+    db = ONCEDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root) \
+        .create_groundtruth_database(root / "once_infos_train.pkl",
+                                     used_classes=cfg.CLASS_NAMES)
+    infos_s = time.perf_counter() - t0
+    dbinfos = {k: len(v) for k, v in pickle.loads(db.read_bytes()).items()}
+    cfg.DATA_CONFIG.INFO_PATH["test"] = [ONCE_TEST_INFOS]
+    test = ONCEDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root)
+    n, kept = frame_points(test, test.max_points_per_frame)
+    if len(test) != ONCE_FRAMES[1] or not sum(dbinfos.values()):
+        fail(f"ONCE root: {len(test)} val frames, dbinfos {dbinfos}")
+    log(f"[datasets] ONCE root: {ONCE_FRAMES[0]} + {ONCE_FRAMES[1]} frames of {ONCE_POINTS} "
+        f"points written in {write_s:.2f} s; infos and gt database in {infos_s:.2f} s "
+        f"(objects per class {dbinfos}); a test frame {n} points in range, {kept} kept")
+    return root, {"write_s": write_s, "infos_and_db_s": infos_s, "dbinfos": dbinfos,
+                  "points_per_frame": ONCE_POINTS, "points_in_range": n, "points_kept": kept}
+
+
+def test_only_data(tag, work):
+    """A phase 20 test-only root of DATASET_TEST_FRAMES val frames: Lyft's
+    nuScenes-format tables with 5 sweeps, Custom's points and labels (then
+    `create_custom_infos`), Argo2's converted bins and infos."""
+    from dfu3d_tpu_torch.data import lidar_synthetic
+    from dfu3d_tpu_torch.data.custom_dataset import create_custom_infos
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(DATASET_TEST_CFGS[tag], CfgDict())
+    pcr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    root = work / "data" / tag
+    if tag == "lyft":
+        lidar_synthetic.write_lyft_root(root, 0, DATASET_TEST_FRAMES,
+                                        max_sweeps=cfg.DATA_CONFIG.MAX_SWEEPS, seed=22)
+    elif tag == "custom":
+        lidar_synthetic.write_custom_root(root, 0, DATASET_TEST_FRAMES, pcr,
+                                          num_points=DATASET_POINTS[tag], seed=23)
+        create_custom_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
+    else:
+        lidar_synthetic.write_argo2_root(root, 0, DATASET_TEST_FRAMES, pcr,
+                                         num_points=DATASET_POINTS[tag], seed=24)
+    return root
+
+
+def seeded_checkpoint(cfg_file, root, device, path):
+    """The config's model at seeded weights with the BN statistics of the
+    first test batch, saved as a checkpoint tools.test loads; returns (its
+    path, `frame_points` of the first test frame)."""
+    import torch
+
+    _, model, _, dataset = dataset_model(cfg_file, root, device)
+    torch.save({"model_state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "epoch": 0}, path)
+    return path, frame_points(dataset, dataset.max_points_per_frame)
+
+
+def datasets_phase(device, card):
+    """Phase 20: the other lidar datasets from disk through the CLIs at full
+    width, in a temporary working directory whose cfgs/ links to
+    tools/cfgs/: Waymo CenterPoint (tools.train 1 epoch, tools.test, one
+    request through the kernels and the twins), ONCE CenterPoint with its gt
+    database and once_eval (tools.train, tools.test), and tools.test of
+    seeded checkpoints of Lyft SECOND multi-head, Custom SECOND and Argo2
+    VoxelNeXt. Returns (summary, launches by path, served B1 entries, served
+    B2 (totals, entries))."""
+    import gc
+    import os
+
+    import torch
+
+    def fresh_peak():
+        """The peak-memory counter restarted from what is still referenced;
+        returns that (GiB)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2 ** 30
+
+    cwd = os.getcwd()
+    summary, launches = {"card": card}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").symlink_to(REPO / "tools" / "cfgs")
+        os.chdir(work)
+        try:
+            # Waymo
+            t0 = time.perf_counter()
+            base = fresh_peak()
+            root, data = waymo_data(work)
+            cli, result, launches["waymo_cli_train"], launches["waymo_cli_eval"] = \
+                datasets_cli("waymo", WAYMO_CLI_CFG, root, device, frames=sum(WAYMO_SEQS[1]))
+            aps = {k: float(v) for k, v in result.items() if "_3d/moderate_R40" in k}
+            if set(aps) != {f"{c}_3d/moderate_R40" for c in ("Car", "Pedestrian", "Bicycle")}:
+                fail(f"tools.test {WAYMO_CLI_CFG}: KITTI-protocol classes {sorted(aps)}")
+            request, launches["waymo_request"], served_b1, served_b2 = \
+                waymo_request_check(root, device, card)
+            summary["waymo"] = {"config": WAYMO_CLI_CFG[5:], "data": data, "cli": cli,
+                                "ap_3d_moderate_R40": aps, "request": request,
+                                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                "allocated_before_gib": base,
+                                "seconds": time.perf_counter() - t0}
+            log(f"[datasets] ({card}) Waymo CenterPoint from disk: tools.train "
+                f"{cli['train_steps']} steps of B=4 ({cli['train_ms_per_step']:.1f} ms per step "
+                f"with the first step's warm-up, losses "
+                f"{[round(v, 4) for v in cli['train_losses']]}), tools.test {cli['eval_frames']} "
+                f"frames ({cli['eval_ms_per_request']:.1f} ms per request, the first), KITTI AP "
+                f"3D moderate R40 {json.dumps({k.split('_')[0]: round(v, 4) for k, v in aps.items()})}"
+                f"; peak memory {summary['waymo']['peak_memory_gib']:.2f} GiB (from {base:.2f} "
+                f"still allocated)")
+            log(f"[time] phase 20 waymo: {summary['waymo']['seconds']:.1f} s")
+
+            # ONCE
+            t0 = time.perf_counter()
+            base = fresh_peak()
+            root, data = once_data(work)
+            cli, result, launches["once_cli_train"], launches["once_cli_eval"] = datasets_cli(
+                "once", ONCE_CLI_CFG, root, device,
+                sets=("DATA_CONFIG.INFO_PATH.test", ONCE_TEST_INFOS), frames=ONCE_FRAMES[1])
+            aps = {k: float(v) for k, v in result.items() if k.startswith("AP_")}
+            if not {"AP_Vehicle/overall", "AP_mean/overall"} <= set(aps):
+                fail(f"tools.test {ONCE_CLI_CFG}: once_eval gave {sorted(aps)}")
+            summary["once"] = {"config": ONCE_CLI_CFG[5:], "data": data, "cli": cli,
+                               "once_eval": aps,
+                               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                               "allocated_before_gib": base,
+                               "seconds": time.perf_counter() - t0}
+            log(f"[datasets] ({card}) ONCE CenterPoint from disk: tools.train "
+                f"{cli['train_steps']} steps of B=4 with gt sampling "
+                f"({cli['train_ms_per_step']:.1f} ms per step with the warm-up), tools.test "
+                f"{cli['eval_frames']} frames ({cli['eval_ms_per_request']:.1f} ms per request); "
+                f"once_eval overall AP "
+                f"{json.dumps({k[3:].split('/')[0]: round(v, 4) for k, v in aps.items() if k.endswith('/overall')})}"
+                f"; peak memory {summary['once']['peak_memory_gib']:.2f} GiB (from {base:.2f} "
+                f"still allocated)")
+            log(f"[time] phase 20 once: {summary['once']['seconds']:.1f} s")
+
+            # Lyft, Custom, Argo2: tools.test of seeded checkpoints
+            for tag, cfg_file in DATASET_TEST_CFGS.items():
+                t0 = time.perf_counter()
+                base = fresh_peak()
+                root = test_only_data(tag, work)
+                ckpt, (n, kept) = seeded_checkpoint(cfg_file, root, device,
+                                                    work / f"{tag}_seeded.pth")
+                cli, result, _, launches[f"{tag}_cli_eval"] = datasets_cli(tag, cfg_file, root,
+                                                                          device, ckpt=ckpt)
+                key = "mAP" if tag == "lyft" else "Car_3d/moderate_R40"
+                if key not in result:
+                    fail(f"tools.test {cfg_file}: no {key} in {sorted(result)}")
+                summary[tag] = {"config": cfg_file[5:], "cli": cli, key: float(result[key]),
+                                "points_in_range": n, "points_kept": kept,
+                                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                "allocated_before_gib": base,
+                                "seconds": time.perf_counter() - t0}
+                log(f"[datasets] ({card}) {tag} from disk: tools.test of a seeded checkpoint, "
+                    f"{cli['eval_frames']} frames ({cli['eval_ms_per_request']:.1f} ms per "
+                    f"request; a frame's {n} points in range, {kept} kept by the "
+                    f"collate's cap), {key} {float(result[key]):.4f}, launches "
+                    f"{json.dumps(cli['eval_launches'])}; peak memory "
+                    f"{summary[tag]['peak_memory_gib']:.2f} GiB (from {base:.2f} still allocated)")
+                log(f"[time] phase 20 {tag}: {summary[tag]['seconds']:.1f} s")
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[datasets] ({card}) phase 20 in {summary['phase_seconds']:.1f} s")
+    return summary, launches, served_b1, served_b2
 
 
 def main():
@@ -5528,6 +5941,14 @@ def main():
     cam_b2_n = sum(v["gather_gemm"] for v in cam_launches.values())
 
     lap("phase 19")
+    # 20. the other lidar datasets from disk through the CLIs (Waymo and ONCE
+    # CenterPoint trained and tested, Lyft, Custom and Argo2 tested)
+    dset_summary, dset_launches, dset_b1_served, dset_b2 = datasets_phase(device, card)
+    served_iou += dset_b1_served
+    dset_b1 = sum(v["iou_bev_overlap"] for v in dset_launches.values())
+    dset_b2_n = sum(v["gather_gemm"] for v in dset_launches.values())
+
+    lap("phase 20")
     # the device profiles of phase 19 (DEVICE_PROFILED) and phase 13's
     # profile_* subprocesses, after every host-clock reading
     run_deferred_profiles()
@@ -5608,7 +6029,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1 + mp_b1 + cam_b1),
+                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -5636,7 +6057,9 @@ def main():
                              **{k: v["iou_bev_overlap"] for k, v in ds_launches.items()},
                              **{k: v["iou_bev_overlap"] for k, v in mp_launches.items()},
                              **{f"camera_{k}": v["iou_bev_overlap"]
-                                for k, v in cam_launches.items()}},
+                                for k, v in cam_launches.items()},
+                             **{f"datasets_{k}": v["iou_bev_overlap"]
+                                for k, v in dset_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -5650,7 +6073,9 @@ def main():
             **{name: sorted({st["iou_bev_overlap"] for st in mp_summary[name]["train"]["steps"]})
                for name in MPPNET_DEPTH},
             **{name: sorted({st["iou_bev_overlap"] for st in cam_summary[name]["train"]["steps"]})
-               for name in CAMERA_MODELS}},
+               for name in CAMERA_MODELS},
+            **{f"{tag}_cli": [dset_launches[f"{tag}_cli_train"]["iou_bev_overlap"]]
+               for tag in ("waymo", "once")}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train
                                         + mp_b1_train]),
@@ -5677,6 +6102,9 @@ def main():
         "camera_served": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
                                              "plain_ms", "bound_ms", "bound_by")}
                           for e in cam_b1_served],
+        "datasets_served": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
+                                               "plain_ms", "bound_ms", "bound_by")}
+                            for e in dset_b1_served],
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -5685,7 +6113,7 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n),
+                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -5709,7 +6137,9 @@ def main():
                              **{k: v["gather_gemm"] for k, v in tf_launches.items()},
                              **{k: v["gather_gemm"] for k, v in ds_launches.items()},
                              **{k: v["gather_gemm"] for k, v in mp_launches.items()},
-                             **{f"camera_{k}": v["gather_gemm"] for k, v in cam_launches.items()}},
+                             **{f"camera_{k}": v["gather_gemm"] for k, v in cam_launches.items()},
+                             **{f"datasets_{k}": v["gather_gemm"]
+                                for k, v in dset_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -5720,6 +6150,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in ds_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in mp_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in cam_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in dset_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -5811,6 +6242,14 @@ def main():
                                   else "one bf16 train step's dX launches, summed", **totals}
                       for path, (totals, _) in cam_b2[name].items()}}
             for name in CAMERA_MODELS if name in CAMERA_CONVS},
+        "datasets": {
+            "model": f"{WAYMO_CLI_CFG[5:]} at full width (VoxelResBackBone8x over 1504 x 1504 x "
+                     "40, 150,000 voxels per frame, conv_input Cin 5) on frames read from disk, "
+                     "bf16",
+            "launches_per_request": {k: v[0] for k, v in DATASETS_B2.items()},
+            "launches_per_train_step": {k: v[1] for k, v in DATASETS_B2.items() if v[1]},
+            "served_request": {"unit": "one served bf16 Waymo request: its 21 launches, summed",
+                               **dset_b2[0], "per_conv": compact_gemm(dset_b2[1])}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -5828,6 +6267,7 @@ def main():
     log(json.dumps({"dsvt": ds_summary}, default=str))
     log(json.dumps({"mppnet": mp_summary}, default=str))
     log(json.dumps({"camera": cam_summary}, default=str))
+    log(json.dumps({"datasets": dset_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -4,8 +4,8 @@ Own copy of dfu3d_tpu/data/loader.py (itself the replacement of torch's
 DataLoader + DistributedSampler): each host takes every `process_count`-th
 index of a seeded, per-epoch reshuffled order (as sampler.set_epoch does),
 loads and augments frames in a thread pool, and collates them into a
-`PointBatch` of CPU tensors and a `BatchMeta`. The registry holds the KITTI
-datasets and NuScenesDataset; the other datasets are not ported yet.
+`PointBatch` of CPU tensors and a `BatchMeta`. The registry holds the same
+ten names as the JAX package's (dfu3d_tpu/data/__init__.py).
 """
 from __future__ import annotations
 
@@ -15,13 +15,27 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .argo2_dataset import Argo2Dataset
+from .custom_dataset import CustomDataset
+from .dataset import DatasetTemplate
 from .kitti_dataset import KittiDataset, KittiKittiDataset
+from .lyft_dataset import LyftDataset
 from .nuscenes_dataset import NuScenesDataset
+from .once_dataset import ONCEDataset
+from .pandaset_dataset import PandasetDataset
+from .waymo_dataset import WaymoDataset
 
 __all_datasets__ = {
+    "DatasetTemplate": DatasetTemplate,
     "KittiDataset": KittiDataset,
     "KittiKittiDataset": KittiKittiDataset,
     "NuScenesDataset": NuScenesDataset,
+    "ONCEDataset": ONCEDataset,
+    "CustomDataset": CustomDataset,
+    "LyftDataset": LyftDataset,
+    "WaymoDataset": WaymoDataset,
+    "PandasetDataset": PandasetDataset,
+    "Argo2Dataset": Argo2Dataset,
 }
 
 
@@ -109,8 +123,8 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, worke
     returns (dataset, loader)."""
     if dataset_cfg.DATASET not in __all_datasets__:
         raise NotImplementedError(
-            f"dataset {dataset_cfg.DATASET} is not ported yet (ROADMAP Queue A: the other "
-            f"datasets); ported: {sorted(__all_datasets__)}")
+            f"dataset {dataset_cfg.DATASET} is not a registered dataset; registered: "
+            f"{sorted(__all_datasets__)}")
     dataset = __all_datasets__[dataset_cfg.DATASET](
         dataset_cfg=dataset_cfg,
         class_names=class_names,

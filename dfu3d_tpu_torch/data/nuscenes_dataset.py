@@ -128,9 +128,7 @@ class NuScenesDataset(DatasetTemplate):
         a fresh one seeded 0)."""
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
                          root_path=root_path, logger=logger)
-        # KITTI-style info names → the config's, where it names detection classes
-        self._info_to_cfg = (KITTI_TO_DETECTION if class_names
-                             and all(n in DEFAULT_MAP for n in class_names) else {})
+        self._info_to_cfg = self._name_map(class_names)
         self.infos = []
         for info_path in dataset_cfg.INFO_PATH[self.mode]:
             p = Path(info_path)
@@ -148,6 +146,12 @@ class NuScenesDataset(DatasetTemplate):
             self.gt_box_width = 9
         if logger:
             logger.info(f"NuScenesDataset: {len(self.infos)} samples")
+
+    @staticmethod
+    def _name_map(class_names):
+        """KITTI-style info names → the config's, where it names detection classes."""
+        return (KITTI_TO_DETECTION if class_names
+                and all(n in DEFAULT_MAP for n in class_names) else {})
 
     def _cfg_names(self, names):
         return np.asarray([self._info_to_cfg.get(str(n), str(n)) for n in names])

@@ -64,10 +64,10 @@ def _rot_z(yaw):
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
 
 
-def _place_objects(rng, n):
+def _place_objects(rng, n, names):
     """n objects (class, centre xy, yaw, speed) in the scene's start frame,
-    every class at least once, with no two footprints closer than their radii."""
-    names = list(CLASSES)
+    every class of `names` at least once, with no two footprints closer than
+    their radii."""
     classes = names + list(rng.choice(names, n - len(names)))
     objs = []
     for cls in classes:
@@ -124,10 +124,12 @@ def _sweep_points(rng, objs, t, n_points):
 
 def write_root(root, n_train: int = 16, n_val: int = 8, frames_per_scene: int = 4,
                points_per_sweep: int = 34000, num_boxes=(20, 40), seed: int = 0,
-               version: str = "v1.0-mini"):
+               version: str = "v1.0-mini", classes=None):
     """Write the tree under `root`: n_train train and n_val val key frames in
-    scenes of `frames_per_scene`. Returns {"version", "train": [sample
+    scenes of `frames_per_scene`, objects of `classes` (detection names, keys
+    of CLASSES; default all ten). Returns {"version", "train": [sample
     tokens], "val": [...], "gt": {split: annotations written}}."""
+    classes = list(classes or CLASSES)
     root = Path(root)
     tdir = root / version
     tdir.mkdir(parents=True, exist_ok=True)
@@ -140,7 +142,7 @@ def write_root(root, n_train: int = 16, n_val: int = 8, frames_per_scene: int = 
                                "translation": [0.0, 0.0, LIDAR_HEIGHT],
                                "rotation": LIDAR_ROT.q.tolist(), "camera_intrinsic": []}],
         "log": [{"token": "log0", "logfile": "synthetic", "location": "synthetic"}],
-        "category": [{"token": f"cat_{det}", "name": cat} for det, (cat, _, _) in CLASSES.items()],
+        "category": [{"token": f"cat_{det}", "name": CLASSES[det][0]} for det in classes],
         "scene": [], "sample": [], "sample_data": [], "ego_pose": [], "sample_annotation": [],
     }
     written = {"version": version, "train": [], "val": [], "gt": {"train": 0, "val": 0}}
@@ -150,7 +152,7 @@ def write_root(root, n_train: int = 16, n_val: int = 8, frames_per_scene: int = 
             scenes.append((split, min(frames_per_scene, n - start)))
     t0_us = 1_500_000_000_000_000
     for s, (split, n_keys) in enumerate(scenes):
-        objs = _place_objects(rng, int(rng.randint(num_boxes[0], num_boxes[1] + 1)))
+        objs = _place_objects(rng, int(rng.randint(num_boxes[0], num_boxes[1] + 1)), classes)
         samples = [f"s{s}_k{k}" for k in range(n_keys)]
         tables["scene"].append({"token": f"scene{s}", "log_token": "log0",
                                 "name": f"scene-{s:04d}", "nbr_samples": n_keys,
@@ -201,18 +203,19 @@ def write_root(root, n_train: int = 16, n_val: int = 8, frames_per_scene: int = 
     return written
 
 
-def write_infos(root, written, max_sweeps: int = 10):
+def write_infos(root, written, max_sweeps: int = 10,
+                name: str = "nuscenes_infos_{max_sweeps}sweeps_{split}.pkl"):
     """create_nuscenes_infos over the tree, split by the scenes `write_root`
-    wrote (`written` is its return value): nuscenes_infos_{max_sweeps}sweeps_
-    {train,val}.pkl under `root`, the names the nuScenes dataset config reads.
-    Returns {split: path}."""
+    wrote (`written` is its return value): `name` under `root` for each split
+    (by default the names the nuScenes dataset config reads). Returns
+    {split: path}."""
     from .nuscenes_dataset import create_nuscenes_infos
 
     infos = create_nuscenes_infos(root, written["version"], max_sweeps=max_sweeps)
     paths = {}
     for split in ("train", "val"):
         tokens = set(written[split])
-        paths[split] = Path(root) / f"nuscenes_infos_{max_sweeps}sweeps_{split}.pkl"
+        paths[split] = Path(root) / name.format(max_sweeps=max_sweeps, split=split)
         with open(paths[split], "wb") as f:
             pickle.dump([i for i in infos if i["token"] in tokens], f)
     return paths

@@ -580,3 +580,28 @@ def get_official_eval_result(gt_annos, dt_annos, current_classes, use_native=Tru
                 ret_dict[f"{name}_image/moderate_R40"] = mAPbbox_R40[j, 1, 0]
                 ret_dict[f"{name}_image/hard_R40"] = mAPbbox_R40[j, 2, 0]
     return result, ret_dict
+
+
+def lidar_anno(boxes, names, scores=None):
+    """A KITTI-format anno of LiDAR-frame boxes (N, 7) [x y z dx dy dz
+    heading] and their (already KITTI-style) names, for the KITTI protocol
+    over datasets without a camera (Waymo, Custom, Pandaset, Argo2): the
+    camera layout [x = -y_l, y = -z_l, z = x_l], dims (l, h, w), ry =
+    -heading - pi/2, a fixed 200-pixel image box, no truncation or
+    occlusion, alpha -10 (the JAX datasets' `to_kitti`)."""
+    boxes = np.asarray(boxes, np.float64).reshape(-1, 7)
+    n = len(boxes)
+    d = {
+        "name": np.array([str(x) for x in names], dtype="<U32"),
+        "truncated": np.zeros(n), "occluded": np.zeros(n),
+        "alpha": np.full(n, -10.0),
+        "bbox": np.tile([0, 0, 200, 200.0], (n, 1)),
+        "dimensions": boxes[:, [3, 5, 4]] if n else np.zeros((0, 3)),
+        "location": np.stack(
+            [-boxes[:, 1], -boxes[:, 2], boxes[:, 0]], axis=1
+        ) if n else np.zeros((0, 3)),
+        "rotation_y": (-boxes[:, 6] - np.pi / 2) if n else np.zeros(0),
+    }
+    if scores is not None:
+        d["score"] = np.asarray(scores)
+    return d

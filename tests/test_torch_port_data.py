@@ -352,8 +352,8 @@ def test_loader_raises_a_frame_error_and_unknown_datasets(roots):
     with pytest.raises(FileNotFoundError):
         list(DataLoader(port, batch_size=2, shuffle=False, num_workers=2))
     cfg = CfgDict(_dataset_cfg(root))
-    cfg.DATASET = "WaymoDataset"
-    with pytest.raises(NotImplementedError, match="WaymoDataset"):
+    cfg.DATASET = "NoSuchDataset"
+    with pytest.raises(NotImplementedError, match="NoSuchDataset"):
         build_dataloader(cfg, CLASSES, batch_size=2)
 
 
