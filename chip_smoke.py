@@ -333,12 +333,30 @@ Phases, each fatal on failure:
               cbgs_voxel01_voxelnext.yaml (the KITTI fallback) on 4 frames
               each. Per dataset host seconds, ms per request and step,
               points kept per frame, peak memory.
+ 21. options  the seven configs derived from shipped ones (zoo.option_cfg:
+              CenterPoint with BaseBEVResBackbone, per-tower heads and
+              circle NMS; SECOND with USE_IOU_HEAD and MATCH_HEIGHT; the
+              compact RoI schemas of Voxel R-CNN, PV-RCNN, PV-RCNN++ and
+              PartA2; VoxelNeXt's compact trunk) at full width with seeded
+              weights, bf16, on a synthetic nuScenes root (4 + 4 key
+              frames, 9 sweeps) and a KITTI root with random RGB PNGs
+              (8 + 4 frames): requests and train steps, each fatal unless
+              it launches B1 and B2 as OPTIONS_B1 and OPTIONS_B2 say (B1
+              inside SECOND's train step: MATCH_HEIGHT's assignment); the
+              fp32 requests of centerpoint_options, voxel_rcnn_compact and
+              voxelnext_compact through the kernels against the twins;
+              SECOND's fp32 train step against the twins (MATCH_HEIGHT's
+              labels equal, conv_iou's gradient nonzero) and its B1 call
+              held and timed; VoxelNeXt's 52 served B2 calls held and
+              timed; SECOND from disk through tools.train and tools.test;
+              CaDDN.yaml's image items, and frames/s of get_image and of
+              the whole item on the host.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
 {"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}},
-{"mppnet": {...}}, {"camera": {...}}, {"datasets": {...}} and
-{"kernels": [...]};
+{"mppnet": {...}}, {"camera": {...}}, {"datasets": {...}},
+{"options": {...}} and {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -1181,7 +1199,7 @@ def train(name, build, batches, device):
     median = statistics.median(ms)
     log(f"[train] {name}: {len(steps)} steps, median {median:.2f} ms host clock "
         f"({4 / (median / 1e3):.2f} samples/s; without the first step "
-        f"{statistics.median(ms[1:]):.2f} ms); checkpoint reloaded equal "
+        f"{statistics.median(ms[1:] or ms):.2f} ms); checkpoint reloaded equal "
         f"(model {len(before)} tensors, optimizer step {fresh.step}); "
         f"{len(before) - len(unchanged)} of {len(before)} parameters and BN buffers changed; "
         f"kernel launches {json.dumps(launches)}")
@@ -5125,11 +5143,14 @@ class replayed_queries:
     map crowds its top 800 scores within 2e-3 (0.7486-0.7507 on the first
     card run), and the twin's other summation order swapped two queries
     3e-7 apart at the cut; the fp32 request check then compares the same
-    queries' boxes and scores. `swapped` counts the picks replaced."""
+    queries' boxes and scores. `swapped` counts the picks replaced. With
+    `per_run` > 1 a run makes that many selections (a CenterHead's per
+    head), and each later run's i-th is held against the first run's i-th."""
 
-    def __init__(self, head_module=None):
-        self.recorded, self.swapped = None, 0
+    def __init__(self, head_module=None, per_run=1):
+        self.recorded, self.swapped = [], 0
         self.head_module = head_module
+        self.per_run, self.calls = per_run, 0
 
     def __enter__(self):
         import torch
@@ -5141,10 +5162,11 @@ class replayed_queries:
 
         def replaying(x, k):
             vals, idx = self.orig(x, k)
-            if self.recorded is None:
-                self.recorded = (vals[:, -1:].clone(), idx.clone())
+            i, self.calls = self.calls % self.per_run, self.calls + 1
+            if len(self.recorded) < self.per_run:
+                self.recorded.append((vals[:, -1:].clone(), idx.clone()))
                 return vals, idx
-            cut, want = self.recorded
+            cut, want = self.recorded[i]
             apart = ~(idx[:, :, None] == want[:, None, :]).any(-1)
             near = (vals - cut).abs() <= QUERY_TIE_TOL
             if not near[apart].all():
@@ -5729,6 +5751,535 @@ def datasets_phase(device, card):
     return summary, launches, served_b1, served_b2
 
 
+# phase 21: the model options and the legacy compact schemas on the configs
+# derived from shipped ones (zoo.option_cfg) at full width with seeded
+# weights, bf16, and the KITTI image data path
+OPTIONS_DEPTH = {"centerpoint_options": (2, 2), "second_iou_height": (2, 2),
+                 "voxel_rcnn_compact": (1, 1), "pv_rcnn_compact": (1, 1),
+                 "pv_rcnn_plusplus_compact": (1, 1), "parta2_compact": (1, 1),
+                 "voxelnext_compact": (1, 2)}   # served requests and bf16 train steps, B=4
+# B2 launches per request and per train step: one per sparse conv, and a step
+# adds each conv's dX but the first's (the voxel means need none):
+# VoxelResBackBone8x 21, VoxelBackBone8x 12, SparseEncoder 9, SparseUNet 12;
+# VoxelNeXt's compact trunk VoxelBackBone8x 12 + down16 + down32 + 2 BEV
+# blocks + 6 class groups x 6 branch convs = 52
+OPTIONS_B2 = {"centerpoint_options": (21, 41), "second_iou_height": (12, 23),
+              "voxel_rcnn_compact": (9, 17), "pv_rcnn_compact": (9, 17),
+              "pv_rcnn_plusplus_compact": (9, 17), "parta2_compact": (12, 23),
+              "voxelnext_compact": (52, 103)}
+# B1 launches per request and per train step: circle NMS launches none, so
+# CenterPoint's one is the recall's; SECOND's NMS and recall, and in a train
+# step MATCH_HEIGHT's target assignment, the three classes' 70,400 anchors
+# per frame against the frames' gt slots in one launch; the two-stage models'
+# proposal NMS, final NMS and recall, a step's proposal NMS and RoI targets;
+# VoxelNeXt's NMS and recall
+OPTIONS_B1 = {"centerpoint_options": (1, 0), "second_iou_height": (2, 1),
+              "voxel_rcnn_compact": (3, 2), "pv_rcnn_compact": (3, 2),
+              "pv_rcnn_plusplus_compact": (3, 2), "parta2_compact": (3, 2),
+              "voxelnext_compact": (2, 0)}
+OPTIONS_NUSC = ("centerpoint_options", "voxelnext_compact")   # on the nuScenes root
+OPTIONS_TWO_STAGE = ("voxel_rcnn_compact", "pv_rcnn_compact", "pv_rcnn_plusplus_compact",
+                     "parta2_compact")
+OPTIONS_NUSC_FRAMES = (4, 4)   # phase 21's nuScenes root: train, val key frames
+OPTIONS_IMAGE_SEED = 21
+# MATCH_HEIGHT's labels through B1 and its twin may flip where an overlap
+# sits within the two runs' rounding of a decision; at most this many
+OPTIONS_LABEL_FLIPS = 4
+CADDN_CFG = "cfgs/kitti_models/CaDDN.yaml"   # from phase 21's work dir
+
+
+def options_data(work):
+    """Phase 21's data: a synthetic nuScenes root (OPTIONS_NUSC_FRAMES key
+    frames with 9 sweeps each and their infos) and phase 14's KITTI root
+    (`two_stage_root`: 8 + 4 frames, infos and the gt database) whose
+    image_2 PNGs are rewritten with seeded random RGB pixels (1240 x 370,
+    which compress to about their raw size: a slow case for the decoder).
+    Returns (nuScenes root and infos, KITTI root and infos, summary)."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.data import kitti_synthetic, nuscenes_synthetic
+
+    t0 = time.perf_counter()
+    nusc = work / "data" / "nuscenes"
+    written = nuscenes_synthetic.write_root(nusc, *OPTIONS_NUSC_FRAMES)
+    nusc_infos = nuscenes_synthetic.write_infos(nusc, written, NUSC_SWEEPS)
+    nusc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kitti, kitti_infos = two_stage_root(work)
+    rng = np.random.RandomState(OPTIONS_IMAGE_SEED)
+    pngs = sorted((kitti / "image_2").glob("*.png"))
+    for png in pngs:
+        kitti_synthetic.write_png_rgb(png, rng.randint(
+            0, 256, (kitti_synthetic.IMG_H, kitti_synthetic.IMG_W, 3), dtype=np.uint8))
+    kitti_s = time.perf_counter() - t0
+    mib = sum(p.stat().st_size for p in pngs) / len(pngs) / 2 ** 20
+    log(f"[options] data: nuScenes root {OPTIONS_NUSC_FRAMES} key frames in {nusc_s:.1f} s; "
+        f"KITTI root {TWO_STAGE_FRAMES} frames with infos, the gt database and random RGB "
+        f"PNGs ({mib:.2f} MiB each) in {kitti_s:.1f} s")
+    return (nusc, nusc_infos), (kitti, kitti_infos), {
+        "nuscenes_seconds": nusc_s, "kitti_seconds": kitti_s, "png_mib": mib}
+
+
+def options_batches(name, cfg, data, count, training):
+    """`count` batches of B=4 for a phase 21 model: nuScenes key frames with
+    9 sweeps (OPTIONS_NUSC), else KITTI frames, from phase 21's roots. The
+    nuScenes configs train on phase 6's synthetic batches (60,000 points,
+    16 gt per frame over the ten classes, 10-column gt) with a zero time-lag
+    column: four key frames of the synthetic root hold few boxes of some
+    classes once augmented, and a class group without gt in every step
+    leaves its regression towers untrained, which `train` takes for a
+    fault."""
+    import torch
+
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.data.batch import synthetic_batch
+
+    split = "train" if training else "val"
+    if name in OPTIONS_NUSC and training:
+        out = []
+        for s in range(count):
+            b = synthetic_batch(4, 60000, 256, 50.0, seed=s, velocity=True)
+            out.append(b._replace(points=torch.cat([b.points, torch.zeros_like(b.points[..., :1])],
+                                                   dim=-1)))
+        return out
+    if name in OPTIONS_NUSC:
+        root, infos = data["nuscenes"]
+        return zoo.nuscenes_batches(cfg, root, infos[split], count, training=training)
+    root, infos = data["kitti"]
+    return zoo.kitti_batches(cfg, root, infos[split], count, 4, training=training)
+
+
+def options_serve(name, model, batches, device):
+    """A warm-up request, the peak memory and every kernel count set to 0,
+    the requests through eval_batches (bf16), the counts and the peak read.
+    Fatal unless every request launched B1 and the tensor-core B2 as
+    OPTIONS_B1 and OPTIONS_B2 say and no CUDA-core B2, or on a non-finite or
+    empty output. Returns (EvalResult, launches, summary)."""
+    import torch
+
+    from dfu3d_tpu_torch.train.eval_utils import eval_batches
+
+    eval_batches(model, batches[:1], RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = eval_batches(model, batches, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    for k, (boxes, scores, labels, valid) in enumerate(res.preds):
+        if not torch.isfinite(boxes[valid]).all() or not torch.isfinite(scores).all() or \
+                not valid.any(dim=1).all():
+            fail(f"{name} request {k}: boxes {tuple(boxes.shape)}, kept boxes finite "
+                 f"{bool(torch.isfinite(boxes[valid]).all())}, kept per frame "
+                 f"{valid.sum(1).tolist()}")
+    b1, b2 = OPTIONS_B1[name][0], OPTIONS_B2[name][0]
+    if launches["iou_bev_overlap"] != b1 * n or launches["gather_gemm_tensor_core"] != b2 * n \
+            or launches["gather_gemm_cuda_core"]:
+        fail(f"{name} serving: kernel launches {launches} for {n} requests, not {b1} B1 and "
+             f"{b2} tensor-core B2 per request")
+    ms = [s * 1e3 for s in res.batch_seconds]
+    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+               "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
+               "recall": res.metric, "launches": launches,
+               "launches_per_request": {k: v / n for k, v in launches.items()},
+               "peak_memory_gib": peak / 2 ** 30}
+    log(f"[options] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+        f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
+        f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
+        f"{summary['kept_per_frame']}; launches per request "
+        f"{json.dumps(summary['launches_per_request'])}")
+    return res, launches, summary
+
+
+def check_request_paths(name, model, batch, device):
+    """One fp32 request through the kernels and through their plain twins
+    (CenterPoint with circle NMS, whose suppression reads no overlap): keep
+    masks equal, the kept (box, score, label) rows equal within PATH_TOL
+    when matched one to one per frame (`set_match_err`, as `check_paths`:
+    two kept boxes whose scores differ by less than the two summation
+    orders' rounding take their output slots in either order), recall
+    counters equal. How many slots differ slot by slot is reported."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    step = make_eval_step(model, RECALL_THRESH, device=device)
+    kb, ks, kl, kv, krec = step(batch)
+    with plain_twins([(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+                      (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]):
+        pb, ps, pl, pv, prec = step(batch)
+    krec, prec = ({k: int(v) for k, v in r.items()} for r in (krec, prec))
+    if not kv.any() or not torch.equal(kv, pv) or krec != prec:
+        fail(f"{name} fp32 path: keep masks equal {torch.equal(kv, pv)} ({int(kv.sum())} kept), "
+             f"recall {krec} vs {prec}")
+    match_err = set_match_err(name, (kb, ks, kl, kv), (pb, ps, pl, pv))
+    slot_diff = (((kb - pb).abs().amax(-1) > PATH_TOL) | ((ks - ps).abs() > PATH_TOL)
+                 | (kl != pl)) & kv
+    if not match_err <= PATH_TOL:
+        fail(f"{name} fp32 path: kept boxes, scores and labels differ by {match_err} (tol "
+             f"{PATH_TOL}) when matched as sets; largest |box| per column "
+             f"{kb.abs()[kv].amax(0).tolist()}")
+    log(f"[check] {name} fp32 whole path, kernels vs plain: keep masks equal "
+        f"({int(kv.sum())} kept), kept boxes, scores and labels equal as sets within "
+        f"{match_err:.3g}; {int(slot_diff.sum())} slots differ slot by slot (near-tied scores "
+        f"in either order); recall {krec}")
+    return {"kept": int(kv.sum()), "max_set_diff": match_err,
+            "slots_differing": int(slot_diff.sum()), "recall": krec}
+
+
+def label_flips(kernel, twin):
+    """MATCH_HEIGHT's assignments of one class through B1 and through its
+    twin, each (masked 3D IoU (B, A, M), labels (B, A), matched, unmatched
+    thresholds): [(frame, anchor, kernel label, twin label, explained)],
+    an anchor's flip explained where the two runs' overlaps put it within
+    their largest difference `s` (doubled) of a decision: its best overlap
+    at a threshold, or a near-tie at some gt's largest overlap in both runs
+    (the force-match compares overlaps with the column maximum for
+    equality, each run on its own tensor)."""
+    (i0, l0, hi, lo), (i1, l1, _, _) = kernel, twin
+    s = 2 * max((i0 - i1).abs().max().item(), 2.0 ** -24)
+    c0, c1 = i0.amax(dim=1), i1.amax(dim=1)   # (B, M): each gt's largest overlap
+    out = []
+    for b, a in (l0 != l1).nonzero().tolist():
+        r0, r1 = i0[b, a], i1[b, a]
+        at_threshold = any(abs(r.max().item() - t) <= s for r in (r0, r1) for t in (hi, lo))
+        tie = ((c0[b] > 0) & ((r0 - c0[b]).abs() <= s) & ((r1 - c1[b]).abs() <= s)).any().item()
+        out.append((b, a, int(l0[b, a]), int(l1[b, a]), bool(at_threshold or tie)))
+    return out
+
+
+def check_match_height_step(model, batch, device):
+    """second_iou_height's fp32 train step through the kernels against the
+    twins, as phase 14 holds a two-stage step: B1 first, the train forward
+    (B2 through the kernel) with MATCH_HEIGHT's overlaps through B1 and
+    through its twin, the twin run going on with the kernel run's targets
+    (as phase 14's B2 runs go on with the kernel run's RoIs): the loss within
+    TRAIN_LOSS_TOL relative; the labels each run assigns on its own equal,
+    but for flips that the two runs' rounding explains (`label_flips`: an
+    overlap within their largest difference of a threshold, or a near-tie
+    at a gt's largest overlap), at most OPTIONS_LABEL_FLIPS of them, each
+    reported; positives among them. Then B2 (`check_train_paths` with B2
+    swapped), conv_iou's gradient nonzero."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.models import pointpillar
+
+    batch = batch.to(device)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs, assign = [], pointpillar.assign_targets_single_class
+
+    def recording(*a, **k):
+        out = assign(*a, **k)
+        iou = torch.where(a[2][:, None, :], k["iou"], -1.0)   # gt_mask, as the assigner masks
+        runs[-1].append(((iou.clone(), out[0].clone(), a[4], a[5]), out))
+        return runs[0][len(runs[-1]) - 1][1]                  # the kernel run's targets
+
+    def forward(plain_b1):
+        runs.append([])
+        with plain_twins([(iou_kernel, "overlap_bev", "overlap_bev_plain")] if plain_b1 else []):
+            model.load_state_dict(weights)
+            model.train()
+            with torch.no_grad():
+                loss, _ = model(batch)
+        return loss.item()
+
+    pointpillar.assign_targets_single_class = recording
+    try:
+        k_loss, p_loss = forward(False), forward(True)
+    finally:
+        pointpillar.assign_targets_single_class = assign
+    model.load_state_dict(weights)
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    flips = [f for (kern, _), (twin, _) in zip(*runs) for f in label_flips(kern, twin)]
+    positives = sum(int((kern[1] > 0).sum()) for kern, _ in runs[0])
+    iou_diff = max((kern[0] - twin[0]).abs().max().item() for (kern, _), (twin, _) in zip(*runs))
+    if not all(f[4] for f in flips) or len(flips) > OPTIONS_LABEL_FLIPS or not positives or \
+            not rel <= TRAIN_LOSS_TOL:
+        fail(f"second_iou_height fp32 train forward, B1 vs its twin: MATCH_HEIGHT labels differ "
+             f"on {len(flips)} anchors (frame, anchor, kernel, twin, explained by rounding) "
+             f"{flips[:8]}; {positives} positive; largest |3D IoU kernel - twin| {iou_diff:.3g}; "
+             f"loss on the kernel run's targets {rel:.3g} relative")
+    check = check_train_paths("second_iou_height", model, batch,
+                              [(gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")],
+                              device, scales=True)
+    iou_grad = check.pop("leaf_scales")["dense_head.conv_iou.weight"]
+    if not iou_grad > 0:
+        fail(f"second_iou_height fp32 train step: conv_iou's largest gradient {iou_grad:.3g}")
+    check.update(b1_loss_rel_err=rel, label_flips=flips, positive_anchors=positives,
+                 max_iou3d_diff=iou_diff, conv_iou_grad_max=iou_grad)
+    log(f"[options] second_iou_height fp32 train step: MATCH_HEIGHT's labels through B1 and "
+        f"its twin {'equal' if not flips else f'equal but {len(flips)} flips at rounding'} "
+        f"({positives} positive anchors; 3D IoUs within {iou_diff:.3g}), loss {rel:.2e} "
+        f"relative; conv_iou's largest gradient {iou_grad:.3g}")
+    return check
+
+
+def options_model(name, data, device, card):
+    """Phase 21 for one model: serving at seeded weights (the BN statistics
+    of the first request for OPTIONS_NUSC: nuScenes intensities reach 255),
+    launches, ms, peak memory; the fp32 request through the kernels and the
+    twins (centerpoint_options on the same top-K peaks, `replayed_queries`;
+    voxel_rcnn_compact and voxelnext_compact by `check_paths`); VoxelNeXt's
+    52 served B2 calls held and timed; SECOND's fp32 train step and its
+    MATCH_HEIGHT B1 call held and timed; then OPTIONS_DEPTH's bf16 steps
+    through train_model (the two-stage models on `zoo.proposal_gt`'s gt),
+    fatal unless each launches B1 and B2 as OPTIONS_B1 and OPTIONS_B2 say.
+    Returns (summary, launches by path, train B1 entries, served B2
+    (totals, entries) or None)."""
+    import torch
+
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.models import center_head
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    build = getattr(zoo, name)
+    requests, train_steps = OPTIONS_DEPTH[name]
+    swaps = [(iou_kernel, "overlap_bev", "overlap_bev_plain"),
+             (gather_gemm_kernel, "gather_gemm", "gather_gemm_plain")]
+    seconds, launches, train_b1, served_b2 = {}, {}, [], None
+    t0 = time.perf_counter()
+    cfg, grid, model = build(device=device)
+    seeded_weights_(model, seed=0)
+    batches = options_batches(name, cfg, data, requests, training=False)
+    if name in OPTIONS_NUSC:
+        calibrate_bn_(model, batches[0])
+    log(f"[options] {name}: {cfg.MODEL.NAME} {'x'.join(map(str, grid.grid_size))} grid, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; points per request "
+        f"{[b.points_valid.sum(1).tolist() for b in batches]}")
+    res, launches[name], serve = options_serve(name, model, batches, device)
+    if name == "centerpoint_options":
+        with replayed_queries(center_head, per_run=model.dense_head.num_heads) as replay:
+            serve["fp32_check"] = check_request_paths(name, model, batches[0], device)
+        serve["fp32_check"]["peaks_replayed"] = replay.swapped
+    elif name in ("voxel_rcnn_compact", "voxelnext_compact"):
+        serve["fp32_check"] = check_paths(name, model, cfg, batches[0], res.preds[0], swaps,
+                                          device)
+    if name == "voxelnext_compact":
+        calls = record_gemm_calls(lambda: make_eval_step(
+            model, device=device, dtype=torch.bfloat16)(batches[0]))
+        if len(calls) != OPTIONS_B2[name][0]:
+            fail(f"one {name} eval step made {len(calls)} gather-GEMM calls")
+        served_b2 = hold_gemm_calls(f"{name}, one served request",
+                                    ((f"conv{i}", c) for i, c in enumerate(calls)))
+        serve["b2_served"] = {**served_b2[0], "per_conv": compact_gemm(served_b2[1])}
+        del calls
+    seconds["serve"] = time.perf_counter() - t0
+    del res, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tbatches = options_batches(name, cfg, data, train_steps, training=True)
+    if name in OPTIONS_TWO_STAGE or name == "second_iou_height":
+        _, _, model = build(device=device, train=True)
+        seeded_weights_(model, seed=0)
+        if name == "second_iou_height":
+            serve["fp32_train_check"] = check_match_height_step(model, tbatches[0], device)
+            train_b1 = train_overlaps(name, model, tbatches[0], device, names=("match_height",))
+        else:
+            reset_launches()
+            tbatches = [zoo.proposal_gt(model, bt, torch.bfloat16) for bt in tbatches]
+            launches[f"{name}_gt"] = read_launches()
+        del model
+    model, launches[f"{name}_train"], steps, _ = train(name, build, tbatches, device)
+    b1, b2 = OPTIONS_B1[name][1], OPTIONS_B2[name][1]
+    bad = [s["it"] for s in steps if s["iou_bev_overlap"] != b1
+           or s["gather_gemm_tensor_core"] != b2 or s["gather_gemm_cuda_core"]]
+    if bad:
+        fail(f"{name} train steps {bad} did not launch B1 {b1} and the tensor-core B2 {b2} "
+             f"times: {steps}")
+    seconds["train"] = time.perf_counter() - t0
+    ms = [s["host_ms"] for s in steps]
+    summary = {"config": f"zoo.option_cfg('{name}') from tools/cfgs/{zoo.OPTION_CFGS[name]}",
+               "card": card, "serve": serve,
+               "train": {"batch": 4, "steps": steps,
+                         "ms_per_step": {"median": statistics.median(ms), "all": ms},
+                         "launches": launches[f"{name}_train"],
+                         "b1_launches_per_step": b1, "b2_launches_per_step": b2,
+                         "b1_match_height": [{k: e[k] for k in (
+                             "problem", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by")} for e in train_b1]},
+               "phase_seconds": seconds}
+    log(f"[options] ({card}) {name}: request median {serve['request_ms']['median']:.2f} ms, "
+        f"train step median {statistics.median(ms):.2f} ms (B=4, bf16); seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    del model
+    torch.cuda.empty_cache()
+    return summary, launches, train_b1, served_b2
+
+
+def write_cfg_yaml(cfg, path):
+    """A config (CfgDict, its base configs merged) as a YAML file the CLIs
+    read with --cfg_file."""
+    import yaml
+
+    def plain(v):
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [plain(x) for x in v]
+        return v
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(plain(cfg), sort_keys=False))
+    return path
+
+
+def options_cli(work, root, device):
+    """second_iou_height from disk: its derived config written as a YAML
+    file, tools.train for 1 epoch (8 train frames, B=4, gt sampling and the
+    world augmentations, bf16) and tools.test --ckpt of its checkpoint on
+    the val split; fatal on a non-finite loss, no checkpoint, a train step
+    that does not launch B1 once (MATCH_HEIGHT) and the tensor-core B2 23
+    times, an eval batch that does not launch B1 twice and B2 12 times, a
+    missing KITTI txt or no Car in the AP_DICT."""
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.tools import test as test_cli, train as train_cli
+
+    cfg_file = write_cfg_yaml(zoo.option_cfg("second_iou_height"),
+                              work / "cfgs" / "options" / "second_iou_height.yaml")
+    common = ["--cfg_file", str(cfg_file.relative_to(work)), "--workers", str(LOADER_WORKERS),
+              "--extra_tag", "chip_smoke"]
+    data_path = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    b1, b2 = OPTIONS_B1["second_iou_height"], OPTIONS_B2["second_iou_height"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = train_cli.main([*common, "--epochs", "1", *data_path])
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    (epoch,) = trained["epochs"]
+    ckpt = trained["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    if not epoch["steps"] or not all(math.isfinite(v) for v in epoch["losses"]) or \
+            not ckpt.exists() or train_launches["iou_bev_overlap"] != b1[1] * epoch["steps"] or \
+            train_launches["gather_gemm_tensor_core"] != b2[1] * epoch["steps"] or \
+            train_launches["gather_gemm_cuda_core"]:
+        fail(f"tools.train second_iou_height: {epoch}, checkpoint {ckpt.exists()}, kernel "
+             f"launches {train_launches} (want B1 {b1[1]} and B2 {b2[1]} per step)")
+    reset_launches()
+    t0 = time.perf_counter()
+    ((_, result_dir, res),) = test_cli.main([*common, "--ckpt", str(ckpt), "--save_to_file",
+                                             *data_path])
+    test_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    txts = len(list((result_dir / "final_result" / "data").glob("*.txt")))
+    batches = res["eval_batches"]
+    if txts != TWO_STAGE_FRAMES[1] or "Car_3d/moderate_R40" not in res or \
+            eval_launches["iou_bev_overlap"] != b1[0] * batches or \
+            eval_launches["gather_gemm_tensor_core"] != b2[0] * batches:
+        fail(f"tools.test second_iou_height: {txts} txts for {TWO_STAGE_FRAMES[1]} val frames, "
+             f"kernel launches {eval_launches} for {batches} batches")
+    log(f"[options] second_iou_height from disk: tools.train {epoch['steps']} steps, losses "
+        f"{[round(v, 4) for v in epoch['losses']]}, {train_s:.2f} s, launches "
+        f"{json.dumps(train_launches)}; tools.test {res['num_frames']} frames, {txts} KITTI "
+        f"txts, {test_s:.2f} s, Car 3D moderate R40 {res['Car_3d/moderate_R40']:.2f}, launches "
+        f"{json.dumps(eval_launches)}")
+    return ({"train": {"steps": epoch["steps"], "losses": epoch["losses"], "seconds": train_s,
+                       "launches": train_launches},
+             "eval": {"num_frames": res["num_frames"], "txts": txts, "seconds": test_s,
+                      "launches": eval_launches,
+                      "car_3d_moderate_R40": res["Car_3d/moderate_R40"]}},
+            train_launches, eval_launches)
+
+
+def options_images(root, infos, card):
+    """CaDDN.yaml's train items from phase 21's KITTI root (images, 2D gt
+    boxes and points in GET_ITEM_LIST; random_image_flip from a seeded
+    generator; image_normalization): every frame's image (370, 1240, 3)
+    float32, finite and normalised, its 2D gt boxes (the label's, which the
+    range mask does not filter, in either package) and its points, some
+    frames flipped and some not; then on this host frames/s of
+    `get_image` alone (the PNG read and decode) and of the whole train item
+    (the image, the points, the flip and the normalisation), each over two
+    passes of the root's train frames. No kernel runs."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.data import kitti_synthetic
+    from dfu3d_tpu_torch.data.kitti_dataset import KittiDataset
+    from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(CADDN_CFG, CfgDict())
+    ds_cfg = cfg.DATA_CONFIG
+    ds_cfg.DATA_PATH = str(root)
+    ds_cfg.INFO_PATH = {"train": [str(infos["train"])], "test": [str(infos["val"])]}
+    ds = KittiDataset(ds_cfg, cfg.CLASS_NAMES, training=True, root_path=root)
+    ds.data_augmentor.rng = np.random.RandomState(OPTIONS_IMAGE_SEED)
+    n, flipped = len(ds), 0
+    for i in range(n):
+        item = ds[i]
+        img = item.get("images")
+        if img is None or img.shape != (kitti_synthetic.IMG_H, kitti_synthetic.IMG_W, 3) or \
+                img.dtype != np.float32 or not np.isfinite(img).all() or \
+                not -2.2 < img.min() < -1.5 or not 2.0 < img.max() < 2.7 or \
+                not len(item.get("gt_boxes2d", ())) or not len(item["points"]):
+            stats = None if img is None else (img.shape, img.dtype, float(img.min()),
+                                              float(img.max()))
+            fail(f"CaDDN.yaml train item {i}: keys {sorted(item)}, image {stats}")
+        flipped += bool(item.get("image_flipped"))
+    if not 0 < flipped < n:
+        fail(f"CaDDN.yaml train items: {flipped} of {n} flipped")
+    ids = [info["point_cloud"]["lidar_idx"] for info in ds.kitti_infos]
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for idx in ids:
+            ds.get_image(idx)
+    image_fps = 2 * len(ids) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for i in range(n):
+            ds[i]
+    item_fps = 2 * n / (time.perf_counter() - t0)
+    log(f"[options] ({card}) CaDDN.yaml train items from disk: {n} frames ({flipped} flipped), "
+        f"images 370 x 1240 normalised; on this host get_image {image_fps:.2f} frames/s, the "
+        f"whole train item {item_fps:.2f} frames/s (one process)")
+    return {"frames": n, "flipped": flipped, "get_image_frames_per_s": image_fps,
+            "item_frames_per_s": item_fps}
+
+
+def options_phase(device, card):
+    """Phase 21: the seven configs derived from shipped ones (zoo.option_cfg:
+    centerpoint_options, second_iou_height, voxel_rcnn_compact,
+    pv_rcnn_compact, pv_rcnn_plusplus_compact, parta2_compact,
+    voxelnext_compact) at full width with seeded weights on a synthetic
+    nuScenes root and a KITTI root with RGB PNGs, in a temporary working
+    directory whose cfgs/ links to tools/cfgs/; second_iou_height from disk
+    through tools.train and tools.test; CaDDN.yaml's image items and their
+    frames/s. Returns (summary, launches by path, train B1 entries, served
+    B2 (totals, entries) of voxelnext_compact)."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").mkdir()
+        for sub in (REPO / "tools" / "cfgs").iterdir():
+            (work / "cfgs" / sub.name).symlink_to(sub)
+        os.chdir(work)
+        try:
+            nusc, kitti, data_summary = options_data(work)
+            data = {"nuscenes": nusc, "kitti": kitti}
+            summary = {"card": card, "data": data_summary}
+            launches, train_b1, served_b2 = {}, [], None
+            for name in OPTIONS_DEPTH:
+                out = options_model(name, data, device, card)
+                summary[name] = out[0]
+                launches.update(out[1])
+                train_b1 += out[2]
+                served_b2 = out[3] or served_b2
+            summary["second_iou_height_cli"], launches["second_iou_height_cli_train"], \
+                launches["second_iou_height_cli_eval"] = options_cli(work, kitti[0], device)
+            summary["images"] = options_images(*kitti, card)
+        finally:
+            os.chdir(cwd)
+    return summary, launches, train_b1, served_b2
+
+
 def main():
     import torch
 
@@ -5949,6 +6500,13 @@ def main():
     dset_b2_n = sum(v["gather_gemm"] for v in dset_launches.values())
 
     lap("phase 20")
+    # 21. the model options and legacy compact schemas on the configs derived
+    # from shipped ones (zoo.option_cfg), and the KITTI image data path
+    opt_summary, opt_launches, opt_b1_train, opt_b2 = options_phase(device, card)
+    opt_b1 = sum(v["iou_bev_overlap"] for v in opt_launches.values())
+    opt_b2_n = sum(v["gather_gemm"] for v in opt_launches.values())
+
+    lap("phase 21")
     # the device profiles of phase 19 (DEVICE_PROFILED) and phase 13's
     # profile_* subprocesses, after every host-clock reading
     run_deferred_profiles()
@@ -6029,7 +6587,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1),
+                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1 + opt_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -6059,7 +6617,9 @@ def main():
                              **{f"camera_{k}": v["iou_bev_overlap"]
                                 for k, v in cam_launches.items()},
                              **{f"datasets_{k}": v["iou_bev_overlap"]
-                                for k, v in dset_launches.items()}},
+                                for k, v in dset_launches.items()},
+                             **{f"options_{k}": v["iou_bev_overlap"]
+                                for k, v in opt_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -6075,10 +6635,12 @@ def main():
             **{name: sorted({st["iou_bev_overlap"] for st in cam_summary[name]["train"]["steps"]})
                for name in CAMERA_MODELS},
             **{f"{tag}_cli": [dset_launches[f"{tag}_cli_train"]["iou_bev_overlap"]]
-               for tag in ("waymo", "once")}},
+               for tag in ("waymo", "once")},
+            **{name: sorted({st["iou_bev_overlap"] for st in opt_summary[name]["train"]["steps"]})
+               for name in OPTIONS_DEPTH}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train
-                                        + mp_b1_train]),
+                                        + mp_b1_train + opt_b1_train]),
         "ms": nms_entry["ms"],
         "kernel_ms": nms_entry["ms"],
         "plain_ms": nms_entry["plain_ms"],
@@ -6090,7 +6652,7 @@ def main():
         "survivor_share": nms_entry["survivor_share"],
         "overlapping_share": nms_entry["overlapping_share"],
         "cull_margin_m": iou_kernel.CULL_MARGIN,
-        "shapes": [e["shape"] for e in iou_shapes + served_iou + prcnn_train_b1],
+        "shapes": [e["shape"] for e in iou_shapes + served_iou + prcnn_train_b1 + opt_b1_train],
         "per_shape": iou_shapes,
         "served": served_iou,
         "pointrcnn_train": prcnn_train_b1,
@@ -6105,6 +6667,9 @@ def main():
         "datasets_served": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
                                                "plain_ms", "bound_ms", "bound_by")}
                             for e in dset_b1_served],
+        "options_train": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms", "bound_by")}
+                          for e in opt_b1_train],
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -6113,7 +6678,7 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n),
+                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n + opt_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -6139,7 +6704,9 @@ def main():
                              **{k: v["gather_gemm"] for k, v in mp_launches.items()},
                              **{f"camera_{k}": v["gather_gemm"] for k, v in cam_launches.items()},
                              **{f"datasets_{k}": v["gather_gemm"]
-                                for k, v in dset_launches.items()}},
+                                for k, v in dset_launches.items()},
+                             **{f"options_{k}": v["gather_gemm"]
+                                for k, v in opt_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -6151,6 +6718,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in mp_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in cam_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in dset_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in opt_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -6250,6 +6818,13 @@ def main():
             "launches_per_train_step": {k: v[1] for k, v in DATASETS_B2.items() if v[1]},
             "served_request": {"unit": "one served bf16 Waymo request: its 21 launches, summed",
                                **dset_b2[0], "per_conv": compact_gemm(dset_b2[1])}},
+        "options": {
+            **{name: {"model": opt_summary[name]["config"],
+                      "launches_per_request": OPTIONS_B2[name][0],
+                      "launches_per_train_step": OPTIONS_B2[name][1]} for name in OPTIONS_DEPTH},
+            "voxelnext_compact_served": {
+                "unit": "one served bf16 voxelnext_compact request: its 52 launches, summed",
+                **opt_b2[0], "per_conv": compact_gemm(opt_b2[1])}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -6268,6 +6843,7 @@ def main():
     log(json.dumps({"mppnet": mp_summary}, default=str))
     log(json.dumps({"camera": cam_summary}, default=str))
     log(json.dumps({"datasets": dset_summary}, default=str))
+    log(json.dumps({"options": opt_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

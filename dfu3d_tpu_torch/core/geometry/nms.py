@@ -94,3 +94,32 @@ def nms_bev(boxes, scores, thresh: float, pre_max: int, post_max: int, valid=Non
     sel_valid = sel_scores > _NEG_INF / 2
     sel_indices = torch.where(sel_valid, torch.gather(order, -1, sel_pos), 0)
     return sel_indices, sel_valid
+
+
+def circle_nms(boxes, scores, min_radius: float, post_max: int, valid=None):
+    """Distance-based NMS over a batch of problems (JAX circle_nms,
+    nms.py:194-215; reference centernet_utils.circle_nms): every live box in
+    descending score order (the full top-K order), a box suppressed by a
+    kept higher-scoring one whose BEV centre lies closer than `min_radius`
+    (d² < r², strict), then the top `post_max` of the kept scores. Launches
+    no overlap kernel.
+
+    boxes (G, N, 7+), scores (G, N), valid optional (G, N) →
+    (indices (G, min(post_max, N)) int64, keep (G, min(post_max, N)) bool),
+    as `nms_bev` returns them."""
+    n = boxes.shape[-2]
+    post_max = min(post_max, n)
+    if valid is not None:
+        scores = torch.where(valid, scores, _NEG_INF)
+    top_scores, order = top_k(scores, n)
+    live = top_scores > _NEG_INF / 2
+    xy = torch.gather(boxes[..., 0:2].float(), -2, order[..., None].expand(*order.shape, 2))
+    d2 = ((xy[..., :, None, :] - xy[..., None, :, :]) ** 2).sum(dim=-1)
+    r = torch.tensor(min_radius, dtype=torch.float32, device=boxes.device)
+    near = torch.where(d2 < r * r, 1.0, 0.0)
+    keep, _ = _suppression_scan(near, live, 0.5)
+    kept_scores = torch.where(keep, top_scores, _NEG_INF)
+    sel_scores, sel_pos = top_k(kept_scores, post_max)
+    sel_valid = sel_scores > _NEG_INF / 2
+    sel_indices = torch.where(sel_valid, torch.gather(order, -1, sel_pos), 0)
+    return sel_indices, sel_valid

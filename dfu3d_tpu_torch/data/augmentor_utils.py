@@ -1,7 +1,7 @@
 """Point/box augmentation transforms (host-side numpy).
 
-Own copy of dfu3d_tpu/data/augmentor_utils.py (the image flip comes with the
-image branch). Same transform semantics as the reference's augmentor_utils.py
+Own copy of dfu3d_tpu/data/augmentor_utils.py, the multimodal image flip
+included. Same transform semantics as the reference's augmentor_utils.py
 (random world flip/rotation/scaling/translation and their effect on boxes),
 expressed as pure functions returning (gt_boxes, points, params) so the
 applied transform is recorded.
@@ -355,3 +355,14 @@ def local_pyramid_swap(gt_boxes, points, prob, max_num_pts, rng,
         swap_masks.extend([m_i, m_k])
     drop = np.logical_or.reduce(swap_masks)
     return gt_boxes, np.concatenate([points[~drop]] + new_chunks, axis=0)
+
+
+def random_image_flip_horizontal(image, depth_map, gt_boxes, calib):
+    """Multimodal horizontal flip (JAX augmentor_utils.py:359-368; reference
+    :113-151): the image and the depth map mirrored left to right; the gt
+    boxes stay in the lidar frame as they are, as the JAX package keeps
+    them, and `calib` is not read. Returns (image, depth_map, gt_boxes),
+    the arrays contiguous copies."""
+    image = np.ascontiguousarray(image[:, ::-1])
+    depth_map = np.ascontiguousarray(depth_map[:, ::-1]) if depth_map is not None else None
+    return image, depth_map, gt_boxes

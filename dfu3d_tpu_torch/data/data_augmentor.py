@@ -176,9 +176,22 @@ class DataAugmentor:
         return data_dict
 
     def random_image_flip(self, data_dict=None, config=None):
-        raise NotImplementedError(
-            "random_image_flip needs the image branch, which is not ported yet "
-            "(ROADMAP Queue A item 6: models/image/*)")
+        """Multimodal horizontal image flip (JAX data_augmentor.py:177-192;
+        reference :116): with probability 0.5 from the augmentor's `rng`
+        (one uniform draw per frame that has images, none otherwise), the
+        image and depth map flipped and `image_flipped` set."""
+        if data_dict is None:
+            return partial(self.random_image_flip, config=config)
+        if "images" not in data_dict or self.rng.uniform(0, 1) > 0.5:
+            return data_dict
+        image, depth_map, gt_boxes = augmentor_utils.random_image_flip_horizontal(
+            data_dict["images"], data_dict.get("depth_maps"), data_dict["gt_boxes"],
+            data_dict.get("calib"))
+        data_dict["images"] = image
+        if depth_map is not None:
+            data_dict["depth_maps"] = depth_map
+        data_dict["image_flipped"] = True
+        return data_dict
 
     def disable_augmentation(self, augmentor_configs):
         """Rebuild the queue with extra disables (disable-aug-last-epochs hook)."""

@@ -1,7 +1,7 @@
 """KITTI-format dataset — the DFU3D workhorse (used for nuScenes-in-KITTI-format).
 
-Own copy of dfu3d_tpu/data/kitti_dataset.py for LiDAR (the camera image comes
-with the image branch). Behavioural parity with the reference's KittiDataset
+Own copy of dfu3d_tpu/data/kitti_dataset.py, the camera image included (read
+by `kitti_io.read_png`, as PIL's RGB conversion gives it). Behavioural parity with the reference's KittiDataset
 (pcdet/datasets/kitti/kitti_dataset.py): info-pkl loading, FOV filtering,
 empty-label tolerance (the DFU3D modification at :212-258), KITTI-format
 prediction writing (:339-419), info/gt-database generation (:158-337), and
@@ -86,9 +86,11 @@ class KittiDataset(DatasetTemplate):
         return kitti_io.get_image_shape(self.root_split_path / "image_2" / f"{idx}.png")
 
     def get_image(self, idx):
-        raise NotImplementedError(
-            "reading camera images needs the image branch, which is not ported yet "
-            "(ROADMAP Queue A item 6: models/image/*)")
+        """(H, W, 3) float32 in [0, 1] (reference get_image,
+        kitti_dataset.py:75-88), decoded by `kitti_io.read_png` as PIL's
+        convert("RGB") gives it."""
+        return kitti_io.read_png(self.root_split_path / "image_2" / f"{idx}.png").astype(
+            np.float32) / 255.0
 
     def get_label(self, idx):
         label_dir = self.dataset_cfg.get("LABEL_DIR", "label_2")
@@ -424,9 +426,9 @@ class KittiDataset(DatasetTemplate):
                 points = points[fov_flag]
             input_dict["points"] = points
 
-        # multimodal items (reference kitti_dataset.py:480-497): the image
-        # (raises until the image branch is ported) and the camera-frame 2D
-        # gt boxes
+        # multimodal items (reference kitti_dataset.py:480-497): the image as
+        # float [0, 1] and the camera-frame 2D gt boxes, read by the camera
+        # models and the sampler's image-domain copy-paste
         if "images" in get_item_list:
             input_dict["images"] = self.get_image(sample_idx)
         if "gt_boxes2d" in get_item_list and "annos" in info:

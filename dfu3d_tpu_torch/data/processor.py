@@ -5,7 +5,9 @@ Voxelization happens on the device inside the model (core/voxel), so both
 voxel processor names only record the grid geometry and the voxel cap (the
 reference's own "placeholder" path for dynamic VFEs, data_processor.py:107-131),
 and the collate step pads points to a static cap instead. The image
-processors come with the image branch; a config that names one raises.
+processors (`downsample_depth_map`, `image_normalization` alias
+`image_normalize`, `image_calibrate`) are the JAX package's host numpy
+(processor.py:135-219).
 """
 from __future__ import annotations
 
@@ -15,10 +17,6 @@ from functools import partial
 import numpy as np
 
 from . import np_geometry as npg
-
-_IMAGE_PROCESSORS = ("downsample_depth_map", "image_normalization", "image_normalize",
-                     "image_calibrate")
-
 
 class DataProcessor:
     def __init__(self, processor_configs, point_cloud_range, training, num_point_features):
@@ -32,10 +30,6 @@ class DataProcessor:
         self._occupancy_warned = False
         self.data_processor_queue = []
         for cur_cfg in processor_configs:
-            if cur_cfg.NAME in _IMAGE_PROCESSORS:
-                raise NotImplementedError(
-                    f"data processor {cur_cfg.NAME} needs the image branch, which is not "
-                    "ported yet (ROADMAP Queue A item 6: models/image/*)")
             self.data_processor_queue.append(getattr(self, cur_cfg.NAME)(config=cur_cfg))
 
     def mask_points_and_boxes_outside_range(self, data_dict=None, config=None):
@@ -138,6 +132,85 @@ class DataProcessor:
         if data_dict is None:
             self._record_grid(config)
             return partial(self.calculate_grid_size, config=config)
+        return data_dict
+
+    def downsample_depth_map(self, data_dict=None, config=None):
+        """Block-mean depth downsample by DOWNSAMPLE_FACTOR (reference
+        data_processor.py:224-233; skimage downscale_local_mean: the map
+        padded with zeros at its bottom and right edges to a multiple of
+        the factor, then each block's mean)."""
+        if data_dict is None:
+            self.depth_downsample_factor = int(config.DOWNSAMPLE_FACTOR)
+            return partial(self.downsample_depth_map, config=config)
+        dm = np.asarray(data_dict.get("depth_maps"))
+        if dm is None or dm.size == 0:
+            return data_dict
+        f = self.depth_downsample_factor
+        h, w = dm.shape[:2]
+        ph, pw = (-h) % f, (-w) % f
+        if ph or pw:
+            dm = np.pad(dm, ((0, ph), (0, pw)), mode="constant")
+        hh, ww = dm.shape[0] // f, dm.shape[1] // f
+        data_dict["depth_maps"] = dm.reshape(hh, f, ww, f).mean(axis=(1, 3))
+        return data_dict
+
+    def image_normalization(self, data_dict=None, config=None):
+        """Per-channel (image - mean) / std of "images" or "camera_imgs" (one
+        image or a list; uint8 first scaled to [0, 1]), in float32
+        (reference image_normalize, data_processor.py:235-247)."""
+        if data_dict is None:
+            return partial(self.image_normalization, config=config)
+        mean = np.asarray(config.mean, np.float32)
+        std = np.asarray(config.std, np.float32)
+        for key in ("images", "camera_imgs"):
+            if data_dict.get(key) is None:
+                continue
+            imgs = data_dict[key]
+            single = not isinstance(imgs, (list, tuple))
+            out = []
+            for img in [imgs] if single else imgs:
+                img = np.asarray(img)
+                if img.dtype == np.uint8:
+                    img = img.astype(np.float32) / 255.0
+                out.append((img.astype(np.float32) - mean) / std)
+            data_dict[key] = out[0] if single else out
+        return data_dict
+
+    # the reference's spelling (the BEVFusion dataset configs use image_normalize)
+    image_normalize = image_normalization
+
+    def image_calibrate(self, data_dict=None, config=None):
+        """The recorded image augmentations (resize, crop, flip, rotate per
+        camera, "img_process_infos") folded into 4×4 post-homographies
+        "img_aug_matrix" (reference data_processor.py:249-283); identities
+        when none were recorded."""
+        if data_dict is None:
+            return partial(self.image_calibrate, config=config)
+        infos = data_dict.get("img_process_infos")
+        if not infos:
+            n = len(data_dict.get("camera_imgs", data_dict.get("images", [])) or [1])
+            data_dict["img_aug_matrix"] = [np.eye(4, dtype=np.float32)] * n
+            return data_dict
+        transforms = []
+        for resize, crop, flip, rotate in infos:
+            rotation = np.eye(2, dtype=np.float32) * resize
+            translation = -np.asarray(crop[:2], np.float32)
+            if flip:
+                a = np.array([[-1, 0], [0, 1]], np.float32)
+                rotation = a @ rotation
+                translation = a @ translation + np.array([crop[2] - crop[0], 0], np.float32)
+            theta = rotate / 180.0 * np.pi
+            a = np.array([[np.cos(theta), np.sin(theta)],
+                          [-np.sin(theta), np.cos(theta)]], np.float32)
+            b = np.array([crop[2] - crop[0], crop[3] - crop[1]], np.float32) / 2.0
+            b = a @ (-b) + b
+            rotation = a @ rotation
+            translation = a @ translation + b
+            t = np.eye(4, dtype=np.float32)
+            t[:2, :2] = rotation
+            t[:2, 3] = translation
+            transforms.append(t)
+        data_dict["img_aug_matrix"] = transforms
         return data_dict
 
     def sample_points(self, data_dict=None, config=None):

@@ -24,9 +24,11 @@ GAINS = {"vfe.pfn_0.Dense_0.weight": 1 / math.sqrt(170.0),
          "backbone_3d.conv_input.SubMConv3d_0.kernel": 4.0,
          "dense_head.conv_box.weight": 0.1,
          "roi_head.jointembed.fc3.weight": 0.1}
-# and by pattern: VoxelNeXt's output layers, in every class group, the heat
-# map's and the box regressions' (not the IoU branch's); TransFusion's box
-# regressions
+# biases that do not start at 0, by state_dict key
+BIASES = {"dense_head.conv_iou.bias": 1.0}
+# and by pattern: the per-group output layers of VoxelNeXt and of
+# CenterHead's per-tower SeparateHeads, the heat map's and the box
+# regressions' (not the IoU branch's); TransFusion's box regressions
 PATTERN_GAINS = ((re.compile(r"head_\d+\.hm_out\.weight$"), 0.1),
                  (re.compile(r"head_\d+\.(center|center_z|dim|rot|vel)_out\.weight$"), 0.01),
                  (re.compile(r"dense_head\.(center|height|dim|rot|vel)_out\.weight$"), 0.1))
@@ -51,7 +53,7 @@ def seeded_weights_(model, seed: int):
     """Random weights for benchmarks, from a seeded torch.Generator: He-normal
     kernels, zero biases, BN at identity. The first PFN layer is scaled for
     inputs in metres (mean square ≈ 170 per channel at a 50 m extent) and the
-    head's out conv by 0.4, so the logits stay O(1); the heat-map bias is 0,
+    head's fused out conv by 0.4, so the logits stay O(1); the heat-map bias is 0,
     so the top-K scores sit far above SCORE_THRESH 0.1 instead of at
     sigmoid(-2.19) ≈ 0.1006 where float noise would flip them. Sparse conv
     kernels (K, Cin, Cout) have fan-in K · Cin; on the benchmark's uniform
@@ -62,8 +64,9 @@ def seeded_weights_(model, seed: int):
     set it: at full scale its codes decode to boxes e^10 times an anchor's
     size, tens of metres off, and gt made of such proposals
     (`zoo.proposal_gt`) put the RPN's box loss at 1e7 and beyond.
-    VoxelNeXt's output layers are scaled too, its box regressions' by 0.01
-    and its heat map's by 0.1: at full scale the exp of their dims decodes
+    VoxelNeXt's output layers are scaled too, and CenterHead's per-tower
+    ones (head_{h}.{branch}_out) alike, the box regressions' by 0.01 and the
+    heat map's by 0.1: at full scale the exp of their dims decodes
     boxes kilometres wide, whose overlaps fp32 cannot hold (the kernel and
     its twin then differ by 1e6 m²), and at 0.1 to 0.03 the boxes from 31
     sparse convs still carry 1e-4 of fp32 rounding between two summation
@@ -77,7 +80,11 @@ def seeded_weights_(model, seed: int):
     decode to sizes e^code times the RoI's). MPPNet's group tokens,
     zeros at init (as the JAX package and the reference make them), are
     drawn N(0, 1): a zero token gives the first encoder layer's query
-    projection a gradient of exactly 0."""
+    projection a gradient of exactly 0. The anchor head's IoU output
+    (USE_IOU_HEAD) starts at a bias of 1: on the BEV cells without points
+    its logit is the bias, and at 0 the rectified score
+    score^0.32 · max(tanh(logit), 1e-4)^0.68 puts every anchor below
+    SCORE_THRESH, so the NMS would have no candidate."""
     gen = torch.Generator().manual_seed(seed)
     state = model.state_dict()
     for key, v in state.items():
@@ -90,7 +97,7 @@ def seeded_weights_(model, seed: int):
             std = math.sqrt(2.0 / fan_in) * _gain(key)
             state[key] = torch.randn(v.shape, generator=gen) * std
         elif leaf == "bias":
-            state[key] = torch.zeros_like(v)
+            state[key] = torch.full_like(v, BIASES.get(key, 0.0))
         elif leaf == "token":
             state[key] = torch.randn(v.shape, generator=gen)
     model.load_state_dict(state)

@@ -1,7 +1,9 @@
 """Anchor-based dense heads (port of dfu3d_tpu/models/anchor_head.py): the
 anchor generator, the residual coder (which PointRCNN's RoI head also
-decodes with), the axis-aligned target assigner, AnchorHeadSingle and
-AnchorHeadMulti, their loss and their decode.
+decodes with), the axis-aligned target assigner (on the snapped BEV IoU, or
+with MATCH_HEIGHT on the rotated 3D IoU through kernel B1),
+AnchorHeadSingle (with SECONDNetIoU's conv_iou under USE_IOU_HEAD) and
+AnchorHeadMulti, their loss (and the IoU head's) and their decode.
 
 Reference: pcdet/models/dense_heads/anchor_head_single.py,
 anchor_head_multi.py and anchor_head_template.py,
@@ -29,6 +31,7 @@ from ..core.geometry.boxes import (
     boxes_iou_normal,
     limit_period,
 )
+from ..core.geometry.iou import aligned_iou3d
 from . import losses
 
 CLS_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
@@ -120,16 +123,20 @@ def _nearest_bev_iou(anchors_bev, gt):
 
 
 def assign_targets_single_class(anchors, gt_boxes, gt_mask, gt_classes, matched_threshold,
-                                unmatched_threshold, anchors_bev=None):
+                                unmatched_threshold, anchors_bev=None, iou=None):
     """One class's anchors (A, 7) against every frame's gt (B, M, 7), masked
     to that class by gt_mask (B, M) (assign_targets_single,
     axis_aligned_target_assigner.py:132-214, JAX's masked form): returns
     labels (B, A) int64, regression targets (B, A, 7) and weights (B, A).
-    MATCH_HEIGHT is not ported (the 3D IoU form); `anchors_bev` are the
-    anchors' snapped BEV boxes when the caller has them."""
-    if anchors_bev is None:
-        anchors_bev = boxes3d_lidar_to_aligned_bev_boxes(anchors)
-    iou = _nearest_bev_iou(anchors_bev, gt_boxes[..., :7])
+    The overlaps are the snapped BEV IoU (`anchors_bev` the anchors' snapped
+    BEV boxes when the caller has them), or `iou` (B, A, M) when the caller
+    gives them (MATCH_HEIGHT: `pairwise_iou3d`, JAX anchor_head.py:159-161).
+    The force-match compares each overlap for equality with its gt's
+    largest, both read from the one `iou` tensor."""
+    if iou is None:
+        if anchors_bev is None:
+            anchors_bev = boxes3d_lidar_to_aligned_bev_boxes(anchors)
+        iou = _nearest_bev_iou(anchors_bev, gt_boxes[..., :7])
     iou = torch.where(gt_mask[:, None, :], iou, -1.0)
     any_gt = gt_mask.any(dim=1, keepdim=True)                       # (B, 1)
     anchor_to_gt_max = iou.amax(dim=2)                              # (B, A)
@@ -168,27 +175,34 @@ def _nhwc(conv, x_nchw):
 
 class AnchorHeadSingle(nn.Module):
     """1×1 conv heads over BEV features (anchor_head_single.py:10-74):
-    conv_cls, conv_box and conv_dir_cls. The SECONDNetIoU variant's conv_iou
-    is not ported."""
+    conv_cls, conv_box and conv_dir_cls, and with `use_iou_head` (USE_IOU_HEAD,
+    the SECONDNetIoU variant, detectors/second_net_iou.py) conv_iou, one IoU
+    logit per anchor."""
 
     def __init__(self, in_channels: int, num_class: int, num_anchors_per_location: int,
-                 use_direction_classifier: bool = True, num_dir_bins: int = 2):
+                 use_direction_classifier: bool = True, num_dir_bins: int = 2,
+                 use_iou_head: bool = False):
         super().__init__()
         a = num_anchors_per_location
         self.use_direction_classifier = use_direction_classifier
+        self.use_iou_head = use_iou_head
         self.conv_cls = _conv1x1(in_channels, a * num_class, CLS_PRIOR_BIAS)
         self.conv_box = _conv1x1(in_channels, a * 7)
         if use_direction_classifier:
             self.conv_dir_cls = _conv1x1(in_channels, a * num_dir_bins)
+        if use_iou_head:
+            self.conv_iou = _conv1x1(in_channels, a)
 
     def forward(self, spatial_features_2d):
-        """(B, H, W, C) → {"cls_preds", "box_preds"[, "dir_cls_preds"]}, each
-        (B, H, W, A·k) fp32."""
+        """(B, H, W, C) → {"cls_preds", "box_preds"[, "dir_cls_preds"]
+        [, "iou_preds"]}, each (B, H, W, A·k) fp32."""
         x = spatial_features_2d.permute(0, 3, 1, 2)
         out = {"cls_preds": _nhwc(self.conv_cls, x).float(),
                "box_preds": _nhwc(self.conv_box, x).float()}
         if self.use_direction_classifier:
             out["dir_cls_preds"] = _nhwc(self.conv_dir_cls, x).float()
+        if self.use_iou_head:
+            out["iou_preds"] = _nhwc(self.conv_iou, x).float()
         return out
 
 
@@ -329,6 +343,28 @@ def anchor_head_loss(preds, targets: AnchorTargets, anchors_flat, num_class: int
         tb["rpn_loss_dir"] = dir_loss
     tb["rpn_loss"] = total
     return total, tb
+
+
+def iou_head_loss(preds, targets: AnchorTargets, anchors_flat):
+    """The IoU head's L1 loss (JAX pointpillar.py:154-178, second_net_iou
+    semantics): per anchor |tanh(iou logit) - the 3D IoU of its decoded box
+    (detached) with its decoded target|, over the positive anchors, each
+    frame's weights 1 / its positives, summed and divided by B."""
+    b = preds["iou_preds"].shape[0]
+    iou_p = preds["iou_preds"].reshape(b, -1)
+    boxes = decode_boxes(preds["box_preds"].reshape(b, -1, 7), anchors_flat[None])
+    matched = decode_boxes(targets.box_reg_targets, anchors_flat[None])
+    actual = aligned_iou3d(boxes.detach().reshape(-1, 7), matched.reshape(-1, 7)).view(b, -1)
+    w = (targets.box_cls_labels > 0).float()
+    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
+    return (torch.abs(torch.tanh(iou_p) - actual) * w).sum() / b
+
+
+def rectify_scores(max_scores, iou_preds, rectifier: float):
+    """score^(1-w) · max(clip(tanh(iou logit), 0, 1), 1e-4)^w (JAX
+    pointpillar.py:198-205, IOU_RECTIFIER w)."""
+    iou = torch.clamp(torch.tanh(iou_preds.reshape(max_scores.shape)), 0.0, 1.0)
+    return torch.pow(max_scores, 1 - rectifier) * torch.pow(torch.clamp(iou, min=1e-4), rectifier)
 
 
 def decode_anchor_predictions(preds, anchors_flat, num_class: int, dir_offset: float = 0.78539,

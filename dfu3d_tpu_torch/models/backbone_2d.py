@@ -1,5 +1,5 @@
-"""2D BEV backbones (port of dfu3d_tpu/models/backbone_2d.py BaseBEVBackbone
-and BaseBEVBackboneV1).
+"""2D BEV backbones (port of dfu3d_tpu/models/backbone_2d.py BaseBEVBackbone,
+BaseBEVResBackbone and BaseBEVBackboneV1).
 
 Public layout is the JAX one, (B, H, W, C). Inside, the NHWC tensor is viewed
 as NCHW without a copy, which is PyTorch's channels_last memory format, so
@@ -119,6 +119,86 @@ class BaseBEVBackbone(nn.Module):
         elif ups:
             x = ups[0]
         return x.permute(0, 2, 3, 1)
+
+
+def _deblock(cin: int, features: int, stride: float) -> ConvBNReLU:
+    """An upsample stride ≥ 1 is a transposed conv with kernel = stride; a
+    fractional one a VALID conv with kernel = stride = 1/s."""
+    if stride >= 1:
+        return ConvBNReLU(cin, features, kernel=int(stride), stride=int(stride), transpose=True)
+    k = int(round(1 / stride))
+    return ConvBNReLU(cin, features, kernel=k, stride=k, padding=0)
+
+
+class ResConvBlock(nn.Module):
+    """2D residual basic block (JAX ResConvBlock, backbone_2d.py:89-125;
+    reference base_bev_backbone.py BasicBlock): 3×3 conv (stride) → BN →
+    ReLU → 3×3 conv → BN, plus the identity or, with `downsample`, a stride
+    or a width change, a 1×1 conv + BN shortcut; then ReLU. Bias-free
+    convs, BN eps 1e-3. NCHW in and out."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, 3, stride, 1, bias=False)
+        self.BatchNorm_0 = BatchNorm(features, eps=1e-3)
+        self.Conv_1 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.BatchNorm_1 = BatchNorm(features, eps=1e-3)
+        self.has_shortcut = downsample or stride != 1 or in_channels != features
+        if self.has_shortcut:
+            self.shortcut = nn.Conv2d(in_channels, features, 1, stride, bias=False)
+            self.shortcut_bn = BatchNorm(features, eps=1e-3)
+
+    def forward(self, x):
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        identity = self.shortcut_bn(self.shortcut(x)) if self.has_shortcut else x
+        return F.relu(y + identity.to(y.dtype))
+
+
+class BaseBEVResBackbone(nn.Module):
+    """Residual-block BEV backbone (JAX BaseBEVResBackbone,
+    backbone_2d.py:128-160; reference base_bev_backbone.py:252-330), the
+    config surface of BaseBEVBackbone: per level a leading ResConvBlock with
+    the level's stride and a conv shortcut (block{i}_down), LAYER_NUMS[i]
+    ResConvBlocks (block{i}_res{j}), and its deblock."""
+
+    def __init__(self, in_channels: int, layer_nums: Sequence[int], layer_strides: Sequence[int],
+                 num_filters: Sequence[int], upsample_strides: Sequence[float],
+                 num_upsample_filters: Sequence[int]):
+        super().__init__()
+        self.layer_nums = tuple(layer_nums)
+        self.upsample_strides = tuple(upsample_strides)
+        cin = in_channels
+        for i, num_layers in enumerate(self.layer_nums):
+            self.add_module(f"block{i}_down", ResConvBlock(cin, num_filters[i], layer_strides[i],
+                                                           downsample=True))
+            for j in range(num_layers):
+                self.add_module(f"block{i}_res{j}", ResConvBlock(num_filters[i], num_filters[i]))
+            cin = num_filters[i]
+            if i < len(self.upsample_strides):
+                self.add_module(f"deblock{i}", _deblock(cin, num_upsample_filters[i],
+                                                        self.upsample_strides[i]))
+        self.out_channels = sum(num_upsample_filters[:len(self.upsample_strides)]) or cin
+
+    def forward(self, x):
+        """x: (B, H, W, C) → (B, H/out_stride, W/out_stride, sum(upsample filters))."""
+        x = x.permute(0, 3, 1, 2)
+        ups = []
+        for i, num_layers in enumerate(self.layer_nums):
+            x = getattr(self, f"block{i}_down")(x)
+            for j in range(num_layers):
+                x = getattr(self, f"block{i}_res{j}")(x)
+            if i < len(self.upsample_strides):
+                ups.append(getattr(self, f"deblock{i}")(x))
+        if len(ups) > 1:
+            x = torch.cat(ups, dim=1)
+        elif ups:
+            x = ups[0]
+        return x.permute(0, 2, 3, 1)
+
+
+BEV_BACKBONES = {"BaseBEVBackbone": BaseBEVBackbone, "BaseBEVResBackbone": BaseBEVResBackbone}
 
 
 class BaseBEVBackboneV1(nn.Module):

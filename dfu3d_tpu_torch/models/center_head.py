@@ -1,12 +1,15 @@
 """CenterHead forward, target assignment, loss and post-processing (port of
 dfu3d_tpu/models/center_head.py).
 
-All (head, branch) towers share one depth and one mid width on the flagship,
-so they run as the JAX package runs them (FusedSeparateHeads): one dense conv
-to G·Cmid channels, one BN, then one grouped out conv whose branch outputs are
-padded to the widest branch. Targets are the JAX package's vectorised
-gaussian splat: per class one outer product over (B, M, H, W) and a max over
-the M boxes.
+Where all (head, branch) towers share one depth (every shipped config), they
+run as the JAX package runs them (FusedSeparateHeads): one dense conv to
+G·Cmid channels, one BN, then one grouped out conv whose branch outputs are
+padded to the widest branch. Where NUM_HM_CONV and the branches' NUM_CONV
+differ, each head is a per-tower SeparateHead (head_{h}), as in JAX.
+Targets are the JAX package's vectorised gaussian splat: per class one outer
+product over (B, M, H, W) and a max over the M boxes. Post-processing runs
+rotated NMS (`nms_bev`, kernel B1) or, with NMS_TYPE circle_nms, the
+centre-distance NMS (`circle_nms`, no kernel).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.geometry.nms import nms_bev, top_k
+from ..core.geometry.nms import circle_nms, nms_bev, top_k
+from ..train import torch_convert
 from . import losses
 from .backbone_2d import BatchNorm
 
@@ -87,6 +91,38 @@ class FusedSeparateHeads(nn.Module):
         return preds
 
 
+class SeparateHead(nn.Module):
+    """One head's per-branch towers (JAX SeparateHead, center_head.py:55-92;
+    reference center_head.py:12-47): per branch, in `head_dict` order,
+    (num_conv - 1) × [3×3 conv at the input width ({name}_conv{k}), BN
+    ({name}_bn{k}), ReLU], then the 3×3 out conv ({name}_out, biased; the hm
+    bias starts at -2.19). NCHW in; each output (B, H, W, c) fp32.
+
+    head_dict: name → (out_channels, num_conv)."""
+
+    def __init__(self, in_channels: int, head_dict: Dict[str, Tuple[int, int]],
+                 init_bias: float = -2.19, use_bias: bool = True):
+        super().__init__()
+        self.head_dict = dict(head_dict)
+        for name, (out_ch, num_conv) in self.head_dict.items():
+            for k in range(num_conv - 1):
+                self.add_module(f"{name}_conv{k}", nn.Conv2d(in_channels, in_channels, 3,
+                                                             padding=1, bias=use_bias))
+                self.add_module(f"{name}_bn{k}", BatchNorm(in_channels, eps=1e-5, keep=0.9))
+            out = nn.Conv2d(in_channels, out_ch, 3, padding=1, bias=True)
+            nn.init.constant_(out.bias, init_bias if name == "hm" else 0.0)
+            self.add_module(f"{name}_out", out)
+
+    def forward(self, x):
+        preds = {}
+        for name, (_, num_conv) in self.head_dict.items():
+            h = x
+            for k in range(num_conv - 1):
+                h = F.relu(getattr(self, f"{name}_bn{k}")(getattr(self, f"{name}_conv{k}")(h)))
+            preds[name] = getattr(self, f"{name}_out")(h).permute(0, 2, 3, 1).float()
+        return preds
+
+
 class CenterHead(nn.Module):
     """config: CLASS_NAMES_EACH_HEAD, SHARED_CONV_CHANNEL, NUM_HM_CONV,
     SEPARATE_HEAD_CFG, TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE, POST_PROCESSING."""
@@ -124,9 +160,15 @@ class CenterHead(nn.Module):
                                   bias=use_bias_before_norm)})
         self.shared_bn = BatchNorm(shared_conv_channel, eps=1e-5, keep=0.9)
         convs = {num_hm_conv} | {v["num_conv"] for v in head_dict.values()}
-        if len(convs) != 1:
-            raise NotImplementedError(
-                "per-tower SeparateHead (branches of different NUM_CONV) is not ported yet")
+        self.fused = len(convs) == 1
+        if not self.fused:
+            # towers of different depths: one SeparateHead per head, head_{h}
+            for h, names in enumerate(class_names_each_head):
+                hd = {k: (v["out_channels"], v["num_conv"]) for k, v in head_dict.items()}
+                hd["hm"] = (len(names), num_hm_conv)
+                self.add_module(f"head_{h}", SeparateHead(shared_conv_channel, hd,
+                                                          use_bias=use_bias_before_norm))
+            return
         specs = []
         for h, names in enumerate(class_names_each_head):
             hd = {k: v["out_channels"] for k, v in head_dict.items()}
@@ -140,7 +182,17 @@ class CenterHead(nn.Module):
         """(B, H, W, C) → list over heads of {branch: (B, H, W, c) fp32}."""
         x = spatial_features_2d.permute(0, 3, 1, 2)
         x = F.relu(self.shared_bn(self.shared_conv["layers_0"](x)))
-        return self.fused_heads(x)
+        if self.fused:
+            return self.fused_heads(x)
+        return [getattr(self, f"head_{h}")(x) for h in range(self.num_heads)]
+
+    def reference_mapping(self):
+        """The reference-checkpoint keys of the shared conv and the towers:
+        the fused layout's, or the per-tower SeparateHeads'."""
+        if self.fused:
+            return torch_convert.center_head_mapping(self.fused_heads.branch_specs)
+        return torch_convert.separate_heads_mapping(
+            [getattr(self, f"head_{h}").head_dict for h in range(self.num_heads)])
 
     # ------------------------------------------------------------------
     # Targets and loss (train)
@@ -285,13 +337,15 @@ class CenterHead(nn.Module):
         """Per-head top-K decode + rotated NMS, concatenated across heads.
 
         All heads with the same candidate count go through one batched
-        `nms_bev`, so one IoU kernel launch covers B × heads problems.
+        `nms_bev`, so one IoU kernel launch covers B × heads problems. With
+        NMS_TYPE circle_nms they go through one batched `circle_nms` instead
+        (NMS_THRESH the least centre distance in metres, over every
+        candidate; JAX center_head.py:447-455), which launches no kernel.
         Returns (boxes (B, S, 7|9), scores (B, S), labels (B, S) 1-based,
         valid (B, S)) with S = num_heads * NMS_POST_MAXSIZE.
         """
         nms_cfg = post_cfg.NMS_CONFIG
-        if nms_cfg.get("NMS_TYPE", "nms_gpu") == "circle_nms":
-            raise NotImplementedError("circle_nms is not ported yet")
+        circle = nms_cfg.get("NMS_TYPE", "nms_gpu") == "circle_nms"
         pre_max = min(int(nms_cfg.NMS_PRE_MAXSIZE), int(post_cfg.MAX_OBJ_PER_SAMPLE))
         post_max = int(nms_cfg.NMS_POST_MAXSIZE)
         nms_thresh = float(nms_cfg.NMS_THRESH)
@@ -306,9 +360,14 @@ class CenterHead(nn.Module):
             scores = torch.stack([decoded[h][1] for h in heads])
             valid = torch.stack([decoded[h][3] for h in heads])
             hg, bsz = scores.shape[:2]
-            sel, keep = nms_bev(boxes.reshape(hg * bsz, k_eff, 7), scores.reshape(hg * bsz, k_eff),
-                                nms_thresh, pre_max=min(pre_max, k_eff), post_max=post_max,
-                                valid=valid.reshape(hg * bsz, k_eff))
+            args = (boxes.reshape(hg * bsz, k_eff, 7), scores.reshape(hg * bsz, k_eff),
+                    nms_thresh)
+            if circle:
+                sel, keep = circle_nms(*args, post_max=post_max,
+                                       valid=valid.reshape(hg * bsz, k_eff))
+            else:
+                sel, keep = nms_bev(*args, pre_max=min(pre_max, k_eff), post_max=post_max,
+                                    valid=valid.reshape(hg * bsz, k_eff))
             sel = sel.reshape(hg, bsz, -1)
             keep = keep.reshape(hg, bsz, -1)
             for i, h in enumerate(heads):

@@ -1,11 +1,14 @@
 """CenterPoint assembly (port of dfu3d_tpu/models/detectors.py, the pillar
 and voxel branches):
 
-    pillar: DynPillarVFE → BaseBEVBackbone → CenterHead
+    pillar: DynPillarVFE → BEV backbone → CenterHead
     voxel:  MeanVFE → VoxelResBackBone8x or VoxelBackBone8x →
-            height_compression → BaseBEVBackbone → CenterHead
+            height_compression → BEV backbone → CenterHead
     DSVT:   DynVoxelVFE → DSVTBackbone or DSVTVoxelBackbone → BEV scatter →
-            BaseBEVBackbone → CenterHead (models/dsvt.py)
+            BEV backbone → CenterHead (models/dsvt.py)
+
+The BEV backbone is BaseBEVBackbone or BaseBEVResBackbone (BACKBONE_2D.NAME,
+as JAX's detectors.py:177-179).
 
 then decode + NMS (`predict`, eval) or targets + loss (`forward`, train).
 `build_network` also builds PointRCNN (models/pointrcnn.py), PointPillar
@@ -26,7 +29,7 @@ from ..core.voxel.sparse_ops import SparseGrid
 from ..device import resolve_device
 from ..train import torch_convert
 from . import dsvt
-from .backbone_2d import BaseBEVBackbone
+from .backbone_2d import BEV_BACKBONES
 from .center_head import CenterHead
 from .pointrcnn import PointRCNN
 from .sparse_backbone import VoxelBackBone8x, VoxelResBackBone8x, height_compression
@@ -37,12 +40,13 @@ DEFAULT_CHANNELS = {"VoxelResBackBone8x": (16, 32, 64, 128),
                     "VoxelBackBone8x": (16, 16, 32, 64, 64)}
 
 
-def backbone_8x(bb3d_cfg):
-    """The sparse backbone class of BACKBONE_3D. VoxelBackBone8x has two
+def backbone_8x(bb3d_cfg, name=None):
+    """The sparse backbone class of BACKBONE_3D (or of `name`, where the
+    caller builds one whatever the config names). VoxelBackBone8x has two
     formulations in the JAX package (column_sparse.select_backbone8x): the
     gather form, its default and the one ported, and the column form, a kept
     negative result that is not; FORMULATION is read from the config only."""
-    name = bb3d_cfg.NAME
+    name = name or bb3d_cfg.NAME
     if name == "VoxelResBackBone8x":
         return VoxelResBackBone8x
     if name != "VoxelBackBone8x":
@@ -123,9 +127,9 @@ class CenterPoint(nn.Module):
             )
             bev_channels = vfe_cfg.NUM_FILTERS[-1]
         bb = cfg.BACKBONE_2D
-        if bb.NAME != "BaseBEVBackbone":
+        if bb.NAME not in BEV_BACKBONES:
             raise NotImplementedError(f"BACKBONE_2D {bb.NAME} is not ported")
-        self.backbone_2d = BaseBEVBackbone(
+        self.backbone_2d = BEV_BACKBONES[bb.NAME](
             in_channels=bev_channels,
             layer_nums=tuple(bb.LAYER_NUMS), layer_strides=tuple(bb.LAYER_STRIDES),
             num_filters=tuple(bb.NUM_FILTERS), upsample_strides=tuple(bb.UPSAMPLE_STRIDES),
@@ -173,14 +177,20 @@ class CenterPoint(nn.Module):
     def reference_mapping(self):
         """The reference-key mapping of a checkpoint (train/torch_convert):
         the flagship's, the JAX package's convert_state_dict default; with
-        DSVT the VFE's PFN layers, the DSVT trunk's, the 2D backbone's and
-        the CenterHead's."""
-        if not self.use_dsvt:
+        DSVT, BaseBEVResBackbone or per-tower heads the VFE's PFN layers
+        (pillar and DSVT), the DSVT trunk's, the 2D backbone's and the
+        CenterHead's."""
+        res = isinstance(self.backbone_2d, BEV_BACKBONES["BaseBEVResBackbone"])
+        if not (self.use_dsvt or res or not self.dense_head.fused):
             return torch_convert.centerpoint_pillar_mapping()
-        return {**torch_convert.pfn_mapping(len(self.vfe.num_filters)),
-                **self.backbone_3d.reference_mapping(),
-                **torch_convert.bev_backbone_mapping(self.backbone_2d.layer_nums),
-                **torch_convert.center_head_mapping(self.dense_head.fused_heads.branch_specs)}
+        m = {}
+        if self.use_dsvt:
+            m.update(torch_convert.pfn_mapping(len(self.vfe.num_filters)))
+            m.update(self.backbone_3d.reference_mapping())
+        elif not self.use_voxel_backbone:
+            m.update(torch_convert.pfn_mapping(len(self.vfe.num_filters)))
+        bev = torch_convert.bev_res_backbone_mapping if res else torch_convert.bev_backbone_mapping
+        return {**m, **bev(self.backbone_2d.layer_nums), **self.dense_head.reference_mapping()}
 
 
 def build_network(model_cfg, class_names, grid: VoxelGrid, device="cuda", train: bool = False,

@@ -25,8 +25,9 @@ NMS and the RoI targets' IoU a B1 launch. POINT_HEAD.PART_FC,
 ROI_AWARE_POOL.MAX_POINTS_PER_VOXEL and, on PartA2_free.yaml, the point
 head's REG_FC, BOX_CODER and point_box_weight are not read, as in the JAX
 package: one seg_mlp serves the segmentation and the part outputs, and a
-ROI_POINT_SAMPLES sample per RoI feeds the pools. The legacy compact RoI
-schema (ROI_HEAD.GRID_SIZE, NUM_FEATURES) is not ported and raises. Module
+ROI_POINT_SAMPLES sample per RoI feeds the pools. Without ROI_AWARE_POOL
+the JAX package's legacy compact schema gives the grid and the width
+(ROI_HEAD.GRID_SIZE, NUM_FEATURES; parta2.py:254-256). Module
 names follow the flax tree (unet.conv_in, unet.down2_refine, unet.up3,
 seg_mlp, seg_out, part_out, roi_head.part0_conv / part0_bn,
 roi_head.shared_fc, backbone_2d, dense_head).
@@ -243,10 +244,10 @@ class PartA2Net(roi_head.RoIStage, AnchorDetectorBase):
         self.part_out = nn.Linear(self.seg_mlp.out_channels, 3)
         rh = model_cfg.get("ROI_HEAD", {})
         pool_cfg = rh.get("ROI_AWARE_POOL", None)
-        if pool_cfg is None:
-            raise NotImplementedError("the legacy compact RoI schema (GRID_SIZE, NUM_FEATURES) "
-                                      "is not ported; ROI_AWARE_POOL is")
-        g, nf = int(pool_cfg.get("POOL_SIZE", 12)), int(pool_cfg.get("NUM_FEATURES", 128))
+        if pool_cfg is not None:
+            g, nf = int(pool_cfg.get("POOL_SIZE", 12)), int(pool_cfg.get("NUM_FEATURES", 128))
+        else:
+            g, nf = int(rh.get("GRID_SIZE", 12)), int(rh.get("NUM_FEATURES", 128))
         self.roi_samples = int(rh.get("ROI_POINT_SAMPLES", 512))
         self.seg_mask_thresh = float(rh.get("SEG_MASK_SCORE_THRESH", 0.3))
         self.disable_part = bool(rh.get("DISABLE_PART", False))

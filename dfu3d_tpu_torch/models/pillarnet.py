@@ -184,7 +184,7 @@ class PillarNetCenter(_PillarNetTrunk, CenterPoint):
 
     def reference_mapping(self):
         return {**self.trunk_mapping(),
-                **torch_convert.center_head_mapping(self.dense_head.fused_heads.branch_specs)}
+                **self.dense_head.reference_mapping()}
 
 
 def PillarNet(model_cfg, class_names, grid: VoxelGrid, **overrides):

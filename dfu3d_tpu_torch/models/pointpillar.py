@@ -6,11 +6,14 @@ dfu3d_tpu/models/pointpillar.py).
                  BaseBEVBackbone → anchor head
 
 The anchor head is AnchorHeadSingle or AnchorHeadMulti (DENSE_HEAD.NAME).
-`AnchorDetectorBase` holds the anchors, the per-class target assignment,
-the loss (`forward`) and the class-agnostic decode + NMS (`predict`; one
-overlap-kernel launch per batch). MULTI_CLASSES_NMS is not read, as in the
-JAX package. Submodule names follow the flax tree (vfe, backbone_3d,
-backbone_2d, dense_head).
+`AnchorDetectorBase` holds the anchors, the per-class target assignment
+(with TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT on the rotated 3D IoU: one
+overlap-kernel launch per group of classes with equal anchor counts), the
+loss (`forward`; with USE_IOU_HEAD the IoU head's L1 loss too) and the
+class-agnostic decode + NMS (`predict`; one overlap-kernel launch per
+batch; with USE_IOU_HEAD the scores rectified by the predicted IoU).
+MULTI_CLASSES_NMS is not read, as in the JAX package. Submodule names follow
+the flax tree (vfe, backbone_3d, backbone_2d, dense_head).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from ..core.geometry.boxes import boxes3d_lidar_to_aligned_bev_boxes
+from ..core.geometry.iou import pairwise_iou3d
 from ..core.geometry.nms import nms_bev
 from ..core.voxel import VoxelGrid
 from ..core.voxel.sparse_ops import SparseGrid
@@ -31,6 +35,8 @@ from .anchor_head import (
     assign_targets_single_class,
     decode_anchor_predictions,
     generate_anchors,
+    iou_head_loss,
+    rectify_scores,
 )
 from .backbone_2d import BaseBEVBackbone
 from .sparse_backbone import height_compression
@@ -68,8 +74,7 @@ class AnchorDetectorBase(nn.Module):
         """The anchors (non-persistent buffers) and the anchor head on a 2D
         map of `in_channels`."""
         dh = self.model_cfg.DENSE_HEAD
-        if dh.get("TARGET_ASSIGNER_CONFIG", {}).get("MATCH_HEIGHT", False):
-            raise NotImplementedError("MATCH_HEIGHT (3D IoU target assignment) is not ported")
+        self.match_height = bool(dh.get("TARGET_ASSIGNER_CONFIG", {}).get("MATCH_HEIGHT", False))
         self.anchor_cfgs = [dict(c) for c in dh.ANCHOR_GENERATOR_CONFIG]
         anchors, counts = generate_anchors(self.anchor_cfgs, self.grid.grid_size,
                                            self.grid.point_cloud_range)
@@ -100,13 +105,32 @@ class AnchorDetectorBase(nn.Module):
                 shared_conv_channels=dh.get("SHARED_CONV_NUM_FILTER", 64),
                 use_direction_classifier=use_dir, num_dir_bins=num_dir_bins)
         elif name == "AnchorHeadSingle":
-            if dh.get("USE_IOU_HEAD", False):
-                raise NotImplementedError("USE_IOU_HEAD (SECONDNetIoU) is not ported yet")
             self.dense_head = AnchorHeadSingle(
                 in_channels, num_class, sum(counts),
-                use_direction_classifier=use_dir, num_dir_bins=num_dir_bins)
+                use_direction_classifier=use_dir, num_dir_bins=num_dir_bins,
+                use_iou_head=bool(dh.get("USE_IOU_HEAD", False)))
         else:
             raise NotImplementedError(f"DENSE_HEAD {name} is not ported")
+
+    def height_ious(self, gt):
+        """MATCH_HEIGHT's overlaps: per anchor class (B, A_c, M), the rotated
+        3D IoU of its anchors with every gt slot of every frame. The classes
+        with equal anchor counts go through one batched `pairwise_iou3d`,
+        so one overlap-kernel launch (B1) per such group: one for KITTI's
+        Car, Pedestrian and Cyclist."""
+        b = gt.shape[0]
+        groups = {}
+        for ci in range(len(self.anchor_cfgs)):
+            groups.setdefault(getattr(self, f"anchors_{ci}").shape[0], []).append(ci)
+        ious = {}
+        for count, cis in groups.items():
+            anchors = torch.stack([getattr(self, f"anchors_{ci}") for ci in cis])  # (C, A, 7)
+            iou = pairwise_iou3d(anchors[:, None].expand(-1, b, -1, -1).reshape(-1, count, 7),
+                                 gt[None, ..., :7].expand(len(cis), -1, -1, -1).reshape(
+                                     len(cis) * b, -1, 7))
+            for i, ci in enumerate(cis):
+                ious[ci] = iou[i * b:(i + 1) * b]
+        return ious
 
     def assign_targets(self, gt_boxes, gt_valid) -> AnchorTargets:
         """Per class, its anchors against the frames' gt of that class, in the
@@ -115,6 +139,7 @@ class AnchorDetectorBase(nn.Module):
         b = gt_boxes.shape[0]
         gt = gt_boxes.float()
         classes = gt[..., -1]
+        ious = self.height_ious(gt) if self.match_height else {}
         labels, targets, weights = [], [], []
         for ci, acfg in enumerate(self.anchor_cfgs):
             cls_id = self.class_names.index(acfg["class_name"]) + 1
@@ -122,7 +147,7 @@ class AnchorDetectorBase(nn.Module):
             lab, tgt, wgt = assign_targets_single_class(
                 getattr(self, f"anchors_{ci}"), gt[..., :7], mask, classes,
                 acfg["matched_threshold"], acfg["unmatched_threshold"],
-                anchors_bev=getattr(self, f"anchors_bev_{ci}"))
+                anchors_bev=getattr(self, f"anchors_bev_{ci}"), iou=ious.get(ci))
             _, ny, nx = self.per_class_shapes[ci]
             per_loc = self.per_loc_counts[ci]
             labels.append(lab.reshape(-1, ny, nx, per_loc))
@@ -132,10 +157,12 @@ class AnchorDetectorBase(nn.Module):
                              torch.cat(targets, dim=3).reshape(b, -1, 7),
                              torch.cat(weights, dim=3).reshape(b, -1))
 
-    def rpn_loss(self, preds, batch):
-        """The head's loss on its predictions: (total, {rpn_loss_cls,
-        rpn_loss_loc, rpn_loss_dir, rpn_loss})."""
-        targets = self.assign_targets(batch.gt_boxes, batch.gt_valid)
+    def rpn_loss(self, preds, batch, targets=None):
+        """The head's loss on its predictions (and on `targets`, assigned
+        here when not given): (total, {rpn_loss_cls, rpn_loss_loc,
+        rpn_loss_dir, rpn_loss})."""
+        if targets is None:
+            targets = self.assign_targets(batch.gt_boxes, batch.gt_valid)
         dh = self.model_cfg.DENSE_HEAD
         lw = dh.LOSS_CONFIG.LOSS_WEIGHTS
         return anchor_head_loss(
@@ -146,9 +173,19 @@ class AnchorDetectorBase(nn.Module):
             dir_offset=dh.get("DIR_OFFSET", 0.78539), num_dir_bins=dh.get("NUM_DIR_BINS", 2))
 
     def forward(self, batch, sampler=None, dropout=None):
-        """Train: (loss, {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss}).
-        The train step's `sampler` and `dropout` generators are not used."""
-        return self.rpn_loss(self.features(batch), batch)
+        """Train: (loss, {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss}),
+        with USE_IOU_HEAD also iou_loss (in the total and in rpn_loss, as
+        JAX's AnchorDetectorBase.__call__). The train step's `sampler` and
+        `dropout` generators are not used."""
+        preds = self.features(batch)
+        targets = self.assign_targets(batch.gt_boxes, batch.gt_valid)
+        total, tb = self.rpn_loss(preds, batch, targets)
+        if "iou_preds" in preds:
+            iou_loss = iou_head_loss(preds, targets, self.anchors_flat)
+            total = total + iou_loss
+            tb["iou_loss"] = iou_loss
+            tb["rpn_loss"] = total
+        return total, tb
 
     def decode(self, preds):
         """Decoded boxes (B, A, 7) and class scores (B, A, num_class)."""
@@ -160,12 +197,18 @@ class AnchorDetectorBase(nn.Module):
     def predict(self, batch):
         """Eval: decode, then class-agnostic rotated NMS per frame, all frames
         in one batched `nms_bev` (detector3d_template.post_processing's
-        default path). Returns (boxes (B, S, 7), scores (B, S), labels (B, S)
-        1-based, valid (B, S)), S = NMS_POST_MAXSIZE."""
-        boxes, cls_scores = self.decode(self.features(batch))
+        default path); with USE_IOU_HEAD the scores rectified first, under
+        POST_PROCESSING.USE_IOU_TO_RECTIFY_SCORE (default true) with
+        IOU_RECTIFIER (default 0.68). Returns (boxes (B, S, 7), scores
+        (B, S), labels (B, S) 1-based, valid (B, S)), S = NMS_POST_MAXSIZE."""
+        preds = self.features(batch)
+        boxes, cls_scores = self.decode(preds)
         pp = self.model_cfg.POST_PROCESSING
         nms_cfg = pp.NMS_CONFIG
         max_scores = cls_scores.amax(dim=-1)
+        if "iou_preds" in preds and pp.get("USE_IOU_TO_RECTIFY_SCORE", True):
+            max_scores = rectify_scores(max_scores, preds["iou_preds"],
+                                        float(pp.get("IOU_RECTIFIER", 0.68)))
         labels = torch.argmax(cls_scores, dim=-1) + 1   # the first maximal class, as JAX
         sel, keep = nms_bev(boxes, max_scores, float(nms_cfg.NMS_THRESH),
                             pre_max=int(nms_cfg.NMS_PRE_MAXSIZE),
@@ -189,7 +232,8 @@ class AnchorDetectorBase(nn.Module):
         m = {}
         if isinstance(self.dense_head, AnchorHeadSingle):
             m.update(torch_convert.anchor_head_mapping(
-                use_dir=self.dense_head.use_direction_classifier))
+                use_dir=self.dense_head.use_direction_classifier,
+                use_iou=self.dense_head.use_iou_head))
         return m
 
 

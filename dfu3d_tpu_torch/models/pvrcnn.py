@@ -17,12 +17,12 @@ The JAX package builds SparseEncoder here where the config names
 VoxelBackBone8x, and the port keeps its trunk. FPS is the sequential loop
 of `core.pointnet2`, NUM_KEYPOINTS iterations per request. Module names
 follow the flax tree (encoder, sa_raw, sa_stage0..3, vsa_fusion, kp_seg,
-grid_sa0.., shared_fc, cls_fc, reg_fc, backbone_2d, dense_head). The legacy
-compact RoI schema (GRID_RADIUS, GRID_MLP) is not ported and raises.
+grid_sa0.., or grid_sa in the legacy compact RoI schema, shared_fc, cls_fc,
+reg_fc, backbone_2d, dense_head).
 
 PV-RCNN++ (`PVRCNNPlusPlus`, port of pvrcnn.py:356-618) samples its
 keypoints around the RoIs and pools with `vector_pool` (`VPFromSource`:
-vp_raw, vp_stage0..3, grid_vp0.., grid_msg).
+vp_raw, vp_stage0..3, grid_vp0.., grid_msg; grid_vp in the compact schema).
 """
 from __future__ import annotations
 
@@ -104,7 +104,10 @@ def bev_bilinear(bev, xyz, point_cloud_range, voxel_size, stride: float = 8.0):
 
 class PVRCNN(VoxelTwoStage):
     """PV-RCNN with the reference PVRCNNHead ROI_GRID_POOL schema
-    (pv_rcnn.yaml: MLPS / POOL_RADIUS / NSAMPLE, one SA per radius)."""
+    (pv_rcnn.yaml: MLPS / POOL_RADIUS / NSAMPLE, one SA per radius), or
+    without it the JAX package's legacy compact schema (pvrcnn.py:130-135):
+    GRID_SIZE and one SA (grid_sa) of GRID_RADIUS, GRID_NSAMPLE and
+    GRID_MLP."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_voxels: int = 16000):
@@ -118,16 +121,20 @@ class PVRCNN(VoxelTwoStage):
         self._setup_vsa(pfe, lambda c, r: SAFromSource(c, r, nsample, mlp), "sa_raw", "sa_stage")
         rh = model_cfg.get("ROI_HEAD", {})
         pool_cfg = rh.get("ROI_GRID_POOL", None)
-        if pool_cfg is None or "POOL_RADIUS" not in pool_cfg:
-            raise NotImplementedError("the legacy compact RoI schema (GRID_RADIUS, GRID_MLP) is "
-                                      "not ported; ROI_GRID_POOL with POOL_RADIUS is")
-        self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
         self.grid_pools = []
         width = 0
-        for i, (r, n, m) in enumerate(zip(pool_cfg["POOL_RADIUS"], pool_cfg["NSAMPLE"],
-                                          pool_cfg["MLPS"])):
-            sa = SAFromSource(self.vsa_fusion.out_channels, float(r), int(n), tuple(m))
-            width += self._add_pool(self.grid_pools, f"grid_sa{i}", sa)
+        c = self.vsa_fusion.out_channels
+        if pool_cfg is not None and "POOL_RADIUS" in pool_cfg:
+            self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
+            for i, (r, n, m) in enumerate(zip(pool_cfg["POOL_RADIUS"], pool_cfg["NSAMPLE"],
+                                              pool_cfg["MLPS"])):
+                width += self._add_pool(self.grid_pools, f"grid_sa{i}",
+                                        SAFromSource(c, float(r), int(n), tuple(m)))
+        else:
+            self.roi_grid = int(rh.get("GRID_SIZE", 6))
+            width += self._add_pool(self.grid_pools, "grid_sa", SAFromSource(
+                c, float(rh.get("GRID_RADIUS", 0.8)), int(rh.get("GRID_NSAMPLE", 16)),
+                tuple(rh.get("GRID_MLP", (64, 64)))))
         self.grid_msg = None
         self._setup_roi_fc(rh, width)
 
@@ -236,13 +243,14 @@ class PVRCNN(VoxelTwoStage):
 
     def reference_mapping(self):
         """The RPN's (2D backbone, AnchorHeadSingle) and PVRCNNHead's (grid SA
-        MLPs, FC towers); the sparse backbone and the VSA stay unmapped, as in
-        the JAX package."""
-        depth = len(self.grid_sa0.SharedMLP_0.channels)
+        MLPs, FC towers); the sparse backbone, the VSA and the compact
+        schema's grid SA stay unmapped, as in the JAX package."""
+        compact = self.grid_pools == ["grid_sa"]
+        depth = 0 if compact else len(self.grid_sa0.SharedMLP_0.channels)
         return {**super().reference_mapping(),
                 **torch_convert.pvrcnn_head_mapping(
-                    self.shared_fc.num, self.cls_fc.num, self.reg_fc.num, len(self.grid_pools),
-                    depth)}
+                    self.shared_fc.num, self.cls_fc.num, self.reg_fc.num,
+                    0 if compact else len(self.grid_pools), depth)}
 
 
 class VPFromSource(nn.Module):
@@ -279,11 +287,11 @@ class PVRCNNPlusPlus(PVRCNN):
     valid) and vector pools in place of the ball-query SAs, in the VSA
     (vp_raw, vp_stage0..3, VP_BINS bins) and in the RoI grid pool
     (VectorPoolAggregationModuleMSG: grid_vp0.. per GROUP_CFG_i, fused by
-    grid_msg over MSG_POST_MLPS). LOCAL_AGGREGATION_TYPE,
-    NUM_REDUCED_CHANNELS and NUM_CHANNELS_OF_LOCAL_AGGREGATION are not read,
-    as in the JAX package. The legacy compact RoI schema (GRID_RADIUS,
-    GRID_MLP, VP_BINS) is not ported and raises. No reference mapping of the
-    RoI head: the JAX package has none."""
+    grid_msg over MSG_POST_MLPS; in the JAX package's legacy compact schema,
+    pvrcnn.py:453-459, one vector pool grid_vp of GRID_RADIUS, GRID_NSAMPLE,
+    VP_BINS and GRID_MLP). LOCAL_AGGREGATION_TYPE, NUM_REDUCED_CHANNELS and
+    NUM_CHANNELS_OF_LOCAL_AGGREGATION are not read, as in the JAX package.
+    No reference mapping of the RoI head: the JAX package has none."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_voxels: int = 16000):
@@ -301,11 +309,17 @@ class PVRCNNPlusPlus(PVRCNN):
                         "vp_stage")
         rh = model_cfg.get("ROI_HEAD", {})
         pool_cfg = rh.get("ROI_GRID_POOL", None)
-        if pool_cfg is None or "NUM_GROUPS" not in pool_cfg:
-            raise NotImplementedError("the legacy compact RoI schema (GRID_RADIUS, GRID_MLP, "
-                                      "VP_BINS) is not ported; ROI_GRID_POOL with NUM_GROUPS is")
-        self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
         self.grid_pools = []
+        self.grid_msg = None
+        if pool_cfg is None or "NUM_GROUPS" not in pool_cfg:
+            self.roi_grid = int(rh.get("GRID_SIZE", 6))
+            width = self._add_pool(self.grid_pools, "grid_vp", VPFromSource(
+                self.vsa_fusion.out_channels, float(rh.get("GRID_RADIUS", 0.8)),
+                int(rh.get("GRID_NSAMPLE", 16)), tuple(rh.get("VP_BINS", (2, 2, 2))),
+                tuple(rh.get("GRID_MLP", (64, 64)))))
+            self._setup_roi_fc(rh, width)
+            return
+        self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
         width = 0
         for i in range(int(pool_cfg["NUM_GROUPS"])):
             g_cfg = pool_cfg[f"GROUP_CFG_{i}"]
@@ -314,7 +328,6 @@ class PVRCNNPlusPlus(PVRCNN):
                               ns if ns > 0 else 32, tuple(g_cfg["NUM_LOCAL_VOXEL"]),
                               tuple(g_cfg["POST_MLPS"]))
             width += self._add_pool(self.grid_pools, f"grid_vp{i}", vp)
-        self.grid_msg = None
         if pool_cfg.get("MSG_POST_MLPS"):
             self.grid_msg = SharedMLP(width, tuple(pool_cfg["MSG_POST_MLPS"]))
             width = self.grid_msg.out_channels

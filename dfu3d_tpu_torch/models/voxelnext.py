@@ -6,13 +6,17 @@ reference pcdet detectors/voxelnext.py + dense_heads/voxelnext_head.py).
     (`sparse_bev_collapse`) → conv_out → shared_conv → one
     VoxelNeXtSeparateHead per CLASS_NAMES_EACH_HEAD group
 
+or, where BACKBONE_3D names another trunk, the JAX module's legacy compact
+path (voxelnext.py:154-175): VoxelBackBone8x (CHANNELS, OUT_CHANNELS) →
+two plain strided convs to strides 16 and 32 (down16, down32; no BN) →
+the same collapse → NUM_SHARED_BLOCKS (3, 3, 1) blocks (bev_block{i}) →
+the heads.
+
 No dense BEV map is built. Every sparse conv is one launch of kernel B2, the
 BEV convs and the head's included; `predict` ends in `nms_bev`, one launch
 of B1 for the whole batch. Module names follow the flax tree (backbone_3d,
-conv_out, shared_conv, head_{g}.{branch}_conv{i}, head_{g}.{branch}_out).
-
-The legacy compact path of the JAX module (VoxelBackBone8x + plain downs,
-no shipped config uses it) is not ported and raises.
+conv_out, shared_conv, down16, down32, bev_block{i}, head_{g}.{branch}_conv{i},
+head_{g}.{branch}_out).
 """
 from __future__ import annotations
 
@@ -34,7 +38,12 @@ from ..core.voxel.sparse_ops import (
     linearize,
 )
 from . import losses
-from .sparse_backbone import SparseConvBlock, SparseTensor, VoxelResBackBone8xVoxelNeXt
+from .sparse_backbone import (
+    SparseConv3dDown,
+    SparseConvBlock,
+    SparseTensor,
+    VoxelResBackBone8xVoxelNeXt,
+)
 from .vfe import MeanVFE
 
 NEXT_BACKBONES = ("VoxelResBackBone8xVoxelNeXt", "VoxelResBackBone8xVoxelNeXt2D")
@@ -107,12 +116,26 @@ class VoxelNeXtSeparateHead(nn.Module):
         return outs
 
 
+def plan_down(conv: SparseConv3dDown, st: SparseTensor, transpose: bool):
+    """The output set and table of a strided conv on `st` (and, for
+    training, its transpose table)."""
+    lookup = build_lookup(st.grid, st.coords, st.valid)
+    level = conv.plan(st.grid, st.coords, st.valid, lookup)
+    if transpose:
+        out_lookup = build_lookup(level.grid, level.coords, level.valid)
+        level = level._replace(down_tnbr=conv.transpose_table(st.coords, st.valid, level,
+                                                              out_lookup))
+    return level
+
+
 class VoxelNeXt(nn.Module):
     """The VoxelNeXt detector on BACKBONE_3D VoxelResBackBone8xVoxelNeXt
     (cbgs_voxel0075_voxelnext[_doubleflip].yaml, voxelnext_ioubranch_large
-    and voxelnext2d_ioubranch, cbgs_voxel01_voxelnext). `forward` is the
-    train loss, `predict` the decode (with DENSE_HEAD.DOUBLE_FLIP, the
-    double-flip test-time augmentation)."""
+    and voxelnext2d_ioubranch, cbgs_voxel01_voxelnext), or on the compact
+    trunk where BACKBONE_3D names another (VoxelBackBone8x, as the JAX
+    package builds whatever it names there). `forward` is the train loss,
+    `predict` the decode (with DENSE_HEAD.DOUBLE_FLIP, the double-flip
+    test-time augmentation)."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_voxels: int = 16000):
@@ -123,21 +146,35 @@ class VoxelNeXt(nn.Module):
         self.grid = grid
         bb3d = cfg.get("BACKBONE_3D", {})
         dh = cfg.DENSE_HEAD
-        if bb3d.get("NAME", "VoxelBackBone8x") not in NEXT_BACKBONES:
-            raise NotImplementedError(
-                f"VoxelNeXt with BACKBONE_3D {bb3d.get('NAME')} (the JAX package's legacy "
-                "compact path) is not ported; VoxelResBackBone8xVoxelNeXt is")
         if cfg.VFE.NAME != "MeanVFE":
             raise NotImplementedError(f"VFE {cfg.VFE.NAME} with VoxelNeXt is not ported")
         self.vfe = MeanVFE(grid, max_voxels)
-        self.backbone_3d = VoxelResBackBone8xVoxelNeXt(
-            SparseGrid(*grid.grid_size), max_voxels, num_point_features,
-            channels=tuple(bb3d.get("CHANNELS", (16, 32, 64, 128, 128))),
-            kernel_sizes=tuple(bb3d.get("SPCONV_KERNEL_SIZES", (3, 3, 3, 3))))
-        out_ch = int(bb3d.get("OUT_CHANNEL", bb3d.get("OUT_CHANNELS", 128)))
-        shared = int(dh.get("SHARED_CONV_CHANNEL", out_ch))
-        self.conv_out = SparseConvBlock(self.backbone_3d.out_channels, out_ch, (3, 3, 1))
-        self.shared_conv = SparseConvBlock(out_ch, shared, (3, 3, 1))
+        self.ref_backbone = bb3d.get("NAME", "VoxelBackBone8x") in NEXT_BACKBONES
+        if self.ref_backbone:
+            self.backbone_3d = VoxelResBackBone8xVoxelNeXt(
+                SparseGrid(*grid.grid_size), max_voxels, num_point_features,
+                channels=tuple(bb3d.get("CHANNELS", (16, 32, 64, 128, 128))),
+                kernel_sizes=tuple(bb3d.get("SPCONV_KERNEL_SIZES", (3, 3, 3, 3))))
+            out_ch = int(bb3d.get("OUT_CHANNEL", bb3d.get("OUT_CHANNELS", 128)))
+            shared = int(dh.get("SHARED_CONV_CHANNEL", out_ch))
+            self.conv_out = SparseConvBlock(self.backbone_3d.out_channels, out_ch, (3, 3, 1))
+            self.shared_conv = SparseConvBlock(out_ch, shared, (3, 3, 1))
+        else:
+            from .detectors import backbone_8x
+
+            ch = int(bb3d.get("OUT_CHANNELS", 128))
+            self.backbone_3d = backbone_8x(bb3d, "VoxelBackBone8x")(
+                SparseGrid(*grid.grid_size), max_voxels, num_point_features,
+                channels=tuple(bb3d.get("CHANNELS", (16, 16, 32, 64, 64))), out_channels=ch)
+            self.down16 = SparseConv3dDown(ch, ch, max(max_voxels // 16, 16))
+            self.down32 = SparseConv3dDown(ch, ch, max(max_voxels // 32, 16))
+            self.num_shared_blocks = int(dh.get("NUM_SHARED_BLOCKS", 2))
+            shared = int(dh.get("SHARED_CONV_CHANNEL", 128))
+            cin = ch
+            for i in range(self.num_shared_blocks):
+                self.add_module(f"bev_block{i}", SparseConvBlock(cin, shared, (3, 3, 1)))
+                cin = shared
+            shared = cin
 
         # class groups: one head each; per-class regressions come from the
         # class's own group branch
@@ -181,7 +218,8 @@ class VoxelNeXt(nn.Module):
 
     def bev_tables(self, bev: SparseTensor):
         """The BEV set's submanifold tables: (3, 3, 1) for conv_out and
-        shared_conv, and the head's (k, k, 1) (the same table at k = 3)."""
+        shared_conv (or the compact path's BEV blocks), and the head's
+        (k, k, 1) (the same table at k = 3)."""
         lookup = build_lookup(bev.grid, bev.coords, bev.valid)
         t331 = find_neighbors(bev.grid, bev.coords, bev.valid, *lookup, kernel_offsets(3, 3, 1))
         k = self.kernel_size_head
@@ -195,7 +233,23 @@ class VoxelNeXt(nn.Module):
         feats, vox = self.vfe(points, points_valid)
         levels = self.backbone_3d.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique,
                                        transpose=self.training)
-        st8, st16, st32 = self.backbone_3d(feats, levels)
+        if self.ref_backbone:
+            return self.bev_features(*self.backbone_3d(feats, levels))
+        return self.compact_features(self.backbone_3d(feats, levels))
+
+    def compact_features(self, st8: SparseTensor):
+        """The compact path after its VoxelBackBone8x: the stride-8 tensor
+        through down16 and down32 (strided convs, no BN), then
+        `bev_features`."""
+        st16 = self.down16(st8, plan_down(self.down16, st8, self.training))
+        st32 = self.down32(st16, plan_down(self.down32, st16, self.training))
+        return self.bev_features(st8, st16, st32)
+
+    def bev_features(self, st8: SparseTensor, st16: SparseTensor, st32: SparseTensor):
+        """The stride-8, 16 and 32 sets merged on the stride-8 grid and
+        z-collapsed, the BEV convs (conv_out and shared_conv, or the compact
+        path's bev_block{i}), then each class group's head: (bev, hm, reg)
+        as `features_pts` returns them."""
         # coarser voxels back onto the stride-8 grid, the sets concatenated
         dev = st8.coords.device
         merged = SparseTensor(
@@ -207,7 +261,11 @@ class VoxelNeXt(nn.Module):
             torch.cat([st8.valid, st16.valid, st32.valid], dim=1), st8.grid)
         bev = sparse_bev_collapse(merged, self.bev_cap)
         t331, t_head = self.bev_tables(bev)
-        bev = self.shared_conv(self.conv_out(bev, t331), t331)
+        if self.ref_backbone:
+            bev = self.shared_conv(self.conv_out(bev, t331), t331)
+        else:
+            for i in range(self.num_shared_blocks):
+                bev = getattr(self, f"bev_block{i}")(bev, t331)
 
         num_cls = len(self.class_names)
         hm = bev.features.new_zeros(bev.valid.shape + (num_cls,), dtype=torch.float32)

@@ -15,9 +15,9 @@ VoxelBackBone8x, and the port keeps its trunk. The focal trunk with
 USE_IMG (voxel_rcnn_focal.yaml, voxel_rcnn_car_focal_multimodal.yaml)
 reads a `MultimodalBatch`: its first focal layer's importance conv takes
 the first camera's image features at each voxel. Module names follow the
-flax tree (encoder, img_c1, img_c2, pool_x_conv2, shared_fc, cls_fc,
-reg_fc, cls_pred, reg_pred, backbone_2d, dense_head). The legacy compact
-RoI schema (POOL_STAGES, POOL_RADII, GRID_MLP) is not ported and raises.
+flax tree (encoder, img_c1, img_c2, pool_x_conv2 or, in the legacy
+compact RoI schema, pool_stage1, shared_fc, cls_fc, reg_fc, cls_pred,
+reg_pred, backbone_2d, dense_head).
 """
 from __future__ import annotations
 
@@ -150,27 +150,37 @@ class VoxelTwoStage(roi_head.RoIStage, AnchorDetectorBase):
 
 class VoxelRCNN(VoxelTwoStage):
     """Voxel R-CNN with the reference ROI_GRID_POOL schema
-    (voxel_rcnn_car.yaml): one NeighborVoxelSA per FEATURES_SOURCE stage."""
+    (voxel_rcnn_car.yaml): one NeighborVoxelSA per FEATURES_SOURCE stage
+    (pool_{source}); or, without ROI_GRID_POOL, the JAX package's legacy
+    compact schema (voxelrcnn.py:100-109): GRID_SIZE, one max-pooling
+    NeighborVoxelSA per POOL_STAGES entry s (pool_stage{s}) with its
+    POOL_RADII radius and the shared GRID_MLP and GRID_NSAMPLE."""
 
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_voxels: int = 16000):
         super().__init__(model_cfg, class_names, grid, num_point_features, max_voxels)
         rh = model_cfg.get("ROI_HEAD", {})
         pool_cfg = rh.get("ROI_GRID_POOL", None)
-        if pool_cfg is None:
-            raise NotImplementedError("the legacy compact RoI schema (POOL_STAGES, POOL_RADII, "
-                                      "GRID_MLP) is not ported; ROI_GRID_POOL is")
-        self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
-        self.pool_sources = tuple(pool_cfg["FEATURES_SOURCE"])
-        layers = pool_cfg["POOL_LAYERS"]
+        if pool_cfg is not None:
+            self.roi_grid = int(pool_cfg.get("GRID_SIZE", 6))
+            self.pool_sources = tuple(pool_cfg["FEATURES_SOURCE"])
+            layers = pool_cfg["POOL_LAYERS"]
+            pools = [(f"pool_{src}", STAGE_INDEX[src], roi_head.NeighborVoxelSA(
+                self.stage_channels[STAGE_INDEX[src]], tuple(layers[src]["MLPS"][0]),
+                float(layers[src]["POOL_RADIUS"][0]), int(layers[src]["NSAMPLE"][0]),
+                layers[src].get("POOL_METHOD", "max_pool"))) for src in self.pool_sources]
+        else:
+            self.roi_grid = int(rh.get("GRID_SIZE", 6))
+            self.pool_sources = ()   # no reference layout to map
+            mlp, nsample = tuple(rh.get("GRID_MLP", (32, 32))), int(rh.get("GRID_NSAMPLE", 16))
+            pools = [(f"pool_stage{s}", s, roi_head.NeighborVoxelSA(
+                self.stage_channels[s], mlp, float(r), nsample))
+                for s, r in zip(rh.get("POOL_STAGES", (1, 2, 3)),
+                                rh.get("POOL_RADII", (0.4, 0.8, 1.6)))]
+        self.pool_layers = tuple((name, s) for name, s, _ in pools)
         width = 0
-        for src in self.pool_sources:
-            lc = layers[src]
-            pool = roi_head.NeighborVoxelSA(
-                self.stage_channels[STAGE_INDEX[src]], tuple(lc["MLPS"][0]),
-                float(lc["POOL_RADIUS"][0]), int(lc["NSAMPLE"][0]),
-                lc.get("POOL_METHOD", "max_pool"))
-            self.add_module(f"pool_{src}", pool)
+        for name, _, pool in pools:
+            self.add_module(name, pool)
             width += pool.out_channels
         dp = float(rh.get("DP_RATIO", 0.3))
         self.shared_fc = roi_head.shared_fc_stack(
@@ -252,11 +262,10 @@ class VoxelRCNN(VoxelTwoStage):
         of `pooled_features.view(N, -1)` (:232-238), the FC towers."""
         pts, valid = self.grid_points(rois, roi_valid)
         parts = []
-        for src in self.pool_sources:
-            s = STAGE_INDEX[src]
+        for name, s in self.pool_layers:
             st = stages[s]
-            parts.append(getattr(self, f"pool_{src}")(pts, valid, self.stage_centers(stages, s),
-                                                      st.features.float(), st.valid))
+            parts.append(getattr(self, name)(pts, valid, self.stage_centers(stages, s),
+                                             st.features.float(), st.valid))
         b, r = rois.shape[:2]
         pooled = torch.cat(parts, dim=-1).reshape(b * r, -1)
         h = self.shared_fc(pooled, dropout)
@@ -277,8 +286,8 @@ class VoxelRCNN(VoxelTwoStage):
 
     def reference_mapping(self):
         """The RPN's (2D backbone, AnchorHeadSingle) and VoxelRCNNHead's (pool
-        layers, FC towers, pred layers); the sparse backbone stays
-        unmapped."""
+        layers, FC towers, pred layers); the sparse backbone and the compact
+        schema's pools, which have no reference layout, stay unmapped."""
         return {**super().reference_mapping(),
                 **torch_convert.voxelrcnn_head_mapping(
                     self.shared_fc.num, self.cls_fc.num, self.reg_fc.num, self.pool_sources)}

@@ -1,8 +1,10 @@
 """Reference (OpenPCDet / DFU3D) checkpoints onto the port's flagship,
 PointRCNN and the anchor detectors (own copy of the JAX package's
-train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping`,
-`anchor_head_mapping`, `point_head_box_mapping`, `pointrcnn_head_mapping`,
-`second_head_mapping`, `voxelrcnn_head_mapping`, `pvrcnn_head_mapping`,
+train/torch_convert.py: `pfn_mapping`, `centerpoint_pillar_mapping` with
+the per-tower SeparateHead keys (`separate_heads_mapping`),
+`bev_res_backbone_mapping`, `anchor_head_mapping`, `point_head_box_mapping`,
+`pointrcnn_head_mapping`, `second_head_mapping`, `voxelrcnn_head_mapping`,
+`pvrcnn_head_mapping`,
 `parta2_head_mapping` with `t_spconv_dense`, `transfusion_head_mapping`
 with `_mha` and `_ln`, `dsvt_mapping` and `dsvt_voxel_mapping`, the camera
 branch's `swin_mapping` (with `_patchmerge_perm`), `lss_fpn_mapping` and
@@ -67,7 +69,8 @@ from typing import Callable, Dict, Tuple
 import torch
 
 __all__ = ["is_reference_state", "centerpoint_pillar_mapping", "pfn_mapping",
-           "bev_backbone_mapping", "anchor_head_mapping", "point_head_box_mapping",
+           "bev_backbone_mapping", "bev_res_backbone_mapping", "separate_heads_mapping",
+           "anchor_head_mapping", "point_head_box_mapping",
            "pointrcnn_head_mapping", "second_head_mapping", "voxelrcnn_head_mapping",
            "pvrcnn_head_mapping", "parta2_head_mapping", "t_spconv_dense",
            "transfusion_head_mapping", "dsvt_mapping", "dsvt_voxel_mapping", "swin_mapping",
@@ -160,14 +163,17 @@ def bev_backbone_mapping(layer_nums) -> Mapping:
     return m
 
 
-def anchor_head_mapping(use_dir: bool = True, prefix: str = "dense_head") -> Mapping:
+def anchor_head_mapping(use_dir: bool = True, prefix: str = "dense_head",
+                        use_iou: bool = False) -> Mapping:
     """AnchorHeadSingle (anchor_head_single.py:10-74): the 1×1 conv_cls,
-    conv_box and conv_dir_cls, OIHW on both sides. The per-location anchor
+    conv_box and conv_dir_cls (and SECONDNetIoU's conv_iou with `use_iou`),
+    OIHW on both sides. The per-location anchor
     order is the reference's (class-major, size-major, rotation-minor), so
     the channels line up (the JAX package's anchor_head_mapping,
     :378-394)."""
     m: Mapping = {}
-    for name in ["conv_cls", "conv_box"] + (["conv_dir_cls"] if use_dir else []):
+    for name in (["conv_cls", "conv_box"] + (["conv_dir_cls"] if use_dir else [])
+                 + (["conv_iou"] if use_iou else [])):
         _conv(m, f"{prefix}.{name}", f"{prefix}.{name}", bias=True)
     return m
 
@@ -191,8 +197,6 @@ def center_head_mapping(branch_specs) -> Mapping:
     m: Mapping = {}
     _conv(m, "dense_head.shared_conv.layers_0", "dense_head.shared_conv.0", bias=True)
     _bn(m, "dense_head.shared_bn", "dense_head.shared_conv.1")
-    # the JAX package also maps its per-tower SeparateHead fallback; the
-    # port has the fused layout only
     specs = [(f"dense_head.heads_list.{h}.{name}", oc) for h, name, oc in branch_specs]
     out_chs = [oc for _, oc in specs]
     out_max = max(out_chs)
@@ -206,6 +210,56 @@ def center_head_mapping(branch_specs) -> Mapping:
                              _t_fused_out(out_chs, out_max))
     m[f"{fh}.out.bias"] = (tuple(f"{p}.1.bias" for p, _ in specs),
                            _t_fused_out(out_chs, out_max))
+    return m
+
+
+def separate_heads_mapping(head_dicts) -> Mapping:
+    """CenterHead with per-tower SeparateHeads (towers of different depths;
+    `head_dicts` per head its {branch: (out_channels, num_conv)}): the
+    shared conv, then per head h and branch each hidden conv + BN
+    (heads_list.{h}.{branch}.{k}.0 / .1) and the out conv
+    (heads_list.{h}.{branch}.{num_conv - 1}), the reference SeparateHead's
+    Sequential (center_head.py:12-47; the JAX package's per-tower keys,
+    :341-349, at num_conv 2)."""
+    m: Mapping = {}
+    _conv(m, "dense_head.shared_conv.layers_0", "dense_head.shared_conv.0", bias=True)
+    _bn(m, "dense_head.shared_bn", "dense_head.shared_conv.1")
+    for h, hd in enumerate(head_dicts):
+        for name, (_, num_conv) in hd.items():
+            ours, ref = f"dense_head.head_{h}.{name}", f"dense_head.heads_list.{h}.{name}"
+            for k in range(num_conv - 1):
+                _conv(m, f"{ours}_conv{k}", f"{ref}.{k}.0", bias=True)
+                _bn(m, f"{ours}_bn{k}", f"{ref}.{k}.1")
+            _conv(m, f"{ours}_out", f"{ref}.{num_conv - 1}", bias=True)
+    return m
+
+
+def _res_block(m, ours, ref, downsample=False):
+    """The reference BasicBlock (base_bev_backbone.py:207-249) → ResConvBlock."""
+    _conv(m, f"{ours}.Conv_0", f"{ref}.conv1")
+    _bn(m, f"{ours}.BatchNorm_0", f"{ref}.bn1")
+    _conv(m, f"{ours}.Conv_1", f"{ref}.conv2")
+    _bn(m, f"{ours}.BatchNorm_1", f"{ref}.bn2")
+    if downsample:
+        _conv(m, f"{ours}.shortcut", f"{ref}.downsample_layer.0")
+        _bn(m, f"{ours}.shortcut_bn", f"{ref}.downsample_layer.1")
+
+
+def bev_res_backbone_mapping(layer_nums) -> Mapping:
+    """BaseBEVResBackbone (base_bev_backbone.py:252-330, the JAX package's
+    bev_res_backbone_mapping, :813-828): blocks.{i} = [BasicBlock with a
+    downsample layer, BasicBlock × layer_nums[i]]; deblocks.{i} =
+    [ConvT|Conv, BN, ReLU]."""
+    m: Mapping = {}
+    for i, n in enumerate(layer_nums):
+        _res_block(m, f"backbone_2d.block{i}_down", f"backbone_2d.blocks.{i}.0", downsample=True)
+        for j in range(n):
+            _res_block(m, f"backbone_2d.block{i}_res{j}", f"backbone_2d.blocks.{i}.{j + 1}")
+        m[f"backbone_2d.deblock{i}.ConvTranspose_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        m[f"backbone_2d.deblock{i}.Conv_0.weight"] = (
+            f"backbone_2d.deblocks.{i}.0.weight", t_identity)
+        _bn(m, f"backbone_2d.deblock{i}.BatchNorm_0", f"backbone_2d.deblocks.{i}.1")
     return m
 
 

@@ -6,7 +6,11 @@ pillar-sparse detectors (VoxelNeXt on its nuScenes, double-flip and large
 Waymo configs; PillarNet on its KITTI and Waymo configs; DSVT-Pillar and
 DSVT-Voxel on their Waymo configs), with `waymo_batches` for the Waymo
 configs, TransFusion-L on nuScenes, and MPPNet (4 and 16 frames) and
-MPPNetE2E on their Waymo configs with `waymo_sequence_batches`.
+MPPNetE2E on their Waymo configs with `waymo_sequence_batches`, and the
+configs derived from shipped ones that run the model options and legacy
+compact schemas (`option_cfg`: `centerpoint_options`, `second_iou_height`,
+`voxel_rcnn_compact`, `pv_rcnn_compact`, `pv_rcnn_plusplus_compact`,
+`parta2_compact`, `voxelnext_compact`).
 
 `voxel_centerpoint` is voxel CenterPoint on the public OpenPCDet nuScenes
 config tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml
@@ -772,3 +776,132 @@ def camera_batches(cfg, num_batches: int, cameras: str, image_size, seed: int = 
         out.append(MultimodalBatch.from_numpy(pts, np.ones((batch_size, num_points), bool), gt,
                                               gt_valid, images, *per_frame, depth))
     return out
+
+
+# the configs derived from shipped ones: each loads its shipped file and sets
+# only the keys `option_cfg` lists, so that the model options and the legacy
+# compact schemas that no shipped config sets are built and run
+OPTION_CFGS = {
+    "centerpoint_options": "nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml",
+    "second_iou_height": "kitti_models/second.yaml",
+    "voxel_rcnn_compact": "kitti_models/voxel_rcnn.yaml",
+    "pv_rcnn_compact": "kitti_models/pv_rcnn.yaml",
+    "pv_rcnn_plusplus_compact": "kitti_models/pv_rcnn_plusplus.yaml",
+    "parta2_compact": "kitti_models/PartA2.yaml",
+    "voxelnext_compact": "nuscenes_models/cbgs_voxel0075_voxelnext.yaml",
+}
+
+
+def option_cfg(name: str):
+    """The derived config `name` (OPTION_CFGS): the shipped file, then only
+    these keys set.
+
+    centerpoint_options: BACKBONE_2D.NAME BaseBEVResBackbone (its other keys
+      kept); HEAD_DICT center num_conv 3 (the other branches and NUM_HM_CONV
+      stay 2, so the towers are per-tower); both NMS_CONFIGs NMS_TYPE
+      circle_nms, NMS_THRESH 1.0.
+    second_iou_height: DENSE_HEAD.USE_IOU_HEAD true;
+      TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT true.
+    voxel_rcnn_compact: ROI_GRID_POOL replaced by GRID_SIZE 6, POOL_STAGES
+      [1, 2, 3], POOL_RADII [0.4, 0.8, 1.6], GRID_MLP [32, 32], GRID_NSAMPLE 16.
+    pv_rcnn_compact: ROI_GRID_POOL replaced by GRID_SIZE 6, GRID_RADIUS 0.8,
+      GRID_MLP [64, 64].
+    pv_rcnn_plusplus_compact: ROI_GRID_POOL replaced by GRID_SIZE 6,
+      GRID_RADIUS 0.8, VP_BINS [2, 2, 2], GRID_MLP [64, 64].
+    parta2_compact: ROI_AWARE_POOL replaced by GRID_SIZE 12, NUM_FEATURES 128.
+    voxelnext_compact: BACKBONE_3D VoxelBackBone8x with CHANNELS
+      [16, 16, 32, 64, 64], OUT_CHANNELS 128; DENSE_HEAD.NUM_SHARED_BLOCKS 2.
+
+    The shipped files name their base configs from tools/, so this reads
+    them from there whatever the working directory."""
+    import os
+
+    cwd = os.getcwd()
+    os.chdir(CFGS.parent)
+    try:
+        cfg = cfg_from_yaml_file(CFGS / OPTION_CFGS[name], CfgDict())
+    finally:
+        os.chdir(cwd)
+    m = cfg.MODEL
+    if name == "centerpoint_options":
+        m.BACKBONE_2D.NAME = "BaseBEVResBackbone"
+        m.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT["center"]["num_conv"] = 3
+        for nms in (m.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG, m.POST_PROCESSING.NMS_CONFIG):
+            nms.NMS_TYPE, nms.NMS_THRESH = "circle_nms", 1.0
+    elif name == "second_iou_height":
+        m.DENSE_HEAD.USE_IOU_HEAD = True
+        m.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT = True
+    elif name == "voxel_rcnn_compact":
+        del m.ROI_HEAD["ROI_GRID_POOL"]
+        m.ROI_HEAD.update(GRID_SIZE=6, POOL_STAGES=[1, 2, 3], POOL_RADII=[0.4, 0.8, 1.6],
+                          GRID_MLP=[32, 32], GRID_NSAMPLE=16)
+    elif name == "pv_rcnn_compact":
+        del m.ROI_HEAD["ROI_GRID_POOL"]
+        m.ROI_HEAD.update(GRID_SIZE=6, GRID_RADIUS=0.8, GRID_MLP=[64, 64])
+    elif name == "pv_rcnn_plusplus_compact":
+        del m.ROI_HEAD["ROI_GRID_POOL"]
+        m.ROI_HEAD.update(GRID_SIZE=6, GRID_RADIUS=0.8, VP_BINS=[2, 2, 2], GRID_MLP=[64, 64])
+    elif name == "parta2_compact":
+        del m.ROI_HEAD["ROI_AWARE_POOL"]
+        m.ROI_HEAD.update(GRID_SIZE=12, NUM_FEATURES=128)
+    elif name == "voxelnext_compact":
+        m.BACKBONE_3D = CfgDict({"NAME": "VoxelBackBone8x", "CHANNELS": [16, 16, 32, 64, 64],
+                                 "OUT_CHANNELS": 128})
+        m.DENSE_HEAD.NUM_SHARED_BLOCKS = 2
+    return cfg
+
+
+def _option_detector(name, device, train):
+    from .tools.common import build_model, model_grid
+
+    cfg = option_cfg(name)
+    model = build_model(cfg, "train" if train else "test", device, train=train)
+    return cfg, model_grid(cfg), model
+
+
+def centerpoint_options(train: bool = False, device="cuda"):
+    """Voxel CenterPoint on `option_cfg("centerpoint_options")`: the
+    nuScenes VoxelResBackBone8x trunk, BaseBEVResBackbone, per-tower
+    SeparateHeads (a 3-conv center branch) and circle NMS, built as the
+    CLIs build it (tools.common.build_model). Returns (cfg, grid, model), in
+    eval mode or in train mode with `train`; the weights are PyTorch's
+    defaults."""
+    return _option_detector("centerpoint_options", device, train)
+
+
+def second_iou_height(train: bool = False, device="cuda"):
+    """SECONDNet on `option_cfg("second_iou_height")`: KITTI second.yaml with
+    the IoU head (its L1 loss, the rectified score) and MATCH_HEIGHT's 3D
+    IoU target assignment; as `centerpoint_options`."""
+    return _option_detector("second_iou_height", device, train)
+
+
+def voxel_rcnn_compact(train: bool = False, device="cuda"):
+    """VoxelRCNN on voxel_rcnn.yaml with the legacy compact RoI schema; as
+    `centerpoint_options`."""
+    return _option_detector("voxel_rcnn_compact", device, train)
+
+
+def pv_rcnn_compact(train: bool = False, device="cuda"):
+    """PVRCNN on pv_rcnn.yaml with the legacy compact RoI schema; as
+    `centerpoint_options`."""
+    return _option_detector("pv_rcnn_compact", device, train)
+
+
+def pv_rcnn_plusplus_compact(train: bool = False, device="cuda"):
+    """PVRCNNPlusPlus on pv_rcnn_plusplus.yaml with the legacy compact RoI
+    schema (one vector pool of 2 x 2 x 2 bins); as `centerpoint_options`."""
+    return _option_detector("pv_rcnn_plusplus_compact", device, train)
+
+
+def parta2_compact(train: bool = False, device="cuda"):
+    """PartA2Net on PartA2.yaml with the legacy compact RoI schema; as
+    `centerpoint_options`."""
+    return _option_detector("parta2_compact", device, train)
+
+
+def voxelnext_compact(train: bool = False, device="cuda"):
+    """VoxelNeXt on cbgs_voxel0075_voxelnext.yaml with the compact trunk
+    (VoxelBackBone8x, two plain downs, two BEV blocks); as
+    `centerpoint_options`."""
+    return _option_detector("voxelnext_compact", device, train)

@@ -7,15 +7,28 @@ names `params_from_jax` reads as DSVT's attention projections). And the
 PointPillar configs' voxel cap: the CLIs pass
 MAX_NUMBER_OF_VOXELS, which PointPillar accepts and does not read (the JAX
 package's PointPillar keeps its VFE's pillar cap, 32,768 per frame summed
-over the batch).
+over the batch). And the seven configs derived from shipped ones
+(`zoo.option_cfg`: the model options and legacy compact schemas that no
+shipped config sets) build in both packages: the port's as the CLIs build
+them, the JAX package's through its modules' setup (bound to no variables,
+nothing traced), whose submodules, by path and class, the port has too.
+(The flax trees of parameter shapes of JAX's full-width inits equal the
+port's state_dicts for all seven; tracing those inits takes 5-15 s each,
+so the module-level parity tests at test widths hold the shapes instead.)
 """
 from pathlib import Path
 
 import pytest
+from flax import linen as flax_nn
+
+from dfu3d_tpu.core.voxel import VoxelGrid as JVoxelGrid
+from dfu3d_tpu.models import build_network as j_build_network
+from dfu3d_tpu.utils.config import CfgDict as JCfgDict
+from dfu3d_tpu_torch import zoo
 
 from dfu3d_tpu_torch.data.point_feature_encoder import PointFeatureEncoder
 from dfu3d_tpu_torch.models import build_network
-from dfu3d_tpu_torch.tools.common import build_model, model_grid
+from dfu3d_tpu_torch.tools.common import _voxel_processor, build_model, model_grid
 from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
 
 from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
@@ -75,3 +88,34 @@ def test_pointpillar_voxel_cap_is_not_read(cfg_file, monkeypatch):
     assert model.vfe.max_pillars == plain.vfe.max_pillars == 32768
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
         {k: tuple(v.shape) for k, v in plain.state_dict().items()}
+
+
+def setup_tree(module, prefix=""):
+    """The flax submodules that `module`'s setup builds, and theirs, by dotted
+    path: {path: class name} (nn.compact modules build theirs only when
+    called)."""
+    module._try_setup()
+    out = {}
+    for value in list(vars(module).values()):
+        for sub in value if isinstance(value, (list, tuple)) else [value]:
+            if isinstance(sub, flax_nn.Module) and sub.name and sub.parent is module:
+                path = prefix + sub.name
+                out[path] = type(sub).__name__
+                out.update(setup_tree(sub, path + "."))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(zoo.OPTION_CFGS))
+def test_derived_config_builds_in_both_packages(name):
+    cfg = zoo.option_cfg(name)
+    _, grid, model = getattr(zoo, name)(device="cpu")
+    vox = _voxel_processor(cfg)
+    jmodel = j_build_network(JCfgDict(cfg.MODEL), cfg.CLASS_NAMES,
+                             JVoxelGrid.create(grid.point_cloud_range, grid.voxel_size),
+                             max_voxels=int(vox.MAX_NUMBER_OF_VOXELS["test"]))
+    want = setup_tree(jmodel.bind({}))
+    got = {k: type(m).__name__ for k, m in model.named_modules()}
+    assert len(want) >= 3 and set(want) <= set(got)
+    # flax's layers and torch's of the same name in the flax tree
+    renamed = {"Dense": "Linear", "Conv": "Conv2d", "Sequential": "ModuleDict"}
+    assert {k: renamed.get(v, v) for k, v in want.items()} == {k: got[k] for k in want}

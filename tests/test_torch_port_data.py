@@ -213,13 +213,33 @@ def test_augmentor_matches_jax(tmp_path, aug):
 
 
 def test_image_augmentations_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="image branch"):
-        DataAugmentor(tmp_path, [CfgDict({"NAME": "random_image_flip"})], CLASSES)
-    sampler_cfg = CfgDict({"DB_INFO_PATH": [], "SAMPLE_GROUPS": [], "IMG_AUG_TYPE": "kitti"})
-    with pytest.raises(NotImplementedError, match="image branch"):
-        DataBaseSampler(tmp_path, sampler_cfg, CLASSES)
-    with pytest.raises(NotImplementedError, match="image branch"):
-        DataProcessor([CfgDict({"NAME": "image_normalize"})], [0, -1, -1, 1, 1, 1], True, 4)
+    """The image augmentation, the sampler's image copy-paste and the image
+    processors raised NotImplementedError until the image data path was
+    ported; they now build as the JAX package's do and act alike:
+    random_image_flip draws once per frame with images and none without,
+    the sampler takes IMG_AUG_TYPE kitti, image_normalize normalises a
+    uint8 image as JAX's (tests/test_torch_port_image_data.py holds the
+    whole path against JAX)."""
+    rng = np.random.RandomState(0)
+    frames = [{"gt_boxes": rng.normal(0, 1, (2, 8)).astype(np.float32),
+               "images": rng.uniform(0, 1, (4, 6, 3)).astype(np.float32)} for _ in range(4)]
+    frames.insert(2, {"gt_boxes": rng.normal(0, 1, (2, 8)).astype(np.float32)})
+    out = []
+    for cls, cfgd in ((DataAugmentor, CfgDict), (JDataAugmentor, JCfgDict)):
+        augmentor = cls(tmp_path, [cfgd({"NAME": "random_image_flip"})], CLASSES,
+                        rng=np.random.RandomState(3))
+        out.append([augmentor.forward(copy.deepcopy(f)) for f in frames])
+    assert_tree_equal(*out)
+    assert 0 < sum("image_flipped" in f for f in out[1]) < 4
+    sampler_cfg = {"DB_INFO_PATH": [], "SAMPLE_GROUPS": [], "IMG_AUG_TYPE": "kitti"}
+    assert DataBaseSampler(tmp_path, CfgDict(sampler_cfg), CLASSES).img_aug_type == \
+        JDataBaseSampler(tmp_path, JCfgDict(sampler_cfg), CLASSES).img_aug_type == "kitti"
+    proc = {"NAME": "image_normalize", "mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]}
+    image = rng.randint(0, 256, (4, 6, 3)).astype(np.uint8)
+    got = DataProcessor([CfgDict(proc)], [0, -1, -1, 1, 1, 1], True, 4).forward({"images": image})
+    want = JDataProcessor([JCfgDict(proc)], [0, -1, -1, 1, 1, 1], True, 4).forward(
+        {"images": image})
+    np.testing.assert_array_equal(got["images"], want["images"])
 
 
 def test_database_sampler_matches_jax(roots):

@@ -6,17 +6,15 @@ tests/test_parta2.py's test-scale config (SparseUNet 8-16, POOL_SIZE 8,
 * a served request (`predict`) of PartA2 and of PartA2-free (DISABLE_PART,
   SEG_MASK_SCORE_THRESH 0, the voxel centres in the part stream): keep
   masks and labels exactly equal, boxes and scores within 1e-4;
-* one train step against JAX's `make_train_step` (the checks of
-  tests/test_torch_port_two_stage_train.py: sampled RoIs equal, metrics
-  within 1e-5 relative, every gradient leaf within 1e-4 of its largest
-  entry and nonzero in the reg branch, the parameters and BN statistics
-  after the step);
 * the reference mapping against the JAX package's `parta2_head_mapping`
   (spconv 2.x 5-D weights through `t_spconv_dense` and
   `params_from_jax`'s 5-D case), a save / load round trip;
 * tools.train and tools.test on the shipped PartA2.yaml (its widths, the
   range cut to 25.6 m) with their B1 and B2 calls, and the span profile
   (the UNet decoder, the part head, the RoI-aware pools, the part losses).
+
+One train step against JAX's `make_train_step` is in
+tests/test_torch_port_parta2_train.py.
 """
 import jax
 import numpy as np
@@ -32,7 +30,6 @@ from test_torch_port_two_stage import build_pair, port_batch
 from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 from test_torch_port_two_stage_ckpt import check_reference_mapping
 from test_torch_port_two_stage_cli import check_tools_train_and_test, check_two_stage_spans
-from test_torch_port_two_stage_train import check_model_train_step
 
 
 def free_cfg():
@@ -61,12 +58,6 @@ def test_predict_matches_jax(name):
     np.testing.assert_array_equal(gl[gv], wl[wv])
     np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
     np.testing.assert_allclose(gb[gv], wb[wv], rtol=0, atol=1e-4)
-
-
-def test_train_step_matches_jax(monkeypatch):
-    """JAX draws 3 dropout masks (SHARED_FC's one, CLS_FC's and REG_FC's)."""
-    jmodel, variables, model, _ = build_pair(pa2_cfg(), pa2_grid(), seed=2, train=True)
-    check_model_train_step(jmodel, variables, model, ("roi_head.reg_fc.",), 3, monkeypatch)
 
 
 def test_reference_mapping_matches_jax(tmp_path):

@@ -12,13 +12,12 @@ VectorPoolAggregationModuleMSG schema, 128 keypoints, 2 x 2 x 2 bins):
 * the proposal-centric keypoint mask, the RoIs' fallback to all points;
 * a served request (`predict`): keep masks and labels exactly equal, boxes
   and scores within 1e-4;
-* one train step against JAX's `make_train_step` (the checks of
-  tests/test_torch_port_two_stage_train.py: sampled RoIs equal, metrics
-  within 1e-5 relative, every gradient leaf within 1e-4 of its largest
-  entry and nonzero in the reg branch);
 * the shipped config's reference mapping: the RPN's only;
 * the span profile (the proposal-centric FPS and its mask, the VSA's and
   the grid's vector pools).
+
+One train step against JAX's `make_train_step` is in
+tests/test_torch_port_pvrcnn_pp_train.py, with `pp_pair` from here.
 """
 import jax
 import jax.numpy as jnp
@@ -38,7 +37,6 @@ from test_torch_port_models import numpy_variables
 from test_torch_port_two_stage import build_pair, port_batch, sa_scene, t
 from test_torch_port_threads import few_threads  # noqa: F401 (autouse)
 from test_torch_port_two_stage_cli import check_two_stage_spans
-from test_torch_port_two_stage_train import check_model_train_step
 
 
 def pp_cfg():
@@ -168,12 +166,6 @@ def test_predict_matches_jax():
     np.testing.assert_array_equal(gl[gv], wl[wv])
     np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
     np.testing.assert_allclose(gb[gv], wb[wv], rtol=0, atol=1e-4)
-
-
-def test_train_step_matches_jax(monkeypatch):
-    """JAX draws 3 dropout masks (SHARED_FC's one, CLS_FC's and REG_FC's)."""
-    jmodel, variables, model, _ = pp_pair(seed=2, train=True)
-    check_model_train_step(jmodel, variables, model, ("reg_fc.",), 3, monkeypatch)
 
 
 def test_reference_mapping_is_the_rpns():

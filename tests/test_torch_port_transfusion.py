@@ -11,14 +11,15 @@ proposals, 3 or 10 classes, with and without the velocity branch):
 * `decode`, `gaussian_heatmap_targets` and the loss with either matcher;
 * the numpy Hungarian against scipy's linear_sum_assignment and JAX's
   `hungarian_match`, the greedy matcher against JAX's: indices equal;
-* the whole TransFusion (the plain trunk JAX builds) predict and loss; the
-  shipped config's VoxelResBackBone8x trunk, held against JAX's own
-  VoxelResBackBone8x → height_compression → BaseBEVBackbone →
-  TransFusionHead applied as flax modules here (JAX's TransFusion builds
-  VoxelBackBone8x whatever BACKBONE_3D names);
+* the whole TransFusion (the plain trunk JAX builds) predict and loss;
 * the reference-key mapping against JAX's `transfusion_head_mapping`.
 
-The train step and the CLIs are in tests/test_torch_port_transfusion_train.py.
+The shipped config's VoxelResBackBone8x trunk, held against JAX's own
+VoxelResBackBone8x → height_compression → BaseBEVBackbone →
+TransFusionHead applied as flax modules (`ResTrunkTransFusion` here: JAX's
+TransFusion builds VoxelBackBone8x whatever BACKBONE_3D names), is in
+tests/test_torch_port_transfusion_trunk.py; the train step and the CLIs
+are in tests/test_torch_port_transfusion_train.py.
 """
 import jax
 import jax.numpy as jnp
@@ -469,19 +470,6 @@ class ResTrunkTransFusion(jbev.TransFusion):
             voxel_size=tuple(self.grid.voxel_size),
             feature_map_stride=int(tac.get("FEATURE_MAP_STRIDE", 8)),
             matcher=str(dh.get("MATCHER", "auto")), dtype=self.dtype)
-
-
-def test_res_trunk_transfusion_matches_jax_modules():
-    """The shipped config's trunk (BACKBONE_3D VoxelResBackBone8x with four
-    CHANNELS): the port against JAX's VoxelResBackBone8x →
-    height_compression → BaseBEVBackbone → TransFusionHead, 3 classes, 16
-    proposals (`compare_model`)."""
-    cfg = tf_cfg(res_trunk=True)
-    jmodel = ResTrunkTransFusion(JCfgDict(cfg), NAMES3, JVoxelGrid.create(PCR, VOXEL),
-                                 max_voxels=MAX_VOXELS)
-    variables, model = model_pair(cfg, NAMES3, seed=4)
-    assert type(model.backbone_3d).__name__ == "VoxelResBackBone8x"
-    compare_model(jmodel, variables, model, tf_batch(5, NAMES3))
 
 
 def reference_state(model, seed=0):

@@ -148,10 +148,12 @@ def test_shipped_config_builds_at_full_width(name):
                                       "voxel_rcnn_legacy", "pv_rcnn_legacy", "parta2_legacy"])
 def test_out_of_scope_raises(cfg_name):
     """The legacy compact RoI schemas (Voxel R-CNN's, PV-RCNN's, PV-RCNN++'s
-    and PartA2's) are not ported: building them raises
-    NotImplementedError. The focal Voxel R-CNN is ported since the camera
-    slice; what stays out of its scope is a batch without images, which
-    raises (its USE_IMG conv reads image features)."""
+    and PartA2's) raised NotImplementedError until they were ported; they build now
+    with the JAX package's compact pools (pool_stage1..3, grid_sa, grid_vp,
+    PartA2's GRID_SIZE; tests/test_torch_port_compact.py holds each against
+    JAX). The focal Voxel R-CNN is ported since the camera slice; what
+    stays out of its scope is a batch without images, which raises (its
+    USE_IMG conv reads image features)."""
     if cfg_name.endswith("_legacy"):
         pool = "ROI_AWARE_POOL" if cfg_name.startswith("parta2") else "ROI_GRID_POOL"
         cfg = {"voxel": voxel_rcnn_cfg, "parta2": pa2_cfg}.get(cfg_name.split("_")[0], pv_cfg)()
@@ -161,8 +163,14 @@ def test_out_of_scope_raises(cfg_name):
         jgrid = pa2_grid() if cfg_name.startswith("parta2") else pv_grid()
         cfg, grid = CfgDict(cfg), voxel.VoxelGrid.create(jgrid.point_cloud_range,
                                                          jgrid.voxel_size)
-        with pytest.raises(NotImplementedError, match="legacy compact RoI schema"):
-            build_network(cfg, CLASS_NAMES, grid, device="cpu")
+        model = build_network(cfg, CLASS_NAMES, grid, device="cpu")
+        children = {name for name, _ in model.named_children()}
+        want = {"voxel_rcnn_legacy": {"pool_stage1", "pool_stage2", "pool_stage3"},
+                "pv_rcnn_legacy": {"grid_sa"}, "pv_rcnn_plusplus_legacy": {"grid_vp"},
+                "parta2_legacy": {"roi_head"}}[cfg_name]
+        assert want <= children
+        if cfg_name == "parta2_legacy":
+            assert model.roi_head.grid_size == 12   # the compact schema's GRID_SIZE default
         return
     cfg = cfg_from_yaml_file(zoo.KITTI_CFGS / f"{cfg_name}.yaml", CfgDict())
     model = build_model(cfg, "test", "cpu")

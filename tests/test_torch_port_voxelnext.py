@@ -7,12 +7,12 @@ config and grid (`vn_cfg`, `vn_grid`):
 * `assign_targets`: nearest-voxel indices (ties included) and masks exactly
   equal, heat-map and regression targets within 1e-6;
 * `aligned_iou3d` within 1e-6;
-* `predict` with the IoU branch's rectified scores and with the double-flip
-  TTA: keep masks and labels equal, boxes and scores within 1e-4;
 * the flax tree of JAX's init equals the port's state_dict leaf for leaf.
 
-The train step, and with it VoxelResBackBone8xVoxelNeXt's forward and
-backward with its B2 calls, is in tests/test_torch_port_voxelnext_train.py.
+`predict` is in tests/test_torch_port_voxelnext_serve.py; the train step,
+and with it VoxelResBackBone8xVoxelNeXt's forward and backward with its B2
+calls, is in tests/test_torch_port_voxelnext_train.py; both take `pair`
+from here.
 """
 import jax
 import jax.numpy as jnp
@@ -183,28 +183,6 @@ def test_aligned_iou3d_matches_jax():
 # --------------------------------------------------------------------------
 # predict
 # --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("variant", ["iou", "double_flip"])
-def test_predict_matches_jax(variant):
-    """The decode end to end from points: top-K over (class, voxel) with
-    jax.lax.top_k's order, each selection from its class's group branch,
-    the IoU branch's score^(1-w) · iou^w rectification, or the four flipped
-    copies merged; then rotated NMS (B1's twin). Keep masks and labels
-    equal, boxes and scores within 1e-4."""
-    jmodel, variables, model = pair(variant, seed=4)
-    jbatch = make_batch(np.random.RandomState(3), b=2, n=512)
-    want = jax.device_get(jax.jit(
-        lambda v, b: jmodel.apply(v, b, method=lambda m, bb: m.predict(bb)))(variables, jbatch))
-    with torch.no_grad():
-        got = model.eval().predict(port_batch(jbatch))
-    boxes, scores, labels, keep = (x.numpy() for x in got)
-    np.testing.assert_array_equal(keep, np.asarray(want[3]))
-    np.testing.assert_array_equal(labels, np.asarray(want[2]))
-    np.testing.assert_allclose(boxes, np.asarray(want[0]), atol=1e-4)
-    np.testing.assert_allclose(scores, np.asarray(want[1]), atol=1e-4)
-    assert keep.sum() > 4 and np.isfinite(boxes).all()
-    assert len(np.unique(labels[keep])) > 1
-
 
 def test_flax_tree_matches_state_dict():
     """The flax tree of JAX's VoxelNeXt init (the IoU-branch variant) has
