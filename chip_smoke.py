@@ -351,12 +351,34 @@ Phases, each fatal on failure:
               timed; SECOND from disk through tools.train and tools.test;
               CaDDN.yaml's image items, and frames/s of get_image and of
               the whole item on the host.
+ 22. aux      zoo.second_column (KITTI second.yaml with its VoxelBackBone8x
+              in the column formulation: 1408 x 1600 x 40, 40,000 / 16,000
+              columns, AnchorHeadSingle over 3 classes) at full width with
+              seeded weights (the first request's BN statistics), bf16, on
+              a synthetic KITTI root (8 + 4 frames): 3 requests and 3 train
+              steps, fatal unless each launches B1 2 / 0 times and B2
+              never; second.yaml in the gather form with the same weights
+              on the same batches (B2 12 / 23), host ms, device-busy ms and
+              peaks of both; the fp32 request of each form compared, every
+              stage's columns and voxels against their caps (the trunks'
+              output sets, the head maps, every anchor's decoded box and
+              score, the NMS in one score order; fatal where no cap binds;
+              where one does, with both forms at 160,000 voxels, where none
+              binds),
+              and the fp32
+              column request through B1 against
+              its twin; tools.demo's predict_files on 4 .bin files with a
+              saved checkpoint (B1 once per file, PNGs where matplotlib
+              imports); profiling.trace around a column request (fatal
+              unless the trace names the span and B1's kernel) and
+              StepTimer; tools.create_integrated_database on the root's gt
+              database.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
 {"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}},
 {"mppnet": {...}}, {"camera": {...}}, {"datasets": {...}},
-{"options": {...}} and {"kernels": [...]};
+{"options": {...}}, {"aux": {...}} and {"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -5849,12 +5871,13 @@ def options_batches(name, cfg, data, count, training):
     return zoo.kitti_batches(cfg, root, infos[split], count, 4, training=training)
 
 
-def options_serve(name, model, batches, device):
+def options_serve(name, model, batches, device, b1=None, b2=None, tag="options"):
     """A warm-up request, the peak memory and every kernel count set to 0,
     the requests through eval_batches (bf16), the counts and the peak read.
-    Fatal unless every request launched B1 and the tensor-core B2 as
-    OPTIONS_B1 and OPTIONS_B2 say and no CUDA-core B2, or on a non-finite or
-    empty output. Returns (EvalResult, launches, summary)."""
+    Fatal unless every request launched B1 `b1` times and the tensor-core B2
+    `b2` times (by default as OPTIONS_B1 and OPTIONS_B2 say) and no
+    CUDA-core B2, or on a non-finite or empty output. Returns (EvalResult,
+    launches, summary)."""
     import torch
 
     from dfu3d_tpu_torch.train.eval_utils import eval_batches
@@ -5873,18 +5896,20 @@ def options_serve(name, model, batches, device):
             fail(f"{name} request {k}: boxes {tuple(boxes.shape)}, kept boxes finite "
                  f"{bool(torch.isfinite(boxes[valid]).all())}, kept per frame "
                  f"{valid.sum(1).tolist()}")
-    b1, b2 = OPTIONS_B1[name][0], OPTIONS_B2[name][0]
+    b1 = OPTIONS_B1[name][0] if b1 is None else b1
+    b2 = OPTIONS_B2[name][0] if b2 is None else b2
     if launches["iou_bev_overlap"] != b1 * n or launches["gather_gemm_tensor_core"] != b2 * n \
             or launches["gather_gemm_cuda_core"]:
         fail(f"{name} serving: kernel launches {launches} for {n} requests, not {b1} B1 and "
              f"{b2} tensor-core B2 per request")
     ms = [s * 1e3 for s in res.batch_seconds]
-    summary = {"request_ms": {"median": statistics.median(ms), "all": ms},
+    summary = {"request_ms": {"median": statistics.median(ms),
+                              "median_after_first": statistics.median(ms[1:] or ms), "all": ms},
                "kept_per_frame": [p[3].sum(1).tolist() for p in res.preds],
                "recall": res.metric, "launches": launches,
                "launches_per_request": {k: v / n for k, v in launches.items()},
                "peak_memory_gib": peak / 2 ** 30}
-    log(f"[options] {name} serving, {n} requests of B=4 (bf16): ms per request median "
+    log(f"[{tag}] {name} serving, {n} requests of B=4 (bf16): ms per request median "
         f"{summary['request_ms']['median']:.2f} (all: {', '.join(f'{v:.2f}' for v in ms)}); "
         f"peak memory {summary['peak_memory_gib']:.2f} GiB; kept per frame "
         f"{summary['kept_per_frame']}; launches per request "
@@ -6280,6 +6305,458 @@ def options_phase(device, card):
     return summary, launches, train_b1, served_b2
 
 
+# phase 22: the column formulation of VoxelBackBone8x (zoo.second_column:
+# KITTI second.yaml with BACKBONE_3D.FORMULATION column) at full width, its
+# A/B against the gather form, the demo, the profiling trace and the
+# integrated gt database
+AUX_DEPTH = (3, 3)      # second_column: served requests and bf16 train steps, B=4
+# B1 per request (NMS, recall) and per train step; the column trunk launches
+# no B2, the gather form's VoxelBackBone8x 12 per request and 23 per step
+AUX_B1 = (2, 0)
+AUX_GATHER_B2 = (12, 23)
+AUX_DEMO_FILES = 4
+AUX_DEMO_B1 = 1         # per file: the demo's eval step runs the NMS and no recall
+# voxels: the A/B's caps where one binds at the config's (the stage caps are a half, a
+# quarter and an eighth of it): the KITTI frames' 32,500 voxels keep 31,500 / 27,600 /
+# 10,400 at strides 2 / 4 / 8 and 13,700 after the column form's conv_out
+AUX_AB_VOXEL_CAP = 160000
+AUX_TRACE_KERNEL = "overlap_bev_kernel"   # B1's CUDA kernel, as the trace names it
+
+
+def aux_gather(train=False, device="cuda"):
+    """second.yaml in the gather form: zoo.second_column's config with
+    FORMULATION gather, built as the CLIs build it."""
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.tools.common import build_model, model_grid
+
+    cfg = zoo.option_cfg("second_column")
+    cfg.MODEL.BACKBONE_3D.FORMULATION = "gather"
+    return cfg, model_grid(cfg), build_model(cfg, "train" if train else "test", device,
+                                             train=train)
+
+
+def aux_stage_counts(model, batch, device):
+    """Per frame, the voxelizer's distinct cells against max_voxels and
+    every stage of the trunk against its cap: the column form's columns
+    (and active voxels) per set and the final compaction's active voxels
+    against its slots; the gather form's voxels per set. Returns (counts,
+    whether a cap of the trunk binds)."""
+    import torch
+
+    from dfu3d_tpu_torch.models.column_sparse import ColumnVoxelBackBone8x
+
+    bb = model.backbone_3d
+    with torch.no_grad():
+        b = batch.to(device)
+        _, vox = model.vfe(b.points, b.points_valid)
+        plan = bb.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique)
+    caps = [bb.voxel_cap] + bb.caps + [bb.caps[2]]
+    out = {"voxelizer": {"cells": vox.num_unique.tolist(), "cap": model.vfe.max_voxels}}
+    binds = False
+    if isinstance(bb, ColumnVoxelBackBone8x):
+        for i, (lv, cap) in enumerate(zip(plan.levels, caps)):
+            voxels = (lv.zmask & lv.col_valid[..., None]).sum((1, 2))
+            if i < 4:
+                out[f"stage{i}"] = {"columns": lv.num_cols.tolist(), "column_cap": cap,
+                                    "voxels": voxels.tolist()}
+                binds |= bool((lv.num_cols > cap).any())
+            else:
+                out["conv_out"] = {"voxels": voxels.tolist(), "slots": bb.out_cap}
+                binds |= bool((voxels > bb.out_cap).any())
+    else:
+        for i, (lv, cap) in enumerate(zip(plan, caps)):
+            out["conv_out" if i == 4 else f"stage{i}"] = {"voxels": lv.num_unique.tolist(),
+                                                          "voxel_cap": cap}
+            binds |= i > 0 and bool((lv.num_unique > cap).any())
+    return out, binds
+
+
+def aux_forms_agree(column, gather, batch, device):
+    """One fp32 request of each form on the same weights: the trunks'
+    output sets equal slot for slot, and within PATH_TOL their features,
+    the head's maps and every anchor's decoded box and score. A direction
+    bin may differ only where both forms' two direction logits lie within
+    twice the maps' largest difference of each other (the heading then
+    differs by pi, the footprint not at all). The NMS runs on each form's
+    boxes in the column form's score order: the same slots kept, their
+    boxes and scores within PATH_TOL. At seeded weights many overlapping
+    anchors score within the two summation orders' rounding of each other
+    (every anchor over empty ground scores the same), so NMS on each form's
+    own scores keeps other boxes among those; how many is reported. Returns
+    (agreement, a list of what differs, empty where they agree)."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry.nms import nms_bev
+    from dfu3d_tpu_torch.models.sparse_backbone import height_compression
+
+    outs = []
+    with torch.no_grad():
+        b = batch.to(device)
+        for m in (column, gather):
+            m.eval()
+            feats, vox = m.vfe(b.points, b.points_valid)
+            bb = m.backbone_3d
+            st = bb(feats, bb.plan(vox.voxel_coords, vox.voxel_valid, vox.num_unique))
+            head = m.dense_head(m.backbone_2d(height_compression(st)))
+            boxes, cls = m.decode(head)
+            outs.append((st, head, boxes, cls.amax(-1)))
+    (sc, hc, bc, mc), (sg, hg, bg, mg) = outs
+    faults = []
+    trunk_err = None
+    if not (torch.equal(sc.valid, sg.valid) and torch.equal(sc.coords, sg.coords)):
+        faults.append(f"trunk output sets differ ({sc.valid.sum(1).tolist()} / "
+                      f"{sg.valid.sum(1).tolist()} voxels)")
+    else:
+        trunk_err = (sc.features.float() - sg.features.float()).abs().max().item()
+        if not trunk_err <= PATH_TOL:
+            faults.append(f"trunk features differ by {trunk_err:.3g}")
+    head_err = {k: (hc[k].float() - hg[k].float()).abs().max().item()
+                for k in hc if torch.is_tensor(hc[k])}
+    if not max(head_err.values()) <= PATH_TOL:
+        faults.append(f"head maps differ by {head_err}")
+    nb = bc.shape[0]
+    dc, dg = (h["dir_cls_preds"].float().reshape(nb, -1, 2) for h in (hc, hg))
+    flipped = dc.argmax(-1) != dg.argmax(-1)
+    tie = 2 * head_err["dir_cls_preds"]
+    unexplained = flipped & (((dc[..., 1] - dc[..., 0]).abs() > tie)
+                             | ((dg[..., 1] - dg[..., 0]).abs() > tie))
+    heading = (bc[..., 6] - bg[..., 6]).abs()
+    heading = torch.where(flipped, (heading - math.pi).abs(), heading)
+    box_err = max((bc[..., :6] - bg[..., :6]).abs().max().item(), heading.max().item())
+    score_err = (mc - mg).abs().max().item()
+    if unexplained.any() or not max(box_err, score_err) <= PATH_TOL:
+        faults.append(f"decoded anchors: boxes within {box_err:.3g}, scores within "
+                      f"{score_err:.3g}, {int(flipped.sum())} direction bins differ "
+                      f"({int(unexplained.sum())} beyond a tie of {tie:.3g})")
+    pp = column.model_cfg.POST_PROCESSING
+    thresh = float(pp.get("SCORE_THRESH", 0.1))
+    args = dict(thresh=float(pp.NMS_CONFIG.NMS_THRESH), pre_max=int(pp.NMS_CONFIG.NMS_PRE_MAXSIZE),
+                post_max=int(pp.NMS_CONFIG.NMS_POST_MAXSIZE))
+    (sel_c, keep_c), (sel_g, keep_g), (sel_o, keep_o) = (
+        nms_bev(x, sx, valid=sx >= thresh, **args) for x, sx in ((bc, mc), (bg, mc), (bg, mg)))
+    kept = int(keep_c.sum())
+    if not kept or not (torch.equal(sel_c, sel_g) and torch.equal(keep_c, keep_g)):
+        faults.append(f"NMS in the column form's score order keeps {kept} / "
+                      f"{int(keep_g.sum())} boxes, {int((keep_c != keep_g).sum())} slots differ")
+    differ = sum(len(set(sel_c[i][keep_c[i]].tolist()) ^ set(sel_o[i][keep_o[i]].tolist()))
+                 for i in range(nb))
+    return {"trunk_max_diff": trunk_err, "head_max_diff": head_err,
+            "decoded_box_max_diff": box_err, "decoded_score_max_diff": score_err,
+            "direction_bins_differing_at_ties": int(flipped.sum()),
+            "kept_in_column_order": kept,
+            "kept_boxes_differing_in_own_order": differ}, faults
+
+
+def aux_ab_check(cfg, column, gather, batch, device):
+    """The fp32 A/B on one batch: each form's stage counts against its caps
+    and one fp32 request of each (`aux_forms_agree`), at the config's caps
+    (fatal where no cap binds, reported where one does), then, where one
+    binds, with both forms rebuilt at AUX_AB_VOXEL_CAP voxels (the same
+    weights; the caps are no parameters), where none may bind: fatal."""
+    import copy
+
+    from dfu3d_tpu_torch.tools.common import _voxel_processor, build_model
+
+    def counts_of(pair):
+        out, binds = {}, False
+        for name, m in zip(("column", "gather"), pair):
+            out[name], bound = aux_stage_counts(m, batch, device)
+            binds |= bound
+        return out, binds
+
+    counts, binds = counts_of((column, gather))
+    log(f"[aux] fp32 A/B stage counts (per frame; columns and voxels against their caps; "
+        f"a cap binds: {binds}): {json.dumps(counts)}")
+    full, faults = aux_forms_agree(column, gather, batch, device)
+    summary = {"stage_counts": counts, "cap_binds": binds, "at_config_caps": full}
+    if not binds:
+        if faults:
+            fail(f"second_column fp32 request vs the gather form, no cap binding: {faults}")
+        case = "no cap binds at the config's caps: the forms agree"
+    else:
+        cfg = copy.deepcopy(cfg)
+        _voxel_processor(cfg).MAX_NUMBER_OF_VOXELS["test"] = AUX_AB_VOXEL_CAP
+        raised = []
+        for form, src in (("column", column), ("gather", gather)):
+            cfg.MODEL.BACKBONE_3D.FORMULATION = form
+            m = build_model(cfg, "test", device)
+            m.load_state_dict(src.state_dict())
+            raised.append(m.eval())
+        rcounts, rbinds = counts_of(raised)
+        if rbinds:
+            fail(f"second_column A/B: a cap binds at {AUX_AB_VOXEL_CAP} voxels too: {rcounts}")
+        agree, rfaults = aux_forms_agree(*raised, batch, device)
+        if rfaults:
+            fail(f"second_column fp32 request vs the gather form at {AUX_AB_VOXEL_CAP} voxels, "
+                 f"no cap binding: {rfaults}")
+        summary.update(raised_voxel_cap=AUX_AB_VOXEL_CAP, raised_stage_counts=rcounts,
+                       at_raised_caps=agree)
+        case = (f"a cap binds at the config's caps (differences reported: {faults or 'none'}); "
+                f"with both forms at {AUX_AB_VOXEL_CAP} voxels none binds and the forms agree "
+                f"({json.dumps(agree)}); stage counts there {json.dumps(rcounts)}")
+        del raised
+    summary["case"] = case
+    log(f"[aux] fp32 A/B, second_column vs the gather form: {case}; at the config's caps "
+        f"{json.dumps(full)}")
+    return summary
+
+
+def aux_profile(batch, step_fn, steps=2):
+    """Device-busy ms of `steps` runs of step_fn(batch), after every
+    host-clock reading (profile_serve.device_profile)."""
+    import torch
+
+    from dfu3d_tpu_torch.profile_serve import device_profile
+
+    def run():
+        for _ in range(steps):
+            step_fn(batch)
+            torch.cuda.synchronize()
+
+    return device_profile(run, steps)[1]
+
+
+def aux_demo(cfg, model, root, work, device):
+    """The demo on AUX_DEMO_FILES .bin files of the root with a checkpoint
+    of `model` saved and loaded as the CLI does: B1 counted, fatal unless it
+    launches AUX_DEMO_B1 per file (the eval step's count on one file, also
+    counted) and B2 never; PNGs rendered where matplotlib imports."""
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.tools import demo
+    from dfu3d_tpu_torch.tools.common import build_model
+    from dfu3d_tpu_torch.train.checkpoint import load_model_state
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+
+    ckpt = work / "second_column.pth"
+    torch.save({"model_state": model.state_dict(), "epoch": 0, "it": 0, "optimizer_state": {},
+                "version": "chip_smoke"}, ckpt)
+    files = sorted((root / "velodyne").glob("*.bin"))[:AUX_DEMO_FILES]
+    demo_model = build_model(cfg, "test", device)
+    load_model_state(ckpt, demo_model)
+    n_max, m_max = demo.frame_caps(cfg)
+    first = demo.batch_of(demo.load_points(files[0]), n_max, m_max)
+    make_eval_step(demo_model, device=device, dtype=torch.bfloat16)(first)   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    make_eval_step(demo_model, device=device, dtype=torch.bfloat16)(first)
+    per_step = read_launches()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    preds = demo.predict_files(demo_model, files, n_max, m_max, device, torch.bfloat16)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if per_step["iou_bev_overlap"] != AUX_DEMO_B1 or \
+            launches["iou_bev_overlap"] != AUX_DEMO_B1 * len(files) or launches["gather_gemm"]:
+        fail(f"the demo on {len(files)} files launched {launches} (its eval step on one file "
+             f"{per_step}), not B1 {AUX_DEMO_B1} per file and no B2")
+    kept = [len(p[1]) for p in preds]
+    if not all(kept) or not all(np.isfinite(p[1]).all() for p in preds):
+        fail(f"the demo's predictions: kept per file {kept}, finite "
+             f"{[bool(np.isfinite(p[1]).all()) for p in preds]}")
+    try:
+        import matplotlib  # noqa: F401
+        rendered = [str(p.relative_to(work)) for p in
+                    demo.render(preds, files, cfg, work / "demo_out")]
+        render = f"matplotlib imports: {len(rendered)} PNGs rendered on the host"
+    except ImportError:
+        rendered = []
+        render = "matplotlib does not import on this machine: no PNG rendered (host drawing only)"
+    log(f"[aux] demo: {render}")
+    b1_entries = time_served_overlaps("demo", demo_model, first, device, names=("nms",),
+                                      step=make_eval_step(demo_model, device=device,
+                                                          dtype=torch.bfloat16))
+    log(f"[aux] demo (tools.demo.predict_files, bf16, on the card): {len(files)} files in "
+        f"{seconds * 1e3:.1f} ms, kept per file {kept}, launches {json.dumps(launches)} "
+        f"(the eval step on one file: {json.dumps(per_step)})")
+    return {"files": [f.name for f in files], "seconds": seconds, "kept_per_file": kept,
+            "launches": launches, "eval_step_launches": per_step, "render": render,
+            "pngs": rendered}, launches, b1_entries
+
+
+def aux_trace(model, batches, device):
+    """profiling.StepTimer over the column requests, then profiling.trace
+    around one with annotate('column_request'): fatal unless the trace file
+    exists and names the span and B1's CUDA kernel."""
+    import torch
+
+    from dfu3d_tpu_torch.train.train_state import make_eval_step
+    from dfu3d_tpu_torch.utils import profiling
+
+    step = make_eval_step(model, RECALL_THRESH, device=device, dtype=torch.bfloat16)
+    timer = profiling.StepTimer()
+    for batch in batches:
+        timer.reset()
+        step(batch)
+        torch.cuda.synchronize()
+        timer.tick("column_request")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as prof:
+            with profiling.annotate("column_request"):
+                step(batches[0])
+                torch.cuda.synchronize()
+        text = prof.trace_path.read_text()
+        size = prof.trace_path.stat().st_size
+    named = {"column_request": "column_request" in text, AUX_TRACE_KERNEL: AUX_TRACE_KERNEL in text}
+    if not all(named.values()):
+        fail(f"profiling.trace of a second_column request ({size} bytes) names {named}")
+    log(f"[aux] profiling: StepTimer {timer.summary()}; trace of one column request "
+        f"{size} bytes, names the span and B1's kernel ({AUX_TRACE_KERNEL})")
+    return {"step_timer": timer.summary(), "trace_bytes": size, "names": named}
+
+
+def aux_integrated_db(root):
+    """tools.create_integrated_database on the root's gt database."""
+    import pickle
+
+    import numpy as np
+
+    from dfu3d_tpu_torch.tools import create_integrated_database as cid
+
+    db = root / "kitti_dbinfos_train.pkl"
+    t0 = time.perf_counter()
+    npy, pkl = cid.create_integrated_db(db, root)
+    cid.verify(db, root, npy, pkl)
+    seconds = time.perf_counter() - t0
+    stacked = np.load(npy)
+    with open(pkl, "rb") as f:
+        clips = sum(len(v) for v in pickle.load(f).values())
+    log(f"[aux] integrated gt database: {clips} clips, {len(stacked)} points in one array, "
+        f"offsets verified, {seconds:.2f} s")
+    return {"clips": clips, "points": int(len(stacked)), "seconds": seconds}
+
+
+def aux_phase(device, card):
+    """Phase 22: zoo.second_column at full width with seeded weights (the
+    first request's BN statistics), bf16, on a synthetic KITTI root (8 + 4
+    frames) in a temporary working directory whose cfgs/ links to
+    tools/cfgs/: AUX_DEPTH requests and train steps, fatal unless each
+    launches B1 as AUX_B1 says and B2 never; the gather form of the same
+    weights on the same batches (its B2 launches held and timed); the fp32
+    A/B (`aux_ab_check`) and the fp32 column request through B1 against its
+    twin; each form's device-busy ms; the demo, the profiling trace and the
+    integrated gt database. Returns (summary, launches by path, served B1
+    entries, the gather leg's served B2 (totals, entries))."""
+    import os
+
+    import torch
+
+    from dfu3d_tpu_torch import zoo
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.flagship import calibrate_bn_, seeded_weights_
+    from dfu3d_tpu_torch.models.column_sparse import ColumnVoxelBackBone8x
+    from dfu3d_tpu_torch.tools.common import _voxel_processor
+    from dfu3d_tpu_torch.train.train_state import make_eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    summary = {"card": card, "config": "zoo.option_cfg('second_column') from "
+               f"tools/cfgs/{zoo.OPTION_CFGS['second_column']}"}
+    launches, served_b1 = {}, []
+    requests, steps_n = AUX_DEPTH
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        (work / "cfgs").mkdir()
+        for sub in (REPO / "tools" / "cfgs").iterdir():
+            (work / "cfgs" / sub.name).symlink_to(sub)
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            root, infos = two_stage_root(work)
+            summary["data_seconds"] = time.perf_counter() - t0
+            cfg, grid, column = zoo.second_column(device=device)
+            if type(column.backbone_3d) is not ColumnVoxelBackBone8x:
+                fail(f"zoo.second_column built {type(column.backbone_3d).__name__}")
+            seeded_weights_(column, seed=0)
+            batches = zoo.kitti_batches(cfg, root, infos["val"], requests, 4)
+            tbatches = zoo.kitti_batches(cfg, root, infos["train"], steps_n, 4, training=True)
+            calibrate_bn_(column, batches[0])
+            _, _, gather = aux_gather(device=device)
+            gather.load_state_dict(column.state_dict())
+            gather.eval()
+            caps = _voxel_processor(cfg).MAX_NUMBER_OF_VOXELS
+            log(f"[aux] second_column: {'x'.join(map(str, grid.grid_size))} grid, "
+                f"{sum(p.numel() for p in column.parameters())} parameters, voxel caps "
+                f"{caps['train']} / {caps['test']} (train / test); points per request "
+                f"{[b.points_valid.sum(1).tolist() for b in batches]}")
+            # 1. serving, each form on the same weights and batches
+            res, launches["second_column"], serve = options_serve(
+                "second_column", column, batches, device, AUX_B1[0], 0, tag="aux")
+            forms = {"second_column": {"serve": serve}}
+            _, launches["second_gather"], serve = options_serve(
+                "second_gather", gather, batches, device, AUX_B1[0], AUX_GATHER_B2[0], tag="aux")
+            forms["second_gather"] = {"serve": serve}
+            # 2. training, each form from the same seeded weights on the same batches
+            for name, build, b2 in (("second_column", zoo.second_column, 0),
+                                    ("second_gather", aux_gather, AUX_GATHER_B2[1])):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                model, launches[f"{name}_train"], steps, state = train(name, build, tbatches,
+                                                                       device)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                bad = [s["it"] for s in steps if s["iou_bev_overlap"] != AUX_B1[1]
+                       or s["gather_gemm"] != b2]
+                if bad:
+                    fail(f"{name} train steps {bad} did not launch B1 {AUX_B1[1]} and B2 {b2} "
+                         f"times: {steps}")
+                ms = [s["host_ms"] for s in steps]
+                forms[name]["train"] = {
+                    "batch": 4, "steps": steps, "peak_memory_gib": peak,
+                    "ms_per_step": {"median_after_first": statistics.median(ms[1:] or ms),
+                                    "all": ms},
+                    "device": aux_profile(tbatches[0], make_train_step(
+                        model, state.optimizer, device=device, dtype=torch.bfloat16))}
+                del model, state
+                torch.cuda.empty_cache()
+            if launches["second_column"]["gather_gemm"] or \
+                    launches["second_column_train"]["gather_gemm"]:
+                fail(f"the column trunk launched B2: {launches}")
+            # 3. device busy of a request of each form, after every host-clock reading
+            for name, model in (("second_column", column), ("second_gather", gather)):
+                forms[name]["serve"]["device"] = aux_profile(
+                    batches[1], make_eval_step(model, RECALL_THRESH, device=device,
+                                               dtype=torch.bfloat16))
+            for name in forms:
+                s, t = forms[name]["serve"], forms[name]["train"]
+                log(f"[aux] ({card}) {name}: request median {s['request_ms']['median']:.2f} ms "
+                    f"host (after the first {s['request_ms']['median_after_first']:.2f}), device "
+                    f"busy {s['device'].get('device_busy_ms_per_step', float('nan')):.2f} ms, peak "
+                    f"{s['peak_memory_gib']:.2f} GiB; train step median after the first "
+                    f"{t['ms_per_step']['median_after_first']:.2f} ms host, device busy "
+                    f"{t['device'].get('device_busy_ms_per_step', float('nan')):.2f} ms, peak "
+                    f"{t['peak_memory_gib']:.2f} GiB")
+            summary["forms"] = forms
+            # the gather leg's served B2 calls, held and timed
+            calls = record_gemm_calls(lambda: make_eval_step(
+                gather, device=device, dtype=torch.bfloat16)(batches[0]))
+            if len(calls) != AUX_GATHER_B2[0]:
+                fail(f"one second_gather eval step made {len(calls)} gather-GEMM calls")
+            gather_b2 = hold_gemm_calls("second_gather, one served request",
+                                        zip(VOXEL8X_CONVS, calls))
+            del calls
+            served_b1 = time_served_overlaps("second_column", column, batches[0], device)
+            # 4. the fp32 checks
+            summary["fp32_ab"] = aux_ab_check(cfg, column, gather, batches[0], device)
+            summary["fp32_b1_vs_plain"] = check_paths(
+                "second_column", column, cfg, batches[0], res.preds[0],
+                [(iou_kernel, "overlap_bev", "overlap_bev_plain")], device)
+            del gather
+            torch.cuda.empty_cache()
+            # 5. the demo, the trace and the integrated gt database
+            summary["demo"], launches["demo"], demo_b1 = aux_demo(cfg, column, root, work,
+                                                                  device)
+            served_b1 += demo_b1
+            summary["profiling"] = aux_trace(column, batches, device)
+            summary["integrated_db"] = aux_integrated_db(root)
+        finally:
+            os.chdir(cwd)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[aux] ({card}) phase 22 in {summary['phase_seconds']:.1f} s")
+    return summary, launches, served_b1, gather_b2
+
+
 def main():
     import torch
 
@@ -6507,6 +6984,14 @@ def main():
     opt_b2_n = sum(v["gather_gemm"] for v in opt_launches.values())
 
     lap("phase 21")
+    # 22. the column formulation of VoxelBackBone8x (second_column) and its A/B
+    # against the gather form; the demo, the profiling trace, the integrated gt database
+    aux_summary, aux_launches, aux_b1_served, aux_b2 = aux_phase(device, card)
+    served_iou += aux_b1_served
+    aux_b1 = sum(v["iou_bev_overlap"] for v in aux_launches.values())
+    aux_b2_n = sum(v["gather_gemm"] for v in aux_launches.values())
+
+    lap("phase 22")
     # the device profiles of phase 19 (DEVICE_PROFILED) and phase 13's
     # profile_* subprocesses, after every host-clock reading
     run_deferred_profiles()
@@ -6587,7 +7072,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1 + opt_b1),
+                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1 + opt_b1 + aux_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -6619,7 +7104,9 @@ def main():
                              **{f"datasets_{k}": v["iou_bev_overlap"]
                                 for k, v in dset_launches.items()},
                              **{f"options_{k}": v["iou_bev_overlap"]
-                                for k, v in opt_launches.items()}},
+                                for k, v in opt_launches.items()},
+                             **{f"aux_{k}": v["iou_bev_overlap"]
+                                for k, v in aux_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -6637,7 +7124,10 @@ def main():
             **{f"{tag}_cli": [dset_launches[f"{tag}_cli_train"]["iou_bev_overlap"]]
                for tag in ("waymo", "once")},
             **{name: sorted({st["iou_bev_overlap"] for st in opt_summary[name]["train"]["steps"]})
-               for name in OPTIONS_DEPTH}},
+               for name in OPTIONS_DEPTH},
+            **{name: sorted({st["iou_bev_overlap"]
+                             for st in aux_summary["forms"][name]["train"]["steps"]})
+               for name in aux_summary["forms"]}},
         "max_abs_err": max([iou_err] + [e["max_abs_err"]
                                         for e in served_iou + prcnn_train_b1 + two_b1_train
                                         + mp_b1_train + opt_b1_train]),
@@ -6670,6 +7160,9 @@ def main():
         "options_train": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
                                              "plain_ms", "bound_ms", "bound_by")}
                           for e in opt_b1_train],
+        "aux_served": [{k: e[k] for k in ("path", "problem", "shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by")}
+                       for e in aux_b1_served],
     }, {
         "name": "gather_gemm",
         "route": "cuda",
@@ -6678,7 +7171,8 @@ def main():
         "launches": (voxel_launches["gather_gemm"] + voxel_train["gather_gemm"]
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
-                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n + opt_b2_n),
+                     + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n + opt_b2_n
+                     + aux_b2_n),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -6706,7 +7200,8 @@ def main():
                              **{f"datasets_{k}": v["gather_gemm"]
                                 for k, v in dset_launches.items()},
                              **{f"options_{k}": v["gather_gemm"]
-                                for k, v in opt_launches.items()}},
+                                for k, v in opt_launches.items()},
+                             **{f"aux_{k}": v["gather_gemm"] for k, v in aux_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -6719,6 +7214,7 @@ def main():
                                 + sum(v[f"gather_gemm_{k}"] for v in cam_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in dset_launches.values())
                                 + sum(v[f"gather_gemm_{k}"] for v in opt_launches.values())
+                                + sum(v[f"gather_gemm_{k}"] for v in aux_launches.values())
                                 for k in ("tensor_core", "cuda_core")},
         "train_launches_per_step": {"forward": 21, "dx": VOXEL_TRAIN_B2 - 21},
         "instruction_by_variant": {
@@ -6825,6 +7321,13 @@ def main():
             "voxelnext_compact_served": {
                 "unit": "one served bf16 voxelnext_compact request: its 52 launches, summed",
                 **opt_b2[0], "per_conv": compact_gemm(opt_b2[1])}},
+        "aux": {
+            "model": "the gather leg of phase 22's A/B: kitti_models/second.yaml (VoxelBackBone8x, "
+                     "40,000 / 16,000 voxels) at full width, bf16; the column form launches none",
+            "launches_per_request": AUX_GATHER_B2[0],
+            "launches_per_train_step": AUX_GATHER_B2[1],
+            "served_request": {"unit": "one served bf16 second_gather request: its 12 launches, "
+                                       "summed", **aux_b2[0], "per_conv": compact_gemm(aux_b2[1])}},
     }]
     log(json.dumps({"train": {"pillar": {"steps": pillar_steps, "launches": pillar_train},
                               "voxel": {"steps": voxel_steps, "launches": voxel_train},
@@ -6844,6 +7347,7 @@ def main():
     log(json.dumps({"camera": cam_summary}, default=str))
     log(json.dumps({"datasets": dset_summary}, default=str))
     log(json.dumps({"options": opt_summary}, default=str))
+    log(json.dumps({"aux": aux_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -3,8 +3,7 @@ dfu3d_tpu/data/waymo_dataset.py; reference pcdet/datasets/waymo/
 waymo_dataset.py).
 
 TFRecord extraction needs the waymo-open-dataset package and is a step of
-its own (the JAX package's tools/waymo_extract.py); this class reads what it
-writes:
+its own (`tools/waymo_extract.py`); this class reads what it writes:
 
     <PROCESSED_DATA_TAG>/<sequence>/<frame:04d>.npy    (N, 6) points
         x y z intensity elongation NLZ-flag
@@ -16,7 +15,9 @@ writes:
 with SAMPLED_INTERVAL per mode. Evaluation: the KITTI protocol over lidar
 boxes with the Waymo -> KITTI class map (the reference's `kitti`
 EVAL_METRIC); EVAL_METRIC 'waymo' dumps the detections and the ground truth
-for the official metric, which needs TensorFlow, out of process.
+for the official metric and runs it in process where TensorFlow and the
+waymo-open-dataset package import (`eval/waymo_official.py`), else leaves
+the command that runs it out of process.
 
 Where this copy differs from the JAX package: it keeps the elongation
 column. The JAX package keeps `[:, :4]` after the NLZ filter, so a config
@@ -125,12 +126,12 @@ class WaymoDataset(DatasetTemplate):
 
     def waymo_official_eval(self, det_annos, class_names, output_path=None):
         """The official Waymo OD metric (reference waymo_dataset.py:436-457,
-        EVAL_METRIC 'waymo'). It needs TensorFlow and the waymo-open-dataset
-        package: without them the detections and the ground truth are dumped
-        as pickles in the estimator's input format, with the command that
-        evaluates them out of process. With them it would run in process
-        through the official-metric wrapper, which the port does not have
-        (ROADMAP Queue A: eval/waymo_official.py)."""
+        EVAL_METRIC 'waymo'). The detections and the ground truth are dumped
+        as pickles in the estimator's input format. Where TensorFlow and the
+        waymo-open-dataset package import, the metric then runs in process
+        (`eval/waymo_official.py`): (text, {metric: value}); without them
+        the result is the command that evaluates the pickles out of
+        process."""
         out = Path(output_path or ".") / "waymo_official"
         out.mkdir(parents=True, exist_ok=True)
         gt_annos = [info["annos"] for info in self.infos]
@@ -156,8 +157,11 @@ class WaymoDataset(DatasetTemplate):
                  "gt_annos": str(out / "gt_annos.pkl"),
                  "command": cmd},
             )
-        raise NotImplementedError(
-            "the in-process Waymo metric (eval/waymo_official.py) is not ported yet")
+        from ..eval.waymo_official import waymo_detection_metrics
+
+        ap_dict = waymo_detection_metrics(det_annos, gt_annos, class_names)
+        text = "\n".join(f"{k}: {v:.4f}" for k, v in ap_dict.items())
+        return text, ap_dict
 
     def evaluation(self, det_annos, class_names, **kwargs):
         if str(self.dataset_cfg.get("EVAL_METRIC", "kitti")) == "waymo":

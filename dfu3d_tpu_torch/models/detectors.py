@@ -31,6 +31,7 @@ from ..train import torch_convert
 from . import dsvt
 from .backbone_2d import BEV_BACKBONES
 from .center_head import CenterHead
+from .column_sparse import ColumnVoxelBackBone8x
 from .pointrcnn import PointRCNN
 from .sparse_backbone import VoxelBackBone8x, VoxelResBackBone8x, height_compression
 from .vfe import DynPillarVFE, MeanVFE
@@ -43,21 +44,20 @@ DEFAULT_CHANNELS = {"VoxelResBackBone8x": (16, 32, 64, 128),
 def backbone_8x(bb3d_cfg, name=None):
     """The sparse backbone class of BACKBONE_3D (or of `name`, where the
     caller builds one whatever the config names). VoxelBackBone8x has two
-    formulations in the JAX package (column_sparse.select_backbone8x): the
-    gather form, its default and the one ported, and the column form, a kept
-    negative result that is not; FORMULATION is read from the config only."""
+    formulations, as in the JAX package (column_sparse.select_backbone8x):
+    BACKBONE_3D.FORMULATION gather (the default: every conv a gather-GEMM
+    launch) or column (ColumnVoxelBackBone8x: dense-z columns, the same
+    parameters). FORMULATION is read from the config only; the JAX package
+    also falls back to the DFU3D_SPARSE_FORMULATION environment variable."""
     name = name or bb3d_cfg.NAME
     if name == "VoxelResBackBone8x":
         return VoxelResBackBone8x
     if name != "VoxelBackBone8x":
         raise NotImplementedError(f"BACKBONE_3D {name} is not ported")
     form = bb3d_cfg.get("FORMULATION") or "gather"
-    if form == "column":
-        raise NotImplementedError("BACKBONE_3D.FORMULATION column (ColumnVoxelBackBone8x) "
-                                  "is not ported; the gather formulation is")
-    if form != "gather":
+    if form not in ("column", "gather"):
         raise ValueError(f"FORMULATION must be 'column' or 'gather', got {form!r}")
-    return VoxelBackBone8x
+    return ColumnVoxelBackBone8x if form == "column" else VoxelBackBone8x
 
 
 def center_head(dh, class_names, grid: VoxelGrid, in_channels: int) -> CenterHead:

@@ -789,6 +789,7 @@ OPTION_CFGS = {
     "pv_rcnn_plusplus_compact": "kitti_models/pv_rcnn_plusplus.yaml",
     "parta2_compact": "kitti_models/PartA2.yaml",
     "voxelnext_compact": "nuscenes_models/cbgs_voxel0075_voxelnext.yaml",
+    "second_column": "kitti_models/second.yaml",
 }
 
 
@@ -811,6 +812,8 @@ def option_cfg(name: str):
     parta2_compact: ROI_AWARE_POOL replaced by GRID_SIZE 12, NUM_FEATURES 128.
     voxelnext_compact: BACKBONE_3D VoxelBackBone8x with CHANNELS
       [16, 16, 32, 64, 64], OUT_CHANNELS 128; DENSE_HEAD.NUM_SHARED_BLOCKS 2.
+    second_column: BACKBONE_3D.FORMULATION column (ColumnVoxelBackBone8x,
+      the same parameters as the gather form).
 
     The shipped files name their base configs from tools/, so this reads
     them from there whatever the working directory."""
@@ -848,6 +851,8 @@ def option_cfg(name: str):
         m.BACKBONE_3D = CfgDict({"NAME": "VoxelBackBone8x", "CHANNELS": [16, 16, 32, 64, 64],
                                  "OUT_CHANNELS": 128})
         m.DENSE_HEAD.NUM_SHARED_BLOCKS = 2
+    elif name == "second_column":
+        m.BACKBONE_3D.FORMULATION = "column"
     return cfg
 
 
@@ -905,3 +910,11 @@ def voxelnext_compact(train: bool = False, device="cuda"):
     (VoxelBackBone8x, two plain downs, two BEV blocks); as
     `centerpoint_options`."""
     return _option_detector("voxelnext_compact", device, train)
+
+
+def second_column(train: bool = False, device="cuda"):
+    """SECONDNet on `option_cfg("second_column")`: KITTI second.yaml (1408 x
+    1600 x 40, 16,000 / 40,000 voxels for train / test, AnchorHeadSingle over
+    3 classes) with its VoxelBackBone8x in the column formulation; as
+    `centerpoint_options`."""
+    return _option_detector("second_column", device, train)

@@ -14,7 +14,8 @@ carried across by `params_from_jax`:
 * B2's calls in that step: 12 forward, then 11 for dX (conv_input's input
   needs no gradient);
 * the detector's dispatch on BACKBONE_3D.FORMULATION (absent and gather
-  build it, column raises, the port reads no environment variable) and the
+  build it, column builds ColumnVoxelBackBone8x with the same parameters,
+  another value raises, the port reads no environment variable) and the
   2D backbone's input width of `e2e_synthetic.build_cfg(model="voxel")`.
 """
 import jax
@@ -29,6 +30,7 @@ from dfu3d_tpu_torch.convert import params_from_jax
 from dfu3d_tpu_torch.core import voxel
 from dfu3d_tpu_torch.core.voxel import gather_gemm_kernel, sparse_ops
 from dfu3d_tpu_torch.models import build_network
+from dfu3d_tpu_torch.models.column_sparse import ColumnVoxelBackBone8x
 from dfu3d_tpu_torch.models import sparse_backbone as sb
 from dfu3d_tpu_torch.tools import e2e_synthetic
 from dfu3d_tpu_torch.utils.config import CfgDict, cfg_from_yaml_file
@@ -184,16 +186,17 @@ def test_detector_dispatch(tmp_path, monkeypatch, formulation):
                                   cfg.DATA_CONFIG.DATA_PROCESSOR[-1].VOXEL_SIZE)
     build = lambda: build_network(cfg.MODEL, cfg.CLASS_NAMES, grid, device="cpu",  # noqa: E731
                                   max_voxels=32000)
-    if formulation == "column":
-        with pytest.raises(NotImplementedError, match="column"):
-            build()
-        return
     if formulation == "other":
         with pytest.raises(ValueError, match="FORMULATION"):
             build()
         return
     model = build()
-    assert type(model.backbone_3d) is sb.VoxelBackBone8x
+    want = ColumnVoxelBackBone8x if formulation == "column" else sb.VoxelBackBone8x
+    assert type(model.backbone_3d) is want
+    if formulation == "column":
+        gather = sb.VoxelBackBone8x(model.backbone_3d.grid, 32000, in_channels=4)
+        assert {k: v.shape for k, v in model.backbone_3d.state_dict().items()} == \
+            {k: v.shape for k, v in gather.state_dict().items()}
     assert grid.grid_size == (512, 512, 40)
     assert model.backbone_3d.out_grid == sparse_ops.SparseGrid(64, 64, 3)
     # height_compression's width is the YAML's NUM_BEV_FEATURES here
