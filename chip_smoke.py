@@ -373,12 +373,28 @@ Phases, each fatal on failure:
               unless the trace names the span and B1's kernel) and
               StepTimer; tools.create_integrated_database on the root's gt
               database.
+ 23. dist     data parallelism over torch.distributed (`parallel`): the
+              flagship's 2 fp32 steps in a world-1 NCCL group, and as one
+              steps_per_dispatch-2 call, equal to the plain steps bit for
+              bit; 2 spawned ranks over gloo sharing the card (the
+              collectives staged through the host), B=4 each, train the
+              flagship and voxel CenterPoint 2 fp32 steps on their rows of
+              global batches of 8, held against one process on the joined
+              batches (`dist_compare`; voxel CenterPoint's with cuDNN
+              off), the ranks' states bit-equal, B2 41
+              times per voxel step on each rank; 3 timed bf16 steps of each
+              world after a warm-up, peaks per rank; the 2-rank eval epoch
+              over an odd-sized synthetic KITTI val split (9 frames) merged
+              across the ranks, against the 1-rank one: the padded
+              duplicate, the kept boxes, the AP, B1 twice per eval step on
+              each rank.
 The lines before the last are {"cli": {...}}, {"pseudo": {...}},
 {"evolve": {...}}, {"pointrcnn": {...}}, {"pointrcnn_train": {...}},
 {"depth_train": {...}}, {"nuscenes": {...}}, {"two_stage": {...}},
 {"fully_sparse": {...}}, {"transfusion": {...}}, {"dsvt": {...}},
 {"mppnet": {...}}, {"camera": {...}}, {"datasets": {...}},
-{"options": {...}}, {"aux": {...}} and {"kernels": [...]};
+{"options": {...}}, {"aux": {...}}, {"distributed": {...}} and
+{"kernels": [...]};
 the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -6757,6 +6773,470 @@ def aux_phase(device, card):
     return summary, launches, served_b1, gather_b2
 
 
+
+DIST_WORLD = 2               # phase 23's ranks: gloo, both on the one card
+DIST_STEPS = 2               # fp32 steps per model, world 2 against world 1
+DIST_TIMED_STEPS = 4         # bf16 steps per world and model, the first a warm-up
+DIST_BATCH = 4               # per rank (the flagship's BATCH_SIZE_PER_GPU); global 8
+DIST_EVAL_FRAMES = 9         # val frames: odd, so the loader pads rank 1's shard
+# points per eval frame: at most 30,000 pillars, so the batch's pillar cap
+# (B · 32,768 over the batch in frame order) binds in no batch and each
+# frame's boxes do not depend on the frames batched with it
+DIST_EVAL_POINTS = (20000, 30000)
+# relative: every loss term and grad_norm, world 2 vs world 1. Voxel
+# CenterPoint's loc losses sum 16,384 masked |errors| per head whose inputs
+# carry its trunk's rounding (DIST_SPREAD): the ranks' terms read up to
+# 1.96e-5 from the one-rank terms on the card (the flagship's 6.4e-7); a
+# wrong normaliser or a rank-local statistic moves a term by a factor
+DIST_LOSS_TOL = 1e-4
+# of a leaf's largest |entry| (a bias: its module weight's), the first
+# update's summed gradient: the VFE's weights sit behind segment maxes whose
+# near-ties (points within fp32 rounding of each other) two summation orders
+# break either way; at the tiny grid on the CPU that moved pfn_1's BN weight
+# gradient by 1.6e-4 of its scale, every other leaf by at most 5e-5
+DIST_GRAD_TOL = 1e-3
+DIST_PARAM_TOL = 1e-5        # of 1 + a leaf's largest |entry|, where the gradients agree to 2 %
+DIST_BN_TOL = 1e-5           # of 1 + |x|, the BN running statistics
+# voxel CenterPoint's check may also lie within this many times what its own
+# one-rank step moves by with the batch's halves swapped: at full width and
+# seeded weights its trunk's gradients are ill-conditioned, so that the swap
+# alone moves a leaf by up to 0.35 % of its scale. Its fp32 runs have cuDNN
+# off (`dist_cudnn`); with it on, the ranks' B=4 convs ran other algorithms
+# than one process's B=8 ones and moved conv_input's kernel gradient by
+# 2.67 % (5.4x the swap), with it off by 0.54 % and every check by at most
+# 2.55x the swap's (python -m dfu3d_tpu_torch.parallel.rounding --shifts 3 0
+# --cudnn on off and phase 23; NVIDIA H100 80GB HBM3, 700.00 W)
+DIST_SPREAD = 3
+DIST_BOX_TOL = 1e-4          # m and score, a frame's kept boxes, 2-rank vs 1-rank eval
+DIST_AP_TOL = 1e-3
+DIST_CFG = REPO / "tools" / "cfgs" / "kitti_models" / "centerpoint_nuscenes2kitti.yaml"
+
+
+def dist_state(device, kind):
+    """Phase 23's TrainState: the flagship ("pillar") or voxel CenterPoint
+    ("voxel", its train voxel cap) at full width with seeded weights and
+    every BN bias +3 (so that no ReLU input lies within fp32 rounding of 0,
+    ROADMAP Queue C), the config's adam_onecycle over TRAIN_TOTAL_STEPS."""
+    from dfu3d_tpu_torch.parallel.rounding import seeded_state
+
+    return seeded_state(device, kind, 3.0, TRAIN_TOTAL_STEPS)
+
+
+def dist_batches(kind, n, b, seed=0):
+    """n global batches of b frames: 60,000 uniform points, 256 gt slots
+    (10 columns for the voxel model's vel branch)."""
+    from dfu3d_tpu_torch.parallel.rounding import global_batches
+
+    return global_batches(kind, n, b, seed)
+
+
+@contextlib.contextmanager
+def dist_cudnn(kind):
+    """cuDNN off for voxel CenterPoint's fp32 runs of phase 23: its
+    heuristics pick the dense convs' algorithms by the batch size, so a
+    rank at B=4 and one process at B=8 would run differently rounded
+    convs (`parallel.rounding`); PyTorch's own conv kernels round alike
+    at both sizes."""
+    import torch
+
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = kind != "voxel"
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def dist_eval(rank, world, root, batch_size, device):
+    """eval_one_epoch of the flagship (seeded weights, every head's boxes
+    car-sized at the cars' height, fp32) over this rank's shard of the val
+    split at `root`, merged over the ranks, with the test-time point shuffle
+    off (np.random's global state differs between processes). Returns
+    {"annos", "result", "b1": B1 launches, "frames": the shard's indices}."""
+    import torch
+
+    from dfu3d_tpu_torch.core.geometry import iou_kernel
+    from dfu3d_tpu_torch.data.loader import build_dataloader
+    from dfu3d_tpu_torch.flagship import seeded_weights_
+    from dfu3d_tpu_torch.parallel import mesh
+    from dfu3d_tpu_torch.tools.common import build_model, load_config
+    from dfu3d_tpu_torch.train.eval_utils import eval_one_epoch
+
+    class Args:
+        cfg_file, set_cfgs = str(DIST_CFG), ["DATA_CONFIG.DATA_PATH", str(root)]
+
+    cfg = load_config(Args)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == "shuffle_points":
+            proc.SHUFFLE_ENABLED["test"] = False
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=batch_size,
+                                       workers=LOADER_WORKERS, training=False,
+                                       process_index=rank, process_count=world)
+    model = build_model(cfg, "test", device)
+    seeded_weights_(model, seed=0)
+    heads = model.dense_head.fused_heads
+    with torch.no_grad():
+        for i, (_, name, _) in enumerate(heads.branch_specs):
+            at = i * heads.out_max
+            if name == "center_z":
+                heads.out.bias[at] = -0.9
+            elif name == "dim":
+                heads.out.bias[at:at + 3] = torch.log(torch.tensor([4.6, 1.9, 1.7]))
+    mesh.broadcast_state_(model)
+    iou_kernel.launches = 0
+    _, result, annos = eval_one_epoch(model, dataset, loader, cfg, None, device=device)
+    return {"annos": annos, "result": result, "b1": iou_kernel.launches,
+            "frames": [int(i) for i in loader._local_indices()]}
+
+
+def dist_rank(rank, world, root, device):
+    """Phase 23 on one rank of a gloo group sharing the card: DIST_STEPS
+    fp32 steps of each model (its summed gradients kept), DIST_TIMED_STEPS
+    timed bf16 steps, then the eval epoch."""
+    import functools
+
+    import torch
+
+    from dfu3d_tpu_torch.parallel.launch import train_rank
+
+    torch.backends.cudnn.allow_tf32 = False    # as the parent: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for kind in ("pillar", "voxel"):
+        build = functools.partial(dist_state, kind=kind)
+        with dist_cudnn(kind):
+            out[kind] = train_rank(rank, world, build,
+                                   dist_batches(kind, DIST_STEPS, world * DIST_BATCH),
+                                   device=device, dtype=torch.float32, keep_grads=rank == 0)
+        out[f"{kind}_bf16"] = train_rank(
+            rank, world, build, dist_batches(kind, DIST_TIMED_STEPS, world * DIST_BATCH, seed=10),
+            device=device, dtype=torch.bfloat16)
+        del out[f"{kind}_bf16"]["state"]
+        torch.cuda.empty_cache()
+    out["eval"] = dist_eval(rank, world, root, DIST_BATCH, device)
+    return out
+
+
+def dist_compare(kind, got, want, lr, reordered=None):
+    """A rank's fp32 run against the world-1 run on the joined batches: the
+    metrics of every step within DIST_LOSS_TOL relative; the first update's
+    summed gradients within DIST_GRAD_TOL of each leaf's largest entry (a
+    bias: of its module weight's, where rounding noise is all there is);
+    the BN statistics within DIST_BN_TOL; the parameters within
+    DIST_PARAM_TOL where every update's gradients agree to 2 %, else within
+    2 lr per update (Adam moves a noise-sized gradient's entry by about lr).
+    With `reordered`, the world-1 run on the same batches with the ranks'
+    halves swapped (the same function summed in another order: the
+    ranks' sums are that too), a metric, a gradient leaf or a BN leaf may
+    also lie within DIST_SPREAD times the two world-1 runs' difference.
+    Returns the largest errors and spreads and the largest multiple of the
+    spread a check past its base tolerance needed; fails after listing
+    every disagreement."""
+    import numpy as np
+
+    from dfu3d_tpu_torch.parallel.rounding import leaf_scale
+
+    worst = {"loss_rel": 0.0, "grad_of_scale": 0.0, "bn": 0.0, "param_sure": 0.0,
+             "param_unsure": 0.0, "unsure_entries": 0, "widened": 0,
+             "spread_loss_rel": 0.0, "spread_grad_of_scale": 0.0, "spread_bn": 0.0,
+             "spread_needed": 0.0}
+
+    def widen(err, base, spread):
+        # the multiple of the reordered run's spread a check past its base
+        # tolerance needs
+        if err > base:
+            worst["spread_needed"] = max(worst["spread_needed"],
+                                         err / spread if spread else math.inf)
+            worst["widened"] += int(err <= DIST_SPREAD * spread)
+        return err > max(base, DIST_SPREAD * spread)
+
+    bad = []
+    for step, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k in w:
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            spread = (abs(reordered["metrics"][step][k] - w[k]) / max(abs(w[k]), 1e-30)
+                      if reordered else 0.0)
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            worst["spread_loss_rel"] = max(worst["spread_loss_rel"], spread)
+            if widen(rel, DIST_LOSS_TOL, spread):
+                bad.append(f"step {step} {k} {g[k]} on {DIST_WORLD} ranks, {w[k]} on one "
+                           f"(relative {rel:.3g}; the reordered run {spread:.3g})")
+    sure = {}
+    for step, (gg, wg) in enumerate(zip(got["grads"], want["grads"])):
+        for k, w in wg.items():
+            agree = np.abs(gg[k] - w) <= 0.02 * np.abs(w)
+            sure[k] = sure.get(k, agree) & agree
+            if step:
+                continue
+            scale = leaf_scale(wg, k)
+            err = float(np.abs(gg[k] - w).max()) / scale
+            spread = (float(np.abs(reordered["grads"][0][k] - w).max()) / scale
+                      if reordered else 0.0)
+            worst["grad_of_scale"] = max(worst["grad_of_scale"], err)
+            worst["spread_grad_of_scale"] = max(worst["spread_grad_of_scale"], spread)
+            if widen(err, DIST_GRAD_TOL, spread):
+                bad.append(f"the summed gradient of {k} is {err:.3g} of its scale from the "
+                           f"one-rank gradient (the reordered run {spread:.3g})")
+    steps = len(got["grads"])
+    for k, w in want["state"].items():
+        g = got["state"][k]
+        leaf = k.rsplit(".", 1)[1]
+        if leaf in ("running_mean", "running_var"):
+            err = float((np.abs(g - w) / (1 + np.abs(w))).max())
+            spread = (float((np.abs(reordered["state"][k] - w) / (1 + np.abs(w))).max())
+                      if reordered else 0.0)
+            worst["bn"] = max(worst["bn"], err)
+            worst["spread_bn"] = max(worst["spread_bn"], spread)
+            if widen(err, DIST_BN_TOL, spread):
+                bad.append(f"BN statistic {k} off by {err:.3g} of 1 + |x| (the reordered run "
+                           f"{spread:.3g})")
+            continue
+        tol = DIST_PARAM_TOL * (1 + np.abs(w).max())
+        s = sure.get(k, np.ones(w.shape, bool))
+        d = np.abs(g - w)
+        worst["unsure_entries"] += int((~s).sum())
+        if s.any():
+            worst["param_sure"] = max(worst["param_sure"], float(d[s].max()))
+        if (~s).any():
+            worst["param_unsure"] = max(worst["param_unsure"], float(d[~s].max()))
+        if (s.any() and d[s].max() > tol) or ((~s).any() and d[~s].max() > 2 * lr * steps + tol):
+            bad.append(f"parameter {k} off by {d.max():.3g} after {steps} steps")
+    if bad:
+        fail(f"phase 23 {kind}, {len(bad)} disagreements (worst {worst}): " + "; ".join(bad[:20]))
+    return worst
+
+
+def distributed_phase(device, card):
+    """Phase 23: the data-parallel path on the one card. (a) the flagship's
+    fp32 steps in a world-1 NCCL group (the production init and backend:
+    broadcast, gradient all-reduce, metric all-reduce) equal the steps
+    without a group bit for bit, and (d) `make_multi_train_step` with K=2
+    equals two single steps bit for bit; (b) DIST_WORLD spawned ranks over
+    gloo, both on the card, train the flagship and voxel CenterPoint
+    DIST_STEPS fp32 steps on their rows of each global batch of
+    DIST_WORLD · DIST_BATCH, held against the world-1 run on the joined
+    batches (`dist_compare`; voxel CenterPoint's fp32 runs with cuDNN off,
+    and also against the world-1 run with the halves swapped), their states
+    equal bit for bit, B2 41 times
+    per voxel step on each rank; timed bf16 steps of both worlds; (c) the
+    2-rank eval epoch over an odd-sized synthetic KITTI val split against
+    the 1-rank one (kept boxes, AP, the padded duplicate), B1 twice per eval
+    step on each rank. Returns (summary, launches by path)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from dfu3d_tpu_torch.data import kitti_synthetic
+    from dfu3d_tpu_torch.parallel import destroy_distributed, init_distributed, mesh
+    from dfu3d_tpu_torch.parallel.launch import run_ranks, to_host, train_rank
+    from dfu3d_tpu_torch.parallel.rounding import swap_halves
+    from dfu3d_tpu_torch.tools import create_infos
+    from dfu3d_tpu_torch.train.eval_utils import first_copies
+    from dfu3d_tpu_torch.train.train_state import make_multi_train_step, make_train_step
+
+    t_phase = time.perf_counter()
+    summary = {"card": card, "world": DIST_WORLD, "batch_per_rank": DIST_BATCH}
+    launches = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+
+        # (a) and (d), in this process
+        batches = dist_batches("pillar", 2, DIST_BATCH, seed=20)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+        def two_steps(k):
+            state = dist_state(device, "pillar")
+            mesh.broadcast_state_(state.model)
+            if k == 1:
+                step = make_train_step(state.model, state.optimizer, device=device,
+                                       dtype=torch.float32)
+                metrics = [step(b) for b in batches]
+            else:
+                metrics = [make_multi_train_step(state.model, state.optimizer, k, device=device,
+                                                 dtype=torch.float32)(batches)]
+            return ({n: v.detach().clone() for n, v in state.model.state_dict().items()},
+                    [{n: v.tolist() for n, v in m.items()} for m in metrics])
+
+        try:
+            plain, m_plain = two_steps(1)
+            multi, m_multi = two_steps(2)
+            init_distributed("cuda", backend="nccl", init_method=f"file://{work}/nccl_store",
+                             rank=0, world_size=1)
+            try:
+                backend = torch.distributed.get_backend()
+                nccl, m_nccl = two_steps(1)
+            finally:
+                destroy_distributed()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        for tag, other in (("world-1 NCCL", nccl), ("steps_per_dispatch 2", multi)):
+            bad = [k for k in plain if not torch.equal(plain[k], other[k])]
+            if bad:
+                fail(f"phase 23: the flagship's fp32 steps with {tag} differ from the plain steps "
+                     f"at {len(bad)} tensors, e.g. {bad[:4]}")
+        if m_nccl != m_plain:
+            fail(f"phase 23: world-1 NCCL metrics {m_nccl} differ from {m_plain}")
+        (mk,) = m_multi
+        if (mk["loss_steps"] != [m["loss"] for m in m_plain]
+                or {k: v for k, v in mk.items() if k != "loss_steps"} != m_plain[-1]):
+            fail(f"phase 23: the K=2 metrics {mk} are not the single steps' {m_plain}")
+        summary["nccl_world1_and_k2"] = {"backend": backend, "tensors": len(plain),
+                                         "bit_equal": True, "losses": mk["loss_steps"]}
+        log(f"[dist] (a) the flagship's 2 fp32 steps in a world-1 {backend} group and (d) as one "
+            f"steps_per_dispatch-2 call equal the plain steps bit for bit ({len(plain)} tensors; "
+            f"losses {mk['loss_steps']})")
+        del plain, multi, nccl
+        torch.cuda.empty_cache()
+
+        # (c)'s root, written before the ranks start
+        root = work / "train_28130"
+        kitti_synthetic.write_root(root, 0, DIST_EVAL_FRAMES, ["Car", "Pedestrian"], seed=23,
+                                   num_points=DIST_EVAL_POINTS, near_cars=3)
+        (out,) = create_infos.main(["--cfg_file", str(DIST_CFG), "--data_path", str(root),
+                                    "--splits", "val", "--no_gt_database"])["infos"]
+        (work / "val_6019").mkdir()
+        out.rename(work / "val_6019" / "nuscenes2kitti_infos_val_6019.pkl")
+
+        # (b) and (c)'s world-1 references on the joined batches, this process
+        one = {}
+        for kind in ("pillar", "voxel"):
+            build = functools.partial(dist_state, kind=kind)
+            joined = dist_batches(kind, DIST_STEPS, DIST_WORLD * DIST_BATCH)
+            with dist_cudnn(kind):
+                one[kind] = to_host(train_rank(0, 1, build, joined, device=device,
+                                               dtype=torch.float32, keep_grads=True))
+                if kind == "voxel":
+                    # the same batches with the ranks' halves swapped: the
+                    # same function (the voxel caps are per frame), summed
+                    # in another order. The pillar cap is the batch's, in
+                    # frame order, and binds on these frames: there a swap
+                    # is another function
+                    one[f"{kind}_reordered"] = to_host(train_rank(
+                        0, 1, build, swap_halves(joined, DIST_BATCH), device=device,
+                        dtype=torch.float32, keep_grads=True))
+            one[f"{kind}_bf16"] = to_host(train_rank(
+                0, 1, build, dist_batches(kind, DIST_TIMED_STEPS, DIST_WORLD * DIST_BATCH,
+                                          seed=10), device=device, dtype=torch.bfloat16))
+            torch.cuda.empty_cache()
+        one["eval"] = to_host(dist_eval(0, 1, root, DIST_BATCH, device))
+        t_ranks = time.perf_counter()
+        ranks = run_ranks(dist_rank, DIST_WORLD, args=(str(root), str(device)),
+                          device=str(device), backend="gloo", timeout_s=600)
+        ranks_s = time.perf_counter() - t_ranks
+
+    # (b)
+    lr0 = dist_state("cpu", "pillar").optimizer.lr_fn(0)
+    for kind in ("pillar", "voxel"):
+        want = one[kind]
+        worst = dist_compare(kind, ranks[0][kind], want, lr0, one.get(f"{kind}_reordered"))
+        for r in ranks[1:]:
+            bad = [k for k in r[kind]["state"]
+                   if not np.array_equal(r[kind]["state"][k], ranks[0][kind]["state"][k])]
+            if bad:
+                fail(f"phase 23 {kind}: the ranks' states differ at {bad[:4]}")
+        b2_want = VOXEL_TRAIN_B2 if kind == "voxel" else 0
+        for r, got in enumerate(ranks):
+            for tag in (kind, f"{kind}_bf16"):
+                counts = got[tag]["launches"]
+                if any(b1 or b2 != b2_want for b1, b2 in counts):
+                    fail(f"phase 23 {tag}: rank {r}'s steps launched (B1, B2) {counts}, not "
+                         f"(0, {b2_want}) each")
+        launches[f"dist_{kind}"] = {
+            "iou_bev_overlap": 0,
+            "gather_gemm": sum(b2 for got in ranks for tag in (kind, f"{kind}_bf16")
+                               for _, b2 in got[tag]["launches"]),
+            "world1_gather_gemm": sum(b2 for tag in (kind, f"{kind}_bf16", f"{kind}_reordered")
+                                      if tag in one for _, b2 in one[tag]["launches"])}
+        timed = {w: [statistics.median(r[f"{kind}_bf16"]["ms"][1:]) for r in rs]
+                 for w, rs in (("world2", ranks), ("world1", [one]))}
+        summary[kind] = {
+            "fp32_worst": worst,
+            "losses": [m["loss"] for m in ranks[0][kind]["metrics"]],
+            "grad_norms": [m["grad_norm"] for m in ranks[0][kind]["metrics"]],
+            "b2_per_step_per_rank": [[b2 for _, b2 in got[kind]["launches"]] for got in ranks],
+            "bf16_step_ms": {"world2_per_rank": timed["world2"],
+                             "world1_global_batch": timed["world1"][0],
+                             "world2_all": [r[f"{kind}_bf16"]["ms"] for r in ranks],
+                             "world1_all": one[f"{kind}_bf16"]["ms"]},
+            "peak_gib": {"world2_per_rank": [r[f"{kind}_bf16"]["peak_gib"] for r in ranks],
+                         "world2_fp32_per_rank": [r[kind]["peak_gib"] for r in ranks],
+                         "world1": one[f"{kind}_bf16"]["peak_gib"],
+                         "world1_fp32": one[kind]["peak_gib"]}}
+        log(f"[dist] (b) ({card}) {kind}: {DIST_WORLD} gloo ranks x B={DIST_BATCH} vs world 1 x "
+            f"B={DIST_WORLD * DIST_BATCH}, {DIST_STEPS} fp32 steps: losses "
+            f"{summary[kind]['losses']}, worst loss term {worst['loss_rel']:.3g} rel, first "
+            f"gradient {worst['grad_of_scale']:.3g} of scale, BN {worst['bn']:.3g}, parameters "
+            f"{worst['param_sure']:.3g} ({worst['unsure_entries']} entries held to 2 lr per step, "
+            f"worst {worst['param_unsure']:.3g}); one rank against itself with the halves "
+            f"swapped: loss {worst['spread_loss_rel']:.3g}, gradient "
+            f"{worst['spread_grad_of_scale']:.3g}, BN {worst['spread_bn']:.3g} "
+            f"({worst['widened']} checks within {DIST_SPREAD}x that and not within the base "
+            f"tolerance, needing at most {worst['spread_needed']:.3g}x); "
+            f"ranks bit-equal; B2 per step per rank {summary[kind]['b2_per_step_per_rank']}")
+        log(f"[dist] (b) ({card}) {kind} bf16 step, median of {DIST_TIMED_STEPS - 1} after a "
+            f"warm-up: {DIST_WORLD} ranks sharing the card {timed['world2']} ms (each rank "
+            f"B={DIST_BATCH}), world 1 at B={DIST_WORLD * DIST_BATCH} {timed['world1'][0]:.2f} ms; "
+            f"peak per rank {summary[kind]['peak_gib']['world2_per_rank']} GiB, world 1 "
+            f"{summary[kind]['peak_gib']['world1']:.2f} GiB")
+
+    # (c)
+    want = one["eval"]
+    ids = [a["frame_id"] for a in want["annos"]]
+    first = sorted(set(ranks[0]["eval"]["frames"]) & set(ranks[1]["eval"]["frames"]))
+    for r, got in enumerate(ranks):
+        res, annos = got["eval"]["result"], got["eval"]["annos"]
+        got_ids = [a["frame_id"] for a in annos]
+        if got_ids != sorted(ids + [ids[i] for i in first], key=ids.index):
+            fail(f"phase 23 (c): rank {r}'s merged frames {got_ids} are not {ids} with the padded "
+                 f"duplicate of frame index {first}")
+        if res["num_frames"] != len(ids) + len(first):
+            fail(f"phase 23 (c): num_frames {res['num_frames']}")
+        worst_box = 0.0
+        for g, w in zip(first_copies(annos), want["annos"]):
+            rows_g = np.concatenate([g["boxes_lidar"], g["score"][:, None]], 1)
+            rows_w = np.concatenate([w["boxes_lidar"], w["score"][:, None]], 1)
+            if len(rows_g) != len(rows_w):
+                fail(f"phase 23 (c): frame {w['frame_id']} keeps {len(rows_g)} boxes on "
+                     f"{DIST_WORLD} ranks, {len(rows_w)} on one")
+            if len(rows_w):
+                dist = np.abs(rows_g[:, None] - rows_w[None]).max(-1)
+                worst_box = max(worst_box, float(dist.min(0).max()))
+        if worst_box > DIST_BOX_TOL:
+            fail(f"phase 23 (c): a kept box moved {worst_box:.3g} between the evals")
+        ap = {k: (res[k], want["result"][k]) for k in want["result"] if "_R40" in k}
+        off = {k: v for k, v in ap.items() if abs(v[0] - v[1]) > DIST_AP_TOL}
+        if not ap or off:
+            fail(f"phase 23 (c): AP differs {off}")
+        batches = res["eval_batches"]
+        if got["eval"]["b1"] != 2 * batches:
+            fail(f"phase 23 (c): rank {r} launched B1 {got['eval']['b1']} times in {batches} "
+                 "eval steps, not 2 per step")
+    if want["b1"] != 2 * want["result"]["eval_batches"]:
+        fail(f"phase 23 (c): the 1-rank eval launched B1 {want['b1']} times")
+    car = "Car_3d/moderate_R40"
+    summary["eval"] = {"frames": len(ids), "merged_frames": len(ids) + len(first),
+                       "padded_duplicate": [ids[i] for i in first], "worst_box": worst_box,
+                       "ap": {k: v for k, v in ap.items() if k.startswith("Car")},
+                       "b1_per_rank": [got["eval"]["b1"] for got in ranks],
+                       "eval_batches_per_rank": [got["eval"]["result"]["eval_batches"]
+                                                 for got in ranks]}
+    launches["dist_eval"] = {"iou_bev_overlap": sum(got["eval"]["b1"] for got in ranks),
+                             "gather_gemm": 0, "world1_iou_bev_overlap": want["b1"]}
+    log(f"[dist] (c) ({card}) eval of {len(ids)} frames on {DIST_WORLD} ranks (shards "
+        f"{[got['eval']['frames'] for got in ranks]}): merged {len(ids) + len(first)} annos with "
+        f"the padded duplicate {summary['eval']['padded_duplicate']}; kept boxes within "
+        f"{worst_box:.3g} of the 1-rank eval, {car} {ap.get(car)}; B1 "
+        f"{summary['eval']['b1_per_rank']} launches in {summary['eval']['eval_batches_per_rank']} "
+        f"eval steps per rank")
+    summary["ranks_seconds"] = ranks_s
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"[dist] phase 23: {summary['seconds']:.1f} s, the ranks' call {ranks_s:.1f} s")
+    return summary, launches
+
+
 def main():
     import torch
 
@@ -6992,6 +7472,13 @@ def main():
     aux_b2_n = sum(v["gather_gemm"] for v in aux_launches.values())
 
     lap("phase 22")
+    # 23. data parallelism: world-1 NCCL and K=2 bit for bit, two gloo ranks
+    # sharing the card against one rank on the joined batch, the 2-rank eval
+    dist_summary, dist_launches = distributed_phase(device, card)
+    dist_b1 = sum(v["iou_bev_overlap"] for v in dist_launches.values())
+    dist_b2 = sum(v["gather_gemm"] for v in dist_launches.values())
+
+    lap("phase 23")
     # the device profiles of phase 19 (DEVICE_PROFILED) and phase 13's
     # profile_* subprocesses, after every host-clock reading
     run_deferred_profiles()
@@ -7072,7 +7559,7 @@ def main():
                      + prcnn_cli_train["iou_bev_overlap"]
                      + prcnn_cli_train_eval["iou_bev_overlap"]
                      + prcnn_evolve["iou_bev_overlap"] + depth_b1 + nusc_b1 + two_b1 + fs_b1
-                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1 + opt_b1 + aux_b1),
+                     + tf_b1 + ds_b1 + mp_b1 + cam_b1 + dset_b1 + opt_b1 + aux_b1 + dist_b1),
         "launches_by_path": {"pillar": pillar_launches["iou_bev_overlap"],
                              "voxel": voxel_launches["iou_bev_overlap"],
                              "pillar_train": pillar_train["iou_bev_overlap"],
@@ -7106,7 +7593,9 @@ def main():
                              **{f"options_{k}": v["iou_bev_overlap"]
                                 for k, v in opt_launches.items()},
                              **{f"aux_{k}": v["iou_bev_overlap"]
-                                for k, v in aux_launches.items()}},
+                                for k, v in aux_launches.items()},
+                             **{f"{k}_per_rank_sum": v["iou_bev_overlap"]
+                                for k, v in dist_launches.items()}},
         "train_launches_per_step": {"pointrcnn": sorted(
             {st["iou_bev_overlap"] for st in prcnn_train_summary["steps"]}),
             "second": sorted({st["iou_bev_overlap"]
@@ -7172,7 +7661,7 @@ def main():
                      + sum(v["gather_gemm"] for v in evolve_launches.values())
                      + prcnn_evolve["gather_gemm"] + depth_b2 + nusc_b2 + two_b2_n + fs_b2_n
                      + tf_b2_n + ds_b2 + mp_b2_n + cam_b2_n + dset_b2_n + opt_b2_n
-                     + aux_b2_n),
+                     + aux_b2_n + dist_b2),
         "launches_by_path": {"voxel": voxel_launches["gather_gemm"],
                              "voxel_train": voxel_train["gather_gemm"],
                              "pillar_train": pillar_train["gather_gemm"],
@@ -7201,7 +7690,9 @@ def main():
                                 for k, v in dset_launches.items()},
                              **{f"options_{k}": v["gather_gemm"]
                                 for k, v in opt_launches.items()},
-                             **{f"aux_{k}": v["gather_gemm"] for k, v in aux_launches.items()}},
+                             **{f"aux_{k}": v["gather_gemm"] for k, v in aux_launches.items()},
+                             **{f"{k}_per_rank_sum": v["gather_gemm"]
+                                for k, v in dist_launches.items()}},
         "launches_by_variant": {k: voxel_launches[f"gather_gemm_{k}"]
                                 + voxel_train[f"gather_gemm_{k}"]
                                 + sum(v[f"gather_gemm_{k}"] for v in evolve_launches.values())
@@ -7348,6 +7839,7 @@ def main():
     log(json.dumps({"datasets": dset_summary}, default=str))
     log(json.dumps({"options": opt_summary}, default=str))
     log(json.dumps({"aux": aux_summary}, default=str))
+    log(json.dumps({"distributed": dist_summary}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 (flax BatchNorm(dtype=float32) followed by the
@@ -20,7 +22,11 @@ class BatchNorm(nn.Module):
     result cast back to the input's dtype. Eval uses the running statistics. Training uses the batch
     statistics of flax: mean and the biased variance E[x²] - mean², clamped
     at 0, and updates the running statistics as running · keep + batch ·
-    (1 - keep) (flax `momentum` = keep; torch's momentum would be 1 - keep)."""
+    (1 - keep) (flax `momentum` = keep; torch's momentum would be 1 - keep).
+    Over several ranks the statistics are those of the global batch: Σx,
+    Σx² and the count summed over ranks in one all-reduce."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, num_features: int, eps: float, keep: float = 0.99):
         super().__init__()
@@ -39,8 +45,15 @@ class BatchNorm(nn.Module):
                              self.bias, training=False, eps=self.eps)
             return y.to(x.dtype)
         dims = [d for d in range(xf.dim()) if d != 1]
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if mesh.world() == 1:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        else:
+            c = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // c)
+            sums = mesh.global_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
         update_running_stats_(self, mean, var)
         shape = (1, -1) + (1,) * (xf.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -57,6 +70,8 @@ def update_running_stats_(bn, mean, var):
 
 
 class ConvBNReLU(nn.Module):
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
                  transpose: bool = False, padding: int = 1):
         super().__init__()
@@ -78,6 +93,8 @@ class ConvBNReLU(nn.Module):
 class BaseBEVBackbone(nn.Module):
     """config keys: LAYER_NUMS, LAYER_STRIDES, NUM_FILTERS, UPSAMPLE_STRIDES,
     NUM_UPSAMPLE_FILTERS."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, layer_nums: Sequence[int], layer_strides: Sequence[int],
                  num_filters: Sequence[int], upsample_strides: Sequence[float],
@@ -137,6 +154,8 @@ class ResConvBlock(nn.Module):
     or a width change, a 1×1 conv + BN shortcut; then ReLU. Bias-free
     convs, BN eps 1e-3. NCHW in and out."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
@@ -162,6 +181,8 @@ class BaseBEVResBackbone(nn.Module):
     config surface of BaseBEVBackbone: per level a leading ResConvBlock with
     the level's stride and a conv shortcut (block{i}_down), LAYER_NUMS[i]
     ResConvBlocks (block{i}_res{j}), and its deblock."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, layer_nums: Sequence[int], layer_strides: Sequence[int],
                  num_filters: Sequence[int], upsample_strides: Sequence[float],

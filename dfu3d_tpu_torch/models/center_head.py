@@ -55,6 +55,8 @@ class FusedSeparateHeads(nn.Module):
     Input and outputs are NCHW; each output map is (B, H, W, c) fp32.
     """
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, branch_specs: Tuple[Tuple[int, str, int], ...],
                  num_heads: int, num_conv: int, mid_channels: int, init_bias: float = -2.19,
                  use_bias: bool = True):
@@ -100,6 +102,8 @@ class SeparateHead(nn.Module):
 
     head_dict: name → (out_channels, num_conv)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, head_dict: Dict[str, Tuple[int, int]],
                  init_bias: float = -2.19, use_bias: bool = True):
         super().__init__()
@@ -126,6 +130,8 @@ class SeparateHead(nn.Module):
 class CenterHead(nn.Module):
     """config: CLASS_NAMES_EACH_HEAD, SHARED_CONV_CHANNEL, NUM_HM_CONV,
     SEPARATE_HEAD_CFG, TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE, POST_PROCESSING."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, class_names: Sequence[str],
                  class_names_each_head: Sequence[Sequence[str]], shared_conv_channel: int,

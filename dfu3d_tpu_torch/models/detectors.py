@@ -89,6 +89,8 @@ class CenterPoint(nn.Module):
     with BACKBONE_3D DSVT, DSVT-Pillar / DSVT-Voxel
     (tools/cfgs/waymo_models/dsvt_pillar.yaml, dsvt_voxel.yaml)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, model_cfg, class_names, grid: VoxelGrid, num_point_features: int = 4,
                  max_pillars: int = 32768, max_voxels: int = 60000):
         super().__init__()

@@ -4,10 +4,15 @@ heat maps and the masked L1 at target cells; the sigmoid focal loss and
 weighted smooth-L1 of PointRCNN's point head and the anchor heads; the
 anchor heads' direction cross entropy. The formulas are JAX's, term for term:
 the BCE is clip(x, 0) - x·t + log1p(exp(-|x|)), not
-F.binary_cross_entropy_with_logits, which rounds otherwise."""
+F.binary_cross_entropy_with_logits, which rounds otherwise.
+
+Over several ranks (parallel.mesh) each count that divides a loss is the
+global batch's, so that the ranks' losses sum to the global batch's loss."""
 from __future__ import annotations
 
 import torch
+
+from ..parallel import mesh
 
 
 def sigmoid_clamped(x, eps: float = 1e-4):
@@ -22,7 +27,8 @@ def sigmoid_clamped(x, eps: float = 1e-4):
 def focal_loss_centernet(pred, gt):
     """CornerNet focal loss of probabilities `pred` against gaussian targets
     `gt` (same shape, in [0, 1]); normalised by the number of positives
-    (cells where gt >= 1), or the negated negative term when there are none."""
+    (cells where gt >= 1) over the global batch, or the negated negative
+    term when it has none."""
     pred = pred.float()
     gt = gt.float()
     pos_mask = (gt >= 1.0).float()
@@ -30,7 +36,7 @@ def focal_loss_centernet(pred, gt):
     neg_weights = torch.pow(1.0 - gt, 4)
     pos_loss = (torch.log(pred) * torch.pow(1.0 - pred, 2) * pos_mask).sum()
     neg_loss = (torch.log(1.0 - pred) * torch.pow(pred, 2) * neg_weights * neg_mask).sum()
-    num_pos = pos_mask.sum()
+    num_pos = mesh.global_sum(pos_mask.sum())
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
 
@@ -38,14 +44,14 @@ def focal_loss_centernet(pred, gt):
 def reg_loss_centernet(pred_feat, target, inds, mask):
     """Masked L1 per code dimension: pred_feat (B, H·W, D) read at inds
     (B, M), against target (B, M, D) where mask (B, M) is set and the target
-    is finite; summed over boxes and divided by the live box count + 1e-4.
-    Returns (D,)."""
+    is finite; summed over boxes and divided by the global batch's live box
+    count + 1e-4. Returns (D,)."""
     pred = torch.gather(pred_feat.float(), 1,
                         inds.long()[..., None].expand(-1, -1, pred_feat.shape[-1]))
     target = target.float()
     m = mask.float()[..., None] * torch.isfinite(target).float()
     err = torch.abs(pred * m - target * m)
-    return err.sum(dim=(0, 1)) / (mask.float().sum() + 1e-4)
+    return err.sum(dim=(0, 1)) / (mesh.global_sum(mask.float().sum()) + 1e-4)
 
 
 def bce_with_logits(x, t):

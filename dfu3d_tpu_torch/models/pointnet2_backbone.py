@@ -25,6 +25,8 @@ class SharedMLP(nn.Module):
     defaults, eps 1e-5 and running-statistics keep 0.9, as every reference
     stack this mirrors builds it (not the VFE's 1e-3 / 0.99)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, channels: Sequence[int]):
         super().__init__()
         self.channels = tuple(int(c) for c in channels)
@@ -55,6 +57,8 @@ def masked_max(g, mask, dim: int):
 
 class SetAbstractionMSG(nn.Module):
     """Multi-scale grouping SA layer (pointnet2_modules.PointnetSAModuleMSG)."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, npoint: int, radii: Sequence[float], nsamples: Sequence[int],
                  mlps: Sequence[Sequence[int]], in_channels: int):
@@ -88,6 +92,8 @@ class FeaturePropagation(nn.Module):
     """FP layer: 3-NN interpolation of the coarse features, the fine skip
     features after them, then a shared MLP (pointnet2_modules.PointnetFPModule)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, mlp: Sequence[int], in_channels: int):
         super().__init__()
         self.SharedMLP_0 = SharedMLP(in_channels, mlp)
@@ -102,6 +108,8 @@ class FeaturePropagation(nn.Module):
 
 class PointNet2MSG(nn.Module):
     """4 × SA-MSG + 4 × FP → per-point features (reference PointNet2MSG)."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, npoints, radii, nsamples, mlps, fp_mlps, num_point_features: int = 4):
         super().__init__()

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..core import pointnet2 as P
 from ..core.geometry.boxes import enlarge_box3d, points_in_boxes, rotate_points_along_z
+from ..parallel import mesh
 from ..train import torch_convert
 from . import roi_head
 from .roi_head import draw_roi_uniforms
@@ -100,6 +101,8 @@ def assign_point_targets(points_xyz, points_valid, gt_boxes, gt_valid,
 class PointHeadBox(nn.Module):
     """Per-point class logits and 8 box codes (reference PointHeadBox)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, num_class: int, cls_fc: Sequence[int],
                  reg_fc: Sequence[int]):
         super().__init__()
@@ -150,6 +153,8 @@ class PointRCNNRoIHead(nn.Module):
     REG_FC stacks. xyz_up and merge_down follow USE_BN (False: biased Dense
     + ReLU); the SA stacks always use BN, as the reference's batch SA
     modules do."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, num_samples: int, xyz_up, sa_npoints, sa_radii,
                  sa_nsamples, sa_mlps, cls_fc, reg_fc, use_bn: bool, dp_ratio: float = 0.0):
@@ -213,6 +218,8 @@ class PointRCNNRoIHead(nn.Module):
 class PointRCNN(nn.Module):
     """Two-stage point-based detector (reference detectors/pointrcnn.py):
     `predict` serves, `forward` computes the training loss."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, model_cfg, class_names, num_point_features: int = 4):
         super().__init__()
@@ -303,7 +310,10 @@ class PointRCNN(nn.Module):
         proposal target layer's (B, 2, P) uniforms come from `sampler` unless
         `roi_uniforms` gives them; `dropout` drives the RoI head's FC
         dropout. BN layers use batch statistics and update their running
-        ones when the module is in train mode. Targets and losses are fp32."""
+        ones when the module is in train mode. Targets and losses are fp32.
+        Over several ranks the batch is this rank's rows of the global
+        batch: the losses are its share of the global ones and the draws its
+        rows of the global draws."""
         feats, cls_logits, box_codes = self.stage1(batch)
         pts = batch.points[..., :3].float()
         b = pts.shape[0]
@@ -315,12 +325,14 @@ class PointRCNN(nn.Module):
             cls_weights = cared.float() / torch.clamp(pos.sum(1, keepdim=True), min=1.0)
             one_hot = torch.nn.functional.one_hot(torch.where(cared, labels, 0),
                                                   len(self.class_names) + 1)[..., 1:]
-            cls_loss = sigmoid_focal_loss(cls_logits, one_hot, cls_weights).sum() / b
+            # a mean over the global batch: this rank's sum over its frames
+            b_global = b * mesh.world()
+            cls_loss = sigmoid_focal_loss(cls_logits, one_hot, cls_weights).sum() / b_global
             reg_targets = point_encode(matched[..., :7], pts, matched[..., -1].to(torch.int64),
                                        self.mean_sizes)
             reg_weights = pos.float()
             reg_weights = reg_weights / torch.clamp(reg_weights.sum(1, keepdim=True), min=1.0)
-            reg_loss = weighted_smooth_l1(box_codes, reg_targets, reg_weights).sum() / b
+            reg_loss = weighted_smooth_l1(box_codes, reg_targets, reg_weights).sum() / b_global
 
             # stage 2: proposal layer → proposal target layer → PointRCNNHead
             rois, roi_scores, roi_labels, _ = self.proposals(

@@ -43,6 +43,7 @@ from ..core.geometry.iou import pairwise_iou3d
 from ..core.geometry.nms import nms_bev
 from .anchor_head import decode_boxes, encode_boxes
 from ..core import pointnet2 as P
+from ..parallel import mesh
 from .backbone_2d import BatchNorm
 from .losses import bce_with_logits
 from .vfe import MaskedBatchNorm
@@ -159,10 +160,11 @@ def roi_head_loss_cfg(rh_cfg) -> dict:
 def draw_roi_uniforms(generator, shape, device):
     """The proposal target layer's draws, (B, 2, P) uniforms in [0, 1), from
     `generator` (a generator seeded 0 when None, as JAX's PRNGKey(0) when
-    no "sampler" rng is given)."""
+    no "sampler" rng is given). Over several ranks: this rank's rows of the
+    draw at the global batch's shape."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return torch.rand(shape, generator=generator, device=device)
+    return mesh.global_draw(lambda s: torch.rand(s, generator=generator, device=device), shape)
 
 
 def _rank(key):
@@ -312,7 +314,8 @@ def get_corner_loss_lidar(pred_boxes, gt_boxes):
 
 def roi_cls_loss(rcnn_cls, rcnn_cls_labels, loss_cfg):
     """get_box_cls_layer_loss (roi_head_template.py:200-218): BCE on the
-    (soft) labels, or CE, over the RoIs whose label is >= 0."""
+    (soft) labels, or CE, over the RoIs whose label is >= 0, normalised by
+    the global batch's count of them."""
     lw = float(loss_cfg["LOSS_WEIGHTS"]["rcnn_cls_weight"])
     kind = loss_cfg.get("CLS_LOSS", "BinaryCrossEntropy")
     labels = rcnn_cls_labels.reshape(-1)
@@ -326,14 +329,15 @@ def roi_cls_loss(rcnn_cls, rcnn_cls_labels, loss_cfg):
         per = -torch.log_softmax(logits, dim=-1).gather(1, lab[:, None])[:, 0]
     else:
         raise NotImplementedError(kind)
-    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0) * lw
+    return (per * mask).sum() / torch.clamp(mesh.global_sum(mask.sum()), min=1.0) * lw
 
 
 def roi_reg_loss(rcnn_reg, targets, loss_cfg):
     """get_box_reg_layer_loss (roi_head_template.py:136-198): smooth-L1 (β
     1/9) of the canonical residuals against zero-centred RoI-sized anchors,
     and with CORNER_LOSS_REGULARIZATION the corner loss of the decoded box,
-    over the RoIs of reg_valid_mask. Returns (loss, tb).
+    over the RoIs of reg_valid_mask (normalised by the global batch's count
+    of them). Returns (loss, tb).
 
     The other RoIs enter as a unit box with a zero residual; the reference,
     which indexes the fg RoIs, never reads them. An untrained RPN can
@@ -351,7 +355,7 @@ def roi_reg_loss(rcnn_reg, targets, loss_cfg):
     gt_src = torch.where(fg_rows, targets["gt_of_rois_src"][..., :7].reshape(-1, 7), unit)
     reg = torch.where(fg_rows, rcnn_reg.reshape(-1, rcnn_reg.shape[-1])[:, :7], 0.0)
     fg = fg_rows[:, 0].float()
-    fg_sum = torch.clamp(fg.sum(), min=1.0)
+    fg_sum = torch.clamp(mesh.global_sum(fg.sum()), min=1.0)
 
     zeros = torch.zeros_like(rois[:, :3])
     rois_anchor = torch.cat([zeros, rois[:, 3:6], zeros[:, :1]], dim=-1)
@@ -421,8 +425,11 @@ def final_nms(boxes, scores, labels, valid, pp_cfg):
 
 def dropout_keep(generator, shape, keep_prob: float, device):
     """The kept units of one dropout layer: a uniform draw from `generator`
-    below `keep_prob`, as flax's bernoulli keeps them."""
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+    below `keep_prob`, as flax's bernoulli keeps them. Over several ranks:
+    this rank's rows of the draw at the global batch's shape (the leading
+    axis is batch-major)."""
+    return mesh.global_draw(lambda s: torch.rand(s, generator=generator, device=device),
+                            shape) < keep_prob
 
 
 class FCStack(nn.Module):
@@ -433,6 +440,8 @@ class FCStack(nn.Module):
     where `dropout_keep` holds and scaled by 1 / (1 - p). Without a
     generator it is the identity, as JAX's FCStack is without a "dropout"
     rng. `make_fc_stack` and `shared_fc_stack` build the two layouts."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, fc_list: Sequence[int], out_channels=None,
                  dp_ratio: float = 0.0, dropout_after: Sequence[int] = (0,)):

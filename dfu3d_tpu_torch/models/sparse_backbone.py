@@ -47,20 +47,26 @@ from ..core.voxel.sparse_ops import (
     kernel_offsets,
     transpose_down_neighbors,
 )
+from ..parallel import mesh
 from .vfe import MaskedBatchNorm
 
 
 class SparseBatchNorm(MaskedBatchNorm):
     """BN over the active voxels of the whole batch (eps 1e-3, keep 0.99),
     with the JAX package's two-pass training statistics: the mean, then the
-    mean of squared deviations from it."""
+    mean of squared deviations from it. Over several ranks both passes are
+    over the global batch: (Σx·m, count) summed over ranks, then
+    Σ(x - mean)²·m."""
+
+    GLOBAL_BATCH = True
 
     def batch_stats(self, x, mask):
         m = mask.float()[..., None]
         dims = tuple(range(x.dim() - 1))
-        count = torch.clamp(m.sum(), min=1.0)
-        mean = (x.float() * m).sum(dims) / count
-        var = (torch.square(x.float() - mean) * m).sum(dims) / count
+        sums = mesh.global_sum(torch.cat([(x.float() * m).sum(dims), m.sum().reshape(1)]))
+        count = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / count
+        var = mesh.global_sum((torch.square(x.float() - mean) * m).sum(dims)) / count
         return mean, var
 
 
@@ -161,6 +167,8 @@ def init_kernel(k: int, in_channels: int, out_channels: int):
 class SubMConv3d(nn.Module):
     """Submanifold sparse conv: output set == input set."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3)):
         super().__init__()
@@ -178,6 +186,8 @@ class SparseConv3dDown(nn.Module):
     """Strided (2×) sparse conv; the output set is the parent cells of the
     active inputs, capped at `out_cap` per sample. z_only: stride (1, 1, 2)
     with a (1, 1, kz) kernel, the z-compressing conv_out."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, out_channels: int, out_cap: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3), z_only: bool = False):
@@ -220,6 +230,8 @@ class SparseConvBlock(nn.Module):
     """SubM → BN → ReLU, re-masked; the table passed to `forward` holds the
     taps of `kernel_size` (kernel_offsets order)."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3)):
         super().__init__()
@@ -235,6 +247,8 @@ class SparseConvBlock(nn.Module):
 class SparseResBlock(nn.Module):
     """Residual submanifold block: SubM → BN → ReLU → SubM → BN, + skip,
     ReLU (reference SparseBasicBlock), at one width."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, channels: int):
         super().__init__()
@@ -305,6 +319,8 @@ class VoxelResBackBone8x(_Backbone8x):
     (reference spconv_backbone.VoxelResBackBone8x). Stage caps are
     voxel_cap / 2, / 4, / 8 (at least 16), conv_out's / 8."""
 
+    GLOBAL_BATCH = True
+
     def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
                  channels: Sequence[int] = (16, 32, 64, 128), out_channels: int = 128):
         super().__init__(grid, voxel_cap)
@@ -341,6 +357,8 @@ class VoxelBackBone8x(_Backbone8x):
     dfu3d_tpu/models/sparse_backbone.py VoxelBackBone8x, the reference's
     spconv_backbone.VoxelBackBone8x). 12 sparse convs; stage caps as
     VoxelResBackBone8x's."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, grid: SparseGrid, voxel_cap: int, in_channels: int,
                  channels: Sequence[int] = (16, 16, 32, 64, 64), out_channels: int = 128):

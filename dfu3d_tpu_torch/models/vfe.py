@@ -24,6 +24,7 @@ from ..core.voxel import (
     segment_max_fast,
     segment_sum_sorted,
 )
+from ..parallel import mesh
 from .backbone_2d import update_running_stats_
 
 
@@ -32,7 +33,11 @@ class MaskedBatchNorm(nn.Module):
     `mask` (x.shape[:-1]) marks. The math is fp32 and the result is cast back
     to the input's dtype. Eval uses the running statistics; training uses the
     JAX package's one-pass batch statistics (mean and E[x²] - mean², clamped
-    at 0) and moves the running ones with keep 0.99."""
+    at 0) and moves the running ones with keep 0.99. Over several ranks the
+    statistics are those of the global batch: Σx·m, Σx²·m and the count
+    summed over ranks in one all-reduce."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, num_features: int, eps: float = 1e-3, keep: float = 0.99):
         super().__init__()
@@ -46,11 +51,13 @@ class MaskedBatchNorm(nn.Module):
     def batch_stats(self, x, mask):
         m = mask.float()[..., None]
         dims = tuple(range(x.dim() - 1))
-        count = torch.clamp(m.sum(), min=1.0)
         xm = x.float() * m
-        mean = xm.sum(dims) / count
-        var = torch.clamp((xm * x.float()).sum(dims) / count - mean * mean, min=0.0)
-        return mean, var
+        c = x.shape[-1]
+        sums = mesh.global_sum(torch.cat([xm.sum(dims), (xm * x.float()).sum(dims),
+                                          m.sum().reshape(1)]))
+        count = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:c] / count
+        return mean, torch.clamp(sums[c:2 * c] / count - mean * mean, min=0.0)
 
     def forward(self, x, mask):
         if self.training:
@@ -62,8 +69,23 @@ class MaskedBatchNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+def global_row(table, last_slot, grad: bool = True):
+    """Row `last_slot` = (held, index) of `table` from the rank that holds
+    it (held), the same row on every rank: what a point past the global
+    batch's pillar cap reads, the global batch's last slot. With `grad`
+    False it passes no gradient (as segment_broadcast's sentinel reads)."""
+    held, index = last_slot
+    row = table[index] if grad else table[index].detach()
+    return mesh.global_sum(torch.where(held, row.float(), 0.0)).to(table.dtype)
+
+
 class PFNLayer(nn.Module):
-    """Linear + BN + ReLU + segment-max (reference PFNLayerV2)."""
+    """Linear + BN + ReLU + segment-max (reference PFNLayerV2). Points of the
+    sentinel segment (past the pillar cap) read the last slot's max, as JAX's
+    clipped gather reads it; over several ranks `last_slot` names where the
+    global batch's last slot lies (`global_row`)."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, in_channels: int, out_channels: int, use_norm: bool = True,
                  last_layer: bool = False):
@@ -75,7 +97,7 @@ class PFNLayer(nn.Module):
         if use_norm:
             self.MaskedBatchNorm_0 = MaskedBatchNorm(out_ch)
 
-    def forward(self, feats, point_mask, seg_ids, num_segments: int):
+    def forward(self, feats, point_mask, seg_ids, num_segments: int, last_slot=None):
         x = self.Dense_0(feats)
         if self.use_norm:
             x = self.MaskedBatchNorm_0(x, point_mask)
@@ -86,12 +108,17 @@ class PFNLayer(nn.Module):
             return x, x_max
         # the segment ids are sorted (the sentinel last)
         gathered = segment_broadcast(x_max, seg_ids, num_segments, True)
+        if last_slot is not None:
+            gathered = torch.where((seg_ids < num_segments)[:, None], gathered,
+                                   global_row(x_max, last_slot, grad=False))
         gathered = torch.where(point_mask[:, None], gathered, 0.0)
         return torch.cat([x, gathered], dim=-1), None
 
 
 class DynPillarVFE(nn.Module):
     """config keys: NUM_FILTERS, USE_NORM, USE_ABSLOTE_XYZ, WITH_DISTANCE."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, num_filters: Sequence[int], grid: VoxelGrid, num_point_features: int = 4,
                  use_norm: bool = True, use_absolute_xyz: bool = True,
@@ -141,9 +168,19 @@ class DynPillarVFE(nn.Module):
         coords = torch.stack([cell_in_elem % nx, cell_in_elem // nx], dim=-1)
         is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                               sorted_ids[1:] != sorted_ids[:-1]]) & ok
-        pillar_cap = b * self.max_pillars
         seg = torch.cumsum(is_start.long(), dim=0) - 1
-        seg = torch.where(ok & (seg < pillar_cap), seg, pillar_cap)
+        # in training JAX caps the global batch; its eval runs each host's
+        # batch on its own, so the cap is then this rank's batch's
+        global_cap = self.training and mesh.world() > 1
+        if not global_cap:
+            pillar_cap = b * self.max_pillars
+            seg = torch.where(ok & (seg < pillar_cap), seg, pillar_cap)
+        else:
+            # the cap is the global batch's, over its pillars in rank order
+            total_cap = b * mesh.world() * self.max_pillars
+            offset = mesh.rows_before(is_start.sum())
+            pillar_cap = min(total_cap, b * n)
+            seg = torch.where(ok & (seg < total_cap - offset), seg, pillar_cap)
         num_segments = pillar_cap
         # each pillar's dense cell (sentinel for overflow / unused slots);
         # all points of a pillar write the same value
@@ -157,7 +194,16 @@ class DynPillarVFE(nn.Module):
                                   seg, num_segments)
         counts = torch.clamp(sums[:, 3:4], min=1.0)
         means = sums[:, 0:3] / counts
-        f_cluster = xyz - means[torch.clamp(seg, max=num_segments - 1)]
+        last_slot = None
+        if not global_cap:
+            f_cluster = xyz - means[torch.clamp(seg, max=num_segments - 1)]
+        else:
+            # a point past the cap reads the global batch's last slot
+            last = total_cap - 1 - offset
+            last_slot = ((last >= 0) & (last < num_segments), torch.clamp(last, 0, num_segments - 1))
+            f_cluster = xyz - torch.where((seg < num_segments)[:, None],
+                                          means[torch.clamp(seg, max=num_segments - 1)],
+                                          global_row(means, last_slot))
 
         # offset from the pillar centre
         cx = coords[:, 0].float() * vs[0] + (vs[0] / 2 + pcr[0])
@@ -175,7 +221,7 @@ class DynPillarVFE(nn.Module):
 
         x_max = None
         for i in range(len(self.num_filters)):
-            feats, x_max = getattr(self, f"pfn_{i}")(feats, ok, seg, num_segments)
+            feats, x_max = getattr(self, f"pfn_{i}")(feats, ok, seg, num_segments, last_slot)
 
         # scatter pillar features into the dense BEV grid; the sentinel row
         # (overflow pillars and unused slots) is cut off
@@ -255,6 +301,8 @@ class MeanVFE(nn.Module):
     (B, N, C) → ((B, V, C) fp32 features, Voxelized). The points are summed
     in voxel order as sorted segments, with no atomics, so a run on the card
     repeats bit for bit."""
+
+    GLOBAL_BATCH = True
 
     def __init__(self, grid: VoxelGrid, max_voxels: int):
         super().__init__()

@@ -20,7 +20,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--cfg_file", type=str, required=True)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="batch size (default: OPTIMIZATION.BATCH_SIZE_PER_GPU)")
+                        help="global batch size, split evenly over the ranks (default: "
+                             "OPTIMIZATION.BATCH_SIZE_PER_GPU on each rank)")
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--extra_tag", type=str, default="default")
     parser.add_argument("--ckpt", type=str, default=None)
@@ -38,6 +39,18 @@ def load_config(args):
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs, cfg)
     return cfg
+
+
+def rank_batch_size(args, cfg, world: int) -> tuple:
+    """(global, per-rank) batch size: --batch_size is the global batch and
+    must divide evenly over the `world` ranks; without it each rank takes
+    OPTIMIZATION.BATCH_SIZE_PER_GPU (the JAX CLIs' rule)."""
+    if args.batch_size is None:
+        local = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        return local * world, local
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not divide over {world} ranks")
+    return args.batch_size, args.batch_size // world
 
 
 def output_dir(cfg, extra_tag) -> Path:

@@ -10,7 +10,10 @@ working directory: epoch_<N>/<split>[/<eval_tag>]/, with one KITTI txt per
 frame in final_result/data/ under --save_to_file; --eval_all records each
 evaluated epoch in eval_list_<split>.txt and skips those already there.
 --ckpt also takes a reference (OpenPCDet / DFU3D) checkpoint of the flagship,
-evaluated as epoch 0.
+evaluated as epoch 0. Under torchrun or SLURM (one process per card) each
+rank evaluates its shard of the split (--batch_size is the global batch)
+and the ranks' annos and recall counters are merged before the AP
+(`train.eval_utils.eval_one_epoch`); rank 0 logs and keeps the record.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ from pathlib import Path
 
 from ..data.loader import build_dataloader
 from ..device import resolve_device
+from ..parallel import all_gather_objects, destroy_distributed, init_distributed, mesh
 from ..train.checkpoint import list_checkpoints, load_model_state
 from ..train.eval_utils import eval_one_epoch
 from ..utils.common import close_logger, create_logger
-from .common import DTYPES, add_common_args, build_model, load_config, output_dir
+from .common import DTYPES, add_common_args, build_model, load_config, output_dir, rank_batch_size
 
 
 def parse_config(argv=None):
@@ -50,22 +54,26 @@ def main(argv=None):
     dtype = DTYPES[args.dtype]
     if not args.eval_all and args.ckpt is None:
         raise ValueError("--ckpt is required (or use --eval_all)")
+    own_group = not mesh.is_distributed()
+    rank, world = init_distributed(args.device)
+    _, local_batch = rank_batch_size(args, cfg, world)
     split = cfg.DATA_CONFIG.DATA_SPLIT["test"]
     out_dir = output_dir(cfg, args.extra_tag)
     eval_output_dir = out_dir / "eval"
     eval_output_dir.mkdir(parents=True, exist_ok=True)
     log_file = eval_output_dir / (
         "log_eval_%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
-    logger = create_logger(log_file)
+    logger = create_logger(log_file, rank=rank)
     try:
         dataset, loader = build_dataloader(
-            dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-            batch_size=args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
-            workers=args.workers, logger=logger, training=False)
+            dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=local_batch,
+            workers=args.workers, logger=logger, training=False, process_index=rank,
+            process_count=world)
         model = build_model(cfg, "test", device)
 
         def evaluate(path, *tag):
             epoch, _ = load_model_state(path, model, logger)
+            mesh.broadcast_state_(model)
             result_dir = eval_output_dir / f"epoch_{epoch}" / split / Path(*tag)
             result_dir.mkdir(parents=True, exist_ok=True)
             logger.info(f"*************** evaluating epoch {epoch} ({path}) ***************")
@@ -87,8 +95,11 @@ def main(argv=None):
         while True:
             todo = [(e, p) for e, p in list_checkpoints(ckpt_dir)
                     if e not in evaluated and e >= args.start_epoch]
+            timed_out = (time.time() - wait_start) / 60 > args.max_waiting_mins
+            # every rank follows rank 0's poll, so the ranks evaluate alike
+            todo, timed_out = all_gather_objects((todo, timed_out))[0]
             if not todo:
-                if (time.time() - wait_start) / 60 > args.max_waiting_mins:
+                if timed_out:
                     break
                 time.sleep(30)
                 continue
@@ -96,11 +107,14 @@ def main(argv=None):
             for epoch, path in todo:
                 done.append(evaluate(path))
                 evaluated.add(epoch)
-                with open(record_file, "a") as f:
-                    f.write(f"{epoch}\n")
+                if rank == 0:
+                    with open(record_file, "a") as f:
+                        f.write(f"{epoch}\n")
         return done
     finally:
         close_logger(logger)
+        if own_group:
+            destroy_distributed()
 
 
 if __name__ == "__main__":

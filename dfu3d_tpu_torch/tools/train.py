@@ -4,7 +4,15 @@ reference's tools/train.py:21-65 flag surface).
     python -m dfu3d_tpu_torch.tools.train \\
         --cfg_file tools/cfgs/kitti_models/centerpoint_nuscenes2kitti.yaml \\
         [--epochs N] [--workers 4] [--device cuda|cpu] [--dtype bfloat16|float32] \\
-        [--set DATA_CONFIG.DATA_PATH /data/kitti ...]
+        [--steps_per_dispatch K] [--set DATA_CONFIG.DATA_PATH /data/kitti ...]
+
+On N cards, one process per card: `torchrun --nproc_per_node N -m
+dfu3d_tpu_torch.tools.train ...` or one SLURM task per card
+(tools/scripts/slurm_train_gpu.sh); the ranks join over NCCL
+(`parallel.init_distributed`, gloo with --device cpu) and train on one
+global batch (--batch_size, default BATCH_SIZE_PER_GPU × N) as the JAX
+package's sharded step does. A model whose modules are not all audited for
+the global batch raises at more than one rank.
 
 The config may name CenterPoint or PointRCNN
 (tools/cfgs/kitti_models/pointrcnn_nuscenes2kitti.yaml).
@@ -16,7 +24,9 @@ the flagship or of PointRCNN (its point and RoI heads; the backbone is
 reported unconverted): its weights are overlaid onto the model and training
 starts at epoch 0 with a fresh optimizer.
 --num_epochs_to_eval > 0 evaluates the trained model on the test split
-afterwards. Scalars go to the log (no TensorBoard).
+afterwards. Scalars go to the log (no TensorBoard). --steps_per_dispatch K
+runs K updates per call of the step (the same weights as K single steps);
+logging and the latest_model save round to K updates.
 """
 from __future__ import annotations
 
@@ -25,13 +35,14 @@ import datetime
 
 from ..data.loader import build_dataloader
 from ..device import resolve_device
+from ..parallel import destroy_distributed, init_distributed, mesh
 from ..train.checkpoint import load_checkpoint, load_latest, load_model_state
 from ..train.eval_utils import eval_one_epoch
 from ..train.train_state import create_train_state
 from ..train.trainer import train_model
 from ..utils.common import close_logger, create_logger, set_random_seed
 from ..utils.config import log_config_to_file
-from .common import DTYPES, add_common_args, build_model, load_config, output_dir
+from .common import DTYPES, add_common_args, build_model, load_config, output_dir, rank_batch_size
 
 
 def parse_config(argv=None):
@@ -46,6 +57,9 @@ def parse_config(argv=None):
     parser.add_argument("--max_ckpt_save_num", type=int, default=30)
     parser.add_argument("--merge_all_iters_to_one_epoch", action="store_true")
     parser.add_argument("--num_epochs_to_eval", type=int, default=0)
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="train steps per call of the step; logging and the "
+                             "latest_model save round to this many updates")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     return args, load_config(args)
@@ -57,26 +71,29 @@ def main(argv=None):
     args, cfg = parse_config(argv)
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
-    batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    own_group = not mesh.is_distributed()
+    rank, world = init_distributed(args.device)
+    batch_size, local_batch = rank_batch_size(args, cfg, world)
     epochs = args.epochs if args.epochs is not None else cfg.OPTIMIZATION.NUM_EPOCHS
 
     out_dir = output_dir(cfg, args.extra_tag)
     ckpt_dir = out_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     log_file = out_dir / ("log_train_%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
-    logger = create_logger(log_file)
+    logger = create_logger(log_file, rank=rank)
     try:
         logger.info("**********************Start logging**********************")
-        logger.info(f"device: {device}, dtype: {args.dtype}, batch size: {batch_size}")
+        logger.info(f"device: {device}, dtype: {args.dtype}, ranks: {world}, "
+                    f"global batch size: {batch_size}")
         log_config_to_file(cfg, logger=logger)
         if args.fix_random_seed:
-            set_random_seed(666)
+            set_random_seed(666 + rank)
 
         _, train_loader = build_dataloader(
-            dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=batch_size,
+            dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=local_batch,
             workers=args.workers, logger=logger, training=True,
             merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
-            total_epochs=epochs)
+            total_epochs=epochs, process_index=rank, process_count=world)
         model = build_model(cfg, "train", device, train=True)
         if args.pretrained_model is not None:
             load_model_state(args.pretrained_model, model, logger)
@@ -92,6 +109,7 @@ def main(argv=None):
             if restored is not None:
                 start_epoch = epoch
                 logger.info(f"auto-resumed from epoch {epoch}")
+        mesh.broadcast_state_(model)   # every rank starts from rank 0's weights
 
         logger.info("**********************Start training**********************")
         epoch_stats = []
@@ -99,14 +117,15 @@ def main(argv=None):
                     start_epoch=start_epoch, ckpt_save_interval=args.ckpt_save_interval,
                     max_ckpt_save_num=args.max_ckpt_save_num, logger=logger, cfg=cfg,
                     merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
-                    on_epoch=epoch_stats.append)
+                    on_epoch=epoch_stats.append, steps_per_dispatch=args.steps_per_dispatch)
         logger.info("**********************Training done**********************")
 
         result = None
         if args.num_epochs_to_eval > 0:
             test_dataset, test_loader = build_dataloader(
                 dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-                batch_size=batch_size, workers=args.workers, logger=logger, training=False)
+                batch_size=local_batch, workers=args.workers, logger=logger, training=False,
+                process_index=rank, process_count=world)
             eval_dir = out_dir / "eval" / "eval_with_train"
             eval_dir.mkdir(parents=True, exist_ok=True)
             _, result, _ = eval_one_epoch(model, test_dataset, test_loader, cfg, logger,
@@ -115,6 +134,8 @@ def main(argv=None):
                 "epochs": epoch_stats, "eval": result}
     finally:
         close_logger(logger)
+        if own_group:
+            destroy_distributed()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,17 @@ tools/eval_utils/eval_utils.py).
 per batch, per-frame prediction dicts sorted by score, the KITTI-format
 prediction writer, the recall counters summed over the epoch (reference
 detector3d_template.generate_recall_record:286-327), and
-`dataset.evaluation()` (KITTI AP). One process: the cross-host merge comes
-with multi-GPU.
+`dataset.evaluation()` (KITTI AP).
+
+Over several ranks each rank evaluates its loader shard, and the cross-rank
+merge (the JAX package's eval_utils.py:86-105, the reference's
+merge_results_dist) gathers every rank's annos and recall counters, sums
+the counters, and sorts the annos into the dataset's frame order
+(`frame_order`). The loader pads its order to a multiple of the rank count,
+and the merge keeps those padded duplicates, as JAX's does: the recall
+counters and `num_frames` count them. The AP takes each frame once, the
+first of its copies (JAX hands the duplicates to the evaluator, whose
+one-anno-per-frame assert then fails).
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ from typing import Iterable, List, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
+from ..parallel.distributed import all_gather_objects
 from .train_state import make_eval_step
 
 
@@ -41,6 +52,41 @@ def eval_batches(model, batches: Iterable, recall_thresh=(0.3, 0.5, 0.7), device
             metric[k] += int(v)
         seconds.append(time.perf_counter() - t0)
     return EvalResult(metric, preds, seconds)
+
+
+def frame_order(dataset) -> dict:
+    """frame_id (as a string) → its index in the dataset's infos: the
+    `infos` list, or the dataset's own `<name>_infos` (KittiDataset's
+    kitti_infos). Each info's id is its frame_id, else its
+    point_cloud.lidar_idx, else its index (the JAX package's key)."""
+    infos = getattr(dataset, "infos", None)
+    if infos is None:
+        infos = next((v for k, v in vars(dataset).items()
+                      if k.endswith("_infos") and isinstance(v, list)), [])
+    return {str(info.get("frame_id", info.get("point_cloud", {}).get("lidar_idx", i))): i
+            for i, info in enumerate(infos)}
+
+
+def merge_ranks(det_annos, metric, dataset):
+    """The cross-rank merge: (every rank's annos in the dataset's frame
+    order, the padded duplicates kept; the recall counters summed)."""
+    gathered = all_gather_objects({"annos": det_annos, "metric": metric})
+    merged = [a for g in gathered for a in g["annos"]]
+    order = frame_order(dataset)
+    merged.sort(key=lambda a: order.get(str(a.get("frame_id")), len(order)))
+    return merged, {k: sum(g["metric"][k] for g in gathered) for k in metric}
+
+
+def first_copies(det_annos):
+    """Each frame's first anno, in order (the merged annos less the
+    loader's padded duplicates)."""
+    seen, out = set(), []
+    for a in det_annos:
+        key = str(a.get("frame_id"))
+        if key not in seen:
+            seen.add(key)
+            out.append(a)
+    return out
 
 
 def eval_one_epoch(model, dataset, dataloader, cfg, logger=None, result_dir=None,
@@ -93,6 +139,10 @@ def eval_one_epoch(model, dataset, dataloader, cfg, logger=None, result_dir=None
         num_frames += len(boxes)
         num_batches += 1
 
+    if mesh.world() > 1:
+        det_annos, metric = merge_ranks(det_annos, metric, dataset)
+        num_frames = len(det_annos)
+        logger = logger if mesh.rank() == 0 else None
     sec_per_example = (time.perf_counter() - start) / max(num_frames, 1)
     if logger:
         logger.info(f"eval: {sec_per_example:.4f} s/frame ({num_frames} frames)")
@@ -101,7 +151,8 @@ def eval_one_epoch(model, dataset, dataloader, cfg, logger=None, result_dir=None
             logger.info(f"recall_rcnn_{t}: {metric[f'recall_rcnn_{t}'] / gt_num:.4f}")
 
     t0 = time.perf_counter()
-    result_str, result_dict = dataset.evaluation(det_annos, class_names)
+    result_str, result_dict = dataset.evaluation(
+        first_copies(det_annos) if mesh.world() > 1 else det_annos, class_names)
     split["time/evaluation"] = time.perf_counter() - t0
     if logger:
         logger.info(result_str)

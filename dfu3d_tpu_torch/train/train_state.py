@@ -11,6 +11,15 @@ PRNGKey(17) and PRNGKey(23): a resumed run draws what an uninterrupted one
 draws. The eval step predicts, then counts the reference's recall
 (detector3d_template generate_recall_record) over the fixed-size padded
 outputs.
+
+Over several ranks (`parallel`, one process per card) each rank's batch is
+its block of rows of the global batch and the step is the JAX package's
+step on that global batch: the models' BN statistics and loss normalisers
+are global (`parallel.mesh`), the gradients are summed over ranks before
+the clip and the update, and the metrics are the global ones. Without a
+process group the step is the one-process step, unchanged.
+`make_multi_train_step` runs K steps per call (the train CLI's
+--steps_per_dispatch).
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from torch import nn
 
 from ..core.geometry import pairwise_iou3d
 from ..device import resolve_device
+from ..parallel import mesh
 from .optimization import Optimizer, build_optimizer
 
 
@@ -74,8 +84,12 @@ def make_train_step(model, optimizer: Optimizer, device="cuda", dtype=torch.bflo
     the host). The batch is moved to `device`, where the model must live; the
     model is put in train mode and called with the step's `sampler` and
     `dropout` generators. With `dtype` torch.float32 nothing runs under
-    autocast."""
+    autocast. In a process group the gradients are summed over ranks and
+    the loss terms are the global ones; at a world above 1 a model with a
+    module not audited for the global batch raises NotImplementedError
+    (`parallel.mesh.check_global_batch`)."""
     dev = resolve_device(device)
+    mesh.check_global_batch(model)
 
     def train_step(batch):
         if not model.training:   # a walk over every submodule: ~1 ms of host time
@@ -87,11 +101,37 @@ def make_train_step(model, optimizer: Optimizer, device="cuda", dtype=torch.bflo
             loss, tb = model(batch, sampler=step_generator(dev, SAMPLER_SEED, count),
                              dropout=step_generator(dev, DROPOUT_SEED, count))
         loss.backward()
+        mesh.all_reduce_grads_(optimizer.params)
         grad_norm = optimizer.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()},
-                "grad_norm": grad_norm}
+        metrics = mesh.sum_scalars({"loss": loss.detach(),
+                                    **{k: v.detach() for k, v in tb.items()}})
+        return {**metrics, "grad_norm": grad_norm}
 
     return train_step
+
+
+def make_multi_train_step(model, optimizer: Optimizer, steps_per_dispatch: int, device="cuda",
+                          dtype=torch.bfloat16):
+    """Returns multi_step(batches) → metrics for a sequence of K =
+    `steps_per_dispatch` batches: K `make_train_step` updates in order (the
+    same weights as K single steps), metrics of the last step plus
+    "loss_steps", the K losses as a (K,) tensor (the JAX package's
+    make_multi_train_step, a lax.scan over K stacked batches). Nothing in it
+    waits for the card."""
+    step = make_train_step(model, optimizer, device=device, dtype=dtype)
+    k = int(steps_per_dispatch)
+
+    def multi_step(batches):
+        batches = list(batches)
+        if len(batches) != k:
+            raise ValueError(f"multi_step takes {k} batches, got {len(batches)}")
+        losses = []
+        for batch in batches:
+            metrics = step(batch)
+            losses.append(metrics["loss"])
+        return {**metrics, "loss_steps": torch.stack(losses)}
+
+    return multi_step
 
 
 def make_eval_step(model, recall_thresh=None, device="cuda", dtype=torch.float32):
